@@ -1,0 +1,106 @@
+"""Conversion from the JAX package's parameters and configs.
+
+`from_jax_params` takes the pytree of `memory_augmented_vlm_tpu.models.vlm.
+init_params` (or a checkpoint of it) with numpy leaves and returns the
+port's parameters: the stacked (L, ...) layer arrays become lists of
+per-layer dicts and the HWIO patch kernel becomes the (out, in, kh, kw)
+conv weight. Dense kernels keep their (in, out) layout. Nothing here
+imports JAX: the caller turns its arrays into numpy first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from memory_augmented_vlm_torch import config as port_config
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.kind == "f" and arr.dtype not in (np.float16, np.float32, np.float64):
+        arr = arr.astype(np.float32)  # ml_dtypes bfloat16 and friends
+    t = torch.tensor(arr)  # a copy: the caller's arrays may be read-only
+    return t.to(device=device, dtype=dtype if t.is_floating_point() and dtype else t.dtype)
+
+
+def _tree(x, device, dtype):
+    if isinstance(x, Mapping):
+        return {k: _tree(v, device, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v, device, dtype) for v in x]
+    return _tensor(x, device, dtype)
+
+
+def _unstack(tree, n: int):
+    """Stacked (L, ...) leaves -> a list of L per-layer trees."""
+    def index(x, i):
+        if isinstance(x, Mapping):
+            return {k: index(v, i) for k, v in x.items()}
+        if np.shape(x)[0] != n:
+            raise ValueError(f"expected {n} stacked layers, got shape {np.shape(x)}")
+        return np.asarray(x)[i]
+    return [index(tree, i) for i in range(n)]
+
+
+def from_jax_params(tree: Mapping[str, Any], cfg: port_config.VLMConfig,
+                    device="cpu", dtype: Optional[torch.dtype] = None):
+    """JAX `vlm.init_params` pytree (numpy leaves) -> the port's params.
+    `dtype` casts every floating leaf (None keeps each leaf's own)."""
+    vt = tree["vision_tower"]
+    vision = {
+        "patch_embedding": {
+            # HWIO (kh, kw, in, out) -> OIHW (out, in, kh, kw)
+            "weight": np.transpose(np.asarray(vt["patch_embedding"]["kernel"]), (3, 2, 0, 1)),
+            "bias": vt["patch_embedding"]["bias"],
+        },
+        "position_embedding": vt["position_embedding"],
+        "layers": _unstack(vt["layers"], cfg.vision.num_used_layers),
+        "post_layernorm": vt["post_layernorm"],
+    }
+    lm = dict(tree["language_model"])
+    lm["layers"] = _unstack(lm["layers"], cfg.lm.num_hidden_layers)
+    mem = dict(tree["memory"])
+    rmt = dict(mem["recurrent_memory_transformer"])
+    rmt["layers"] = _unstack(rmt["layers"], cfg.memory.depth)
+    mem["recurrent_memory_transformer"] = rmt
+    out = {
+        "vision_tower": vision,
+        "mm_projector": {"layers": list(tree["mm_projector"]["layers"])},
+        "language_model": lm,
+        "memory": mem,
+        "positional_encoding": tree["positional_encoding"],
+    }
+    return _tree(out, device, dtype)
+
+
+# the port takes its dtype from its parameters, not from the config
+_IGNORED_FIELDS = {"dtype"}
+
+
+def config_from_fields(cfg) -> port_config.VLMConfig:
+    """The port `VLMConfig` of a JAX `VLMConfig` (or any object with the
+    same dataclass sub-configs). A field the port does not have selects a
+    mode it does not run: it must hold its default, or this raises
+    `NotImplementedError`."""
+    def sub(cls, obj):
+        kept = {f.name for f in dataclasses.fields(cls)}
+        for f in dataclasses.fields(type(obj)):
+            if f.name in kept or f.name in _IGNORED_FIELDS:
+                continue
+            value = getattr(obj, f.name)
+            if value != f.default:
+                raise NotImplementedError(
+                    f"{type(obj).__name__}.{f.name}={value!r} is not ported "
+                    f"(the port runs {f.default!r})")
+        return cls(**{name: getattr(obj, name) for name in kept})
+
+    return port_config.VLMConfig(
+        lm=sub(port_config.LMConfig, cfg.lm),
+        vision=sub(port_config.VisionConfig, cfg.vision),
+        memory=sub(port_config.MemoryConfig, cfg.memory),
+        pipeline=sub(port_config.PipelineConfig, cfg.pipeline),
+    )

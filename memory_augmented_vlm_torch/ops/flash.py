@@ -1,0 +1,148 @@
+"""Flash-attention forward: the CUDA kernel `csrc/flash_fwd.cu` and its plain
+PyTorch version.
+
+Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash.py::
+pallas_flash_attention` (bshd layout). Both versions compute the TPU
+kernel's function: q scaled by scale*log2(e) and rounded to the input dtype,
+fp32 scores, a base-2 softmax, keys at or past `kv_valid_len[b]` masked (and
+above the diagonal when `causal`), P rounded to the input dtype before PV,
+zero rows where no key is valid, and the output in the input dtype.
+
+`flash_attention` takes the plain version only for tensors on the CPU. For a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from memory_augmented_vlm_torch.ops import cuda_lib
+
+LOG2E = 1.4426950408889634
+KERNEL_HEAD_DIMS = (64, 72, 112, 128)
+_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _shapes(q, k, v, kv_groups, causal):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes bshd tensors (B, S, H, D)")
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if kv_groups < 1 or h % kv_groups:
+        raise ValueError(f"{h} query heads do not split into kv_groups={kv_groups}")
+    want = (b, skv, h // kv_groups, d)
+    if tuple(k.shape) != want or tuple(v.shape) != want:
+        raise ValueError(f"k/v must be {want}, got {tuple(k.shape)}/{tuple(v.shape)}")
+    if causal and sq != skv:
+        raise ValueError("causal flash attention requires equal q/kv lengths")
+    return b, sq, skv, h, d
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    kv_groups: int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, with the same base-2 math.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, H // kv_groups, D); kv_valid_len: (B,)
+    int. Query head h reads key/value head h // kv_groups (HF `repeat_kv`
+    order). Returns (B, Sq, H, D) in q.dtype."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    scale = d ** -0.5 if scale is None else scale
+    if kv_groups > 1:
+        k = k.repeat_interleave(kv_groups, dim=2)
+        v = v.repeat_interleave(kv_groups, dim=2)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    col = torch.arange(skv, device=q.device)
+    if kv_valid_len is None:
+        mask = torch.ones((b, 1, 1, skv), dtype=torch.bool, device=q.device)
+    else:
+        mask = (col[None, :] < kv_valid_len.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (col[None, :] <= torch.arange(sq, device=q.device)[:, None])
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1)  # (B, H, Sq)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    l = l.transpose(1, 2)[..., None]  # (B, Sq, H, 1)
+    o = torch.where(l == 0, torch.zeros_like(o), o / l)
+    return o.to(q.dtype)
+
+
+def _check_kernel_args(q, k, v, kv_valid_len, d):
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {d}")
+    # 16-byte vector loads: rows start on 16 bytes, the head dim is contiguous
+    align = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name} must have a contiguous head dim")
+        if any(st % align for st in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(f"{name} rows must be 16-byte aligned")
+    if (kv_valid_len.device != q.device or kv_valid_len.dtype != torch.int32
+            or tuple(kv_valid_len.shape) != (q.shape[0],)
+            or not kv_valid_len.is_contiguous()):
+        raise ValueError("kv_valid_len must be a contiguous (B,) int32 tensor on q's device")
+    if q.shape[0] > 65535 or q.shape[2] > 65535:
+        raise ValueError("batch and head counts must fit a CUDA grid axis")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    kv_groups: int = 1,
+) -> torch.Tensor:
+    """Flash attention over bshd tensors; see `flash_attention_reference` for
+    the arguments. CPU tensors take the plain version; CUDA tensors launch
+    `csrc/flash_fwd.cu` (head dims 64/72/112/128, bf16 or fp32) and count
+    the launch in `flash_attention.launches`."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_valid_len, causal=causal,
+                                         scale=scale, kv_groups=kv_groups)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    scale = d ** -0.5 if scale is None else scale
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    _check_kernel_args(q, k, v, kv_valid_len, d)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if sq == 0 or b == 0:
+        return out
+    lib = cuda_lib.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_fwd(
+        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups,
+        int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], scale * LOG2E, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_fwd launch failed: {lib.flash_error_string(rc).decode()}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
