@@ -1,13 +1,14 @@
 """Typed configuration of the PyTorch port.
 
 Counterpart of `memory_augmented_vlm_tpu/config.py`, cut to what the port
-runs: the bf16 video path with the SigLIP tower, the `mlp2x_gelu`
-projector, bilinear pooling, the `one_token` merge with an image newline,
-the ReLU recurrent memory with the sinusoidal temporal PE, and a dense
-SwiGLU Qwen2 LM with RoPE, biased q/k/v and a tied unembedding. The fields
-here are the ones the port reads; the JAX config's other fields select
-modes the port does not have, and `convert.config_from_fields` raises
-`NotImplementedError` when one of them is set away from its default.
+runs: the bf16 and int8-serving video paths with the SigLIP tower, the
+`mlp2x_gelu` projector, bilinear pooling, the `one_token` merge with an
+image newline, the ReLU recurrent memory with the sinusoidal temporal PE,
+and a dense SwiGLU Qwen2 LM with RoPE, biased q/k/v and a tied
+unembedding. The fields here are the ones the port reads; the JAX config's
+other fields select modes the port does not have, and
+`convert.config_from_fields` raises `NotImplementedError` when one of them
+is set away from its default.
 
 Unlike the JAX config, `VLMConfig.__post_init__` derives `memory.patch_size`
 from the SigLIP geometry alone, so importing this module pulls in no tower.
@@ -91,9 +92,12 @@ class MemoryConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Multimodal assembly: the pooling stride over the tower's patch grid."""
+    """Multimodal assembly: the pooling stride over the tower's patch grid,
+    and whether the tower runs int8 (its weights prequantized by
+    `siglip.prequantize_int8`, the serving configuration)."""
 
     mm_spatial_pool_stride: int = 2
+    tower_int8: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

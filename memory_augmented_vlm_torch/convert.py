@@ -4,8 +4,11 @@
 init_params` (or a checkpoint of it) with numpy leaves and returns the
 port's parameters: the stacked (L, ...) layer arrays become lists of
 per-layer dicts and the HWIO patch kernel becomes the (out, in, kh, kw)
-conv weight. Dense kernels keep their (in, out) layout. Nothing here
-imports JAX: the caller turns its arrays into numpy first.
+conv weight. Dense kernels keep their (in, out) layout. Prequantized int8
+entries (`kernel_int8`, `scale`, `bias`, and the LM's `unembed_int8`,
+`unembed_scale`) come across as they are, each int8 kernel stored
+column-major (`quant.column_major`), the layout the int8 kernels read.
+Nothing here imports JAX: the caller turns its arrays into numpy first.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from memory_augmented_vlm_torch import config as port_config
+from memory_augmented_vlm_torch.ops.quant import column_major
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -29,7 +33,10 @@ def _tensor(x, device, dtype) -> torch.Tensor:
 
 def _tree(x, device, dtype):
     if isinstance(x, Mapping):
-        return {k: _tree(v, device, dtype) for k, v in x.items()}
+        out = {k: _tree(v, device, dtype) for k, v in x.items()}
+        if "kernel_int8" in out:
+            out["kernel_int8"] = column_major(out["kernel_int8"])
+        return out
     if isinstance(x, (list, tuple)):
         return [_tree(v, device, dtype) for v in x]
     return _tensor(x, device, dtype)
@@ -47,9 +54,10 @@ def _unstack(tree, n: int):
 
 
 def from_jax_params(tree: Mapping[str, Any], cfg: port_config.VLMConfig,
-                    device="cpu", dtype: Optional[torch.dtype] = None):
-    """JAX `vlm.init_params` pytree (numpy leaves) -> the port's params.
-    `dtype` casts every floating leaf (None keeps each leaf's own)."""
+                    device="cuda", dtype: Optional[torch.dtype] = None):
+    """JAX `vlm.init_params` pytree (numpy leaves) -> the port's params on
+    `device` (the card unless the caller asks for the CPU). `dtype` casts
+    every floating leaf (None keeps each leaf's own)."""
     vt = tree["vision_tower"]
     vision = {
         "patch_embedding": {

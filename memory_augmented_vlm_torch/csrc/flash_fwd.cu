@@ -32,7 +32,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
+
+using mavlm::lds32;
+using mavlm::pack_bf16x2;
 
 struct FlashParams {
   const void* q;
@@ -56,25 +61,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int kBN = 64;           // keys per K/V tile
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -181,7 +167,7 @@ flash_fwd_bf16_kernel(const FlashParams p) {
       const __nv_bfloat16* ks = sK + (nt * 8 + g) * KSTR + 2 * t;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
-        mma_16816(s[nt], qf[kc], lds32(ks + kc * 16), lds32(ks + kc * 16 + 8));
+        mavlm::mma_bf16_16816(s[nt], qf[kc], lds32(ks + kc * 16), lds32(ks + kc * 16 + 8));
       }
     }
 
@@ -238,7 +224,7 @@ flash_fwd_bf16_kernel(const FlashParams p) {
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         const __nv_bfloat16* vs = sVt + (dt * 8 + g) * VSTR + kc * 16 + 2 * t;
-        mma_16816(acc[dt], a, lds32(vs), lds32(vs + 8));
+        mavlm::mma_bf16_16816(acc[dt], a, lds32(vs), lds32(vs + 8));
       }
     }
   }
@@ -425,8 +411,10 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* flash_error_string(int code) {
+// The message of a code returned by any launch function of the library.
+extern "C" const char* kernel_error_string(int code) {
   if (code == -1) return "unsupported head dim";
   if (code == -2) return "unsupported dtype";
+  if (code == -3) return "unsupported shape";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

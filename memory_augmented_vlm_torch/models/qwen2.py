@@ -1,5 +1,6 @@
 """Qwen2 decoder LM (counterpart of `memory_augmented_vlm_tpu/models/qwen2.py`,
-its dense RoPE path with a bf16/fp32 KV cache).
+its dense RoPE path with a bf16/fp32 or int8 KV cache and float or
+prequantized int8 weights).
 
 Prefill runs causal attention through the flash kernel with the 2 KV heads
 passed as they are (`kv_groups`), which is the same math as JAX's
@@ -8,8 +9,16 @@ cache is a preallocated (L, B, Smax, Hkv, Dh) pair that `decode_step`
 updates in place, where JAX returns an updated copy: the cache is never
 read again in its old state, and a copy would cost a cache write per token.
 
-Parameters: dense kernels are (in, out), q/k/v carry biases, `layers` is
-a list of per-layer dicts, and the unembedding is tied to `embed_tokens`.
+The int8 serving configuration (`prequantize_int8(include_unembed=True)`
+and `quantize_cache` after prefill) follows JAX's formulas: projections go
+through `quant.int8_linear`, the unembedding through a per-vocab-row int8
+copy of the table, and the cache holds per-(position, head) int8 rows with
+fp32 scales (`x / s`, floor 1e-8), quantized on write and dequantized to
+the activation dtype before `decode_attention`.
+
+Parameters: dense kernels are (in, out), int8 kernels (in, out) column-major
+(`ops/quant.py`), q/k/v carry biases, `layers` is a list of per-layer
+dicts, and the unembedding is tied to `embed_tokens`.
 """
 
 from __future__ import annotations
@@ -22,13 +31,20 @@ import torch.nn.functional as F
 from memory_augmented_vlm_torch.config import LMConfig
 from memory_augmented_vlm_torch.ops.attention import decode_attention, flash_attention
 from memory_augmented_vlm_torch.ops.norms import rms_norm
+from memory_augmented_vlm_torch.ops.quant import (QUANT_FLOOR, int8_linear, int_mm,
+                                                  prequantize_kernel, quantize_rows)
 from memory_augmented_vlm_torch.ops.rope import apply_rope, compute_rope_freqs, rope_cos_sin
+
+KV_QUANT_FLOOR = 1e-8
+_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor       # (L, B, Smax, Hkv, Dh)
     v: torch.Tensor       # (L, B, Smax, Hkv, Dh)
     length: torch.Tensor  # (B,) int32 — valid positions per sequence
+    k_scale: Optional[torch.Tensor] = None  # (L, B, Smax, Hkv) fp32, int8 cache only
+    v_scale: Optional[torch.Tensor] = None
 
     @staticmethod
     def zeros(cfg: LMConfig, batch: int, max_len: int, device,
@@ -38,6 +54,25 @@ class KVCache(NamedTuple):
         return KVCache(torch.zeros(shape, device=device, dtype=dtype),
                        torch.zeros(shape, device=device, dtype=dtype),
                        torch.zeros((batch,), device=device, dtype=torch.int32))
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 over the last (head_dim) axis:
+    (..., D) -> ((..., D) int8, (...) fp32 scale), `x / s` with a 1e-8 floor."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(KV_QUANT_FLOOR) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_cache(cache: KVCache) -> KVCache:
+    """A prefill cache in the int8 form `decode_step` reads (serving
+    `kv_int8`); an int8 cache is returned as it is."""
+    if cache.k.dtype == torch.int8:
+        return cache
+    kq, ks = quantize_kv_rows(cache.k)
+    vq, vs = quantize_kv_rows(cache.v)
+    return KVCache(kq, vq, cache.length, ks, vs)
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device, dtype=torch.float32):
@@ -77,11 +112,47 @@ def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
 
 def unembed(params, hidden: torch.Tensor) -> torch.Tensor:
     """Final norm already applied; fp32 logits against the tied (V, H)
-    embedding table."""
+    embedding table, or against its int8 copy when `prequantize_int8`
+    installed one: row-quantized activations times the int8 table, scaled
+    by the row and vocab scales."""
+    if "unembed_int8" in params:
+        xq, sx = quantize_rows(hidden)
+        acc = int_mm(xq.reshape(-1, xq.shape[-1]), params["unembed_int8"].t())
+        acc = acc.reshape(*xq.shape[:-1], acc.shape[-1])
+        return acc.float() * sx * params["unembed_scale"]
     return F.linear(hidden.float(), params["embed_tokens"].float())
 
 
+def prequantize_int8(params, *, include_unembed: bool = False):
+    """Static-scale int8 LM weights (JAX `qwen2.prequantize_int8`, bits=8):
+    the seven dense kernels of every layer become per-output-channel int8
+    (`kernel_int8`, column-major) with an fp32 `scale`, biases kept. With
+    `include_unembed`, also a per-vocab-row int8 copy of the tied table
+    (`unembed_int8` (V, H), `unembed_scale` (V,)) that `unembed` prefers;
+    `embed_tokens` stays for token lookups."""
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for name in _PROJECTIONS:
+            wq, scale = prequantize_kernel(lp[name]["kernel"])
+            entry = {"kernel_int8": wq, "scale": scale}
+            if "bias" in lp[name]:
+                entry["bias"] = lp[name]["bias"]
+            lp[name] = entry
+        layers.append(lp)
+    out = {**params, "layers": layers}
+    if include_unembed:
+        table = params["embed_tokens"].float()
+        scale = table.abs().amax(dim=1).clamp_min(QUANT_FLOOR) / 127.0
+        out["unembed_int8"] = torch.round(table / scale[:, None]).clamp_(-127, 127).to(
+            torch.int8)
+        out["unembed_scale"] = scale
+    return out
+
+
 def _proj(p, x):
+    if "kernel_int8" in p:
+        return int8_linear(p, x)
     out = x @ p["kernel"]
     return out + p["bias"] if "bias" in p else out
 
@@ -139,9 +210,11 @@ def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch
 def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,
                 cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """One token per row: token_embeds (B, 1, H). Writes the new K/V at
-    `cache.length` (in place) and returns (hidden (B, 1, H), the cache with
-    length + 1)."""
+    `cache.length` (in place; an int8 cache quantizes them on the way in)
+    and returns (hidden (B, 1, H), the cache with length + 1)."""
     b = token_embeds.shape[0]
+    quant = cache.k.dtype == torch.int8
+    act_dtype = token_embeds.dtype
     pos = cache.length.long()  # (B,) — position of the new token
     cos, sin = _rope_tables(cfg, pos[:, None])
     rows = torch.arange(b, device=token_embeds.device)
@@ -151,9 +224,18 @@ def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,
         q, k, v = _qkv(lp, cfg, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        if quant:
+            k, k_s = quantize_kv_rows(k)  # (B, 1, Hkv, D), (B, 1, Hkv)
+            v, v_s = quantize_kv_rows(v)
+            cache.k_scale[li, rows, pos] = k_s[:, 0]
+            cache.v_scale[li, rows, pos] = v_s[:, 0]
         cache.k[li, rows, pos] = k[:, 0]
         cache.v[li, rows, pos] = v[:, 0]
-        attn = decode_attention(q, cache.k[li], cache.v[li], cache.length + 1,
+        layer_k, layer_v = cache.k[li], cache.v[li]
+        if quant:
+            layer_k = (layer_k.float() * cache.k_scale[li][..., None]).to(act_dtype)
+            layer_v = (layer_v.float() * cache.v_scale[li][..., None]).to(act_dtype)
+        attn = decode_attention(q, layer_k, layer_v, cache.length + 1,
                                 kv_groups=cfg.kv_groups)
         hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, 1, -1))
         x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)

@@ -1,14 +1,26 @@
 """SigLIP-SO400M vision tower (counterpart of
-`memory_augmented_vlm_tpu/models/siglip.py`, its non-fused bf16/fp32 path).
+`memory_augmented_vlm_tpu/models/siglip.py`: its bf16/fp32 path and its
+fused int8 path).
 
 The tower drops its final encoder layer and skips the post-layernorm, so the
 output equals `hidden_states[-2]`. Patch embedding is a 14x14 stride-14 conv
-to 729 patches plus learned position embeddings; each layer is pre-LN
-attention through the flash kernel (non-causal, every key valid) and a
-tanh-GELU MLP. Pixels are NHWC, as in the JAX package.
+to 729 patches plus learned position embeddings. Pixels are NHWC, as in the
+JAX package.
+
+A layer with float `kernel` entries is pre-LN attention through the flash
+kernel (non-causal, every key valid) and a tanh-GELU MLP. A layer
+prequantized by `prequantize_int8` (`kernel_int8` entries, the serving
+configuration) runs the fused int8 path of the JAX tower:
+`fused_qkv_int8` (LN1 + row quant + int8 q/k/v, head-major bf16) ->
+`flash_attention_merge_heads` -> `int8_linear(out_proj)` + residual ->
+`fused_mlp_block_int8` (LN2 + int8 MLP + residual). Unlike JAX, which
+takes this path on a TPU above a size gate and pads the stream from 729
+to 736 rows, the port takes it for every int8 layer and pads nothing; on
+the CPU each kernel wrapper runs its plain version.
 
 Parameters: `patch_embedding.weight` is (out, in, kh, kw) for `F.conv2d`;
-dense kernels are (in, out); `layers` is a list with one dict per layer.
+dense kernels are (in, out), int8 kernels (in, out) column-major
+(`ops/quant.py`); `layers` is a list with one dict per layer.
 """
 
 from __future__ import annotations
@@ -18,7 +30,13 @@ import torch.nn.functional as F
 
 from memory_augmented_vlm_torch.config import VisionConfig
 from memory_augmented_vlm_torch.ops.attention import flash_attention
+from memory_augmented_vlm_torch.ops.flash import flash_attention_merge_heads
+from memory_augmented_vlm_torch.ops.mlp_int8 import fused_mlp_block_int8
 from memory_augmented_vlm_torch.ops.norms import layer_norm
+from memory_augmented_vlm_torch.ops.qkv_int8 import fused_qkv_int8
+from memory_augmented_vlm_torch.ops.quant import int8_linear, prequantize_kernel
+
+_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 
 
 def init_params(cfg: VisionConfig, gen: torch.Generator, device, dtype=torch.float32):
@@ -53,8 +71,40 @@ def init_params(cfg: VisionConfig, gen: torch.Generator, device, dtype=torch.flo
     }
 
 
+def prequantize_int8(params):
+    """Static-scale int8 weights for the frozen tower (JAX
+    `siglip.prequantize_int8`): each layer's six dense kernels become
+    per-output-channel int8 (`kernel_int8`, column-major) with an fp32
+    `scale`; biases, norms and the patch embedding stay as they are."""
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for name in _PROJECTIONS:
+            wq, scale = prequantize_kernel(lp[name]["kernel"])
+            lp[name] = {"kernel_int8": wq, "scale": scale, "bias": lp[name]["bias"]}
+        layers.append(lp)
+    return {**params, "layers": layers}
+
+
 def _linear(p, x):
     return x @ p["kernel"] + p["bias"]
+
+
+def _int8_layer(lp, cfg: VisionConfig, hidden: torch.Tensor) -> torch.Tensor:
+    b, s, h = hidden.shape
+    q, k, v = fused_qkv_int8(
+        hidden, lp["layer_norm1"]["weight"], lp["layer_norm1"]["bias"],
+        *(lp[name][key] for name in ("q_proj", "k_proj", "v_proj")
+          for key in ("kernel_int8", "scale", "bias")),
+        nh=cfg.num_attention_heads, eps=cfg.layer_norm_eps)
+    valid = torch.full((b,), s, dtype=torch.int32, device=hidden.device)
+    hidden = hidden + int8_linear(lp["out_proj"], flash_attention_merge_heads(q, k, v, valid))
+    out = fused_mlp_block_int8(
+        hidden.reshape(b * s, h), lp["layer_norm2"]["weight"], lp["layer_norm2"]["bias"],
+        lp["fc1"]["kernel_int8"], lp["fc1"]["scale"], lp["fc1"]["bias"],
+        lp["fc2"]["kernel_int8"], lp["fc2"]["scale"], lp["fc2"]["bias"],
+        eps=cfg.layer_norm_eps)
+    return out.reshape(b, s, h)
 
 
 def embed_patches(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -67,14 +117,21 @@ def embed_patches(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torc
     return out + params["position_embedding"].to(out.dtype)
 
 
-def forward(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) pixels -> (B, 729, hidden) features."""
+def forward(params, cfg: VisionConfig, pixel_values: torch.Tensor, *,
+            int8: bool = False) -> torch.Tensor:
+    """(B, H, W, C) pixels -> (B, 729, hidden) features. Prequantized layers
+    take the fused int8 path; `int8=True` with float kernels would be JAX's
+    dynamic (AQT) int8 path, which is not ported."""
     hidden = embed_patches(params, cfg, pixel_values)
     b, s, h = hidden.shape
     nh = cfg.num_attention_heads
     for lp in params["layers"]:
-        if "kernel" not in lp["q_proj"]:
-            raise NotImplementedError("the int8 tower is not ported")
+        if "kernel_int8" in lp["q_proj"]:
+            hidden = _int8_layer(lp, cfg, hidden)
+            continue
+        if int8:
+            raise NotImplementedError("dynamic int8 (int8=True with float kernels) is not "
+                                      "ported: prequantize the tower with prequantize_int8")
         x = layer_norm(hidden, lp["layer_norm1"]["weight"], lp["layer_norm1"]["bias"],
                        cfg.layer_norm_eps)
         q = _linear(lp["q_proj"], x).view(b, s, nh, h // nh)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from memory_augmented_vlm_tpu import constants
+from memory_augmented_vlm_torch import constants
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import memory as memory_mod
 from memory_augmented_vlm_torch.models import position_encoding
@@ -67,7 +67,8 @@ def init_params(cfg: VLMConfig, seed: int, device, dtype=torch.float32):
 
 def encode_frames(params, cfg: VLMConfig, pixels: torch.Tensor) -> torch.Tensor:
     """(F, 384, 384, 3) NHWC pixels -> (F, 196, H) pooled projected features."""
-    feats = siglip.forward(params["vision_tower"], cfg.vision, pixels)
+    feats = siglip.forward(params["vision_tower"], cfg.vision, pixels,
+                           int8=cfg.pipeline.tower_int8)
     feats = projector_mod.forward(params["mm_projector"], feats)
     return spatial_pool_2x2(feats, cfg.vision.num_patches_per_side,
                             stride=cfg.pipeline.mm_spatial_pool_stride)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `memory_augmented_vlm_torch/csrc/` are compiled by `nvcc`
-for Hopper (`sm_90a`) into one shared library with a plain C interface, which
-is loaded with `ctypes`. The build happens at first use, into
+for Hopper (`sm_90a`), one `nvcc` process per source, all started together,
+and linked into one shared library with a plain C interface, which is
+loaded with `ctypes`. The build happens at first use, into
 `build/kernels/` at the root of the checkout, and is named after a hash of
 the sources and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. There is no fallback: without `nvcc` the build
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -27,7 +28,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the toolkit's default install prefix
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -55,8 +56,14 @@ def find_nvcc() -> str:
         "and need the CUDA toolkit")
 
 
-def nvcc_command(nvcc: str, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_commands(nvcc: str, out: Path) -> Tuple[List[List[str]], List[str]]:
+    """(one compile command per source, the link command) for a library at
+    `out`; the objects go beside it."""
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources(), objs)]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out), *map(str, objs)]
+    return compiles, link
 
 
 def _digest() -> str:
@@ -76,16 +83,24 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    compiles, link = nvcc_commands(nvcc, tmp)
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(nvcc, tmp), capture_output=True,
-                          text=True, check=False)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in compiles]
+    results = [(cmd, *proc.communicate(), proc.returncode)
+               for cmd, proc in zip(compiles, procs)]
+    failed = [r for r in results if r[3] != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(cmd)} ({rc}):\n{so}\n{se}" for cmd, so, se, rc in failed))
+    proc = subprocess.run(link, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     BUILD_LOG.update(path=str(out), seconds=time.perf_counter() - t0,
-                     ptxas=proc.stderr)
+                     ptxas="".join(se for _, _, se, _ in results))
     return out
 
 
@@ -101,8 +116,23 @@ def load() -> ctypes.CDLL:
         + [c_int] * 6
         + [c_ll] * 12
         + [ctypes.c_float, ptr])
-    lib.flash_fwd.restype = c_int
-    lib.flash_error_string.argtypes = [c_int]
-    lib.flash_error_string.restype = ctypes.c_char_p
+    lib.flash_merge.argtypes = [c_int, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int,
+                                ctypes.c_float, ptr]
+    # qkv_int8(dtype, hidden, ln_w, ln_b, 3 x (w, s, b), q, k, v, xq, sx,
+    #          B, S, H, NH, eps, stream)
+    lib.qkv_int8.argtypes = [c_int] + [ptr] * 17 + [c_int] * 4 + [ctypes.c_float, ptr]
+    # mlp_int8(dtype, hidden, ln_w, ln_b, w1, s1, b1, w2, s2, b2, out,
+    #          xq, h, hq, sx, hmax, sh, M, K, I, eps, stream)
+    lib.mlp_int8.argtypes = [c_int] + [ptr] * 16 + [c_int] * 3 + [ctypes.c_float, ptr]
+    for fn in (lib.flash_fwd, lib.flash_merge, lib.qkv_int8, lib.mlp_int8):
+        fn.restype = c_int
+    lib.kernel_error_string.argtypes = [c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
     _LIB = lib
     return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise unless a launch function returned 0."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.kernel_error_string(rc).decode()}")

@@ -1,5 +1,5 @@
-"""Flash-attention forward: the CUDA kernel `csrc/flash_fwd.cu` and its plain
-PyTorch version.
+"""Flash attention: the CUDA kernels `csrc/flash_fwd.cu` and
+`csrc/flash_merge.cu` and their plain PyTorch versions.
 
 Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash.py::
 pallas_flash_attention` (bshd layout). Both versions compute the TPU
@@ -8,8 +8,13 @@ fp32 scores, a base-2 softmax, keys at or past `kv_valid_len[b]` masked (and
 above the diagonal when `causal`), P rounded to the input dtype before PV,
 zero rows where no key is valid, and the output in the input dtype.
 
-`flash_attention` takes the plain version only for tensors on the CPU. For a
-CUDA tensor it launches the kernel or raises.
+`flash_attention_merge_heads` is the counterpart of `pallas_flash.py::
+flash_attention_merge_heads` (its non-`int8_scores` mode): head-major
+(B, NH, S, D) q/k/v in, merged heads (B, S, NH*D) out, and a one-shot
+softmax over the whole key axis with the TPU kernel's finite MASK_VALUE.
+
+Each wrapper takes its plain version only for tensors on the CPU. For a
+CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import torch
 from memory_augmented_vlm_torch.ops import cuda_lib
 
 LOG2E = 1.4426950408889634
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # pallas_flash.MASK_VALUE
 KERNEL_HEAD_DIMS = (64, 72, 112, 128)
+MERGE_HEAD_DIMS = (64, 72, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -138,11 +145,91 @@ def flash_attention(
         out.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups,
         int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], scale * LOG2E, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.flash_error_string(rc).decode()}")
+    cuda_lib.check(lib, rc, "flash_fwd")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def _merge_shapes(q, k, v, kv_valid_len):
+    if q.dim() != 4:
+        raise ValueError("merge-heads attention takes bhsd tensors (B, NH, S, D)")
+    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
+        raise ValueError(f"q, k and v must share one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if tuple(kv_valid_len.shape) != (q.shape[0],):
+        raise ValueError(f"kv_valid_len must be ({q.shape[0]},)")
+    return q.shape
+
+
+def flash_attention_merge_heads_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version. q, k, v (B, NH, S, D); kv_valid_len (B,). Returns
+    (B, S, NH*D) in q.dtype.
+
+    Per head: q * scale * log2(e) rounded to q's dtype, fp32 scores with
+    MASK_VALUE for keys at or past the valid length, m = the row max over
+    all S keys, p = exp2(s - m), l = sum(p) in fp32, P rounded to bf16 for
+    PV, out = o * (1/l). A batch with valid length 0 masks every key with
+    the same finite value, so each of its rows is the mean of V over all S
+    keys, as on the TPU."""
+    b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
+    scale = d ** -0.5 if scale is None else scale
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    sc = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
+    keep = torch.arange(s, device=q.device)[None, :] < kv_valid_len.to(q.device)[:, None]
+    sc = torch.where(keep[:, None, None, :], sc, MASK_VALUE)
+    p = torch.exp2(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), v.float())
+    out = (o * (1.0 / l)).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, s, nh * d)
+
+
+def flash_attention_merge_heads(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
+    *, scale: Optional[float] = None, int8_scores: bool = False,
+) -> torch.Tensor:
+    """One-shot attention with a merged-head store; see
+    `flash_attention_merge_heads_reference`. CPU tensors take the plain
+    version; CUDA tensors launch `csrc/flash_merge.cu` (bf16, contiguous,
+    head dims 64/72/128) and count the launch in
+    `flash_attention_merge_heads.launches`. The approximate `int8_scores`
+    mode of the TPU kernel is not ported."""
+    if int8_scores:
+        raise NotImplementedError("flash_attention_merge_heads(int8_scores=True) is not ported")
+    b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
+    if q.device.type == "cpu":
+        return flash_attention_merge_heads_reference(q, k, v, kv_valid_len, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"merge-heads attention runs on cpu or cuda, not {q.device}")
+    scale = d ** -0.5 if scale is None else scale
+    if d not in MERGE_HEAD_DIMS:
+        raise ValueError(f"merge kernel head dim must be one of {MERGE_HEAD_DIMS}, got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"merge kernel takes bf16, {name} is {x.dtype}")
+        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned on {q.device}")
+    if (kv_valid_len.device != q.device or kv_valid_len.dtype != torch.int32
+            or not kv_valid_len.is_contiguous()):
+        raise ValueError("kv_valid_len must be a contiguous int32 tensor on q's device")
+    if b > 65535 or nh > 65535:
+        raise ValueError("batch and head counts must fit a CUDA grid axis")
+    out = torch.empty((b, s, nh * d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    lib = cuda_lib.load()
+    rc = lib.flash_merge(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         kv_valid_len.data_ptr(), b, nh, s, scale * LOG2E,
+                         torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_merge")
+    flash_attention_merge_heads.launches += 1
+    return out
+
+
+flash_attention_merge_heads.launches = 0

@@ -1,10 +1,12 @@
 """Clip -> answer: the main path of the port (counterpart of
-`bench.py::build_pipeline` without its int8-KV, no-memory and sampling
-modes).
+`bench.py::build_pipeline` without its no-memory and sampling modes).
 
 SigLIP tower over the frames -> projector -> 2x2 pool -> temporal PE ->
 recurrent memory over 32-frame segments -> fuser -> prompt splice -> Qwen2
-prefill -> greedy decode of `max_new_tokens` tokens.
+prefill -> (with `kv_int8`, the cache quantized to int8) -> greedy decode
+of `max_new_tokens` tokens. The int8 serving configuration is this path
+with int8-prequantized weights (`int8_serving_params`), `tower_int8` set
+and `kv_int8=True`, as `bench.py` runs by default.
 """
 
 from __future__ import annotations
@@ -13,14 +15,24 @@ import torch
 import torch.nn.functional as F
 
 from memory_augmented_vlm_torch.config import VLMConfig
-from memory_augmented_vlm_torch.models import qwen2, vlm
+from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
 
 NUM_FRAMES = 64
 MAX_NEW_TOKENS = 32
 
 
+def int8_serving_params(params):
+    """`bench.py`'s default 0.5B serving weights from float ones: the tower
+    prequantized to int8, the LM to int8 with an int8 copy of the
+    unembedding. Pair with `tower_int8=True` and `kv_int8=True`."""
+    return {**params,
+            "vision_tower": siglip.prequantize_int8(params["vision_tower"]),
+            "language_model": qwen2.prequantize_int8(params["language_model"],
+                                                     include_unembed=True)}
+
+
 def build_pipeline(cfg: VLMConfig, num_frames: int = NUM_FRAMES, *,
-                   return_logits: bool = False,
+                   kv_int8: bool = False, return_logits: bool = False,
                    max_new_tokens: int = MAX_NEW_TOKENS):
     """Returns (clip_to_answer, nseg).
 
@@ -54,6 +66,8 @@ def build_pipeline(cfg: VLMConfig, num_frames: int = NUM_FRAMES, *,
         hidden, cache = qwen2.forward(lm, cfg.lm, padded, positions, valid_len=valid,
                                       cache_max_len=smax + max_new_tokens)
         logits = qwen2.unembed(lm, hidden[:, s - 1:s])[:, 0]
+        if kv_int8:
+            cache = qwen2.quantize_cache(cache)
         tokens, step_logits = [], []
         for step in range(max_new_tokens):
             tok = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -113,11 +113,16 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
-    assert [p.name for p in srcs] == ["flash_fwd.cu"]
+    assert [p.name for p in srcs] == ["flash_fwd.cu", "flash_merge.cu", "mlp_int8.cu",
+                                      "qkv_int8.cu"]
     assert all(p.is_file() for p in srcs)
-    cmd = cuda_lib.nvcc_command("nvcc", Path("out.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and str(srcs[0]) in cmd
+    compiles, link = cuda_lib.nvcc_commands("nvcc", Path("out.so"))
+    assert len(compiles) == len(srcs)  # one nvcc per source, run side by side
+    for src, cmd in zip(srcs, compiles):
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd and str(src) in cmd
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert link[link.index("-o") + 1] == "out.so"
+    assert all(cmd[cmd.index("-o") + 1] in link for cmd in compiles)  # every object linked
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -71,7 +71,7 @@ def _force_pallas(monkeypatch):
 @functools.lru_cache(maxsize=1)
 def _siglip_params():
     jp = jvlm.init_params(TINY, jax.random.key(0))
-    tp = convert.from_jax_params(_np_tree(jp), convert.config_from_fields(TINY))
+    tp = convert.from_jax_params(_np_tree(jp), convert.config_from_fields(TINY), device="cpu")
     return jp["vision_tower"], tp["vision_tower"]
 
 
@@ -243,7 +243,7 @@ def test_qwen2_prefill_and_decode_match_jax():
     ("lm", "position_embedding", "alibi"), ("lm", "num_local_experts", 4),
     ("lm", "rope_scaling_type", "linear"), ("lm", "attention_bias", False),
     ("memory", "hidden_act", "gelu"), ("memory", "learnable_pe", True),
-    ("pipeline", "tower_int8", True), ("pipeline", "mm_newline_position", "frame"),
+    ("pipeline", "dynamic_video_sampling", True), ("pipeline", "mm_newline_position", "frame"),
     ("pipeline", "mm_vision_tower", "openai/clip-vit-large-patch14-336"),
 ])
 def test_unported_modes_raise(part, field, value):
@@ -258,7 +258,7 @@ def test_unported_modes_raise(part, field, value):
 def test_encode_frames_and_video_embeds_match_jax():
     jp = jvlm.init_params(TINY, jax.random.key(12))
     pcfg = convert.config_from_fields(TINY)
-    tp = convert.from_jax_params(_np_tree(jp), pcfg)
+    tp = convert.from_jax_params(_np_tree(jp), pcfg, device="cpu")
     rng = np.random.default_rng(13)
     pix = rng.standard_normal((12, 56, 56, 3)).astype(np.float32)
     want = jvlm.encode_frames(jp, TINY, jnp.asarray(pix))
@@ -279,7 +279,7 @@ def test_encode_frames_and_video_embeds_match_jax():
 def test_port_init_matches_jax_init_shapes():
     pcfg = convert.config_from_fields(TINY)
     jax_side = convert.from_jax_params(_np_tree(jvlm.init_params(TINY, jax.random.key(0))),
-                                       pcfg)
+                                       pcfg, device="cpu")
     port_side = tvlm.init_params(pcfg, seed=0, device="cpu")
     shapes = lambda t: jax.tree.map(lambda x: tuple(x.shape), t)  # noqa: E731
     assert shapes(port_side) == shapes(jax_side)

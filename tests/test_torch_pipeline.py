@@ -1,5 +1,6 @@
 """The port's clip -> answer path against `bench.build_pipeline` on the tiny
-config of tests/test_vlm.py, and the port's import hygiene.
+config of tests/test_vlm.py, and the import hygiene of the port and of
+chip_smoke.py.
 
 12 frames run one partially valid segment; 96 frames run 12 segments, more
 than the ring cache's 10, so the cache rolls. Same converted weights and
@@ -33,7 +34,7 @@ TEXT_AFTER = np.array([3838, 374, 12482, 304, 419, 2766, 30, 4545, 198, 1644, 77
 def weights():
     params = jvlm.init_params(TINY, jax.random.key(0))
     port = convert.from_jax_params(jax.tree.map(np.asarray, params),
-                                   convert.config_from_fields(TINY))
+                                   convert.config_from_fields(TINY), device="cpu")
     return params, port
 
 
@@ -58,15 +59,28 @@ def test_pipeline_matches_bench(weights, num_frames):
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
 
 
+# after the imports: no JAX, and nothing of the JAX package, not even a
+# module of it that does not import JAX
+_NO_JAX = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+           "             ('jax', 'memory_augmented_vlm_tpu'))\n"
+           "assert not bad, bad\n")
+
+
 def test_port_imports_no_jax():
     pkg = Path(__file__).resolve().parent.parent / "memory_augmented_vlm_torch"
     modules = sorted(
         "memory_augmented_vlm_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
         for p in pkg.rglob("*.py") if p.name != "__init__.py")
     assert "memory_augmented_vlm_torch.pipeline" in modules
+    assert "memory_augmented_vlm_torch.constants" in modules
     code = ("import importlib, sys\n"
-            f"for m in {modules!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            "assert not bad, bad\n"
-            "assert 'memory_augmented_vlm_tpu.config' not in sys.modules\n")
+            f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=pkg.parent, timeout=120)
+
+
+def test_chip_smoke_imports_no_jax():
+    """Importing chip_smoke runs nothing (its main() sits behind __main__)
+    and pulls in no JAX."""
+    root = Path(__file__).resolve().parent.parent
+    code = "import sys\nimport chip_smoke\n" + _NO_JAX
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=120)
