@@ -13,7 +13,11 @@ each of which raises on failure:
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths and at edge cases, with the
                 kernel's, the plain version's and a library call's times
-                (CUDA events, median of 5) and the card's bound;
+                (CUDA events, median of 5) and the card's bound: the three
+                training kernels at the LM's train shape (S = 9557, causal,
+                GQA 14/2) and at edge cases in bf16 and fp32, the backward
+                of flash_fwd at the memory's fuse shape, flash_fwd, and the
+                three int8 kernels;
   4. requests — the full-width 0.5B int8 serving model (random weights from
                 a seed, prequantized on the card) answers 64-, 16- and
                 128-frame clips with 32 greedy tokens; the bf16 model answers
@@ -21,10 +25,21 @@ each of which raises on failure:
                 every kernel's launch count rose by what the config implies;
                 then one 64-frame request of each model with its stages
                 synchronised and timed;
-  5. parity   — full widths cut to 2 tower and 2 LM layers, 8 frames, fp32
-                activations: the card (through the kernels) against the CPU
-                (plain versions) on the same weights, for the bf16-path
-                model and for the int8 model with an int8 KV cache.
+  5. train    — four full-width bf16 train steps of bench_train.py's
+                configuration (64 frames, 9557 tokens, AdamW with its LR
+                groups) on distinct seeded batches: finite losses, 120
+                target tokens, exact per-step launch counts, frozen tower,
+                projector and PE bit-identical, nothing moved at lr 0 and
+                every trainable group moved by the last step; then one more
+                step with its stages synchronised, one under torch.profiler
+                (kernel time by kind, device idle share), and the peak
+                memory;
+  6. parity   — full widths cut to 2 tower and 2 LM layers, fp32: the card
+                (through the kernels) against the CPU (plain versions) on the
+                same weights, for the bf16-path model (8 frames), the int8
+                model with an int8 KV cache, and one train step (40 frames,
+                2 segments), whose loss, grad_norm and every gradient leaf
+                are compared.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Nothing is printed as a result when
@@ -41,13 +56,16 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from memory_augmented_vlm_torch import pipeline
+from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
-from memory_augmented_vlm_torch.ops import cuda_lib, flash, mlp_int8, qkv_int8, quant
+from memory_augmented_vlm_torch.ops import cuda_lib, flash, flash_bwd, mlp_int8, qkv_int8, quant
+from memory_augmented_vlm_torch.train import optimizer, trainer
+from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16 = 989e12
@@ -85,6 +103,22 @@ PARITY_ATOL = 1e-3
 # kernel lands near 1 std.
 INT8_PARITY_ATOL = 0.25
 INT8_PARITY_RMS = 0.1
+# bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
+# 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
+TRAIN_FRAMES, TRAIN_TEXT, TRAIN_IGNORED = 64, 128, 8
+TRAIN_TOKENS = TRAIN_TEXT + 9429
+# train parity, card (kernels) vs CPU (plain versions), fp32: gradients agree
+# to summation order through ~10 layers, the chunked vs the dense loss and
+# the base-2 kernels vs their plain versions. Each leaf is held to 1e-3 of
+# its own largest magnitude plus 1e-6 of the largest gradient element of
+# the whole model: fp32 summation noise scales with the terms summed, and a
+# leaf whose gradient nearly cancels (the memory's initial tokens, behind
+# post-LN LayerNorms, ~1e-5 of the model's largest) carries the noise of
+# its terms, 1% of its own size in the first card run. The loss and
+# grad_norm are held to 1e-4 relative.
+TRAIN_PARITY_RTOL = 1e-3
+TRAIN_PARITY_MODEL_RTOL = 1e-6
+TRAIN_PARITY_LOSS_RTOL = 1e-4
 TEXT_BEFORE = [151644, 872, 198]
 TEXT_AFTER = [3838, 374, 12482, 304, 419, 2766, 30, 151645, 198, 151644, 77091, 198]
 CSRC = "memory_augmented_vlm_torch/csrc/"
@@ -198,17 +232,23 @@ def _flash_bound(q, k, v, valid, causal, kv_groups):
     """Attention work of these inputs: 4 * (query, valid key) pairs * D per
     head, reading only the valid keys."""
     b, sq, h, d = q.shape
+    flops = 4.0 * _attn_pairs(sq, k.shape[1], valid, causal, h) * d
+    kv_read = sum(min(n, k.shape[1]) for n in valid.tolist()) * k.shape[2] * d * 2 * 2
+    return _bound(flops, PEAK_BF16, 2 * _nbytes(q) + kv_read)
+
+
+def _attn_pairs(sq, skv, valid, causal, h) -> int:
+    """(query, valid key) pairs of the inputs, over all heads: row r of a
+    causal batch sees min(r + 1, n) keys."""
     pairs = 0
     for n in valid.tolist():
-        n = min(n, k.shape[1])
-        if causal:  # row r sees min(r + 1, n) keys
+        n = min(n, skv)
+        if causal:
             m = min(sq, n)
             pairs += m * (m + 1) // 2 + (sq - m) * n
         else:
             pairs += sq * n
-    flops = 4.0 * pairs * d * h
-    kv_read = sum(min(n, k.shape[1]) for n in valid.tolist()) * k.shape[2] * d * 2 * 2
-    return _bound(flops, PEAK_BF16, 2 * _nbytes(q) + kv_read)
+    return pairs * h
 
 
 def phase_flash_kernel():
@@ -406,6 +446,199 @@ def phase_int8_kernels():
     ]
 
 
+# ----------------------------------------------------- training kernels
+
+TRAIN_REPLACES = {
+    "flash_fwd_lse": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:332",
+    "flash_bwd_dq": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:148",
+    "flash_bwd_dkv": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:232",
+}
+# flops per (query, valid key) pair and head dim: QK^T and PV in the forward;
+# the dQ kernel recomputes QK^T and does dO V^T and dS K; the dK/dV kernel
+# recomputes QK^T and does dO V^T, P^T dO and dS^T Q
+TRAIN_FLOPS_PER_PAIR = {"flash_fwd_lse": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+
+def _train_bounds(q, k, valid, causal):
+    """{kernel: (bound ms, bound_by)}: each kernel's operations at the bf16
+    peak against its bytes (inputs read once, outputs written once, only
+    the valid keys of K/V)."""
+    b, sq, h, d = q.shape
+    pairs = _attn_pairs(sq, k.shape[1], valid, causal, h)
+    kv = sum(min(n, k.shape[1]) for n in valid.tolist()) * k.shape[2] * d * q.element_size()
+    rows = b * h * sq * 4  # one fp32 lse or delta per query row
+    io = {"flash_fwd_lse": 2 * _nbytes(q) + 2 * kv + rows,
+          "flash_bwd_dq": 3 * _nbytes(q) + 2 * kv + 2 * rows,
+          "flash_bwd_dkv": 2 * _nbytes(q) + 4 * kv + 2 * rows}
+    return {name: _bound(f * pairs * d, PEAK_BF16, io[name])
+            for name, f in TRAIN_FLOPS_PER_PAIR.items()}
+
+
+def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=torch.bfloat16,
+                        timed=False):
+    """Run the three training kernels on one input and hold each output
+    against its plain version (lse on its finite entries, and -inf where
+    the plain version has -inf). Returns {kernel: row}."""
+    atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
+    dev = "cuda"
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    g = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, scale=d ** -0.5, kv_groups=h // hkv)
+    fwd = lambda: flash_bwd.forward_with_lse(q, k, v, vl, **kw)  # noqa: E731
+    out, lse = fwd()
+    delta = flash_bwd.attention_delta(out, g)
+    dq_fn = lambda: flash_bwd.backward_dq(q, k, v, g, lse, delta, vl, **kw)  # noqa: E731
+    dkv_fn = lambda: flash_bwd.backward_dkv(q, k, v, g, lse, delta, vl, **kw)  # noqa: E731
+    dq = dq_fn()
+    dk, dv = dkv_fn()
+    torch.cuda.synchronize()
+    info = {"q": list(q.shape), "kv": list(k.shape), "valid": list(valid), "causal": causal,
+            "dtype": str(dtype).split(".")[-1], "tol": f"atol {atol} + rtol {rtol}"}
+
+    def held(label, got, ref):
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{name} {label}: non-finite kernel output")
+        diff = (got.float() - ref.float()).abs()
+        bad = int((diff > atol + rtol * ref.float().abs()).sum())
+        if bad:
+            raise RuntimeError(f"{name} {label}: {bad} elements outside tolerance "
+                               f"(max err {float(diff.max())})")
+        return float(diff.max()) if diff.numel() else 0.0
+
+    rout, rlse = flash_bwd.forward_with_lse_reference(q, k, v, vl, **kw)
+    fin = torch.isfinite(rlse)
+    if not torch.equal(torch.isfinite(lse), fin):
+        raise RuntimeError(f"{name}: lse is -inf on other rows than the plain version's")
+    errs = {"flash_fwd_lse": max(held("out", out, rout), held("lse", lse[fin], rlse[fin]))}
+    del rout, rlse
+    errs["flash_bwd_dq"] = held("dq", dq, flash_bwd.backward_dq_reference(
+        q, k, v, g, lse, delta, vl, **kw))
+    rdk, rdv = flash_bwd.backward_dkv_reference(q, k, v, g, lse, delta, vl, **kw)
+    errs["flash_bwd_dkv"] = max(held("dk", dk, rdk), held("dv", dv, rdv))
+    del rdk, rdv
+    empty = (vl == 0).nonzero().flatten().tolist()
+    for i in empty:  # no valid key: zero output and grads, lse -inf
+        if any(float(x[i].abs().max()) for x in (out, dq, dk, dv)) or bool(
+                torch.isfinite(lse[i]).any()):
+            raise RuntimeError(f"{name}: batch {i} has valid length 0 but a nonzero result")
+    rows = {kname: {"case": name, "kernel": kname, **info, "max_abs_err": err}
+            for kname, err in errs.items()}
+    if timed:
+        plain = {
+            "flash_fwd_lse": lambda: flash_bwd.forward_with_lse_reference(q, k, v, vl, **kw),
+            "flash_bwd_dq": lambda: flash_bwd.backward_dq_reference(
+                q, k, v, g, lse, delta, vl, **kw),
+            "flash_bwd_dkv": lambda: flash_bwd.backward_dkv_reference(
+                q, k, v, g, lse, delta, vl, **kw)}
+        for kname, fn in (("flash_fwd_lse", fwd), ("flash_bwd_dq", dq_fn),
+                          ("flash_bwd_dkv", dkv_fn)):
+            rows[kname]["ms"] = _time_ms(fn)
+            rows[kname]["plain_ms"] = _time_ms(plain[kname], reps=3)
+            torch.cuda.empty_cache()
+        lib_fwd, lib_bwd = _sdpa_train_ms(q, k, v, g, causal, h // hkv)
+        rows["flash_fwd_lse"]["library_ms"] = lib_fwd
+        rows["flash_fwd_lse"]["library_call"] = "scaled_dot_product_attention forward"
+        for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+            rows[kname]["library_ms"] = lib_bwd
+            rows[kname]["library_call"] = ("scaled_dot_product_attention backward (forward + "
+                                           "backward minus forward): dQ, dK and dV together")
+        for kname, (bound, by) in _train_bounds(q, k, vl, causal).items():
+            rows[kname]["bound_ms"], rows[kname]["bound_by"] = bound, by
+    for row in rows.values():
+        log(json.dumps(row))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _sdpa_train_ms(q, k, v, g, causal, kv_groups):
+    """scaled_dot_product_attention's forward, and its backward as
+    forward + backward minus forward, on the same inputs: a yardstick the
+    port never calls."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=kv_groups > 1)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), gt)
+
+    t_fwd = _time_ms(fwd)
+    return t_fwd, _time_ms(fwd_bwd) - t_fwd
+
+
+def _flash_backward_check(gen):
+    """#1's backward (the plain recompute, on the card) at the memory's fuse
+    shape, bf16, against the same recompute in fp32: the largest difference
+    within 1e-2 of each gradient's largest magnitude (about 2.5 bf16 steps)."""
+    dev = "cuda"
+    q = torch.randn((1, 1568, 8, 112), generator=gen, device=dev).bfloat16().requires_grad_()
+    k, v = (torch.randn((1, 6272, 8, 112), generator=gen, device=dev).bfloat16()
+            .requires_grad_() for _ in range(2))
+    g = torch.randn((1, 1568, 8, 112), generator=gen, device=dev).bfloat16()
+    vl = torch.tensor([3136], dtype=torch.int32, device=dev)
+    grads = torch.autograd.grad(flash.flash_attention(q, k, v, vl), (q, k, v), g)
+    xs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    refs = torch.autograd.grad(flash.xla_attention_reference(
+        *xs, vl, causal=False, scale=112 ** -0.5), xs, g.float())
+    errs = []
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        err = float((got.float() - ref).abs().max())
+        if not (torch.isfinite(got).all() and err <= 1e-2 * float(ref.abs().max())):
+            raise RuntimeError(f"flash_fwd backward {name}: max err {err} against "
+                               f"max |ref| {float(ref.abs().max())}")
+        errs.append(err)
+    t_fwd = _time_ms(lambda: flash.flash_attention(q, k, v, vl))
+    t_all = _time_ms(lambda: torch.autograd.grad(flash.flash_attention(q, k, v, vl),
+                                                 (q, k, v), g))
+    row = {"case": "flash_fwd backward, memory fuse shape", "q": [1, 1568, 8, 112],
+           "kv": [1, 6272, 8, 112], "valid": [3136], "max_abs_err": max(errs),
+           "backward_ms": t_all - t_fwd, "tol": "1e-2 of max |grad|"}
+    log(json.dumps(row))
+    return row
+
+
+def phase_train_kernels():
+    """forward_with_lse, backward_dq and backward_dkv at the LM's training
+    shape (timed) and at edge cases, in bf16 and fp32; then #1's backward."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    s = TRAIN_TOKENS
+    main_rows = _train_kernels_case("lm_train", gen, 1, s, s, 14, 2, 64, True, (s,),
+                                    timed=True)
+    errs = {name: [row["max_abs_err"]] for name, row in main_rows.items()}
+    cases = [
+        # B=2, one batch shorter; 4 query heads keep the plain version's
+        # (B, H, S, S) fp32 intermediates near 3 GB each
+        ("b2_ragged", 2, s, s, 4, 2, 64, True, (9000, s), (torch.bfloat16,)),
+        ("cross_d128", 2, 1000, 3000, 4, 2, 128, False, (3000, 1234),
+         (torch.bfloat16, torch.float32)),
+        ("valid0_causal", 2, 150, 150, 4, 2, 64, True, (0, 77), (torch.bfloat16, torch.float32)),
+        ("valid0_cross", 2, 150, 333, 4, 4, 128, False, (0, 300),
+         (torch.bfloat16, torch.float32)),
+        ("lm_cut_f32", 1, 700, 700, 14, 2, 64, True, (700,), (torch.float32,)),
+    ]
+    for name, b, sq, skv, h, hkv, d, causal, valid, dtypes in cases:
+        for dtype in dtypes:
+            rows = _train_kernels_case(f"{name}_{str(dtype).split('.')[-1]}", gen, b, sq, skv,
+                                       h, hkv, d, causal, valid, dtype)
+            for kname, row in rows.items():
+                errs[kname].append(row["max_abs_err"])
+    backward = _flash_backward_check(gen)
+    kernels = []
+    for kname, row in main_rows.items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CSRC + "flash_train.cu",
+            "replaces": TRAIN_REPLACES[kname], "max_abs_err": max(errs[kname]),
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library_call")}})
+    return kernels, backward
+
+
 # ------------------------------------------------------------ requests
 
 WRAPPERS = {
@@ -413,6 +646,9 @@ WRAPPERS = {
     "fused_qkv_int8": qkv_int8.fused_qkv_int8,
     "flash_attention_merge_heads": flash.flash_attention_merge_heads,
     "fused_mlp_block_int8": mlp_int8.fused_mlp_block_int8,
+    "flash_fwd_lse": flash_bwd.forward_with_lse,
+    "flash_bwd_dq": flash_bwd.backward_dq,
+    "flash_bwd_dkv": flash_bwd.backward_dkv,
 }
 
 
@@ -436,11 +672,22 @@ def _memory_calls(cfg: VLMConfig, num_frames: int) -> int:
 def _expected_launches(cfg: VLMConfig, num_frames: int) -> dict:
     tower = cfg.vision.num_used_layers
     lm = cfg.lm.num_hidden_layers
+    train = {"flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if cfg.pipeline.tower_int8:
         return {"flash_fwd": _memory_calls(cfg, num_frames) + lm, "fused_qkv_int8": tower,
-                "flash_attention_merge_heads": tower, "fused_mlp_block_int8": tower}
+                "flash_attention_merge_heads": tower, "fused_mlp_block_int8": tower, **train}
     return {"flash_fwd": tower + _memory_calls(cfg, num_frames) + lm, "fused_qkv_int8": 0,
-            "flash_attention_merge_heads": 0, "fused_mlp_block_int8": 0}
+            "flash_attention_merge_heads": 0, "fused_mlp_block_int8": 0, **train}
+
+
+def _expected_train_launches(cfg: VLMConfig, num_frames: int) -> dict:
+    """One train step: the frozen tower and the memory through flash_fwd
+    (the memory's backward is a plain recompute), each LM layer through the
+    training kernels, its forward twice under remat."""
+    lm = cfg.lm.num_hidden_layers
+    return {"flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, num_frames),
+            "fused_qkv_int8": 0, "flash_attention_merge_heads": 0, "fused_mlp_block_int8": 0,
+            "flash_fwd_lse": 2 * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm}
 
 
 def _visual_tokens(cfg: VLMConfig, num_frames: int, nseg: int) -> int:
@@ -492,14 +739,21 @@ def _serve(label, cfg, params, frame_counts, gen, kv_int8):
     return launches_64
 
 
+REQUEST_STAGES = [
+    (siglip, "forward", "tower"), (vlm, "encode_frames", "tower+projector+pool"),
+    (vlm, "build_video_embeds", "memory+assembly"), (qwen2, "forward", "lm_prefill"),
+    (qwen2, "unembed", "unembed"), (qwen2, "quantize_cache", "quantize_cache"),
+    (qwen2, "decode_step", "decode_steps")]
+TRAIN_STAGES = [
+    (vlm, "encode_frames", "tower"), (vlm, "build_video_embeds", "memory"),
+    (qwen2, "forward", "lm_forward"), (trainer, "cross_entropy", "loss"),
+    (trainer, "value_and_grad_params", "forward+backward")]
+
+
 @contextlib.contextmanager
-def _stage_clock(totals: dict):
-    """Times the pipeline's stages by wrapping the module functions it calls
+def _stage_clock(totals: dict, stages=REQUEST_STAGES):
+    """Times the stages by wrapping the module functions they call
     (synchronising around each), summing seconds per stage into `totals`."""
-    stages = [(siglip, "forward", "tower"), (vlm, "encode_frames", "tower+projector+pool"),
-              (vlm, "build_video_embeds", "memory+assembly"), (qwen2, "forward", "lm_prefill"),
-              (qwen2, "unembed", "unembed"), (qwen2, "quantize_cache", "quantize_cache"),
-              (qwen2, "decode_step", "decode_steps")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
 
     def timed(fn, stage):
@@ -649,12 +903,233 @@ def phase_parity():
             rms_bound=INT8_PARITY_RMS, noise_floor=True)
 
 
+# ---------------------------------------------------------------- train
+
+def _bench_opt() -> optimizer.OptimizerConfig:
+    """bench_train.py's optimizer: at warmup_ratio 0.03 of 100 steps, step
+    0 runs at lr 0 and the trainable leaves first move at step 1."""
+    return optimizer.OptimizerConfig(
+        learning_rate=1e-5, memory_transformer_lr=5e-5, memory_key_value_lr=5e-5,
+        mm_vision_tower_lr=None, total_steps=100, warmup_ratio=0.03)
+
+
+def _train_batch(rng, cfg: VLMConfig, num_frames, num_fine, dev, dtype):
+    """bench_train.make_batch's batch (B=1, image at text position 3), with
+    `num_fine` fine frames; numpy draws from `rng`."""
+    fmax = vlm.pad_frames_to_segment_multiple(num_frames, cfg.memory.segment_frames)
+    pixels = np.zeros((1, fmax, 384, 384, 3), np.float32)
+    pixels[:, :num_frames] = rng.standard_normal((1, num_frames, 384, 384, 3), np.float32)
+    ids = rng.integers(5, 1000, size=(1, TRAIN_TEXT))
+    labels = ids.copy()
+    labels[:, :TRAIN_IGNORED] = constants.IGNORE_INDEX
+    fine = vlm.fine_frame_indices(num_frames, num_fine)
+
+    def t(x, dt=torch.int64):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    return trainer.TrainBatch(
+        pixels=torch.from_numpy(pixels).to(dev, dtype), frame_indices=t(np.arange(fmax)[None]),
+        frame_valid=t((np.arange(fmax) < num_frames)[None], torch.bool),
+        fine_idx=t(fine[None]), input_ids=t(ids), labels=t(labels), image_pos=t([3]),
+        text_len=t([TRAIN_TEXT]))
+
+
+def _leaves(tree):
+    return [(path_str(p), x) for p, x in leaves_with_path(tree)]
+
+
+def _kernel_category(name: str) -> str:
+    n = name.lower()
+    for key, label in (("bwd_dkv", "flash_bwd_dkv"), ("bwd_dq", "flash_bwd_dq"),
+                       ("fwd_lse", "flash_fwd_lse"), ("flash_fwd", "flash_fwd")):
+        if key in n:
+            return label
+    if "f32f32" in n or "sgemm" in n:
+        return "fp32 GEMM"
+    if any(key in n for key in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "bf16 GEMM"
+    if any(key in n for key in ("reduce", "softmax", "norm")):
+        return "reductions and norms"
+    return "elementwise, copies and indexing"
+
+
+def _profiled_step(step, state, batch):
+    """One train step under torch.profiler: the device's busy time (union of
+    kernel intervals) over the step's wall time, and kernel time by kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler saw no kernel on the card")
+    by_kind, busy, end = {}, 0.0, float("-inf")
+    for t0, t1, name in spans:
+        kind = _kernel_category(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (t1 - t0) / 1e3
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return state, {"wall_s": wall, "kernels": len(spans), "device_busy_s": busy / 1e6,
+                   "device_idle_share": 1.0 - busy / 1e6 / wall,
+                   "kernel_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))}
+
+
+def phase_train():
+    """Four full-width bf16 train steps of bench_train.py's configuration on
+    distinct seeded batches, then one more with its stages synchronised and
+    one under the profiler. Returns the per-step launch counts."""
+    dev = "cuda"
+    cfg = VLMConfig.onevision_0_5b()
+    opt = _bench_opt()
+    t0 = time.perf_counter()
+    params = vlm.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    state = trainer.init_train_state(params, opt)
+    torch.cuda.synchronize()
+    log(f"init 0.5B bf16 params and AdamW state: {time.perf_counter() - t0:.2f} s")
+    nseg = vlm.pad_frames_to_segment_multiple(TRAIN_FRAMES, cfg.memory.segment_frames) \
+        // cfg.memory.segment_frames
+    step = trainer.make_train_step(cfg, opt, nseg=nseg)
+    rng = np.random.default_rng(0)
+    want = _expected_train_launches(cfg, TRAIN_FRAMES)
+    initial = _leaves(params)
+    trainable = dict(_leaves(optimizer.trainable_mask(params, opt.mm_tunable_parts)))
+    groups = dict(_leaves(optimizer.lr_group_labels(params, opt)))
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(4):
+        batch = _train_batch(rng, cfg, TRAIN_FRAMES, cfg.memory.num_fine_frames, dev,
+                             torch.bfloat16)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = _launches()
+        loss, tokens = float(metrics["loss"]), int(metrics["target_tokens"])
+        losses.append(loss)
+        if launches != want:
+            raise RuntimeError(f"train step {i}: launches {launches}, want {want}")
+        if not math.isfinite(loss) or tokens != TRAIN_TEXT - TRAIN_IGNORED:
+            raise RuntimeError(f"train step {i}: loss {loss}, target_tokens {tokens}")
+        moved = {name: 0 for name in set(groups.values())}
+        for (name, p0), (_, p1) in zip(initial, _leaves(state.params)):
+            if not torch.equal(p0, p1):
+                if not trainable[name]:
+                    raise RuntimeError(f"train step {i}: frozen {name} changed")
+                moved[groups[name]] += 1
+        if i == 0 and any(moved.values()):  # lr(0) = 0
+            raise RuntimeError(f"train step 0 moved params at lr 0: {moved}")
+        log(json.dumps({"train_step": i, "loss": loss, "target_tokens": tokens,
+                        "grad_norm": float(metrics["grad_norm"]), "seconds": times[-1],
+                        "launches": launches, "leaves_moved_by_group": moved}))
+    if not all(moved[g] for g in set(groups[n] for n, t in trainable.items() if t)):
+        raise RuntimeError(f"a trainable group never moved: {moved}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    totals = {}
+    batch = _train_batch(rng, cfg, TRAIN_FRAMES, cfg.memory.num_fine_frames, dev, torch.bfloat16)
+    with _stage_clock(totals, TRAIN_STAGES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        totals["total"] = time.perf_counter() - t0
+    forward = sum(totals[k] for k in ("tower", "memory", "lm_forward", "loss"))
+    totals["backward+assembly"] = totals["forward+backward"] - forward
+    totals["optimizer"] = totals["total"] - totals["forward+backward"]
+    batch = _train_batch(rng, cfg, TRAIN_FRAMES, cfg.memory.num_fine_frames, dev, torch.bfloat16)
+    state, profiled = _profiled_step(step, state, batch)
+    log(json.dumps({"train": "0.5B bf16, bench_train batch", "spliced": TRAIN_TOKENS,
+                    "step_seconds": times, "losses": losses, "peak_mem_gb": peak,
+                    "stage_seconds_synchronised": totals, "profiled_step": profiled}))
+    del state, params, initial
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_train_parity():
+    """One fp32 train step, full widths cut to 2 tower and 2 LM layers, 64
+    padded frames of which 40 are real (2 segments, so evolve is
+    differentiated) and 8 fine frames: card (kernels) against CPU (plain
+    versions), the same weights and batch. Loss, grad_norm and every
+    gradient leaf are compared."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = VLMConfig.onevision_0_5b()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
+        lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    params = vlm.init_params(cfg, seed=6, device="cpu", dtype=torch.float32)
+    opt = _bench_opt()
+    step = trainer.make_train_step(cfg, opt, nseg=2)
+    captured = []
+    inner = trainer.value_and_grad_params
+
+    def capture(*args, **kwargs):  # keep the step's own gradients
+        out = inner(*args, **kwargs)
+        captured.append(out[1])
+        return out
+
+    results = {}
+    trainer.value_and_grad_params = capture
+    try:
+        for dev in ("cuda", "cpu"):
+            batch = _train_batch(np.random.default_rng(7), cfg, 40, 8, dev, torch.float32)
+            state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
+            _reset_launches()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                if _launches() != _expected_train_launches(cfg, 40):
+                    raise RuntimeError(f"train parity: launches {_launches()}")
+            results[dev] = (metrics, _leaves(captured[-1]), time.perf_counter() - t0)
+    finally:
+        trainer.value_and_grad_params = inner
+    (mg, gg, tg), (mc, gc, tc) = results["cuda"], results["cpu"]
+    model_max = max(float(b.abs().max()) for _, b in gc)
+    worst = []
+    for (name, a), (_, b) in zip(gg, gc):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        tol = TRAIN_PARITY_RTOL * scale + TRAIN_PARITY_MODEL_RTOL * model_max
+        if not err <= tol:
+            raise RuntimeError(f"train parity: grad {name} differs by {err} (max |grad| "
+                               f"{scale}, tolerance {tol})")
+        worst.append((err / tol if tol else 0.0, name, err, scale))
+    worst = sorted(worst, reverse=True)[:5]
+    for key in ("loss", "grad_norm"):
+        a, b = float(mg[key]), float(mc[key])
+        if not abs(a - b) <= TRAIN_PARITY_LOSS_RTOL * abs(b):
+            raise RuntimeError(f"train parity: {key} {a} on the card, {b} on the CPU")
+    if int(mg["target_tokens"]) != int(mc["target_tokens"]):
+        raise RuntimeError("train parity: target token counts differ")
+    log(json.dumps({"train_parity": "fp32, 2 tower + 2 LM layers, 40 frames, card vs cpu",
+                    "loss_card": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
+                    "grad_norm_card": float(mg["grad_norm"]),
+                    "grad_norm_cpu": float(mc["grad_norm"]), "grad_leaves": len(gg),
+                    "model_max_grad": model_max,
+                    "worst_leaves_err_over_tol_err_max": worst,
+                    "tol": f"{TRAIN_PARITY_RTOL} of each leaf's max |grad| + "
+                           f"{TRAIN_PARITY_MODEL_RTOL} of the model's",
+                    "card_step_s": tg, "cpu_step_s": tc}))
+
+
 def main():
     phase_card()
     phase_build()
-    kernels = [phase_flash_kernel(), *phase_int8_kernels()]
+    train_kernels, flash_backward = phase_train_kernels()
+    kernels = [phase_flash_kernel(), *phase_int8_kernels(), *train_kernels]
+    kernels[0]["backward"] = flash_backward
     launches = phase_requests()
+    launches["train_step"] = phase_train()
     phase_parity()
+    phase_train_parity()
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())

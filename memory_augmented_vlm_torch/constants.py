@@ -2,8 +2,11 @@
 so that the port imports nothing of the JAX package.
 
 The natural-language prompts spliced around the two visual streams, with
-their Qwen2 tokenizer ids (reference: llava/model/llava_arch.py:708-716).
+their Qwen2 tokenizer ids (reference: llava/model/llava_arch.py:708-716),
+and the label of a position that takes no loss.
 """
+
+IGNORE_INDEX = -100
 
 MEMORY_PROMPT_TEXT = "This is a high-level summary of the video:"
 MEMORY_PROMPT_IDS = (1986, 374, 264, 1550, 11591, 12126, 315, 279, 2766, 25)

@@ -8,6 +8,8 @@ conv weight. Dense kernels keep their (in, out) layout. Prequantized int8
 entries (`kernel_int8`, `scale`, `bias`, and the LM's `unembed_int8`,
 `unembed_scale`) come across as they are, each int8 kernel stored
 column-major (`quant.column_major`), the layout the int8 kernels read.
+`to_jax_layout` is the inverse layout change, for holding the port's
+params, grads or per-leaf labels against JAX's leaf by leaf.
 Nothing here imports JAX: the caller turns its arrays into numpy first.
 """
 
@@ -21,6 +23,16 @@ import torch
 
 from memory_augmented_vlm_torch import config as port_config
 from memory_augmented_vlm_torch.ops.quant import column_major
+
+
+# the layer lists that the JAX package keeps stacked as (L, ...) arrays
+STACKED_LAYERS = (("vision_tower", "layers"), ("language_model", "layers"),
+                  ("memory", "recurrent_memory_transformer", "layers"))
+
+
+def under_stacked_layers(path) -> bool:
+    """Whether a leaf path lies inside one of the `STACKED_LAYERS` lists."""
+    return any(tuple(path[:len(p)]) == p and len(path) > len(p) for p in STACKED_LAYERS)
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -112,3 +124,35 @@ def config_from_fields(cfg) -> port_config.VLMConfig:
         memory=sub(port_config.MemoryConfig, cfg.memory),
         pipeline=sub(port_config.PipelineConfig, cfg.pipeline),
     )
+
+
+def to_jax_layout(tree):
+    """The port's parameter tree, or a tree of the same structure (grads,
+    masks, labels), in the JAX package's layout with numpy leaves: the
+    `STACKED_LAYERS` lists become stacked (L, ...) arrays and the OIHW
+    patch `weight` the HWIO `kernel`. bf16 tensors come out as fp32."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        return np.asarray(x)
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return np.stack(items)
+
+    def walk(x, path):
+        if isinstance(x, Mapping):
+            return {k: walk(v, path + (k,)) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            items = [walk(v, path + (i,)) for i, v in enumerate(x)]
+            return stack(items) if path in STACKED_LAYERS else items
+        return leaf(x)
+
+    out = walk(tree, ())
+    patch = out.get("vision_tower", {}).get("patch_embedding")
+    if patch is not None and "weight" in patch:
+        w = patch.pop("weight")
+        patch["kernel"] = np.transpose(w, (2, 3, 1, 0)) if w.ndim == 4 else w
+    return out

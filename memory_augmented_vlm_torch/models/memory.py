@@ -11,6 +11,11 @@ Where JAX scans and branches on traced values, the port loops in Python and
 branches on host values: `cache_len` is a Python int and `frame_valid` a
 host-side bool vector. Every cross-attention goes through the flash kernel
 with a prefix valid length; the head dim (112 at full width) is not padded.
+
+Gradients flow through the whole recurrence, the ring cache included: an
+append writes into a clone of the cache (or into `torch.roll` of it when
+full), so each segment's memory stays in the graph of the next segment's
+evolve and of the fuser, as under JAX's `scan`.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from memory_augmented_vlm_torch.config import LMConfig
 from memory_augmented_vlm_torch.ops.attention import decode_attention, flash_attention
@@ -174,36 +175,60 @@ def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
     return rope_cos_sin(positions, inv_freq)
 
 
+def _layer(lp, cfg: LMConfig, hidden, cos, sin, valid_len, differentiable: bool):
+    """One decoder layer over the whole sequence: (hidden, k, v)."""
+    b, s, _ = hidden.shape
+    x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+    q, k, v = _qkv(lp, cfg, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = flash_attention(q, k, v, causal=True, kv_valid_len=valid_len,
+                           kv_groups=cfg.kv_groups, differentiable=differentiable)
+    hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, s, -1))
+    x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    return hidden + _mlp(lp, x), k, v
+
+
 def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch.Tensor,
             valid_len: Optional[torch.Tensor] = None, *,
-            cache_max_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
-    """Prefill. inputs_embeds (B, S, H) right-padded; positions (B, S);
-    valid_len (B,) int32 (None = all valid). The returned cache holds
-    `cache_max_len` (default S) positions so decode continues in place.
-    Returns (hidden after the final norm, cache)."""
+            cache_max_len: Optional[int] = None, remat: bool = False,
+            differentiable_attention: bool = False,
+            need_cache: bool = True) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Prefill or training forward. inputs_embeds (B, S, H) right-padded;
+    positions (B, S); valid_len (B,) int32 (None = all valid).
+
+    With `need_cache` the returned cache holds `cache_max_len` (default S)
+    positions so decode continues in place; without it no cache is made and
+    the cache slot is None (the loss-only training path: writing K/V into a
+    cache would tie it into the autograd graph). `remat` recomputes each
+    layer in the backward (`torch.utils.checkpoint`, JAX's
+    `jax.checkpoint`), so the forward keeps only the layers' inputs.
+    `differentiable_attention` takes the training attention kernels.
+    Returns (hidden after the final norm, cache or None)."""
     b, s, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if valid_len is None:
         valid_len = torch.full((b,), s, dtype=torch.int32, device=dev)
-    max_len = cache_max_len or s
-    if max_len < s:
-        raise ValueError(f"cache_max_len {max_len} < sequence length {s}")
-    cache = KVCache.zeros(cfg, b, max_len, dev, inputs_embeds.dtype)
+    cache = None
+    if need_cache:
+        max_len = cache_max_len or s
+        if max_len < s:
+            raise ValueError(f"cache_max_len {max_len} < sequence length {s}")
+        cache = KVCache.zeros(cfg, b, max_len, dev, inputs_embeds.dtype)
     cos, sin = _rope_tables(cfg, positions)
     hidden = inputs_embeds
     for li, lp in enumerate(params["layers"]):
-        x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, cfg, x)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        cache.k[li, :, :s] = k
-        cache.v[li, :, :s] = v
-        attn = flash_attention(q, k, v, causal=True, kv_valid_len=valid_len,
-                               kv_groups=cfg.kv_groups)
-        hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, s, -1))
-        x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-        hidden = hidden + _mlp(lp, x)
+        args = (lp, cfg, hidden, cos, sin, valid_len, differentiable_attention)
+        if remat:
+            hidden, k, v = checkpoint(_layer, *args, use_reentrant=False)
+        else:
+            hidden, k, v = _layer(*args)
+        if cache is not None:
+            cache.k[li, :, :s] = k
+            cache.v[li, :, :s] = v
     hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+    if cache is None:
+        return hidden, None
     return hidden, cache._replace(length=valid_len.to(torch.int32))
 
 

@@ -66,12 +66,18 @@ def init_params(cfg: VLMConfig, seed: int, device, dtype=torch.float32):
 
 
 def encode_frames(params, cfg: VLMConfig, pixels: torch.Tensor) -> torch.Tensor:
-    """(F, 384, 384, 3) NHWC pixels -> (F, 196, H) pooled projected features."""
-    feats = siglip.forward(params["vision_tower"], cfg.vision, pixels,
-                           int8=cfg.pipeline.tower_int8)
-    feats = projector_mod.forward(params["mm_projector"], feats)
-    return spatial_pool_2x2(feats, cfg.vision.num_patches_per_side,
-                            stride=cfg.pipeline.mm_spatial_pool_stride)
+    """(F, 384, 384, 3) NHWC pixels -> (F, 196, H) pooled projected features.
+
+    The tower and projector run under `torch.no_grad()`, so the features
+    come back detached: JAX's `stop_gradient` after the projector (the
+    reference detaches vision features in training too), and the frozen
+    tower keeps no activations for a backward."""
+    with torch.no_grad():
+        feats = siglip.forward(params["vision_tower"], cfg.vision, pixels,
+                               int8=cfg.pipeline.tower_int8)
+        feats = projector_mod.forward(params["mm_projector"], feats)
+        return spatial_pool_2x2(feats, cfg.vision.num_patches_per_side,
+                                stride=cfg.pipeline.mm_spatial_pool_stride)
 
 
 def _merge_frames(feature: torch.Tensor, newline: torch.Tensor) -> torch.Tensor:
@@ -87,9 +93,12 @@ def _embed_ids(lm_params, ids, device) -> torch.Tensor:
 
 def build_video_embeds(params, cfg: VLMConfig, feats: torch.Tensor,
                        frame_indices: torch.Tensor, frame_valid: torch.Tensor,
-                       fine_idx: torch.Tensor, nseg: int) -> torch.Tensor:
+                       fine_idx: torch.Tensor, nseg: int, *,
+                       drop_fine_frames: bool = False) -> torch.Tensor:
     """Memory + fine-frame visual stream with prompts, newlines and
-    token-type embeds: (10 + nseg*8*196 + 1 + 9 + nfine*196 + 1, H).
+    token-type embeds: (10 + nseg*8*196 + 1 [+ 9 + nfine*196 + 1 unless
+    drop_fine_frames], H). The prompt ids, the newline and the token-type
+    embeds stay in the autograd graph, as they do in JAX.
 
     feats (Fmax, 196, H) pooled and padded; frame_indices (Fmax,) original
     frame indices for the temporal PE; frame_valid (Fmax,) host bool;
@@ -107,10 +116,12 @@ def build_video_embeds(params, cfg: VLMConfig, feats: torch.Tensor,
     newline = params["memory"]["image_newline"].to(mem_tokens.dtype)
     lm = params["language_model"]
     mem_prompt = _embed_ids(lm, constants.MEMORY_PROMPT_IDS, dev).to(mem_tokens.dtype)
+    mem_stream = [mem_prompt, _merge_frames(mem_tokens, newline)]
+    if drop_fine_frames:
+        return torch.cat(mem_stream, dim=0)
     fine = feats[fine_idx.to(dev)] + tte[1]
     frame_prompt = _embed_ids(lm, constants.FRAME_PROMPT_IDS, dev).to(mem_tokens.dtype)
-    return torch.cat([mem_prompt, _merge_frames(mem_tokens, newline),
-                      frame_prompt, _merge_frames(fine, newline)], dim=0)
+    return torch.cat([*mem_stream, frame_prompt, _merge_frames(fine, newline)], dim=0)
 
 
 def splice_image_embeds(params, text_ids_before: torch.Tensor, visual: torch.Tensor,

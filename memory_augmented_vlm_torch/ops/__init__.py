@@ -1,2 +1,2 @@
-"""Tensor ops of the port: norms, RoPE, pooling, attention and the flash
-kernel's wrapper."""
+"""Tensor ops of the port: norms, RoPE, pooling, attention, quantization,
+and the wrappers of the CUDA kernels with their plain versions."""

@@ -5,6 +5,8 @@
   - `flash_attention`  : prefill/cross attention through `ops/flash.py` — the
                          CUDA kernel for CUDA tensors, its plain version for
                          CPU tensors. No size gate: every call site uses it.
+                         With `differentiable=True` (training) it takes
+                         `ops/flash_bwd.flash_attention_train` instead.
   - `decode_attention` : single-query attention against a padded KV cache,
                          GQA-native, plain torch.
 """
@@ -15,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from memory_augmented_vlm_torch.ops import flash
+from memory_augmented_vlm_torch.ops import flash, flash_bwd
 
 NEG_INF = -1e30  # finite large-negative, as in the JAX package
 
@@ -73,9 +75,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     kv_valid_len: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
-                    kv_groups: int = 1) -> torch.Tensor:
+                    kv_groups: int = 1,
+                    differentiable: bool = False) -> torch.Tensor:
     """Flash attention for prefill and cross-attention: q (B, Sq, H, D),
-    k/v (B, Skv, H // kv_groups, D), kv_valid_len (B,) int32. Forward
-    only."""
-    return flash.flash_attention(q, k, v, kv_valid_len, causal=causal,
-                                 scale=scale, kv_groups=kv_groups)
+    k/v (B, Skv, H // kv_groups, D), kv_valid_len (B,) int32.
+    `differentiable=True` selects the training kernels (forward with lse,
+    dQ and dK/dV kernels), as the JAX package does for its train step;
+    otherwise the forward kernel, whose backward is a plain recompute."""
+    fn = flash_bwd.flash_attention_train if differentiable else flash.flash_attention
+    return fn(q, k, v, kv_valid_len, causal=causal, scale=scale, kv_groups=kv_groups)

@@ -124,7 +124,20 @@ def load() -> ctypes.CDLL:
     # mlp_int8(dtype, hidden, ln_w, ln_b, w1, s1, b1, w2, s2, b2, out,
     #          xq, h, hq, sx, hmax, sh, M, K, I, eps, stream)
     lib.mlp_int8.argtypes = [c_int] + [ptr] * 16 + [c_int] * 3 + [ctypes.c_float, ptr]
-    for fn in (lib.flash_fwd, lib.flash_merge, lib.qkv_int8, lib.mlp_int8):
+    strides = ctypes.POINTER(c_ll)
+    # flash_fwd_lse(dtype, head_dim, q, k, v, out, lse, valid_len, B, Sq, Skv,
+    #               H, kv_groups, causal, 4 x strides, scale, scale_log2, stream)
+    lib.flash_fwd_lse.argtypes = ([c_int, c_int] + [ptr] * 6 + [c_int] * 6 + [strides] * 4
+                                  + [ctypes.c_float] * 2 + [ptr])
+    # flash_bwd_dq(dtype, head_dim, q, k, v, dout, lse, delta, dq, valid_len,
+    #              B, Sq, Skv, H, kv_groups, causal, 5 x strides, scale, scale_log2, stream)
+    lib.flash_bwd_dq.argtypes = ([c_int, c_int] + [ptr] * 8 + [c_int] * 6 + [strides] * 5
+                                 + [ctypes.c_float] * 2 + [ptr])
+    # flash_bwd_dkv(..., dk, dv, valid_len, ...): as flash_bwd_dq with two outputs
+    lib.flash_bwd_dkv.argtypes = ([c_int, c_int] + [ptr] * 9 + [c_int] * 6 + [strides] * 5
+                                  + [ctypes.c_float] * 2 + [ptr])
+    for fn in (lib.flash_fwd, lib.flash_merge, lib.qkv_int8, lib.mlp_int8, lib.flash_fwd_lse,
+               lib.flash_bwd_dq, lib.flash_bwd_dkv):
         fn.restype = c_int
     lib.kernel_error_string.argtypes = [c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

@@ -7,6 +7,11 @@ kernel's function: q scaled by scale*log2(e) and rounded to the input dtype,
 fp32 scores, a base-2 softmax, keys at or past `kv_valid_len[b]` masked (and
 above the diagonal when `causal`), P rounded to the input dtype before PV,
 zero rows where no key is valid, and the output in the input dtype.
+`flash_attention` is differentiable, as `pallas_flash_attention`'s
+`custom_vjp` is: its backward recomputes `xla_attention_reference` in
+plain PyTorch and takes that function's gradient (JAX's `_flash_bwd` is
+XLA code outside any Pallas kernel). The LM's training attention has
+kernels of its own (`ops/flash_bwd.py`).
 
 `flash_attention_merge_heads` is the counterpart of `pallas_flash.py::
 flash_attention_merge_heads` (its non-`int8_scores` mode): head-major
@@ -47,6 +52,21 @@ def _shapes(q, k, v, kv_groups, causal):
     return b, sq, skv, h, d
 
 
+def attention_mask(b: int, sq: int, skv: int, kv_valid_len: Optional[torch.Tensor],
+                   causal: bool, device) -> torch.Tensor:
+    """Bool mask broadcastable to (B, H, Sq, Skv): key c is visible to query
+    row r when c < kv_valid_len[b] (every key when it is None) and, when
+    causal, c <= r."""
+    col = torch.arange(skv, device=device)
+    if kv_valid_len is None:
+        mask = torch.ones((b, 1, 1, skv), dtype=torch.bool, device=device)
+    else:
+        mask = (col[None, :] < kv_valid_len.to(device)[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (col[None, :] <= torch.arange(sq, device=device)[:, None])
+    return mask
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -69,13 +89,7 @@ def flash_attention_reference(
         v = v.repeat_interleave(kv_groups, dim=2)
     qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
-    col = torch.arange(skv, device=q.device)
-    if kv_valid_len is None:
-        mask = torch.ones((b, 1, 1, skv), dtype=torch.bool, device=q.device)
-    else:
-        mask = (col[None, :] < kv_valid_len.to(q.device)[:, None])[:, None, None, :]
-    if causal:
-        mask = mask & (col[None, :] <= torch.arange(sq, device=q.device)[:, None])
+    mask = attention_mask(b, sq, skv, kv_valid_len, causal, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -111,29 +125,13 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise ValueError("batch and head counts must fit a CUDA grid axis")
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kv_valid_len: Optional[torch.Tensor] = None,
-    *,
-    causal: bool = False,
-    scale: Optional[float] = None,
-    kv_groups: int = 1,
-) -> torch.Tensor:
-    """Flash attention over bshd tensors; see `flash_attention_reference` for
-    the arguments. CPU tensors take the plain version; CUDA tensors launch
-    `csrc/flash_fwd.cu` (head dims 64/72/112/128, bf16 or fp32) and count
-    the launch in `flash_attention.launches`."""
+def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_valid_len, causal=causal,
                                          scale=scale, kv_groups=kv_groups)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    scale = d ** -0.5 if scale is None else scale
-    if kv_valid_len is None:
-        kv_valid_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
     _check_kernel_args(q, k, v, kv_valid_len, d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0 or b == 0:
@@ -148,6 +146,75 @@ def flash_attention(
     cuda_lib.check(lib, rc, "flash_fwd")
     flash_attention.launches += 1
     return out
+
+
+def xla_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid_len: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+    kv_groups: int = 1,
+) -> torch.Tensor:
+    """The function whose gradient is the kernel's backward (JAX
+    `pallas_flash._xla_attention`): fp32 logits of the unrounded q, times
+    `scale`, MASK_VALUE where masked, a natural-base fp32 softmax, and the
+    probabilities cast to q's dtype before PV."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    if kv_groups > 1:
+        k = k.repeat_interleave(kv_groups, dim=2)
+        v = v.repeat_interleave(kv_groups, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = attention_mask(b, sq, skv, kv_valid_len, causal, q.device)
+    probs = torch.softmax(torch.where(mask, logits, MASK_VALUE), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through the kernel; backward as JAX's `_flash_bwd`, which is
+    XLA code outside any Pallas kernel: recompute `xla_attention_reference`
+    in plain PyTorch and take its gradient with `torch.autograd.grad`. The
+    recompute holds (B, H, Sq, Skv) fp32 logits, about 0.8 GB at the
+    memory's evolve shape (8 heads, 1568 x 15680)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid_len, causal, scale, kv_groups):
+        ctx.save_for_backward(q, k, v, kv_valid_len)
+        ctx.opts = dict(causal=causal, scale=scale, kv_groups=kv_groups)
+        return _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, kv_valid_len = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = xla_attention_reference(*inputs, kv_valid_len, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad_out)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    kv_groups: int = 1,
+) -> torch.Tensor:
+    """Flash attention over bshd tensors; see `flash_attention_reference` for
+    the arguments. CPU tensors take the plain version; CUDA tensors launch
+    `csrc/flash_fwd.cu` (head dims 64/72/112/128, bf16 or fp32) and count
+    the launch in `flash_attention.launches`. Differentiable: the backward
+    is `_FlashAttention`'s plain recompute."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    scale = d ** -0.5 if scale is None else scale
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    return _FlashAttention.apply(q, k, v, kv_valid_len, causal, scale, kv_groups)
 
 
 flash_attention.launches = 0

@@ -1,0 +1,271 @@
+"""Differentiable flash attention for training: the CUDA kernels of
+`csrc/flash_train.cu` and their plain PyTorch versions.
+
+Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py` (bshd
+layout, GQA through `kv_groups`):
+
+  - `forward_with_lse` (`_forward_with_lse`): the flash forward of
+    `ops/flash.py` with masked scores at the finite MASK_VALUE, that also
+    returns lse (B, H, Sq) fp32 in log2 units, m + log2(max(l, 1e-30));
+    a batch with valid length 0 gives out = 0 and lse = -inf;
+  - `backward_dq` and `backward_dkv` (`_backward`'s two kernels): with q
+    scaled by scale*log2(e) and rounded to its dtype, p = exp2(s - lse)
+    zeroed where masked, ds = p * (dp - delta) * scale; dQ = ds K, dV =
+    p^T dO with p rounded to dO's dtype, dK = ds^T Q with ds rounded to
+    q's dtype. dK/dV of a KV head sum over its group of query heads;
+  - `backward` adds delta = rowsum(dO * O) in fp32 (plain torch, as JAX
+    leaves it to XLA) and runs both;
+  - `flash_attention_train`, a `torch.autograd.Function` whose forward
+    saves (q, k, v, out, lse, kv_valid_len), as `_flash_train_fwd` does.
+
+Each kernel wrapper takes its plain version (`*_reference`) only for
+tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
+head dims 64 and 128) or raises, and counts the launch in `.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from memory_augmented_vlm_torch.ops import cuda_lib
+from memory_augmented_vlm_torch.ops.flash import (_KERNEL_DTYPES, LOG2E, MASK_VALUE,
+                                                  _check_kernel_args, _shapes, attention_mask)
+
+TRAIN_HEAD_DIMS = (64, 128)
+
+
+def _repeat(x: torch.Tensor, groups: int) -> torch.Tensor:
+    return x if groups == 1 else x.repeat_interleave(groups, dim=2)
+
+
+def _scaled_scores(q, k, scale, kv_groups):
+    """fp32 (B, H, Sq, Skv) scores of q * scale * log2(e) rounded to q's dtype."""
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    return torch.einsum("bqhd,bkhd->bhqk", qs, _repeat(k, kv_groups).float())
+
+
+def forward_with_lse_reference(q, k, v, kv_valid_len, *, causal: bool, scale: float,
+                               kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `forward_with_lse`: (out (B, Sq, H, D) in q's dtype,
+    lse (B, H, Sq) fp32 in log2 units)."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    mask = attention_mask(b, sq, skv, kv_valid_len, causal, q.device)
+    s = _scaled_scores(q, k, scale, kv_groups).masked_fill(~mask, MASK_VALUE)
+    m = s.amax(dim=-1)
+    p = torch.exp2(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                     _repeat(v, kv_groups).float())
+    lse = m + torch.log2(l.clamp_min(1e-30))
+    o = o / l.transpose(1, 2)[..., None]
+    # a batch with no valid key runs no block on the TPU: out 0, lse -inf
+    empty = (kv_valid_len.to(q.device) <= 0)
+    o = o.masked_fill(empty[:, None, None, None], 0.0)
+    lse = lse.masked_fill(empty[:, None, None], float("-inf"))
+    return o.to(q.dtype), lse
+
+
+def _probs(q, k, lse, kv_valid_len, causal, scale, kv_groups):
+    """The backward's p = exp2(s - lse), fp32 (B, H, Sq, Skv), zero where
+    masked."""
+    b, sq, h, _ = q.shape
+    mask = attention_mask(b, sq, k.shape[1], kv_valid_len, causal, q.device)
+    p = torch.exp2(_scaled_scores(q, k, scale, kv_groups) - lse[..., None])
+    return torch.where(mask, p, torch.zeros((), device=q.device))
+
+
+def _dscores(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups):
+    p = _probs(q, k, lse, kv_valid_len, causal, scale, kv_groups)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), _repeat(v, kv_groups).float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def backward_dq_reference(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool,
+                          scale: float, kv_groups: int = 1) -> torch.Tensor:
+    """Plain version of `backward_dq`: dQ (B, Sq, H, D) in q's dtype."""
+    _, ds = _dscores(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      _repeat(k, kv_groups).float())
+    return dq.to(q.dtype)
+
+
+def backward_dkv_reference(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool,
+                           scale: float, kv_groups: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `backward_dkv`: dK, dV (B, Skv, H // kv_groups, D)
+    in k's and v's dtypes, each summed over its group in fp32."""
+    p, ds = _dscores(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+
+    def group_sum(x):
+        b, skv, h, d = x.shape
+        return x.reshape(b, skv, h // kv_groups, kv_groups, d).sum(dim=3)
+
+    return group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def _strides(x: torch.Tensor):
+    return (ctypes.c_longlong * 3)(*x.stride()[:3])
+
+
+def _check_train_args(q, k, v, kv_valid_len, d, *extra):
+    _check_kernel_args(q, k, v, kv_valid_len, d)
+    if d not in TRAIN_HEAD_DIMS:
+        raise ValueError(f"training kernels take head dims {TRAIN_HEAD_DIMS}, got {d}")
+    for name, x in extra:
+        if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 tensor on {q.device}")
+
+
+def forward_with_lse(q, k, v, kv_valid_len, *, causal: bool, scale: float,
+                     kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash forward that also returns lse; see `forward_with_lse_reference`.
+    CUDA tensors launch `flash_fwd_lse` of `csrc/flash_train.cu`."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    if q.device.type == "cpu":
+        return forward_with_lse_reference(q, k, v, kv_valid_len, causal=causal, scale=scale,
+                                          kv_groups=kv_groups)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    _check_train_args(q, k, v, kv_valid_len, d)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if b == 0 or sq == 0:
+        return out, lse
+    lib = cuda_lib.load()
+    rc = lib.flash_fwd_lse(
+        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal),
+        _strides(q), _strides(k), _strides(v), _strides(out), scale, scale * LOG2E,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_fwd_lse")
+    forward_with_lse.launches += 1
+    return out, lse
+
+
+forward_with_lse.launches = 0
+
+
+def _backward_args(q, k, v, dout, lse, delta, kv_groups, causal):
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    if tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"dout must be {tuple(q.shape)}, got {tuple(dout.shape)}")
+    if tuple(lse.shape) != (b, h, sq) or tuple(delta.shape) != (b, h, sq):
+        raise ValueError(f"lse and delta must be {(b, h, sq)}")
+    return b, sq, skv, h, d
+
+
+def _check_dout(q, dout):
+    if dout.dtype != q.dtype or dout.device != q.device or not dout.is_contiguous():
+        raise ValueError("dout must be contiguous, with q's dtype and device")
+
+
+def backward_dq(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
+                kv_groups: int = 1) -> torch.Tensor:
+    """dQ; see `backward_dq_reference`. CUDA tensors launch `flash_bwd_dq`."""
+    b, sq, skv, h, d = _backward_args(q, k, v, dout, lse, delta, kv_groups, causal)
+    if q.device.type == "cpu":
+        return backward_dq_reference(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
+                                     scale=scale, kv_groups=kv_groups)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    _check_train_args(q, k, v, kv_valid_len, d, ("lse", lse), ("delta", delta))
+    _check_dout(q, dout)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if b == 0 or sq == 0:
+        return dq
+    lib = cuda_lib.load()
+    rc = lib.flash_bwd_dq(
+        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv,
+        h, kv_groups, int(causal), _strides(q), _strides(k), _strides(v), _strides(dout),
+        _strides(dq), scale, scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_bwd_dq")
+    backward_dq.launches += 1
+    return dq
+
+
+backward_dq.launches = 0
+
+
+def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
+                 kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV; see `backward_dkv_reference`. CUDA tensors launch
+    `flash_bwd_dkv`: one block per 64 keys of a KV head accumulates its
+    whole group of query heads."""
+    b, sq, skv, h, d = _backward_args(q, k, v, dout, lse, delta, kv_groups, causal)
+    if q.device.type == "cpu":
+        return backward_dkv_reference(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
+                                      scale=scale, kv_groups=kv_groups)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    _check_train_args(q, k, v, kv_valid_len, d, ("lse", lse), ("delta", delta))
+    _check_dout(q, dout)
+    dk = torch.empty((b, skv, h // kv_groups, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if b == 0 or skv == 0:
+        return dk, dv
+    lib = cuda_lib.load()
+    rc = lib.flash_bwd_dkv(
+        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
+        _strides(k), _strides(v), _strides(dout), _strides(dk), scale, scale * LOG2E,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_bwd_dkv")
+    backward_dkv.launches += 1
+    return dk, dv
+
+
+backward_dkv.launches = 0
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, H, Sq)."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def backward(q, k, v, out, lse, dout, kv_valid_len, *, causal: bool, scale: float,
+             kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) from the saved forward residuals, as `_backward`."""
+    dout = dout.contiguous()
+    delta = attention_delta(out, dout)
+    kw = dict(causal=causal, scale=scale, kv_groups=kv_groups)
+    dq = backward_dq(q, k, v, dout, lse, delta, kv_valid_len, **kw)
+    dk, dv = backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid_len, causal, scale, kv_groups):
+        out, lse = forward_with_lse(q, k, v, kv_valid_len, causal=causal, scale=scale,
+                                    kv_groups=kv_groups)
+        ctx.save_for_backward(q, k, v, out, lse, kv_valid_len)
+        ctx.opts = dict(causal=causal, scale=scale, kv_groups=kv_groups)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse, kv_valid_len = ctx.saved_tensors
+        dq, dk, dv = backward(q, k, v, out, lse, grad_out, kv_valid_len, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_valid_len: Optional[torch.Tensor] = None, *, causal: bool = True,
+                          scale: Optional[float] = None, kv_groups: int = 1) -> torch.Tensor:
+    """Differentiable flash attention (JAX `flash_attention_train`): q (B, Sq,
+    H, D), k/v (B, Skv, H // kv_groups, D), kv_valid_len (B,) int (None =
+    every key valid). Forward through `forward_with_lse`, backward through
+    `backward_dq` and `backward_dkv`."""
+    b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    scale = d ** -0.5 if scale is None else scale
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    kv_valid_len = kv_valid_len.to(device=q.device, dtype=torch.int32)
+    return _FlashAttentionTrain.apply(q, k, v, kv_valid_len, causal, scale, kv_groups)

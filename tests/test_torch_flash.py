@@ -113,8 +113,8 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
-    assert [p.name for p in srcs] == ["flash_fwd.cu", "flash_merge.cu", "mlp_int8.cu",
-                                      "qkv_int8.cu"]
+    assert [p.name for p in srcs] == ["flash_fwd.cu", "flash_merge.cu", "flash_train.cu",
+                                      "mlp_int8.cu", "qkv_int8.cu"]
     assert all(p.is_file() for p in srcs)
     compiles, link = cuda_lib.nvcc_commands("nvcc", Path("out.so"))
     assert len(compiles) == len(srcs)  # one nvcc per source, run side by side

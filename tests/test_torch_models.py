@@ -255,7 +255,8 @@ def test_unported_modes_raise(part, field, value):
 
 # ------------------------------------------------------ assembly and init
 
-def test_encode_frames_and_video_embeds_match_jax():
+@pytest.mark.parametrize("drop_fine_frames", [False, True])
+def test_encode_frames_and_video_embeds_match_jax(drop_fine_frames):
     jp = jvlm.init_params(TINY, jax.random.key(12))
     pcfg = convert.config_from_fields(TINY)
     tp = convert.from_jax_params(_np_tree(jp), pcfg, device="cpu")
@@ -269,10 +270,13 @@ def test_encode_frames_and_video_embeds_match_jax():
     fine = tvlm.fine_frame_indices(12, TINY.memory.num_fine_frames)
     np.testing.assert_array_equal(fine, jvlm.fine_frame_indices(12, 4))
     jv = jvlm.build_video_embeds(jp, TINY, jnp.asarray(feats), jnp.arange(16),
-                                 jnp.asarray(valid), jnp.asarray(fine), nseg=2)
+                                 jnp.asarray(valid), jnp.asarray(fine), nseg=2,
+                                 drop_fine_frames=drop_fine_frames)
     tv = tvlm.build_video_embeds(tp, pcfg, torch.from_numpy(feats), torch.arange(16),
-                                 torch.from_numpy(valid), torch.from_numpy(fine), nseg=2)
-    assert tv.shape == jv.shape == (10 + 2 * 2 * 4 + 1 + 9 + 4 * 4 + 1, 32)
+                                 torch.from_numpy(valid), torch.from_numpy(fine), nseg=2,
+                                 drop_fine_frames=drop_fine_frames)
+    fine_stream = 0 if drop_fine_frames else 9 + 4 * 4 + 1
+    assert tv.shape == jv.shape == (10 + 2 * 2 * 4 + 1 + fine_stream, 32)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
 
 

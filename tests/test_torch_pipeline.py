@@ -73,6 +73,8 @@ def test_port_imports_no_jax():
         for p in pkg.rglob("*.py") if p.name != "__init__.py")
     assert "memory_augmented_vlm_torch.pipeline" in modules
     assert "memory_augmented_vlm_torch.constants" in modules
+    for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree"):
+        assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=pkg.parent, timeout=120)
