@@ -16,16 +16,29 @@ each of which raises on failure:
                 (CUDA events, median of 5) and the card's bound: the three
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2) and at edge cases in bf16 and fp32, the backward
-                of flash_fwd at the memory's fuse shape, flash_fwd, and the
-                three int8 kernels;
-  4. requests — the full-width 0.5B int8 serving model (random weights from
+                of flash_fwd at the memory's fuse shape, flash_fwd, the
+                three int8 kernels of the default tower, and the four of the
+                fused configuration and the w8a8 layer (int8_matmul,
+                fused_mlp_int8, fused_swiglu_block_int8,
+                flash_attention_out_proj_int8);
+  4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
+                (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
+                between against one fused_mlp_int8 call, held against each
+                other and against their plain versions, and timed;
+  5. requests — the full-width 0.5B int8 serving model (random weights from
                 a seed, prequantized on the card) answers 64-, 16- and
                 128-frame clips with 32 greedy tokens; the bf16 model answers
                 a 64-frame clip. Each checks the token accounting and that
                 every kernel's launch count rose by what the config implies;
                 then one 64-frame request of each model with its stages
-                synchronised and timed;
-  5. train    — four full-width bf16 train steps of bench_train.py's
+                synchronised and timed. The fused configuration runs beside
+                it on the same weights: the 64-frame tower with
+                fused_oproj=True (launches 26/26/26 and no merge launch)
+                against the unfused tower, and the 64-frame request with
+                qwen2.fused_swiglu_enabled (24 fused launches, all in
+                prefill) against the unfused request, each held to the int8
+                model's noise floor measured in the same run, and timed;
+  6. train    — four full-width bf16 train steps of bench_train.py's
                 configuration (64 frames, 9557 tokens, AdamW with its LR
                 groups) on distinct seeded batches: finite losses, 120
                 target tokens, exact per-step launch counts, frozen tower,
@@ -34,10 +47,11 @@ each of which raises on failure:
                 step with its stages synchronised, one under torch.profiler
                 (kernel time by kind, device idle share), and the peak
                 memory;
-  6. parity   — full widths cut to 2 tower and 2 LM layers, fp32: the card
+  7. parity   — full widths cut to 2 tower and 2 LM layers, fp32: the card
                 (through the kernels) against the CPU (plain versions) on the
                 same weights, for the bf16-path model (8 frames), the int8
-                model with an int8 KV cache, and one train step (40 frames,
+                model with an int8 KV cache, the same with both fusions on,
+                and one train step (40 frames,
                 2 segments), whose loss, grad_norm and every gradient leaf
                 are compared.
 
@@ -50,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -63,7 +78,8 @@ import torch.nn.functional as F
 from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
-from memory_augmented_vlm_torch.ops import cuda_lib, flash, flash_bwd, mlp_int8, qkv_int8, quant
+from memory_augmented_vlm_torch.ops import (cuda_lib, flash, flash_bwd, mlp_int8, pallas_int8,
+                                            qkv_int8, quant, swiglu_int8)
 from memory_augmented_vlm_torch.train import optimizer, trainer
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str
 
@@ -103,6 +119,24 @@ PARITY_ATOL = 1e-3
 # kernel lands near 1 std.
 INT8_PARITY_ATOL = 0.25
 INT8_PARITY_RMS = 0.1
+# a fused kernel against the composition it replaces (the chain path: two
+# int8_matmul calls and a GELU against fused_mlp_int8). The composition
+# rounds the intermediate to bf16 before it is requantized and the fused
+# kernel keeps it in fp32, so codes differ wherever a bf16 step crosses a
+# code boundary, not only at ties: the outputs agree to the int8
+# quantization noise itself. Held as the JAX package's tests hold a fused
+# kernel to its composition: the RMS difference within 2e-2 of the output's
+# spread, and no element further than INT8_MAX_ABS.
+FUSED_VS_COMPOSED_RMS = 2e-2
+# the full-width fused tower and fused request against the unfused ones, in
+# bf16. The fusions change roundings (bias and residual in fp32; the MLP's
+# intermediates in fp32), and the int8 model amplifies any such change into
+# a re-drawn copy of its quantization noise (see INT8_PARITY_ATOL). The
+# yardstick is that noise, measured in the same run: the unfused path against
+# itself with the bf16 pixels scaled by 1 + 2^-8 (each moves by at most one
+# bf16 step). The fused path may differ from the unfused one by three times
+# that floor, in RMS over the output's spread and in the largest element.
+FUSED_FLOOR_FACTOR = 3.0
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
 TRAIN_FRAMES, TRAIN_TEXT, TRAIN_IGNORED = 64, 128, 8
@@ -446,6 +480,243 @@ def phase_int8_kernels():
     ]
 
 
+# ------------------------------- fused configuration and w8a8 kernels
+
+
+def _rms(out, ref) -> float:
+    """RMS difference over the spread of `ref`."""
+    return float((out.float() - ref.float()).pow(2).mean().sqrt() / ref.float().std())
+
+
+def _swiglu_args(gen, m, k, i, dtype, dev):
+    hidden = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    hidden[m // 2] = 0  # the prompt's padding rows are zeros
+    rms_w = 1.0 + 0.1 * torch.randn((k,), generator=gen, device=dev)
+    (wg, sg, _), (wu, su, _), (wd, sd, _) = (_int8_weight(gen, k, i, dev),
+                                             _int8_weight(gen, k, i, dev),
+                                             _int8_weight(gen, i, k, dev))
+    return (hidden, rms_w, wg, sg, wu, su, wd, sd)
+
+
+def _oproj_args(gen, b, s, nh, d, valid, dtype, dev):
+    q, k, v = (torch.randn((b, nh, s, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    hidden = torch.randn((b, s, nh * d), generator=gen, device=dev).to(dtype)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    return (q, k, v, vl, hidden, *_int8_weight(gen, nh * d, nh * d, dev))
+
+
+def phase_fused_kernels():
+    """int8_matmul, fused_mlp_int8, fused_swiglu_block_int8 and
+    flash_attention_out_proj_int8 at the shapes of the chain path, the LM
+    prefill and the 64-frame tower, and at edge cases."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    dev = "cuda"
+    b, s, h, nh, inter = 64, 729, 1152, 16, 4304
+    m = b * s
+    lm_rows, lm_h, lm_i = 9472, 896, 4864
+    rows = {}
+
+    # --- int8_matmul: both products of the chain, and one decode row
+    errs, shapes = [], []
+    for name, mm, k, n in (("chain_fc1", m, h, inter), ("chain_fc2", m, inter, h),
+                           ("lm_row", 1, lm_h, lm_i)):
+        x = torch.randn((mm, k), generator=gen, device=dev).to(torch.bfloat16)
+        w, sw, bias = _int8_weight(gen, k, n, dev)
+        out = pallas_int8.int8_matmul(x, w, sw, bias)
+        torch.cuda.synchronize()
+        err = _compare(f"matmul_{name}", out, pallas_int8.int8_matmul_reference(x, w, sw, bias),
+                       x=list(x.shape), n=n)["max_abs_err"]
+        errs.append(err)
+        xq, _ = quant.quantize_rows(x)
+        xq32 = F.pad(xq, (0, 0, 0, 32 - mm)) if mm < 32 else xq  # _int_mm takes > 16 rows
+        bound, by = _bound(2.0 * mm * k * n, PEAK_INT8,
+                           _nbytes(x, out, w) + 4 * (n + n))
+        shapes.append({
+            "case": name, "max_abs_err": err,
+            "ms": _time_ms(lambda: pallas_int8.int8_matmul(x, w, sw, bias)),
+            "plain_ms": _time_ms(lambda: pallas_int8.int8_matmul_reference(x, w, sw, bias)),
+            "library_ms": _time_ms(lambda: torch._int_mm(xq32, w)),
+            "bound_ms": bound, "bound_by": by})
+        del x, w, out, xq, xq32
+    chain = shapes[:2]  # the kernel's main path is the chain
+    rows["matmul"] = {
+        **{key: sum(r[key] for r in chain) for key in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms")},
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in chain)
+        else "bytes",
+        "library_call": "torch._int_mm (46656x1152 @ 1152x4304, 46656x4304 @ 4304x1152): "
+                        "the matmul share only",
+        "per_shape": shapes}
+    for mm, k, n, dtype, with_bias in ((300, h, inter, torch.float32, True),
+                                       (300, h, inter, torch.bfloat16, False),
+                                       (5, lm_h, lm_i, torch.float32, False)):
+        x = torch.randn((mm, k), generator=gen, device=dev).to(dtype)
+        x[mm // 2] = 0  # a zero row takes the floor scale
+        w, sw, bias = _int8_weight(gen, k, n, dev)
+        bias = bias if with_bias else None
+        out = pallas_int8.int8_matmul(x, w, sw, bias)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"matmul_edge_{mm}", out,
+                             pallas_int8.int8_matmul_reference(x, w, sw, bias),
+                             x=list(x.shape), dtype=str(dtype),
+                             bias=with_bias)["max_abs_err"])
+        if float(out[mm // 2].float().abs().max()) > (float(bias.abs().max()) if with_bias
+                                                      else 0.0):
+            raise RuntimeError("int8_matmul: a zero row gave more than its bias")
+    rows["matmul"]["max_abs_err"] = max(errs)
+
+    # --- fused_mlp_int8
+    args = _mlp_args(gen, m, h, inter, torch.bfloat16, dev)
+    args = (args[0], *args[3:])  # no LayerNorm
+    out = mlp_int8.fused_mlp_int8(*args)
+    torch.cuda.synchronize()
+    errs = [_compare("mlp_core", out, mlp_int8.fused_mlp_int8_reference(*args),
+                     x=list(args[0].shape))["max_abs_err"]]
+    xq, _ = quant.quantize_rows(args[0])
+    hq = torch.randint(-127, 128, (m, inter), generator=gen, device=dev, dtype=torch.int8)
+    bound, by = _bound(2.0 * m * h * inter * 2, PEAK_INT8,
+                       2 * _nbytes(args[0]) + _nbytes(args[1], args[4]))
+    rows["mlp_core"] = {
+        "ms": _time_ms(lambda: mlp_int8.fused_mlp_int8(*args)),
+        "plain_ms": _time_ms(lambda: mlp_int8.fused_mlp_int8_reference(*args)),
+        "library_ms": _time_ms(lambda: (torch._int_mm(xq, args[1]), torch._int_mm(hq, args[4]))),
+        "library_call": "torch._int_mm x2 (46656x1152 @ 1152x4304, 46656x4304 @ 4304x1152): "
+                        "the matmul share only",
+        "bound_ms": bound, "bound_by": by}
+    del args, out, xq, hq
+    for mm, dtype in ((300, torch.bfloat16), (300, torch.float32), (1, torch.bfloat16)):
+        args = _mlp_args(gen, mm, h, inter, dtype, dev)
+        args = (args[0], *args[3:])
+        out = mlp_int8.fused_mlp_int8(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"mlp_core_edge_{mm}", out, mlp_int8.fused_mlp_int8_reference(*args),
+                             x=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+    rows["mlp_core"]["max_abs_err"] = max(errs)
+
+    # --- fused_swiglu_block_int8
+    args = _swiglu_args(gen, lm_rows, lm_h, lm_i, torch.bfloat16, dev)
+    out = swiglu_int8.fused_swiglu_block_int8(*args)
+    torch.cuda.synchronize()
+    errs = [_compare("swiglu", out, swiglu_int8.fused_swiglu_block_int8_reference(*args),
+                     hidden=list(args[0].shape))["max_abs_err"]]
+    xq, _ = quant.quantize_rows(args[0])
+    hq = torch.randint(-127, 128, (lm_rows, lm_i), generator=gen, device=dev, dtype=torch.int8)
+    bound, by = _bound(2.0 * lm_rows * lm_h * lm_i * 3, PEAK_INT8,
+                       2 * _nbytes(args[0]) + _nbytes(args[2], args[4], args[6]))
+    rows["swiglu"] = {
+        "ms": _time_ms(lambda: swiglu_int8.fused_swiglu_block_int8(*args)),
+        "plain_ms": _time_ms(lambda: swiglu_int8.fused_swiglu_block_int8_reference(*args)),
+        "library_ms": _time_ms(lambda: (torch._int_mm(xq, args[2]), torch._int_mm(xq, args[4]),
+                                        torch._int_mm(hq, args[6]))),
+        "library_call": "torch._int_mm x3 (9472x896 @ 896x4864 twice, 9472x4864 @ 4864x896): "
+                        "the matmul share only",
+        "bound_ms": bound, "bound_by": by}
+    del args, out, xq, hq
+    for mm, dtype in ((300, torch.bfloat16), (300, torch.float32), (1, torch.bfloat16)):
+        args = _swiglu_args(gen, mm, lm_h, lm_i, dtype, dev)
+        out = swiglu_int8.fused_swiglu_block_int8(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"swiglu_edge_{mm}", out,
+                             swiglu_int8.fused_swiglu_block_int8_reference(*args),
+                             hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+        if not torch.equal(out[mm // 2], args[0][mm // 2]):
+            raise RuntimeError("swiglu: a zero row did not come back as it went in")
+    rows["swiglu"]["max_abs_err"] = max(errs)
+
+    # --- flash_attention_out_proj_int8
+    args = _oproj_args(gen, b, s, nh, 72, [s] * b, torch.bfloat16, dev)
+    out = flash.flash_attention_out_proj_int8(*args)
+    torch.cuda.synchronize()
+    errs = [_compare("oproj", out, flash.flash_attention_out_proj_int8_reference(*args),
+                     q=list(args[0].shape))["max_abs_err"]]
+    xq = torch.randint(-127, 128, (m, h), generator=gen, device=dev, dtype=torch.int8)
+    q, k, v = args[:3]
+    t_ops = 4.0 * b * nh * s * s * 72 / PEAK_BF16 + 2.0 * m * h * h / PEAK_INT8
+    t_bytes = (_nbytes(q, k, v, args[5]) + 2 * _nbytes(args[4])) / PEAK_BYTES
+    rows["oproj"] = {
+        "ms": _time_ms(lambda: flash.flash_attention_out_proj_int8(*args)),
+        "plain_ms": _time_ms(lambda: flash.flash_attention_out_proj_int8_reference(*args)),
+        "library_ms": _time_ms(lambda: (F.scaled_dot_product_attention(q, k, v),
+                                        torch._int_mm(xq, args[5]))),
+        "library_call": "scaled_dot_product_attention (64, 16, 729, 72) bf16 + torch._int_mm "
+                        "(46656x1152 @ 1152x1152): the attention and matmul shares only",
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    del args, out, xq, q, k, v
+    for valid, dtype in (((77, 150), torch.bfloat16), ((0, 150), torch.bfloat16),
+                         ((0, 77), torch.float32)):
+        args = _oproj_args(gen, 2, 150, nh, 72, valid, dtype, dev)
+        out = flash.flash_attention_out_proj_int8(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"oproj_edge_{valid}", out,
+                             flash.flash_attention_out_proj_int8_reference(*args),
+                             q=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+    rows["oproj"]["max_abs_err"] = max(errs)
+    torch.cuda.empty_cache()
+    return [
+        {"name": "flash_attention_out_proj_int8", "route": "cuda",
+         "source": CSRC + "flash_merge.cu",
+         "replaces": "memory_augmented_vlm_tpu/ops/pallas_flash.py:441", **rows["oproj"]},
+        {"name": "fused_mlp_int8", "route": "cuda", "source": CSRC + "mlp_int8.cu",
+         "replaces": "memory_augmented_vlm_tpu/ops/pallas_mlp_int8.py:51", **rows["mlp_core"]},
+        {"name": "fused_swiglu_block_int8", "route": "cuda", "source": CSRC + "swiglu_int8.cu",
+         "replaces": "memory_augmented_vlm_tpu/ops/pallas_mlp_int8.py:214", **rows["swiglu"]},
+        {"name": "int8_matmul", "route": "cuda", "source": CSRC + "int8_matmul.cu",
+         "replaces": "memory_augmented_vlm_tpu/ops/pallas_int8.py:63", **rows["matmul"]},
+    ]
+
+
+def phase_chain():
+    """The dependent int8 MLP chain f2(f1(x)) at the tower's shape, as the
+    JAX package's chain and fused-MLP tools run it: through two int8_matmul
+    calls with a tanh GELU between, and through one fused_mlp_int8 call.
+    Returns the launch counts of the path."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    dev = "cuda"
+    m, k, i = 46656, 1152, 4304
+    x = (torch.randn((m, k), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    w1, s1, b1 = _int8_weight(gen, k, i, dev)
+    w2, s2, b2 = _int8_weight(gen, i, k, dev)
+
+    def chain(mm):
+        return mm(F.gelu(mm(x, w1, s1, b1), approximate="tanh"), w2, s2, b2)
+
+    def fused():
+        return mlp_int8.fused_mlp_int8(x, w1, s1, b1, w2, s2, b2)
+
+    _reset_launches()
+    y_chain = chain(pallas_int8.int8_matmul)
+    y_fused = fused()
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = {**dict.fromkeys(WRAPPERS, 0), "int8_matmul": 2, "fused_mlp_int8": 1}
+    if launches != want:
+        raise RuntimeError(f"chain: launches {launches}, want {want}")
+    _compare("chain_vs_plain_chain", y_chain, chain(pallas_int8.int8_matmul_reference))
+    _compare("fused_vs_plain_fused", y_fused,
+             mlp_int8.fused_mlp_int8_reference(x, w1, s1, b1, w2, s2, b2))
+    rms = _rms(y_chain, y_fused)
+    err = float((y_chain.float() - y_fused.float()).abs().max())
+    row = {"chain": "f2(gelu(f1(x))), 46656 x 1152 x 4304, bf16",
+           "chain_vs_fused_rms_over_std": rms, "chain_vs_fused_max_abs": err,
+           "tol": f"rms <= {FUSED_VS_COMPOSED_RMS}, max abs <= {INT8_MAX_ABS}",
+           "chain_ms": _time_ms(lambda: chain(pallas_int8.int8_matmul)),
+           "fused_ms": _time_ms(fused),
+           "chain_ms_again": _time_ms(lambda: chain(pallas_int8.int8_matmul)),
+           "launches": launches}
+    log(json.dumps(row))
+    if not (torch.isfinite(y_chain).all() and torch.isfinite(y_fused).all()):
+        raise RuntimeError("chain: non-finite output")
+    if not (rms <= FUSED_VS_COMPOSED_RMS and err <= INT8_MAX_ABS):
+        raise RuntimeError(f"chain: the two int8_matmul calls and fused_mlp_int8 disagree ({row})")
+    del x, y_chain, y_fused
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------- training kernels
 
 TRAIN_REPLACES = {
@@ -649,6 +920,10 @@ WRAPPERS = {
     "flash_fwd_lse": flash_bwd.forward_with_lse,
     "flash_bwd_dq": flash_bwd.backward_dq,
     "flash_bwd_dkv": flash_bwd.backward_dkv,
+    "flash_attention_out_proj_int8": flash.flash_attention_out_proj_int8,
+    "fused_mlp_int8": mlp_int8.fused_mlp_int8,
+    "fused_swiglu_block_int8": swiglu_int8.fused_swiglu_block_int8,
+    "int8_matmul": pallas_int8.int8_matmul,
 }
 
 
@@ -669,15 +944,27 @@ def _memory_calls(cfg: VLMConfig, num_frames: int) -> int:
     return cfg.memory.depth + (segments - 1) * (1 + cfg.memory.depth)
 
 
-def _expected_launches(cfg: VLMConfig, num_frames: int) -> dict:
+def _expected_tower_launches(cfg: VLMConfig, fused_oproj: bool) -> dict:
+    """The int8 tower alone: three kernels a layer, the attention one being
+    the merge kernel or, with `fused_oproj`, the fused out-projection."""
     tower = cfg.vision.num_used_layers
+    attn = "flash_attention_out_proj_int8" if fused_oproj else "flash_attention_merge_heads"
+    return {**dict.fromkeys(WRAPPERS, 0), "fused_qkv_int8": tower, attn: tower,
+            "fused_mlp_block_int8": tower}
+
+
+def _expected_launches(cfg: VLMConfig, num_frames: int, fused_oproj: bool = False,
+                       fused_swiglu: bool = False) -> dict:
+    """One request. `fused_swiglu` adds one launch per LM layer, in prefill
+    only: a decode step's single row stays below the kernel's gate."""
     lm = cfg.lm.num_hidden_layers
-    train = {"flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if cfg.pipeline.tower_int8:
-        return {"flash_fwd": _memory_calls(cfg, num_frames) + lm, "fused_qkv_int8": tower,
-                "flash_attention_merge_heads": tower, "fused_mlp_block_int8": tower, **train}
-    return {"flash_fwd": tower + _memory_calls(cfg, num_frames) + lm, "fused_qkv_int8": 0,
-            "flash_attention_merge_heads": 0, "fused_mlp_block_int8": 0, **train}
+        want = _expected_tower_launches(cfg, fused_oproj)
+        want["flash_fwd"] = _memory_calls(cfg, num_frames) + lm
+        want["fused_swiglu_block_int8"] = lm if fused_swiglu else 0
+        return want
+    return {**dict.fromkeys(WRAPPERS, 0),
+            "flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, num_frames) + lm}
 
 
 def _expected_train_launches(cfg: VLMConfig, num_frames: int) -> dict:
@@ -685,8 +972,8 @@ def _expected_train_launches(cfg: VLMConfig, num_frames: int) -> dict:
     (the memory's backward is a plain recompute), each LM layer through the
     training kernels, its forward twice under remat."""
     lm = cfg.lm.num_hidden_layers
-    return {"flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, num_frames),
-            "fused_qkv_int8": 0, "flash_attention_merge_heads": 0, "fused_mlp_block_int8": 0,
+    return {**dict.fromkeys(WRAPPERS, 0),
+            "flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, num_frames),
             "flash_fwd_lse": 2 * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm}
 
 
@@ -796,11 +1083,129 @@ def _stage_times(label, cfg, params, num_frames, gen, kv_int8):
                     **{k: [r.get(k, 0.0) for r in reps] for k in reps[0]}}))
 
 
+@contextlib.contextmanager
+def _fused_flags(oproj: bool = False, swiglu: bool = False):
+    """The opt-in fusions, switched on as a user switches them on and
+    restored after: `qwen2.fused_swiglu_enabled` is a module flag;
+    `fused_oproj` is an argument of `siglip.forward` that the pipeline does
+    not pass (the JAX pipeline has no such knob either), so for a whole
+    request the tower's entry point is wrapped."""
+    saved = (siglip.forward, qwen2.fused_swiglu_enabled)
+    if oproj:
+        siglip.forward = functools.partial(siglip.forward, fused_oproj=True)
+    qwen2.fused_swiglu_enabled = swiglu
+    try:
+        yield
+    finally:
+        siglip.forward, qwen2.fused_swiglu_enabled = saved
+
+
+def _one_step_of_pixels(pixels: torch.Tensor) -> torch.Tensor:
+    """The bf16 pixels scaled by 1 + 2^-8: each moves by at most one bf16
+    step. The unfused path on these against itself on the pixels is the
+    int8 model's noise floor."""
+    return (pixels.float() * (1.0 + 2.0 ** -8)).to(pixels.dtype)
+
+
+def _held_to_floor(label, fused, unfused, perturbed, **info):
+    """Fused against unfused output, held to FUSED_FLOOR_FACTOR times the
+    floor (unfused on the one-step pixels against unfused), in RMS over the
+    spread and in the largest element."""
+    rms, floor_rms = _rms(fused, unfused), _rms(perturbed, unfused)
+    err = float((fused.float() - unfused.float()).abs().max())
+    floor_err = float((perturbed.float() - unfused.float()).abs().max())
+    row = {"fused_vs_unfused": label, **info, "rms_over_std": rms, "max_abs": err,
+           "floor_rms_over_std": floor_rms, "floor_max_abs": floor_err,
+           "std": float(unfused.float().std()),
+           "tol": f"{FUSED_FLOOR_FACTOR} x the floor of this run, both"}
+    log(json.dumps(row))
+    if not bool(torch.isfinite(fused).all()):
+        raise RuntimeError(f"{label}: non-finite output")
+    if not (rms <= FUSED_FLOOR_FACTOR * floor_rms and err <= FUSED_FLOOR_FACTOR * floor_err):
+        raise RuntimeError(f"{label}: fused and unfused differ beyond the noise floor ({row})")
+    return row
+
+
+def _fused_tower(cfg, params, gen):
+    """The 64-frame int8 tower through `siglip.forward(fused_oproj=True)`
+    (every layer fused_qkv_int8 -> flash_attention_out_proj_int8 ->
+    fused_mlp_block_int8) beside the unfused tower on the same pixels.
+    Returns the fused run's launch counts."""
+    vt, vcfg = params["vision_tower"], cfg.vision
+    pixels = torch.randn((64, 384, 384, 3), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def tower(pix, fused):
+        with torch.no_grad():
+            return siglip.forward(vt, vcfg, pix, int8=True, fused_oproj=fused)
+
+    _reset_launches()
+    unfused = tower(pixels, False)
+    torch.cuda.synchronize()
+    if _launches() != _expected_tower_launches(cfg, False):
+        raise RuntimeError(f"unfused tower: launches {_launches()}")
+    perturbed = tower(_one_step_of_pixels(pixels), False)
+    _reset_launches()
+    fused = tower(pixels, True)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if launches != _expected_tower_launches(cfg, True):
+        raise RuntimeError(f"fused tower: launches {launches}, want "
+                           f"{_expected_tower_launches(cfg, True)}")
+    if fused.shape != (64, vcfg.num_patches, vcfg.hidden_size) or fused.dtype != torch.bfloat16:
+        raise RuntimeError(f"fused tower: output {fused.dtype}{tuple(fused.shape)}")
+    _held_to_floor("int8 tower, 64 frames, fused_oproj", fused, unfused, perturbed,
+                   launches=launches)
+    del unfused, perturbed, fused
+    # unfused, fused, fused, unfused: two readings of each within one run
+    times = [_time_ms(lambda f=f: tower(pixels, f)) for f in (False, True, True, False)]
+    log(json.dumps({"tower_ms": "int8 tower, 64 frames, 26 layers, median of 5",
+                    "unfused": [times[0], times[3]], "fused_oproj": [times[1], times[2]]}))
+    return launches
+
+
+def _fused_request(cfg, params, gen):
+    """The 64-frame int8 request with `qwen2.fused_swiglu_enabled` beside the
+    unfused request on the same pixels: 24 fused launches, all in prefill.
+    Returns the fused run's launch counts."""
+    dev = "cuda"
+    tb, ta = torch.tensor(TEXT_BEFORE, device=dev), torch.tensor(TEXT_AFTER, device=dev)
+    fn, nseg = pipeline.build_pipeline(cfg, 64, return_logits=True, kv_int8=True)
+    pixels = torch.randn((64, 384, 384, 3), generator=gen, device=dev).to(torch.bfloat16)
+    _, s_u, logits_u = fn(params, pixels, tb, ta)
+    _, _, logits_p = fn(params, _one_step_of_pixels(pixels), tb, ta)
+    latencies = []
+    with _fused_flags(swiglu=True):
+        for _ in range(2):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, s, logits = fn(params, pixels, tb, ta)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            launches = _launches()
+    want = _expected_launches(cfg, 64, fused_swiglu=True)
+    if launches != want or launches["fused_swiglu_block_int8"] != 24:
+        raise RuntimeError(f"fused request: launches {launches}, want {want}")
+    visual = s - len(TEXT_BEFORE) - len(TEXT_AFTER)
+    if s != s_u or visual != 9429 or visual != _visual_tokens(cfg, 64, nseg):
+        raise RuntimeError(f"fused request: {visual} visual tokens, spliced {s} vs {s_u}")
+    if tokens.shape != (32, 1) or not bool(((tokens >= 0) & (tokens < cfg.lm.vocab_size)).all()):
+        raise RuntimeError(f"fused request: bad tokens {tokens.flatten().tolist()}")
+    if logits.shape != (32, 1, cfg.lm.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("fused request: non-finite or misshapen logits")
+    _held_to_floor("int8 request, 64 frames, fused_swiglu: prefill logits", logits[0],
+                   logits_u[0], logits_p[0], visual_tokens=visual, launches=launches,
+                   latency_s_first=latencies[0], latency_s_second=latencies[1],
+                   tokens=tokens.flatten().tolist()[:8])
+    return launches
+
+
 def phase_requests():
-    """The int8 serving model at 64, 16 and 128 frames, then the bf16 model
-    at 64 frames only (the bf16 path's 16- and 128-frame requests are left
-    out to keep the run short). Returns each path's 64-frame launch counts,
-    keyed by kernel."""
+    """The int8 serving model at 64, 16 and 128 frames, then its fused
+    configuration (the fused tower and the fused request, each beside the
+    unfused one), then the bf16 model at 64 frames only (the bf16 path's 16-
+    and 128-frame requests are left out to keep the run short). Returns each
+    path's 64-frame launch counts, keyed by kernel."""
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -817,13 +1222,22 @@ def phase_requests():
         full, pipeline=dataclasses.replace(full.pipeline, tower_int8=True))
     int8_launches = _serve("int8", int8_cfg, int8_params, (64, 16, 128), gen, kv_int8=True)
     _stage_times("int8", int8_cfg, int8_params, 64, gen, kv_int8=True)
+    fused_tower_launches = _fused_tower(int8_cfg, int8_params, gen)
+    fused_request_launches = _fused_request(int8_cfg, int8_params, gen)
+    with _fused_flags(swiglu=True):
+        _stage_times("int8, fused_swiglu", int8_cfg, int8_params, 64, gen, kv_int8=True)
+    with _fused_flags(oproj=True, swiglu=True):
+        _stage_times("int8, fused_oproj and fused_swiglu", int8_cfg, int8_params, 64, gen,
+                     kv_int8=True)
     del int8_params
     torch.cuda.empty_cache()
     bf16_launches = _serve("bf16", full, params, (64,), gen, kv_int8=False)
     _stage_times("bf16", full, params, 64, gen, kv_int8=False)
     del params
     torch.cuda.empty_cache()
-    return {"int8_serving_64_frames": int8_launches, "bf16_64_frames": bf16_launches}
+    return {"int8_serving_64_frames": int8_launches, "bf16_64_frames": bf16_launches,
+            "int8_fused_oproj_tower_64_frames": fused_tower_launches,
+            "int8_fused_swiglu_64_frames": fused_request_launches}
 
 
 # -------------------------------------------------------------- parity
@@ -837,7 +1251,14 @@ def _to_cuda(tree):
     return tree.to("cuda")
 
 
-def _parity(label, cfg, params_cpu, atol, kv_int8, rms_bound=None, noise_floor=False):
+def _parity(label, cfg, params_cpu, atol, kv_int8, rms_bound=None, noise_floor=False,
+            fused=False):
+    """`fused`: both opt-in fusions on, on the card and on the CPU alike."""
+    with _fused_flags(oproj=fused, swiglu=fused):
+        _parity_run(label, cfg, params_cpu, atol, kv_int8, rms_bound, noise_floor, fused)
+
+
+def _parity_run(label, cfg, params_cpu, atol, kv_int8, rms_bound, noise_floor, fused):
     params_gpu = _to_cuda(params_cpu)
     gen = torch.Generator()
     gen.manual_seed(3)
@@ -848,7 +1269,7 @@ def _parity(label, cfg, params_cpu, atol, kv_int8, rms_bound=None, noise_floor=F
     _reset_launches()
     tok_g, s_g, lg_g = fn(params_gpu, pixels.cuda(), tb.cuda(), ta.cuda())
     torch.cuda.synchronize()
-    if _launches() != _expected_launches(cfg, 8):
+    if _launches() != _expected_launches(cfg, 8, fused_oproj=fused, fused_swiglu=fused):
         raise RuntimeError(f"{label} parity run did not go through the kernels: {_launches()}")
     t0 = time.perf_counter()
     tok_c, s_c, lg_c = fn(params_cpu, pixels, tb, ta)
@@ -898,9 +1319,14 @@ def phase_parity():
     _parity("fp32 bf16-path model, card vs cpu", cfg, params, PARITY_ATOL, kv_int8=False)
     int8_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
                                                                      tower_int8=True))
+    int8_params = pipeline.int8_serving_params(params)
     _parity("fp32 activations, int8 weights and KV cache, card vs cpu", int8_cfg,
-            pipeline.int8_serving_params(params), INT8_PARITY_ATOL, kv_int8=True,
-            rms_bound=INT8_PARITY_RMS, noise_floor=True)
+            int8_params, INT8_PARITY_ATOL, kv_int8=True, rms_bound=INT8_PARITY_RMS,
+            noise_floor=True)
+    # the same cut and bounds with fused_oproj and fused_swiglu on (the
+    # 3172-token prompt pads to 3200 rows, above the fused SwiGLU's gate)
+    _parity("the same with fused_oproj and fused_swiglu, card vs cpu", int8_cfg,
+            int8_params, INT8_PARITY_ATOL, kv_int8=True, rms_bound=INT8_PARITY_RMS, fused=True)
 
 
 # ---------------------------------------------------------------- train
@@ -1124,9 +1550,12 @@ def main():
     phase_card()
     phase_build()
     train_kernels, flash_backward = phase_train_kernels()
-    kernels = [phase_flash_kernel(), *phase_int8_kernels(), *train_kernels]
+    kernels = [phase_flash_kernel(), *phase_int8_kernels(), *phase_fused_kernels(),
+               *train_kernels]
     kernels[0]["backward"] = flash_backward
+    chain_launches = phase_chain()
     launches = phase_requests()
+    launches["int8_mlp_chain"] = chain_launches
     launches["train_step"] = phase_train()
     phase_parity()
     phase_train_parity()

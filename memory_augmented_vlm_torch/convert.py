@@ -7,7 +7,9 @@ per-layer dicts and the HWIO patch kernel becomes the (out, in, kh, kw)
 conv weight. Dense kernels keep their (in, out) layout. Prequantized int8
 entries (`kernel_int8`, `scale`, `bias`, and the LM's `unembed_int8`,
 `unembed_scale`) come across as they are, each int8 kernel stored
-column-major (`quant.column_major`), the layout the int8 kernels read.
+column-major (`quant.column_major`), the layout the int8 kernels read; so
+does the `w_int8` of a `pallas_int8.int8_linear` dict (`{w_int8, scale,
+bias}`), through `int8_linear_params` or inside a tree.
 `to_jax_layout` is the inverse layout change, for holding the port's
 params, grads or per-leaf labels against JAX's leaf by leaf.
 Nothing here imports JAX: the caller turns its arrays into numpy first.
@@ -30,6 +32,10 @@ STACKED_LAYERS = (("vision_tower", "layers"), ("language_model", "layers"),
                   ("memory", "recurrent_memory_transformer", "layers"))
 
 
+# int8 (K, N) kernels, row-major in JAX, column-major in the port
+INT8_KERNEL_KEYS = ("kernel_int8", "w_int8")
+
+
 def under_stacked_layers(path) -> bool:
     """Whether a leaf path lies inside one of the `STACKED_LAYERS` lists."""
     return any(tuple(path[:len(p)]) == p and len(path) > len(p) for p in STACKED_LAYERS)
@@ -46,12 +52,20 @@ def _tensor(x, device, dtype) -> torch.Tensor:
 def _tree(x, device, dtype):
     if isinstance(x, Mapping):
         out = {k: _tree(v, device, dtype) for k, v in x.items()}
-        if "kernel_int8" in out:
-            out["kernel_int8"] = column_major(out["kernel_int8"])
+        for key in INT8_KERNEL_KEYS:
+            if key in out:
+                out[key] = column_major(out[key])
         return out
     if isinstance(x, (list, tuple)):
         return [_tree(v, device, dtype) for v in x]
     return _tensor(x, device, dtype)
+
+
+def int8_linear_params(qp: Mapping[str, Any], device="cuda"):
+    """JAX's `pallas_int8.int8_linear` dict `{w_int8, scale, bias}` (numpy
+    leaves, `w_int8` row-major) -> the port's, on `device`, with `w_int8`
+    column-major."""
+    return _tree(dict(qp), device, None)
 
 
 def _unstack(tree, n: int):

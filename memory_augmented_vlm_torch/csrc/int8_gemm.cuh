@@ -1,6 +1,8 @@
-// The int8 building blocks of the tower's fused kernels (qkv_int8.cu,
-// mlp_int8.cu): a per-row quantization pass (optionally after a LayerNorm)
-// and an int8 x int8 -> int32 tensor-core GEMM whose epilogue is a functor.
+// The int8 building blocks of the fused int8 kernels (qkv_int8.cu,
+// mlp_int8.cu, swiglu_int8.cu, int8_matmul.cu and the out-projection of
+// flash_merge.cu): per-row quantization passes (plain, or after a LayerNorm
+// or an RMSNorm), the requantization of an fp32 intermediate, and an int8 x
+// int8 -> int32 tensor-core GEMM whose epilogue is a functor.
 //
 // Rounding follows the JAX kernels: LayerNorm in fp32 with a two-pass
 // biased variance, s = max(|row|, 1e-12) / 127, q = clip(rint(x * (1/s)),
@@ -16,7 +18,10 @@
 // three-stage cp.async ring; ragged M, N and K edges are zero-filled on
 // load (K a multiple of 16, so a 16-byte chunk is all in or all out) and
 // masked in the epilogue. blockIdx.z selects one of up to three B matrices
-// (q, k, v share one A).
+// (q, k, v share one A). With Epi::kInterleaveB the GEMM's column n is row
+// n / 2 of B matrix n % 2, so the two accumulators a thread holds for
+// columns (n, n + 1) belong to the same channel of two weight matrices (the
+// gate and the up projection of a SwiGLU).
 
 #pragma once
 
@@ -99,6 +104,130 @@ int launch_ln_rowquant(const void* x, const float* w, const float* b, int8_t* xq
 }
 
 // ---------------------------------------------------------------------------
+// Per-row int8 quant of x itself, or (kRms) of its RMSNorm
+// x * rsqrt(mean(x^2) + eps) * w: one warp per row. Nothing is staged: each
+// pass re-reads the row (from L1/L2) and recomputes the value it quantizes.
+// ---------------------------------------------------------------------------
+
+template <typename T, bool kRms>
+__global__ void __launch_bounds__(32 * kRowWarps)
+rowquant_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + warp;
+  if (row >= M) return;
+  const T* xr = x + static_cast<long long>(row) * K;
+  float r = 1.f;
+  if constexpr (kRms) {
+    float sq = 0.f;
+    for (int i = lane; i < K; i += 32) {
+      const float v = to_float(xr[i]);
+      sq = __fadd_rn(sq, __fmul_rn(v, v));
+    }
+    r = rsqrtf(warp_sum(sq) / K + eps);
+  }
+  auto value = [&](int i) {
+    const float v = to_float(xr[i]);
+    if constexpr (kRms) {
+      return __fmul_rn(__fmul_rn(v, r), w[i]);
+    } else {
+      return v;
+    }
+  };
+  float amax = 0.f;
+  for (int i = lane; i < K; i += 32) amax = fmaxf(amax, fabsf(value(i)));
+  const float s = fmaxf(warp_max(amax), kQuantFloor) / 127.f;
+  const float inv = 1.f / s;
+  int8_t* qr = xq + static_cast<long long>(row) * K;
+  for (int i = lane; i < K; i += 32) qr[i] = quant_code(value(i), inv);
+  if (lane == 0) sx[row] = s;
+}
+
+template <typename T, bool kRms>
+void launch_rowquant(const void* x, const float* w, int8_t* xq, float* sx, int M, int K,
+                     float eps, cudaStream_t stream) {
+  rowquant_kernel<T, kRms><<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, stream>>>(
+      static_cast<const T*>(x), w, xq, sx, M, K, eps);
+}
+
+// h (M, I) fp32 -> codes with s = max(row max, 1e-12) / 127; one warp per
+// row, four values per lane step (I % 4 == 0). A template so that every
+// source that includes this header may hold it.
+template <int kWarpsPerBlock>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+requant_kernel(const float* __restrict__ h, const float* __restrict__ hmax,
+               int8_t* __restrict__ hq, float* __restrict__ sh, int M, int I) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= M) return;
+  const float s = fmaxf(hmax[row], kQuantFloor) / 127.f;
+  const float inv = 1.f / s;
+  const float* hr = h + static_cast<long long>(row) * I;
+  int8_t* qr = hq + static_cast<long long>(row) * I;
+  for (int i = lane * 4; i < I; i += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(hr + i);
+    char4 q;
+    q.x = quant_code(v.x, inv);
+    q.y = quant_code(v.y, inv);
+    q.z = quant_code(v.z, inv);
+    q.w = quant_code(v.w, inv);
+    *reinterpret_cast<char4*>(qr + i) = q;
+  }
+  if (lane == 0) sh[row] = s;
+}
+
+inline void launch_requant(const float* h, const float* hmax, int8_t* hq, float* sh, int M,
+                           int I, cudaStream_t stream) {
+  requant_kernel<kRowWarps><<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, stream>>>(
+      h, hmax, hq, sh, M, I);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+
+// The epilogue of a projection back to an activation:
+//   out = [residual +] (acc * sx[row] * s[col] [+ bias[col]])
+// evaluated left to right in fp32 and cast once to T. bias and residual may
+// be null. out and residual are (M, N) row-major.
+template <typename T>
+struct RowScaleEpi {
+  static constexpr bool kRowMax = false;
+  static constexpr bool kInterleaveB = false;
+  const float* sx;
+  const float* s;
+  const float* bias;
+  const T* residual;
+  T* out;
+  int N;
+
+  __device__ __forceinline__ float operator()(int, int row, int col, int a0, int a1) const {
+    const float x = sx[row];
+    const long long off = static_cast<long long>(row) * N + col;
+    float y0 = __fmul_rn(__fmul_rn(static_cast<float>(a0), x), s[col]);
+    float y1 = __fmul_rn(__fmul_rn(static_cast<float>(a1), x), s[col + 1]);
+    if (bias != nullptr) {
+      y0 = __fadd_rn(y0, bias[col]);
+      y1 = __fadd_rn(y1, bias[col + 1]);
+    }
+    if (residual != nullptr) {
+      y0 = __fadd_rn(to_float(residual[off]), y0);
+      y1 = __fadd_rn(to_float(residual[off + 1]), y1);
+    }
+    store2(out + off, y0, y1);
+    return 0.f;
+  }
+  __device__ void row_max(int, float) const {}
+};
+
+// ---------------------------------------------------------------------------
 // GEMM
 // ---------------------------------------------------------------------------
 
@@ -117,8 +246,9 @@ struct BOperands {
 };
 
 // Epi: float operator()(int z, int row, int col, int acc0, int acc1) const
-// handles columns col and col + 1 of one row and returns what the row-max
-// reduction takes (when Epi::kRowMax, it then receives row_max(row, m)).
+// handles columns col and col + 1 of one row (col is even) and returns what
+// the row-max reduction takes (when Epi::kRowMax, it then receives
+// row_max(row, m)). Epi::kInterleaveB: see the top of this file.
 template <class Epi>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, int N,
@@ -145,8 +275,15 @@ gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, in
 #pragma unroll
     for (int i = tid; i < BN * (BK / 16); i += THREADS) {
       const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      const bool ok = n0 + r < N && k0 + c < K;
-      cp_async16(sB + r * SROW + c, ok ? B + (n0 + r) * bs.ld + k0 + c : B, ok);
+      const int n = n0 + r;
+      const bool ok = n < N && k0 + c < K;
+      const int8_t* src;
+      if constexpr (Epi::kInterleaveB) {
+        src = bs.ptr[n & 1] + (n >> 1) * bs.ld + k0 + c;
+      } else {
+        src = B + n * bs.ld + k0 + c;
+      }
+      cp_async16(sB + r * SROW + c, ok ? src : B, ok);
     }
   };
 

@@ -1,0 +1,54 @@
+// The w8a8 matrix product for Hopper (sm_90a), bound to Python with ctypes.
+//
+// Replaces the TPU kernel `_ws_kernel` behind
+// memory_augmented_vlm_tpu/ops/pallas_int8.py:63 int8_matmul and computes
+// the same function: the rows of x quantized to int8 (x * (1/s), floor
+// 1e-12; a pass before the kernel on the TPU, stage 1 here), an int8 x int8
+// -> int32 product with the (K, N) int8 weights, and
+//   acc * sx * sw [+ bias]
+// in fp32, cast once to x's dtype. Any M >= 1: rows past M are zero-filled
+// on load and masked in the epilogue, so one row needs no padding.
+//
+// What bounds it on the H100: at the tower MLP's shapes (46656 x 1152 x
+// 4304 and 46656 x 4304 x 1152) each product is 462.7 GOP of int8 work
+// against ~0.5 GB of activations, so the tensor cores bound it (0.234 ms at
+// 1,979 TOP/s); at one row (896 -> 4864) the 4.4 MB of weights bound it
+// (1.3 us at 3.35 TB/s).
+//
+// Design: the TPU kernel is weights-stationary (a (K, 512) weight tile
+// stays in VMEM while the activation tiles stream past). Here the 128 x 128
+// output tiles of int8_gemm.cuh run in parallel with blockIdx.x over N
+// fastest, so the blocks in flight share a few activation row tiles and the
+// whole weight matrix (at most 5 MB) lives in the 50 MB L2.
+
+#include "int8_gemm.cuh"
+
+namespace {
+
+using namespace int8k;
+
+template <typename T>
+int run(const void* x, const int8_t* w, const float* sw, const float* bias, void* out,
+        int8_t* xq, float* sx, int M, int N, int K, cudaStream_t st) {
+  launch_rowquant<T, false>(x, nullptr, xq, sx, M, K, 0.f, st);
+  RowScaleEpi<T> epi{sx, sw, bias, nullptr, static_cast<T*>(out), N};
+  BOperands bs{{w, nullptr, nullptr}, K};
+  return launch_gemm(xq, K, bs, 1, M, N, K, epi, st);
+}
+
+}  // namespace
+
+// dtype: 0 = bf16 x and out, 1 = fp32. w is (K, N) column-major; bias may
+// be null. xq (M, K) int8 and sx (M,) fp32 are scratch. Returns 0, a
+// cudaError_t, -2 (dtype) or -3 (shape: K % 16, N % 2).
+extern "C" int int8_matmul(int dtype, const void* x, const void* w, const void* sw,
+                           const void* bias, void* out, void* xq, void* sx, int M, int N,
+                           int K, void* stream) {
+  if (dtype != 0 && dtype != 1) return -2;
+  auto* run_t = dtype == 0 ? &run<__nv_bfloat16> : &run<float>;
+  const int rc = run_t(x, static_cast<const int8_t*>(w), static_cast<const float*>(sw),
+                       static_cast<const float*>(bias), out, static_cast<int8_t*>(xq),
+                       static_cast<float*>(sx), M, N, K, static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}

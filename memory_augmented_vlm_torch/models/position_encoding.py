@@ -19,7 +19,8 @@ def sinusoidal_table(max_frames: int, embed_dim: int) -> np.ndarray:
     return pe
 
 
-def init_params(max_frames: int, embed_dim: int, device=None, dtype=torch.float32):
+def init_params(max_frames: int, embed_dim: int, device, dtype=torch.float32):
+    """The frozen table on `device`: the caller names it, there is no default."""
     table = torch.from_numpy(sinusoidal_table(max_frames, embed_dim))
     return {"frame_embed": table.to(device=device, dtype=dtype)}
 

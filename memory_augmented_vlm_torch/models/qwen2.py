@@ -14,7 +14,9 @@ and `quantize_cache` after prefill) follows JAX's formulas: projections go
 through `quant.int8_linear`, the unembedding through a per-vocab-row int8
 copy of the table, and the cache holds per-(position, head) int8 rows with
 fp32 scales (`x / s`, floor 1e-8), quantized on write and dequantized to
-the activation dtype before `decode_attention`.
+the activation dtype before `decode_attention`. With the module flag
+`fused_swiglu_enabled` set, an int8 layer's MLP half runs as one kernel
+(`swiglu_int8.fused_swiglu_block_int8`) at prefill sizes; see `_mlp_half`.
 
 Parameters: dense kernels are (in, out), int8 kernels (in, out) column-major
 (`ops/quant.py`), q/k/v carry biases, `layers` is a list of per-layer
@@ -35,9 +37,15 @@ from memory_augmented_vlm_torch.ops.norms import rms_norm
 from memory_augmented_vlm_torch.ops.quant import (QUANT_FLOOR, int8_linear, int_mm,
                                                   prequantize_kernel, quantize_rows)
 from memory_augmented_vlm_torch.ops.rope import apply_rope, compute_rope_freqs, rope_cos_sin
+from memory_augmented_vlm_torch.ops.swiglu_int8 import fused_swiglu_block_int8
 
 KV_QUANT_FLOOR = 1e-8
 _PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+# Opt-in, as in JAX (`qwen2.fused_swiglu_enabled`): the int8 LM's MLP half as
+# one fused kernel. Read by `_mlp_half` at call time; set it around a call and
+# restore it.
+fused_swiglu_enabled = False
+FUSED_SWIGLU_MIN_ROWS = 1024
 
 
 class KVCache(NamedTuple):
@@ -170,8 +178,32 @@ def _mlp(lp, x):
     return _proj(lp["down_proj"], F.silu(_proj(lp["gate_proj"], x)) * _proj(lp["up_proj"], x))
 
 
+def _mlp_half(lp, hidden, cfg: LMConfig):
+    """Post-attention norm + MLP + residual of one layer.
+
+    With `fused_swiglu_enabled`, a layer whose `gate_proj` is int8 and has
+    no bias runs the whole half as one kernel when `b * s >= 1024` rows
+    (prefill; one decode row keeps the composed path). JAX's gate also asks
+    for a dense, gated, silu MLP behind an RMSNorm and a TPU backend: the
+    port's LM has no other kind and no `1 + w` norm convention to fold into
+    the weight, and the wrapper itself picks kernel or plain version by
+    device."""
+    b, s, h = hidden.shape
+    gate = lp["gate_proj"]
+    if (fused_swiglu_enabled and "kernel_int8" in gate and "bias" not in gate
+            and b * s >= FUSED_SWIGLU_MIN_ROWS):
+        return fused_swiglu_block_int8(
+            hidden.reshape(b * s, h), lp["post_attention_layernorm"],
+            gate["kernel_int8"], gate["scale"],
+            lp["up_proj"]["kernel_int8"], lp["up_proj"]["scale"],
+            lp["down_proj"]["kernel_int8"], lp["down_proj"]["scale"],
+            eps=cfg.rms_norm_eps).reshape(b, s, h)
+    x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    return hidden + _mlp(lp, x)
+
+
 def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
-    inv_freq = compute_rope_freqs(cfg.head_dim, cfg.rope_theta, device=positions.device)
+    inv_freq = compute_rope_freqs(cfg.head_dim, cfg.rope_theta, positions.device)
     return rope_cos_sin(positions, inv_freq)
 
 
@@ -185,8 +217,7 @@ def _layer(lp, cfg: LMConfig, hidden, cos, sin, valid_len, differentiable: bool)
     attn = flash_attention(q, k, v, causal=True, kv_valid_len=valid_len,
                            kv_groups=cfg.kv_groups, differentiable=differentiable)
     hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, s, -1))
-    x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return hidden + _mlp(lp, x), k, v
+    return _mlp_half(lp, hidden, cfg), k, v
 
 
 def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch.Tensor,
@@ -263,7 +294,6 @@ def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,
         attn = decode_attention(q, layer_k, layer_v, cache.length + 1,
                                 kv_groups=cfg.kv_groups)
         hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, 1, -1))
-        x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-        hidden = hidden + _mlp(lp, x)
+        hidden = _mlp_half(lp, hidden, cfg)
     hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
     return hidden, cache._replace(length=cache.length + 1)

@@ -13,10 +13,14 @@ prequantized by `prequantize_int8` (`kernel_int8` entries, the serving
 configuration) runs the fused int8 path of the JAX tower:
 `fused_qkv_int8` (LN1 + row quant + int8 q/k/v, head-major bf16) ->
 `flash_attention_merge_heads` -> `int8_linear(out_proj)` + residual ->
-`fused_mlp_block_int8` (LN2 + int8 MLP + residual). Unlike JAX, which
-takes this path on a TPU above a size gate and pads the stream from 729
-to 736 rows, the port takes it for every int8 layer and pads nothing; on
-the CPU each kernel wrapper runs its plain version.
+`fused_mlp_block_int8` (LN2 + int8 MLP + residual). With
+`forward(fused_oproj=True)` the two middle steps are one kernel,
+`flash_attention_out_proj_int8` (attention + int8 out-projection +
+residual), so every layer is three launches. Unlike JAX, which takes these
+paths on a TPU above a size gate and pads the stream from 729 to 736 rows
+(to 768 with `fused_oproj`, so that its blocks are lane-aligned), the port
+takes them for every int8 layer and pads nothing: its kernels mask ragged
+edges themselves. On the CPU each kernel wrapper runs its plain version.
 
 Parameters: `patch_embedding.weight` is (out, in, kh, kw) for `F.conv2d`;
 dense kernels are (in, out), int8 kernels (in, out) column-major
@@ -30,7 +34,8 @@ import torch.nn.functional as F
 
 from memory_augmented_vlm_torch.config import VisionConfig
 from memory_augmented_vlm_torch.ops.attention import flash_attention
-from memory_augmented_vlm_torch.ops.flash import flash_attention_merge_heads
+from memory_augmented_vlm_torch.ops.flash import (flash_attention_merge_heads,
+                                                  flash_attention_out_proj_int8)
 from memory_augmented_vlm_torch.ops.mlp_int8 import fused_mlp_block_int8
 from memory_augmented_vlm_torch.ops.norms import layer_norm
 from memory_augmented_vlm_torch.ops.qkv_int8 import fused_qkv_int8
@@ -90,7 +95,8 @@ def _linear(p, x):
     return x @ p["kernel"] + p["bias"]
 
 
-def _int8_layer(lp, cfg: VisionConfig, hidden: torch.Tensor) -> torch.Tensor:
+def _int8_layer(lp, cfg: VisionConfig, hidden: torch.Tensor,
+                fused_oproj: bool) -> torch.Tensor:
     b, s, h = hidden.shape
     q, k, v = fused_qkv_int8(
         hidden, lp["layer_norm1"]["weight"], lp["layer_norm1"]["bias"],
@@ -98,7 +104,13 @@ def _int8_layer(lp, cfg: VisionConfig, hidden: torch.Tensor) -> torch.Tensor:
           for key in ("kernel_int8", "scale", "bias")),
         nh=cfg.num_attention_heads, eps=cfg.layer_norm_eps)
     valid = torch.full((b,), s, dtype=torch.int32, device=hidden.device)
-    hidden = hidden + int8_linear(lp["out_proj"], flash_attention_merge_heads(q, k, v, valid))
+    if fused_oproj:
+        op = lp["out_proj"]
+        hidden = flash_attention_out_proj_int8(q, k, v, valid, hidden, op["kernel_int8"],
+                                               op["scale"], op["bias"])
+    else:
+        hidden = hidden + int8_linear(lp["out_proj"],
+                                      flash_attention_merge_heads(q, k, v, valid))
     out = fused_mlp_block_int8(
         hidden.reshape(b * s, h), lp["layer_norm2"]["weight"], lp["layer_norm2"]["bias"],
         lp["fc1"]["kernel_int8"], lp["fc1"]["scale"], lp["fc1"]["bias"],
@@ -118,16 +130,22 @@ def embed_patches(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torc
 
 
 def forward(params, cfg: VisionConfig, pixel_values: torch.Tensor, *,
-            int8: bool = False) -> torch.Tensor:
+            int8: bool = False, fused_oproj: bool = False) -> torch.Tensor:
     """(B, H, W, C) pixels -> (B, 729, hidden) features. Prequantized layers
     take the fused int8 path; `int8=True` with float kernels would be JAX's
-    dynamic (AQT) int8 path, which is not ported."""
+    dynamic (AQT) int8 path, which is not ported.
+
+    `fused_oproj` folds each prequantized layer's out-projection and
+    residual into its attention kernel (JAX's opt-in of the same name). JAX
+    pads the residual stream to 768 rows for this mode, a TPU lane
+    workaround that is not ported: the stream stays at 729 rows. Float
+    layers ignore the flag, as in JAX."""
     hidden = embed_patches(params, cfg, pixel_values)
     b, s, h = hidden.shape
     nh = cfg.num_attention_heads
     for lp in params["layers"]:
         if "kernel_int8" in lp["q_proj"]:
-            hidden = _int8_layer(lp, cfg, hidden)
+            hidden = _int8_layer(lp, cfg, hidden, fused_oproj)
             continue
         if int8:
             raise NotImplementedError("dynamic int8 (int8=True with float kernels) is not "

@@ -124,6 +124,18 @@ def load() -> ctypes.CDLL:
     # mlp_int8(dtype, hidden, ln_w, ln_b, w1, s1, b1, w2, s2, b2, out,
     #          xq, h, hq, sx, hmax, sh, M, K, I, eps, stream)
     lib.mlp_int8.argtypes = [c_int] + [ptr] * 16 + [c_int] * 3 + [ctypes.c_float, ptr]
+    # mlp_int8_core(dtype, x, w1, s1, b1, w2, s2, b2, out, xq, h, hq, sx, hmax, sh,
+    #               M, K, I, stream)
+    lib.mlp_int8_core.argtypes = [c_int] + [ptr] * 14 + [c_int] * 3 + [ptr]
+    # swiglu_int8(dtype, hidden, rms_w, wg, sg, wu, su, wd, sd, out, xq, h, hq, sx, hmax,
+    #             sh, M, K, I, eps, stream)
+    lib.swiglu_int8.argtypes = [c_int] + [ptr] * 15 + [c_int] * 3 + [ctypes.c_float, ptr]
+    # int8_matmul(dtype, x, w, sw, bias, out, xq, sx, M, N, K, stream)
+    lib.int8_matmul.argtypes = [c_int] + [ptr] * 7 + [c_int] * 3 + [ptr]
+    # flash_merge_oproj(head_dim, q, k, v, valid_len, dtype, hidden, wo, so, bo, out,
+    #                   attn, xq, sx, B, NH, S, scale_log2, stream)
+    lib.flash_merge_oproj.argtypes = ([c_int] + [ptr] * 4 + [c_int] + [ptr] * 8 + [c_int] * 3
+                                      + [ctypes.c_float, ptr])
     strides = ctypes.POINTER(c_ll)
     # flash_fwd_lse(dtype, head_dim, q, k, v, out, lse, valid_len, B, Sq, Skv,
     #               H, kv_groups, causal, 4 x strides, scale, scale_log2, stream)
@@ -136,8 +148,9 @@ def load() -> ctypes.CDLL:
     # flash_bwd_dkv(..., dk, dv, valid_len, ...): as flash_bwd_dq with two outputs
     lib.flash_bwd_dkv.argtypes = ([c_int, c_int] + [ptr] * 9 + [c_int] * 6 + [strides] * 5
                                   + [ctypes.c_float] * 2 + [ptr])
-    for fn in (lib.flash_fwd, lib.flash_merge, lib.qkv_int8, lib.mlp_int8, lib.flash_fwd_lse,
-               lib.flash_bwd_dq, lib.flash_bwd_dkv):
+    for fn in (lib.flash_fwd, lib.flash_merge, lib.flash_merge_oproj, lib.qkv_int8,
+               lib.mlp_int8, lib.mlp_int8_core, lib.swiglu_int8, lib.int8_matmul,
+               lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv):
         fn.restype = c_int
     lib.kernel_error_string.argtypes = [c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

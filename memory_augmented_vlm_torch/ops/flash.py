@@ -17,6 +17,10 @@ kernels of its own (`ops/flash_bwd.py`).
 flash_attention_merge_heads` (its non-`int8_scores` mode): head-major
 (B, NH, S, D) q/k/v in, merged heads (B, S, NH*D) out, and a one-shot
 softmax over the whole key axis with the TPU kernel's finite MASK_VALUE.
+`flash_attention_out_proj_int8` is the counterpart of `pallas_flash.py::
+flash_attention_out_proj_int8`: that attention, rounded to bf16, through
+the int8 out-projection (`acc * sx * so + bo` with the bias added in fp32)
+and onto the residual stream, in one launch.
 
 Each wrapper takes its plain version only for tensors on the CPU. For a
 CUDA tensor it launches its kernel or raises.
@@ -28,7 +32,8 @@ from typing import Optional
 
 import torch
 
-from memory_augmented_vlm_torch.ops import cuda_lib
+from memory_augmented_vlm_torch.ops import cuda_lib, int8_common
+from memory_augmented_vlm_torch.ops.quant import int_mm, quantize_rows
 
 LOG2E = 1.4426950408889634
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # pallas_flash.MASK_VALUE
@@ -257,6 +262,26 @@ def flash_attention_merge_heads_reference(
     return out.transpose(1, 2).reshape(b, s, nh * d)
 
 
+def _check_merge_kernel_args(q, k, v, kv_valid_len):
+    """What `csrc/flash_merge.cu` takes: bf16 contiguous CUDA q/k/v of a
+    built head dim and an int32 valid length beside them."""
+    b, nh, _, d = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"merge-heads attention runs on cpu or cuda, not {q.device}")
+    if d not in MERGE_HEAD_DIMS:
+        raise ValueError(f"merge kernel head dim must be one of {MERGE_HEAD_DIMS}, got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"merge kernel takes bf16, {name} is {x.dtype}")
+        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned on {q.device}")
+    if (kv_valid_len.device != q.device or kv_valid_len.dtype != torch.int32
+            or not kv_valid_len.is_contiguous()):
+        raise ValueError("kv_valid_len must be a contiguous int32 tensor on q's device")
+    if b > 65535 or nh > 65535:
+        raise ValueError("batch and head counts must fit a CUDA grid axis")
+
+
 def flash_attention_merge_heads(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
     *, scale: Optional[float] = None, int8_scores: bool = False,
@@ -272,21 +297,8 @@ def flash_attention_merge_heads(
     b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
     if q.device.type == "cpu":
         return flash_attention_merge_heads_reference(q, k, v, kv_valid_len, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"merge-heads attention runs on cpu or cuda, not {q.device}")
     scale = d ** -0.5 if scale is None else scale
-    if d not in MERGE_HEAD_DIMS:
-        raise ValueError(f"merge kernel head dim must be one of {MERGE_HEAD_DIMS}, got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"merge kernel takes bf16, {name} is {x.dtype}")
-        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned on {q.device}")
-    if (kv_valid_len.device != q.device or kv_valid_len.dtype != torch.int32
-            or not kv_valid_len.is_contiguous()):
-        raise ValueError("kv_valid_len must be a contiguous int32 tensor on q's device")
-    if b > 65535 or nh > 65535:
-        raise ValueError("batch and head counts must fit a CUDA grid axis")
+    _check_merge_kernel_args(q, k, v, kv_valid_len)
     out = torch.empty((b, s, nh * d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
@@ -300,3 +312,81 @@ def flash_attention_merge_heads(
 
 
 flash_attention_merge_heads.launches = 0
+
+
+def _oproj_shapes(q, k, v, kv_valid_len, hidden, wo, so, bo):
+    b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
+    h = nh * d
+    if tuple(hidden.shape) != (b, s, h):
+        raise ValueError(f"residual stream {tuple(hidden.shape)} must match q's geometry "
+                         f"{(b, s, h)}")
+    if tuple(wo.shape) != (h, h) or tuple(so.shape) != (h,) or tuple(bo.shape) != (h,):
+        raise ValueError(f"the out-projection must be ({h}, {h}) with ({h},) scale and bias")
+    return b, nh, s, d
+
+
+def flash_attention_out_proj_int8_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
+    hidden: torch.Tensor, wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version. q, k, v (B, NH, S, D); kv_valid_len (B,); hidden
+    (B, S, NH*D), the residual stream; wo (NH*D, NH*D) int8 with so, bo
+    (NH*D,). Returns hidden + out_proj(attention) in hidden's dtype.
+
+    The attention of `flash_attention_merge_heads_reference` is rounded to
+    bf16 whatever q's dtype (the TPU kernel's merged scratch is bf16), its
+    rows are quantized over the whole NH*D width, and `acc * sx * so + bo`
+    and the residual add are fp32, cast once. `quant.int8_linear` adds the
+    bias after the cast instead, so this and the unfused layer differ by
+    roundings."""
+    b, nh, s, d = _oproj_shapes(q, k, v, kv_valid_len, hidden, wo, so, bo)
+    attn = flash_attention_merge_heads_reference(q, k, v, kv_valid_len, scale=scale)
+    xq, sx = quantize_rows(attn.to(torch.bfloat16).reshape(b * s, nh * d))
+    y = int_mm(xq, wo).float() * sx * so.float() + bo.float()
+    return (hidden.float() + y.reshape(b, s, nh * d)).to(hidden.dtype)
+
+
+def flash_attention_out_proj_int8(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
+    hidden: torch.Tensor, wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Merged-head attention + int8 out-projection + residual; see
+    `flash_attention_out_proj_int8_reference`. CPU tensors take the plain
+    version; CUDA tensors launch `csrc/flash_merge.cu`'s fused entry (q, k,
+    v bf16 contiguous, head dims 64/72/128; hidden bf16 or fp32 contiguous;
+    wo int8 column-major) and count one launch in
+    `flash_attention_out_proj_int8.launches`. S is not padded."""
+    b, nh, s, d = _oproj_shapes(q, k, v, kv_valid_len, hidden, wo, so, bo)
+    if q.device.type == "cpu":
+        return flash_attention_out_proj_int8_reference(q, k, v, kv_valid_len, hidden, wo, so,
+                                                       bo, scale=scale)
+    scale = d ** -0.5 if scale is None else scale
+    _check_merge_kernel_args(q, k, v, kv_valid_len)
+    int8_common.check_cuda(hidden, "hidden")
+    dev, h = q.device, nh * d
+    if hidden.device != dev:
+        raise ValueError(f"hidden is on {hidden.device}, q on {dev}")
+    int8_common.check_weight(wo, h, h, dev)
+    so = int8_common.f32_vector(so, h, dev, "so")
+    bo = int8_common.f32_vector(bo, h, dev, "bo")
+    out = torch.empty_like(hidden)
+    if b == 0 or s == 0:
+        return out
+    # scratch: the merged bf16 attention rows, their codes and row scales
+    attn = torch.empty((b * s, h), dtype=torch.bfloat16, device=dev)
+    xq = torch.empty((b * s, h), dtype=torch.int8, device=dev)
+    sx = torch.empty((b * s,), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load()
+    rc = lib.flash_merge_oproj(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid_len.data_ptr(),
+        int8_common.DTYPES[hidden.dtype], hidden.data_ptr(), wo.data_ptr(), so.data_ptr(),
+        bo.data_ptr(), out.data_ptr(), attn.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        b, nh, s, scale * LOG2E, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_merge_oproj")
+    flash_attention_out_proj_int8.launches += 1
+    return out
+
+
+flash_attention_out_proj_int8.launches = 0

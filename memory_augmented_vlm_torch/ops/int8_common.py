@@ -1,11 +1,12 @@
 """Argument checks shared by the int8 kernel wrappers (`qkv_int8`,
-`mlp_int8`): what `csrc/int8_gemm.cuh` takes and nothing else."""
+`mlp_int8`, `swiglu_int8`, `pallas_int8`, `flash`'s fused out-projection):
+what `csrc/int8_gemm.cuh` takes and nothing else."""
 
 from __future__ import annotations
 
 import torch
 
-# the `dtype` argument of csrc/qkv_int8.cu and csrc/mlp_int8.cu
+# the `dtype` argument of the int8 kernels' C entries
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 

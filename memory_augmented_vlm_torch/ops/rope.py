@@ -8,9 +8,9 @@ from typing import Tuple
 import torch
 
 
-def compute_rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def compute_rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     """inv_freq[j] = theta^(-2j/d), shape (head_dim // 2,), fp32 (no RoPE
-    scaling)."""
+    scaling), made on `device`: the caller names it, there is no default."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exponents)
 

@@ -114,7 +114,14 @@ def test_wrapper_rejects_bad_arguments():
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
     assert [p.name for p in srcs] == ["flash_fwd.cu", "flash_merge.cu", "flash_train.cu",
-                                      "mlp_int8.cu", "qkv_int8.cu"]
+                                      "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
+                                      "swiglu_int8.cu"]
+    # each C entry that cuda_lib.load binds is defined in one of them
+    text = "".join(p.read_text() for p in srcs)
+    for entry in ("flash_fwd", "flash_merge", "flash_merge_oproj", "qkv_int8", "mlp_int8",
+                  "mlp_int8_core", "swiglu_int8", "int8_matmul", "flash_fwd_lse",
+                  "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string"):
+        assert text.count(f" {entry}(int ") == 1, entry
     assert all(p.is_file() for p in srcs)
     compiles, link = cuda_lib.nvcc_commands("nvcc", Path("out.so"))
     assert len(compiles) == len(srcs)  # one nvcc per source, run side by side

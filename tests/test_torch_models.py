@@ -111,7 +111,7 @@ def test_temporal_pe_matches_jax():
     x = np.random.default_rng(3).standard_normal((6, 4, 32)).astype(np.float32)
     idx = np.array([0, 3, 49, 60, 7, 2])  # 60 clamps into the table
     want = jpe.add_temporal_pe(jp, jnp.asarray(x), jnp.asarray(idx))
-    got = tpe.add_temporal_pe(tpe.init_params(50, 32), torch.from_numpy(x),
+    got = tpe.add_temporal_pe(tpe.init_params(50, 32, "cpu"), torch.from_numpy(x),
                               torch.from_numpy(idx))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 

@@ -47,7 +47,7 @@ def test_rope_matches_jax():
     rng = np.random.default_rng(2)
     d, theta = 16, 10000.0
     inv_j = jrope.compute_rope_freqs(d, theta)
-    inv_t = trope.compute_rope_freqs(d, theta)
+    inv_t = trope.compute_rope_freqs(d, theta, "cpu")
     np.testing.assert_allclose(inv_t.numpy(), np.asarray(inv_j), rtol=1e-6)
     pos = np.arange(40, dtype=np.int32)[None].repeat(2, 0) + np.array([[0], [5]], np.int32)
     cos_j, sin_j = jrope.rope_cos_sin(jnp.asarray(pos), inv_j)

@@ -73,7 +73,8 @@ def test_port_imports_no_jax():
         for p in pkg.rglob("*.py") if p.name != "__init__.py")
     assert "memory_augmented_vlm_torch.pipeline" in modules
     assert "memory_augmented_vlm_torch.constants" in modules
-    for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree"):
+    for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
+              "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common"):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
@@ -82,7 +83,9 @@ def test_port_imports_no_jax():
 
 def test_chip_smoke_imports_no_jax():
     """Importing chip_smoke runs nothing (its main() sits behind __main__)
-    and pulls in no JAX."""
+    and pulls in no JAX, though it imports every kernel module."""
     root = Path(__file__).resolve().parent.parent
-    code = "import sys\nimport chip_smoke\n" + _NO_JAX
+    code = ("import sys\nimport chip_smoke\n"
+            "for m in ('pallas_int8', 'swiglu_int8', 'mlp_int8', 'flash'):\n"
+            "    assert 'memory_augmented_vlm_torch.ops.' + m in sys.modules, m\n" + _NO_JAX)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=120)
