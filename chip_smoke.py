@@ -17,14 +17,22 @@ each of which raises on failure:
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2) and at edge cases in bf16 and fp32, the backward
                 of flash_fwd at the memory's fuse shape, flash_fwd, the
-                three int8 kernels of the default tower, and the four of the
+                three int8 kernels of the default tower, the four of the
                 fused configuration and the w8a8 layer (int8_matmul,
                 fused_mlp_int8, fused_swiglu_block_int8,
-                flash_attention_out_proj_int8);
+                flash_attention_out_proj_int8), and the four of the
+                approximate attention and the micro-benchmarks (the
+                int8_scores merge, held also to JAX's bound against the
+                exact merge; fused_attn_block_int8; int8_gemm_bf16; gemv,
+                its 12-layer chain timed from a CUDA graph);
   4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
                 (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
                 between against one fused_mlp_int8 call, held against each
-                other and against their plain versions, and timed;
+                other and against their plain versions, and timed; then the
+                fused attention half-block at the tower's shape and at the
+                tool's 768-row stream, beside the two composed halves it
+                would replace (drift held, timed in turns); then both
+                micro-benchmarks (int8 GEMM TOP/s, GEMV chain GB/s);
   5. requests — the full-width 0.5B int8 serving model (random weights from
                 a seed, prequantized on the card) answers 64-, 16- and
                 128-frame clips with 32 greedy tokens; the bf16 model answers
@@ -38,6 +46,10 @@ each of which raises on failure:
                 qwen2.fused_swiglu_enabled (24 fused launches, all in
                 prefill) against the unfused request, each held to the int8
                 model's noise floor measured in the same run, and timed;
+                and the 64-frame tower through vlm.encode_frames with the
+                merge swapped for its int8_scores mode (26 int8_scores
+                launches, no exact merge), its drift from the exact tower
+                printed beside the same run's tie-flip floor, and timed;
   6. train    — four full-width bf16 train steps of bench_train.py's
                 configuration (64 frames, 9557 tokens, AdamW with its LR
                 groups) on distinct seeded batches: finite losses, 120
@@ -55,7 +67,8 @@ each of which raises on failure:
                 2 segments), whose loss, grad_norm and every gradient leaf
                 are compared.
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each of the 15
+kernels, with its launches on each path; the last
 line is {"ok": true, "device": {...}}. Nothing is printed as a result when
 there is no card: the run raises first.
 """
@@ -67,7 +80,6 @@ import dataclasses
 import functools
 import json
 import math
-import statistics
 import subprocess
 import time
 
@@ -78,14 +90,18 @@ import torch.nn.functional as F
 from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
-from memory_augmented_vlm_torch.ops import (cuda_lib, flash, flash_bwd, mlp_int8, pallas_int8,
-                                            qkv_int8, quant, swiglu_int8)
+from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
+from memory_augmented_vlm_torch.microbench.timing import graph_ms, require_card
+from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
+from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_bwd, mlp_int8,
+                                            pallas_int8, qkv_int8, quant, swiglu_int8)
 from memory_augmented_vlm_torch.train import optimizer, trainer
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12  # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # bf16 flash kernel vs plain version: both round q and P to bf16 but at
@@ -137,6 +153,12 @@ FUSED_VS_COMPOSED_RMS = 2e-2
 # bf16 step). The fused path may differ from the unfused one by three times
 # that floor, in RMS over the output's spread and in the largest element.
 FUSED_FLOOR_FACTOR = 3.0
+# the 64-frame int8 tower with the int8_scores merge against the exact one,
+# by tools_attn_int8_ab.py's measure (std of |difference| over std). The
+# mode is an approximation, so the drift is printed beside the same run's
+# tie-flip floor and not held to it; the bound only catches a broken
+# kernel, whose features land near 1.
+INT8_SCORES_TOWER_DRIFT = 0.25
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
 TRAIN_FRAMES, TRAIN_TEXT, TRAIN_IGNORED = 64, 128, 8
@@ -163,12 +185,7 @@ def log(*args):
 
 
 def phase_card() -> str:
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0]
+    card = require_card()
     log(card)
     nvcc = cuda_lib.find_nvcc()
     nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
@@ -185,20 +202,6 @@ def phase_build():
     for line in cuda_lib.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
-
-
-def _time_ms(fn, reps: int = 5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _bound(ops: float, peak: float, nbytes: float):
@@ -717,6 +720,295 @@ def phase_chain():
     return launches
 
 
+# ------------------------------------- approximate attention and microbench
+
+
+def _tool_drift(got, ref) -> float:
+    """The measure of tools_attn_int8_ab.py and of JAX's int8_scores test:
+    std of |difference| over std."""
+    return float((got.float() - ref.float()).abs().std() / ref.float().std())
+
+
+def _jax_class(got, exact) -> dict:
+    """JAX's bound of the int8_scores mode against the exact one
+    (tests/test_pallas_flash.py:178) reads the drift and the correlation."""
+    a, b = got.float().flatten(), exact.float().flatten()
+    return {"abs_diff_std_over_std": _tool_drift(a, b),
+            "corr": float(torch.corrcoef(torch.stack([a, b]))[0, 1])}
+
+
+def _block_args(gen, b, s, h, dtype, dev):
+    """tools_attnblock_bench.py's inputs: hidden ~ N(0, 0.3^2), LN weights
+    near 1, int8 codes uniform in [-127, 127] with scales |N(0, 1)| * 0.02 /
+    127 and biases N(0, 0.01^2), the weights column-major."""
+    hidden = (torch.randn((b, s, h), generator=gen, device=dev) * 0.3).to(dtype)
+    ln_w = 1.0 + 0.1 * torch.randn((h,), generator=gen, device=dev)
+    ln_b = 0.1 * torch.randn((h,), generator=gen, device=dev)
+    mats = []
+    for _ in range(4):
+        mats += [quant.column_major(torch.randint(-127, 128, (h, h), generator=gen, device=dev,
+                                                  dtype=torch.int8)),
+                 torch.randn((h,), generator=gen, device=dev).abs() * 0.02 / 127,
+                 torch.randn((h,), generator=gen, device=dev) * 0.01]
+    return (hidden, ln_w, ln_b, *mats)
+
+
+def phase_int8_attn_kernels():
+    """The int8_scores merge, the fused attention half-block, the int8
+    ceiling GEMM and the decode GEMV against their plain versions at their
+    path shapes (timed) and at edge cases."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    dev = "cuda"
+    b, s, h, nh, d = 64, 729, 1152, 16, 72
+    rows = {}
+
+    # --- flash_attention_merge_heads(int8_scores=True) at the tower's shape
+    q, k, v = (torch.randn((b, nh, s, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    valid = torch.full((b,), s, dtype=torch.int32, device=dev)
+    out = flash.flash_attention_merge_heads_int8_scores(q, k, v, valid)
+    torch.cuda.synchronize()
+    errs = [_compare("int8_scores", out, flash.flash_attention_merge_heads_int8_scores_reference(
+        q, k, v, valid), q=list(q.shape), q_tile=flash.merge_q_tile(s))["max_abs_err"]]
+    jax_class = _jax_class(out, flash.flash_attention_merge_heads(q, k, v, valid))
+    log(json.dumps({"int8_scores_vs_exact_kernel": "tower shape", **jax_class,
+                    "tol": "abs_diff_std_over_std < 0.03, corr > 0.999 (JAX's bound)"}))
+    if not (jax_class["abs_diff_std_over_std"] < 0.03 and jax_class["corr"] > 0.999):
+        raise RuntimeError(f"int8_scores left JAX's class of the exact kernel: {jax_class}")
+    bound, by = _bound(4.0 * b * nh * s * s * d, PEAK_INT8, _nbytes(q, k, v, out))
+    rows["int8_scores"] = {
+        "ms": _time_ms(lambda: flash.flash_attention_merge_heads_int8_scores(q, k, v, valid)),
+        "plain_ms": _time_ms(lambda: flash.flash_attention_merge_heads_int8_scores_reference(
+            q, k, v, valid)),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        "library_call": "scaled_dot_product_attention (64, 16, 729, 72) bf16, the function "
+                        "the mode approximates",
+        "bound_ms": bound, "bound_by": by, "vs_exact_kernel": jax_class}
+    del q, k, v, out
+    # ragged valid lengths, a batch with no valid key, ragged last q tiles
+    # (S 150 takes 8-row tiles, the last of 6 rows), D 64 and 128, a block_q
+    for lens, dd, ss, block_q in (((77, 150), 72, 150, 128), ((0, 150), 72, 150, 128),
+                                  ((150, 33), 64, 150, 128), ((0, 200), 128, 200, 64),
+                                  ((97, 100), 72, 100, 16)):
+        q, k, v = (torch.randn((2, 4, ss, dd), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = flash.flash_attention_merge_heads_int8_scores(q, k, v, vl, block_q=block_q)
+        torch.cuda.synchronize()
+        ref = flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, vl, block_q=block_q)
+        errs.append(_compare(f"int8_scores_edge_{lens}_d{dd}", out, ref, q=list(q.shape),
+                             q_tile=flash.merge_q_tile(ss, block_q))["max_abs_err"])
+    rows["int8_scores"]["max_abs_err"] = max(errs)
+
+    # --- fused_attn_block_int8 at the tower's shape
+    args = _block_args(gen, b, s, h, torch.bfloat16, dev)
+    out = attn_block.fused_attn_block_int8(*args, nh=nh, valid=s)
+    torch.cuda.synchronize()
+    errs = [_compare("attn_block", out, attn_block.fused_attn_block_int8_reference(
+        *args, nh=nh, valid=s), hidden=list(args[0].shape), nh=nh)["max_abs_err"]]
+    m = b * s
+    xq = torch.randint(-127, 128, (m, h), generator=gen, device=dev, dtype=torch.int8)
+    qb, kb, vb = (torch.randn((b, nh, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    t_ops = 4 * 2.0 * m * h * h / PEAK_INT8 + 4.0 * b * nh * s * s * d / PEAK_BF16
+    t_bytes = (2 * _nbytes(args[0]) + _nbytes(args[3], args[6], args[9], args[12])) / PEAK_BYTES
+    rows["attn_block"] = {
+        "ms": _time_ms(lambda: attn_block.fused_attn_block_int8(*args, nh=nh, valid=s)),
+        "plain_ms": _time_ms(lambda: attn_block.fused_attn_block_int8_reference(
+            *args, nh=nh, valid=s), reps=3),
+        "library_ms": _time_ms(lambda: (F.scaled_dot_product_attention(qb, kb, vb),
+                                        *(torch._int_mm(xq, args[i]) for i in (3, 6, 9, 12)))),
+        "library_call": "scaled_dot_product_attention (64, 16, 729, 72) bf16 + torch._int_mm "
+                        "x4 (46656x1152 @ 1152x1152): the attention and matmul shares only",
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    del args, out, xq, qb, kb, vb
+    torch.cuda.empty_cache()
+    # valid < S, nh 2 / 8 / 16 (head dims 128, 32, 72), fp32 hidden, valid 0
+    for bb, ss, hh, nhh, vv, dtype in ((2, 150, 1152, 16, 77, torch.bfloat16),
+                                       (2, 150, 256, 2, 100, torch.bfloat16),
+                                       (2, 150, 256, 8, 150, torch.float32),
+                                       (1, 97, 1152, 16, 0, torch.float32)):
+        args = _block_args(gen, bb, ss, hh, dtype, dev)
+        out = attn_block.fused_attn_block_int8(*args, nh=nhh, valid=vv)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"attn_block_edge_nh{nhh}_valid{vv}", out,
+                             attn_block.fused_attn_block_int8_reference(*args, nh=nhh, valid=vv),
+                             hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+    rows["attn_block"]["max_abs_err"] = max(errs)
+
+    # --- int8_gemm_bf16 at the ceiling tool's shape
+    xq, wq, xb, wb = int8_ceiling.operands(seed=11)
+    out = int8_ceiling.int8_gemm_bf16(xq, wq)
+    torch.cuda.synchronize()
+    errs = [_compare("int8_gemm_bf16", out, int8_ceiling.int8_gemm_bf16_reference(xq, wq),
+                     x=list(xq.shape), n=int8_ceiling.N)["max_abs_err"]]
+    mm, kk = xq.shape
+    bound, by = _bound(2.0 * mm * kk * int8_ceiling.N, PEAK_INT8, _nbytes(xq, wq, out))
+    rows["int8_gemm"] = {
+        "ms": _time_ms(lambda: int8_ceiling.int8_gemm_bf16(xq, wq)),
+        "plain_ms": _time_ms(lambda: int8_ceiling.int8_gemm_bf16_reference(xq, wq)),
+        "library_ms": _time_ms(lambda: torch._int_mm(xq, wq)),
+        "library_call": "torch._int_mm (46656x1152 @ 1152x4304), int32 out",
+        "bound_ms": bound, "bound_by": by}
+    del xq, wq, xb, wb, out
+    for mm, kk, nn in ((1000, 1152, 1000), (1, 896, 130), (300, 4304, 1152)):  # ragged M, N
+        x = torch.randint(-127, 128, (mm, kk), generator=gen, device=dev, dtype=torch.int8)
+        w = quant.column_major(torch.randint(-127, 128, (kk, nn), generator=gen, device=dev,
+                                             dtype=torch.int8))
+        out = int8_ceiling.int8_gemm_bf16(x, w)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"int8_gemm_bf16_edge_{mm}x{kk}x{nn}", out,
+                             int8_ceiling.int8_gemm_bf16_reference(x, w))["max_abs_err"])
+    rows["int8_gemm"]["max_abs_err"] = max(errs)
+
+    # --- gemv: the tool's 12-layer chain, timed as one CUDA-graph replay
+    x, w1, w2 = gemv.operands(seed=12)
+    errs = []
+    for name, xx, w in (("up", x, w1[0]), ("down", gemv.gemv_reference(x, w1[0]), w2[0])):
+        out = gemv.gemv(xx, w)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"gemv_{name}", out, gemv.gemv_reference(xx, w),
+                             w=list(w.shape))["max_abs_err"])
+    y = gemv.chain(gemv.gemv, x, w1, w2)
+    torch.cuda.synchronize()
+    errs.append(_compare("gemv_chain", y, gemv.chain(gemv.gemv_reference, x, w1, w2),
+                         layers=gemv.L)["max_abs_err"])
+    bound, by = _bound(4.0 * gemv.L * gemv.H * gemv.I, PEAK_F32, gemv.chain_bytes(x, w1, w2))
+    rows["gemv"] = {
+        "ms": graph_ms(lambda: gemv.chain(gemv.gemv, x, w1, w2)),
+        "plain_ms": graph_ms(lambda: gemv.chain(gemv.gemv_reference, x, w1, w2)),
+        "library_ms": graph_ms(lambda: gemv.chain(torch.matmul, x, w1, w2)),
+        "library_call": "torch.matmul chained the same way (bf16)",
+        "timing": "one 12-layer chain (24 products, 209 MB of weights) replayed from a "
+                  "CUDA graph",
+        "bound_ms": bound, "bound_by": by}
+    del x, w1, w2, y
+    for kk, nn in ((1000, 777), (5, 3), (4864, 900), (33, 4104)):  # K, N off the block
+        x = torch.randn((1, kk), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((kk, nn), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        out = gemv.gemv(x, w)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"gemv_edge_{kk}x{nn}", out, gemv.gemv_reference(x, w))["max_abs_err"])
+    rows["gemv"]["max_abs_err"] = max(errs)
+    torch.cuda.empty_cache()
+    return [
+        {"name": "flash_attention_merge_heads_int8_scores", "route": "cuda",
+         "source": CSRC + "flash_merge_int8.cu",
+         "replaces": "memory_augmented_vlm_tpu/ops/pallas_flash.py:279", **rows["int8_scores"]},
+        {"name": "fused_attn_block_int8", "route": "cuda", "source": CSRC + "attn_block.cu",
+         "replaces": "memory_augmented_vlm_tpu/ops/pallas_attn_block.py:143",
+         **rows["attn_block"]},
+        {"name": "int8_gemm_bf16", "route": "cuda", "source": CSRC + "int8_matmul.cu",
+         "replaces": "tools_int8_ceiling.py:80", **rows["int8_gemm"]},
+        {"name": "gemv", "route": "cuda", "source": CSRC + "gemv.cu",
+         "replaces": "tools_gemv_bench.py:33", **rows["gemv"]},
+    ]
+
+
+def _composed_halves(args, nh, valid):
+    """The two composed attention halves #12 would replace, on its weights:
+    fused_qkv_int8 -> the merge kernel -> the int8 out-projection + residual
+    (the tower's unfused layer), and fused_qkv_int8 ->
+    flash_attention_out_proj_int8 (its fused_oproj layer)."""
+    hidden, ln_w, ln_b = args[:3]
+    wo, so, bo = args[12:]
+    b, s, h = hidden.shape
+    vl = torch.full((b,), valid, dtype=torch.int32, device=hidden.device)
+    qkv_proj = args[3:12]
+
+    def merge_path():
+        q, k, v = qkv_int8.fused_qkv_int8(hidden, ln_w, ln_b, *qkv_proj, nh=nh)
+        attn = flash.flash_attention_merge_heads(q, k, v, vl)
+        return hidden + quant.int8_linear({"kernel_int8": wo, "scale": so, "bias": bo}, attn)
+
+    def oproj_path():
+        q, k, v = qkv_int8.fused_qkv_int8(hidden, ln_w, ln_b, *qkv_proj, nh=nh)
+        return flash.flash_attention_out_proj_int8(q, k, v, vl, hidden, wo, so, bo)
+
+    return merge_path, oproj_path
+
+
+def phase_attn_block():
+    """#12 at the tower's shape (64 x 729 x 1152, 16 heads, valid 729) and at
+    the tool's padded stream (64 x 768, valid 729), on seeded int8 weights,
+    beside the two composed halves it would replace: timed in turns, and
+    its drift from them held to the fused-vs-composed bound. Returns the
+    launch counts of #12's two calls."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    nh, valid = 16, 729
+    weights = _block_args(gen, 1, 1, 1152, torch.bfloat16, "cuda")[1:]
+    inputs = {s: (torch.randn((64, s, 1152), generator=gen, device="cuda") * 0.3)
+              .to(torch.bfloat16) for s in (729, 768)}
+    _reset_launches()
+    outs = {s: attn_block.fused_attn_block_int8(x, *weights, nh=nh, valid=valid)
+            for s, x in inputs.items()}
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = {**dict.fromkeys(WRAPPERS, 0), "fused_attn_block_int8": 2}
+    if launches != want:
+        raise RuntimeError(f"attention block: launches {launches}, want {want}")
+    for s, x in inputs.items():
+        args = (x, *weights)
+        merge_path, oproj_path = _composed_halves(args, nh, valid)
+        block = outs[s]
+        rows = valid  # padded rows are computed, compared only on the valid ones
+        drift = {}
+        for name, fn in (("merge + int8_linear", merge_path), ("out_proj_int8", oproj_path)):
+            ref = fn()
+            rms = _rms(block[:, :rows], ref[:, :rows])
+            err = float((block[:, :rows].float() - ref[:, :rows].float()).abs().max())
+            drift[name] = {"rms_over_std": rms, "max_abs": err}
+            if not (rms <= FUSED_VS_COMPOSED_RMS and err <= INT8_MAX_ABS):
+                raise RuntimeError(f"attention block at S={s} drifts from {name}: {drift}")
+        if not bool(torch.isfinite(block).all()):
+            raise RuntimeError(f"attention block at S={s}: non-finite output")
+        # composed, fused, fused, composed: two readings of each in turns
+        fns = {"fused_attn_block_int8": lambda: attn_block.fused_attn_block_int8(
+            x, *weights, nh=nh, valid=valid), "qkv -> merge -> int8_linear": merge_path,
+            "qkv -> out_proj_int8": oproj_path}
+        order = ["qkv -> merge -> int8_linear", "qkv -> out_proj_int8", "fused_attn_block_int8",
+                 "fused_attn_block_int8", "qkv -> out_proj_int8", "qkv -> merge -> int8_linear"]
+        times = {}
+        for name in order:
+            times.setdefault(name, []).append(_time_ms(fns[name]))
+        log(json.dumps({"attn_block": f"64 x {s} x 1152, 16 heads, valid {valid}",
+                        "ms_median_of_5_two_readings": times, "drift_from_composed": drift,
+                        "tol": f"rms <= {FUSED_VS_COMPOSED_RMS}, max abs <= {INT8_MAX_ABS}"}))
+    del outs, inputs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_microbench():
+    """Both micro-benchmarks as their modules run them: one counted pass of
+    each path (the ceiling GEMM once, the GEMV chain once), then the
+    tools' measurements. Returns each path's launch counts."""
+    paths = {}
+    xq, wq, xb, wb = int8_ceiling.operands()
+    _reset_launches()
+    int8_ceiling.int8_gemm_bf16(xq, wq)
+    torch.cuda.synchronize()
+    paths["int8_ceiling_microbench"] = _launches()
+    log(json.dumps({"int8_ceiling": int8_ceiling.measure(xq, wq, xb, wb)}))
+    del xq, wq, xb, wb
+    x, w1, w2 = gemv.operands()
+    _reset_launches()
+    gemv.chain(gemv.gemv, x, w1, w2)
+    torch.cuda.synchronize()
+    paths["gemv_microbench"] = _launches()
+    log(json.dumps({"gemv": gemv.measure(x, w1, w2)}))
+    want = {"int8_ceiling_microbench": {"int8_gemm_bf16": 1},
+            "gemv_microbench": {"gemv": 2 * w1.shape[0]}}
+    for path, counts in want.items():
+        if paths[path] != {**dict.fromkeys(WRAPPERS, 0), **counts}:
+            raise RuntimeError(f"{path}: launches {paths[path]}, want {counts}")
+    torch.cuda.empty_cache()
+    return paths
+
+
 # ----------------------------------------------------- training kernels
 
 TRAIN_REPLACES = {
@@ -924,6 +1216,10 @@ WRAPPERS = {
     "fused_mlp_int8": mlp_int8.fused_mlp_int8,
     "fused_swiglu_block_int8": swiglu_int8.fused_swiglu_block_int8,
     "int8_matmul": pallas_int8.int8_matmul,
+    "flash_attention_merge_heads_int8_scores": flash.flash_attention_merge_heads_int8_scores,
+    "fused_attn_block_int8": attn_block.fused_attn_block_int8,
+    "int8_gemm_bf16": int8_ceiling.int8_gemm_bf16,
+    "gemv": gemv.gemv,
 }
 
 
@@ -1163,6 +1459,62 @@ def _fused_tower(cfg, params, gen):
     return launches
 
 
+@contextlib.contextmanager
+def _int8_scores_merge():
+    """The tower's merge entry swapped for its int8_scores mode, as
+    tools_attn_int8_ab.py swaps it, and restored after: `siglip` imports the
+    name, so the name in `siglip` is the one swapped."""
+    saved = siglip.flash_attention_merge_heads
+    siglip.flash_attention_merge_heads = functools.partial(flash.flash_attention_merge_heads,
+                                                           int8_scores=True)
+    try:
+        yield
+    finally:
+        siglip.flash_attention_merge_heads = saved
+
+
+def _int8_scores_tower(cfg, params, gen):
+    """The 64-frame int8 tower through `vlm.encode_frames` with the merge
+    swapped for its int8_scores mode, beside the exact tower on the same
+    pixels: launches, drift beside the tie-flip floor, and tower ms.
+    Returns the int8_scores run's launch counts."""
+    pixels = torch.randn((64, 384, 384, 3), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def encode(pix):
+        return vlm.encode_frames(params, cfg, pix)
+
+    exact = encode(pixels)
+    perturbed = encode(_one_step_of_pixels(pixels))
+    _reset_launches()
+    with _int8_scores_merge():
+        approx = encode(pixels)
+    torch.cuda.synchronize()
+    launches = _launches()
+    layers = cfg.vision.num_used_layers
+    want = {**_expected_tower_launches(cfg, False), "flash_attention_merge_heads": 0,
+            "flash_attention_merge_heads_int8_scores": layers}
+    if launches != want:
+        raise RuntimeError(f"int8_scores tower: launches {launches}, want {want}")
+    if approx.shape != exact.shape or not bool(torch.isfinite(approx).all()):
+        raise RuntimeError(f"int8_scores tower: output {tuple(approx.shape)} or non-finite")
+    drift, floor = _tool_drift(approx, exact), _tool_drift(perturbed, exact)
+    times = {}
+    for mode in ("exact", "int8_scores", "int8_scores", "exact"):
+        ctx = _int8_scores_merge() if mode == "int8_scores" else contextlib.nullcontext()
+        with ctx:
+            times.setdefault(mode, []).append(_time_ms(lambda: encode(pixels)))
+    row = {"int8_scores_tower": "vlm.encode_frames, 64 frames, 26 int8 layers",
+           "launches": launches, "drift_abs_diff_std_over_std": drift,
+           "tie_flip_floor_abs_diff_std_over_std": floor,
+           "rms_over_std": _rms(approx, exact), "floor_rms_over_std": _rms(perturbed, exact),
+           "encode_frames_ms_median_of_5_two_readings": times,
+           "tol": f"drift < {INT8_SCORES_TOWER_DRIFT}"}
+    log(json.dumps(row))
+    if not drift < INT8_SCORES_TOWER_DRIFT:
+        raise RuntimeError(f"int8_scores tower drifts from the exact tower: {row}")
+    return launches
+
+
 def _fused_request(cfg, params, gen):
     """The 64-frame int8 request with `qwen2.fused_swiglu_enabled` beside the
     unfused request on the same pixels: 24 fused launches, all in prefill.
@@ -1223,6 +1575,7 @@ def phase_requests():
     int8_launches = _serve("int8", int8_cfg, int8_params, (64, 16, 128), gen, kv_int8=True)
     _stage_times("int8", int8_cfg, int8_params, 64, gen, kv_int8=True)
     fused_tower_launches = _fused_tower(int8_cfg, int8_params, gen)
+    int8_scores_launches = _int8_scores_tower(int8_cfg, int8_params, gen)
     fused_request_launches = _fused_request(int8_cfg, int8_params, gen)
     with _fused_flags(swiglu=True):
         _stage_times("int8, fused_swiglu", int8_cfg, int8_params, 64, gen, kv_int8=True)
@@ -1237,7 +1590,8 @@ def phase_requests():
     torch.cuda.empty_cache()
     return {"int8_serving_64_frames": int8_launches, "bf16_64_frames": bf16_launches,
             "int8_fused_oproj_tower_64_frames": fused_tower_launches,
-            "int8_fused_swiglu_64_frames": fused_request_launches}
+            "int8_fused_swiglu_64_frames": fused_request_launches,
+            "int8_scores_tower_64_frames": int8_scores_launches}
 
 
 # -------------------------------------------------------------- parity
@@ -1551,11 +1905,15 @@ def main():
     phase_build()
     train_kernels, flash_backward = phase_train_kernels()
     kernels = [phase_flash_kernel(), *phase_int8_kernels(), *phase_fused_kernels(),
-               *train_kernels]
+               *train_kernels, *phase_int8_attn_kernels()]
     kernels[0]["backward"] = flash_backward
     chain_launches = phase_chain()
+    attn_block_launches = phase_attn_block()
+    microbench_launches = phase_microbench()
     launches = phase_requests()
     launches["int8_mlp_chain"] = chain_launches
+    launches["attn_block"] = attn_block_launches
+    launches.update(microbench_launches)
     launches["train_step"] = phase_train()
     phase_parity()
     phase_train_parity()

@@ -9,7 +9,8 @@ entries (`kernel_int8`, `scale`, `bias`, and the LM's `unembed_int8`,
 `unembed_scale`) come across as they are, each int8 kernel stored
 column-major (`quant.column_major`), the layout the int8 kernels read; so
 does the `w_int8` of a `pallas_int8.int8_linear` dict (`{w_int8, scale,
-bias}`), through `int8_linear_params` or inside a tree.
+bias}`), through `int8_linear_params` or inside a tree, and the int8
+matrices of the attention-block kernel's arguments (`attn_block_weights`).
 `to_jax_layout` is the inverse layout change, for holding the port's
 params, grads or per-leaf labels against JAX's leaf by leaf.
 Nothing here imports JAX: the caller turns its arrays into numpy first.
@@ -18,7 +19,7 @@ Nothing here imports JAX: the caller turns its arrays into numpy first.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +67,16 @@ def int8_linear_params(qp: Mapping[str, Any], device="cuda"):
     leaves, `w_int8` row-major) -> the port's, on `device`, with `w_int8`
     column-major."""
     return _tree(dict(qp), device, None)
+
+
+def attn_block_weights(weights: Sequence[Any], device="cuda") -> List[torch.Tensor]:
+    """The twelve weight arguments of JAX's `fused_attn_block_int8` (wq, sq,
+    bq, wk, sk, bk, wv, sv, bv, wo, so, bo; numpy, each int8 (H, H) matrix
+    row-major) -> the port's, on `device`, each int8 matrix column-major."""
+    if len(weights) != 12:
+        raise ValueError(f"expected 12 weight arrays, got {len(weights)}")
+    out = [_tensor(x, device, None) for x in weights]
+    return [column_major(x) if x.dtype == torch.int8 else x for x in out]
 
 
 def _unstack(tree, n: int):

@@ -136,6 +136,17 @@ def load() -> ctypes.CDLL:
     #                   attn, xq, sx, B, NH, S, scale_log2, stream)
     lib.flash_merge_oproj.argtypes = ([c_int] + [ptr] * 4 + [c_int] + [ptr] * 8 + [c_int] * 3
                                       + [ctypes.c_float, ptr])
+    # flash_merge_int8(head_dim, q, k, v, o, valid_len, scales, B, NH, S, tile,
+    #                  scale_log2, stream)
+    lib.flash_merge_int8.argtypes = [c_int] + [ptr] * 6 + [c_int] * 4 + [ctypes.c_float, ptr]
+    # attn_block_int8(dtype, hidden, ln_w, ln_b, 4 x (w, s, b), out, xq, sx, q, k, v, oq,
+    #                 sa, B, S, H, NH, valid, eps, scale, stream)
+    lib.attn_block_int8.argtypes = ([c_int] + [ptr] * 23 + [c_int] * 5 + [ctypes.c_float] * 2
+                                    + [ptr])
+    # int8_gemm_bf16(x, w, out, M, N, K, stream)
+    lib.int8_gemm_bf16.argtypes = [ptr] * 3 + [c_int] * 3 + [ptr]
+    # gemv_bf16(x, w, y, part, K, N, splits, rows_per_split, vec, stream)
+    lib.gemv_bf16.argtypes = [ptr] * 4 + [c_int] * 5 + [ptr]
     strides = ctypes.POINTER(c_ll)
     # flash_fwd_lse(dtype, head_dim, q, k, v, out, lse, valid_len, B, Sq, Skv,
     #               H, kv_groups, causal, 4 x strides, scale, scale_log2, stream)
@@ -150,7 +161,8 @@ def load() -> ctypes.CDLL:
                                   + [ctypes.c_float] * 2 + [ptr])
     for fn in (lib.flash_fwd, lib.flash_merge, lib.flash_merge_oproj, lib.qkv_int8,
                lib.mlp_int8, lib.mlp_int8_core, lib.swiglu_int8, lib.int8_matmul,
-               lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+               lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_merge_int8,
+               lib.attn_block_int8, lib.int8_gemm_bf16, lib.gemv_bf16):
         fn.restype = c_int
     lib.kernel_error_string.argtypes = [c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

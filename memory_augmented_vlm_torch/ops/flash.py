@@ -14,9 +14,11 @@ XLA code outside any Pallas kernel). The LM's training attention has
 kernels of its own (`ops/flash_bwd.py`).
 
 `flash_attention_merge_heads` is the counterpart of `pallas_flash.py::
-flash_attention_merge_heads` (its non-`int8_scores` mode): head-major
-(B, NH, S, D) q/k/v in, merged heads (B, S, NH*D) out, and a one-shot
-softmax over the whole key axis with the TPU kernel's finite MASK_VALUE.
+flash_attention_merge_heads`: head-major (B, NH, S, D) q/k/v in, merged
+heads (B, S, NH*D) out, and a one-shot softmax over the whole key axis with
+the TPU kernel's finite MASK_VALUE. Its approximate `int8_scores` mode runs
+both attention products on int8 codes with scalar scales
+(`flash_attention_merge_heads_int8_scores`, `csrc/flash_merge_int8.cu`).
 `flash_attention_out_proj_int8` is the counterpart of `pallas_flash.py::
 flash_attention_out_proj_int8`: that attention, rounded to bf16, through
 the int8 out-projection (`acc * sx * so + bo` with the bias added in fp32)
@@ -33,7 +35,7 @@ from typing import Optional
 import torch
 
 from memory_augmented_vlm_torch.ops import cuda_lib, int8_common
-from memory_augmented_vlm_torch.ops.quant import int_mm, quantize_rows
+from memory_augmented_vlm_torch.ops.quant import QUANT_FLOOR, int_mm, quantize_rows
 
 LOG2E = 1.4426950408889634
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # pallas_flash.MASK_VALUE
@@ -284,16 +286,19 @@ def _check_merge_kernel_args(q, k, v, kv_valid_len):
 
 def flash_attention_merge_heads(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
-    *, scale: Optional[float] = None, int8_scores: bool = False,
+    *, scale: Optional[float] = None, block_q: int = 128, int8_scores: bool = False,
 ) -> torch.Tensor:
     """One-shot attention with a merged-head store; see
     `flash_attention_merge_heads_reference`. CPU tensors take the plain
     version; CUDA tensors launch `csrc/flash_merge.cu` (bf16, contiguous,
     head dims 64/72/128) and count the launch in
-    `flash_attention_merge_heads.launches`. The approximate `int8_scores`
-    mode of the TPU kernel is not ported."""
+    `flash_attention_merge_heads.launches`. `int8_scores=True` takes the
+    approximate mode instead, `flash_attention_merge_heads_int8_scores`,
+    whose q tiles `block_q` sets; the exact mode's result does not depend
+    on `block_q`."""
     if int8_scores:
-        raise NotImplementedError("flash_attention_merge_heads(int8_scores=True) is not ported")
+        return flash_attention_merge_heads_int8_scores(q, k, v, kv_valid_len, scale=scale,
+                                                       block_q=block_q)
     b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
     if q.device.type == "cpu":
         return flash_attention_merge_heads_reference(q, k, v, kv_valid_len, scale=scale)
@@ -312,6 +317,104 @@ def flash_attention_merge_heads(
 
 
 flash_attention_merge_heads.launches = 0
+
+
+def merge_q_tile(s: int, block_q: int = 128) -> int:
+    """Query rows per scale tile of the `int8_scores` mode: JAX's rule
+    (`block_q` halved until it divides the stream) applied to S rounded up
+    to 8, the sublane-aligned stream that JAX's tower pads to. For S a
+    multiple of 8 this is JAX's own tiling; at S = 729 it is JAX's 32-row
+    tower tile, and the last of 23 tiles holds 25 rows."""
+    if block_q < 1:
+        raise ValueError(f"block_q must be positive, got {block_q}")
+    s8 = max(-(-s // 8) * 8, 8)
+    tile = min(block_q, s8)
+    while s8 % tile:
+        tile //= 2
+    return tile
+
+
+def _scalar_scale(x: torch.Tensor) -> torch.Tensor:
+    """max(|x|, 1e-12) / 127 over the last two axes, kept as (..., 1, 1)."""
+    return x.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(QUANT_FLOOR) / 127.0
+
+
+def _codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """clip(round(x * (1/s)), -127, 127), as float values."""
+    return torch.round(x * (1.0 / s)).clamp_(-127, 127)
+
+
+def flash_attention_merge_heads_int8_scores_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
+    *, scale: Optional[float] = None, block_q: int = 128,
+) -> torch.Tensor:
+    """Plain version of the `int8_scores` mode. q, k, v (B, NH, S, D);
+    kv_valid_len (B,). Returns (B, S, NH*D) in q.dtype.
+
+    Per (batch, head): qf = q * scale * log2(e) in fp32 (not rounded to
+    q's dtype), one scale sq = max(|qf|, 1e-12) / 127 per tile of
+    `merge_q_tile(S, block_q)` query rows (the last tile may be ragged);
+    one scale each for k and v over all S keys, masked keys included;
+    codes clip(round(x * (1/s)), +-127). Scores are the exact int32 product
+    of the codes times sq*sk, MASK_VALUE at or past the valid length;
+    p = exp2(s - max), l = sum(p) over the unrounded p, P stored as
+    round(p * 127); out = (P . vq) * ((sv / 127) / l). JAX's tower pads
+    the stream from 729 to 736 rows, so its last q tile and its k/v scales
+    also see 7 pad rows; here there are none. The integer products run in
+    float64, where they are exact."""
+    b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
+    scale = d ** -0.5 if scale is None else scale
+    tile = merge_q_tile(s, block_q)
+    nt = -(-s // tile)
+    qf = torch.nn.functional.pad(q.float() * (scale * LOG2E), (0, 0, 0, nt * tile - s))
+    qf = qf.view(b, nh, nt, tile, d)
+    sq = _scalar_scale(qf)  # (B, NH, nt, 1, 1)
+    qq = _codes(qf, sq).view(b, nh, nt * tile, d)[:, :, :s]
+    sq = sq.view(b, nh, nt, 1).repeat_interleave(tile, dim=2)[:, :, :s]
+    kf, vf = k.float(), v.float()
+    sk, sv = _scalar_scale(kf), _scalar_scale(vf)  # (B, NH, 1, 1)
+    raw = torch.matmul(qq.double(), _codes(kf, sk).double().transpose(-1, -2)).float()
+    keep = torch.arange(s, device=q.device)[None, :] < kv_valid_len.to(q.device)[:, None]
+    sc = torch.where(keep[:, None, None, :], raw * (sq * sk), MASK_VALUE)
+    p = torch.exp2(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(torch.round(p * 127.0).double(), _codes(vf, sv).double()).float()
+    out = (acc * ((sv / 127.0) / l)).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, s, nh * d)
+
+
+def flash_attention_merge_heads_int8_scores(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
+    *, scale: Optional[float] = None, block_q: int = 128,
+) -> torch.Tensor:
+    """The approximate `int8_scores` mode of the merge-heads attention; see
+    `flash_attention_merge_heads_int8_scores_reference`. CPU tensors take
+    the plain version; CUDA tensors launch `csrc/flash_merge_int8.cu`
+    (bf16, contiguous, head dims 64/72/128) and count one launch in
+    `flash_attention_merge_heads_int8_scores.launches`."""
+    b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
+    tile = merge_q_tile(s, block_q)
+    if q.device.type == "cpu":
+        return flash_attention_merge_heads_int8_scores_reference(q, k, v, kv_valid_len,
+                                                                 scale=scale, block_q=block_q)
+    scale = d ** -0.5 if scale is None else scale
+    _check_merge_kernel_args(q, k, v, kv_valid_len)
+    out = torch.empty((b, s, nh * d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    nt = -(-s // tile)
+    # scratch: per (batch, head), the nt q-tile scales, then sk and sv
+    scales = torch.empty((b * nh, nt + 2), dtype=torch.float32, device=q.device)
+    lib = cuda_lib.load()
+    rc = lib.flash_merge_int8(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                              kv_valid_len.data_ptr(), scales.data_ptr(), b, nh, s, tile,
+                              scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_merge_int8")
+    flash_attention_merge_heads_int8_scores.launches += 1
+    return out
+
+
+flash_attention_merge_heads_int8_scores.launches = 0
 
 
 def _oproj_shapes(q, k, v, kv_valid_len, hidden, wo, so, bo):

@@ -11,6 +11,7 @@ with `flash_attention_reference` there.
 """
 
 import os
+import re
 from pathlib import Path
 
 import numpy as np
@@ -113,15 +114,19 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
-    assert [p.name for p in srcs] == ["flash_fwd.cu", "flash_merge.cu", "flash_train.cu",
+    assert [p.name for p in srcs] == ["attn_block.cu", "flash_fwd.cu", "flash_merge.cu",
+                                      "flash_merge_int8.cu", "flash_train.cu", "gemv.cu",
                                       "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
                                       "swiglu_int8.cu"]
-    # each C entry that cuda_lib.load binds is defined in one of them
+    # each C entry that cuda_lib.load binds is defined (not only declared)
+    # in exactly one of them
     text = "".join(p.read_text() for p in srcs)
     for entry in ("flash_fwd", "flash_merge", "flash_merge_oproj", "qkv_int8", "mlp_int8",
                   "mlp_int8_core", "swiglu_int8", "int8_matmul", "flash_fwd_lse",
-                  "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string"):
-        assert text.count(f" {entry}(int ") == 1, entry
+                  "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string", "flash_merge_int8",
+                  "attn_block_int8", "int8_gemm_bf16", "gemv_bf16"):
+        definition = re.compile(r'extern "C" [\w ]+\*? ?' + entry + r"\([^;{]*\)\s*\{")
+        assert len(definition.findall(text)) == 1, entry
     assert all(p.is_file() for p in srcs)
     compiles, link = cuda_lib.nvcc_commands("nvcc", Path("out.so"))
     assert len(compiles) == len(srcs)  # one nvcc per source, run side by side

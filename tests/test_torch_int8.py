@@ -181,9 +181,15 @@ def test_merge_heads_fp32_and_int8_scores():
                                        block_q=8, interpret=True)
     got = flash.flash_attention_merge_heads(*(_t(x) for x in (q, k, v)), _t(vl))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-4)
-    with pytest.raises(NotImplementedError, match="int8_scores"):
-        flash.flash_attention_merge_heads(*(_t(x) for x in (q, k, v)), _t(vl),
-                                          int8_scores=True)
+    # the int8_scores mode on the same fp32 inputs, five 8-row q tiles: its
+    # integer products are exact and P is an int8 code, so fp32 sums in
+    # another order and exp2 one ulp apart leave it within 5e-4 as well
+    want = flash_attention_merge_heads(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(vl),
+                                       block_q=8, int8_scores=True, interpret=True)
+    got = flash.flash_attention_merge_heads(*(_t(x) for x in (q, k, v)), _t(vl), block_q=8,
+                                            int8_scores=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-4)
 
 
 @pytest.mark.parametrize("m", [72, 45])
