@@ -22,9 +22,12 @@ each of which raises on failure:
                 fused_mlp_int8, fused_swiglu_block_int8,
                 flash_attention_out_proj_int8), and the four of the
                 approximate attention and the micro-benchmarks (the
-                int8_scores merge, held also to JAX's bound against the
-                exact merge; fused_attn_block_int8; int8_gemm_bf16; gemv,
-                its 12-layer chain timed from a CUDA graph);
+                int8_scores merge and fused_attn_block_int8, each held
+                to its plain version bit-close, EXACT_MIN_SHARE, with
+                neighbouring functions as controls that must fail, the
+                merge also to JAX's bound against the exact merge;
+                int8_gemm_bf16, bit for bit; gemv, its 12-layer chain
+                timed from a CUDA graph);
   4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
                 (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
                 between against one fused_mlp_int8 call, held against each
@@ -153,12 +156,35 @@ FUSED_VS_COMPOSED_RMS = 2e-2
 # bf16 step). The fused path may differ from the unfused one by three times
 # that floor, in RMS over the output's spread and in the largest element.
 FUSED_FLOOR_FACTOR = 3.0
-# the 64-frame int8 tower with the int8_scores merge against the exact one,
-# by tools_attn_int8_ab.py's measure (std of |difference| over std). The
-# mode is an approximation, so the drift is printed beside the same run's
-# tie-flip floor and not held to it; the bound only catches a broken
-# kernel, whose features land near 1.
-INT8_SCORES_TOWER_DRIFT = 0.25
+# The 64-frame int8 tower with the int8_scores merge against the exact one,
+# by tools_attn_int8_ab.py's measure (std of |difference| over std), is held
+# to FUSED_FLOOR_FACTOR times the tie-flip floor of the same run: the first
+# card run read 0.0160 against a floor of 0.0166, and a broken kernel lands
+# near 1. Any change of the approximation (another q tile, other K/V
+# scales) re-draws the chaotic tower's quantization noise and reads near the
+# floor too, so the tower cannot tell those apart: the kernel check below
+# does (EXACT_MIN_SHARE).
+#
+# The int8_scores merge and fused_attn_block_int8 against their plain
+# versions. Each repeats its plain version's integer products exactly, and
+# only fp32 rounding order differs (a row sum; exp2f or expf against
+# torch's), which moves an output by one bf16 step or flips one P code. So
+# almost every element is bit-equal, while a neighbouring function (the
+# exact merge, another q tile, K/V scales per key block, the composed
+# halves with their per-row quant of the attention output) re-draws the
+# quantization noise of nearly every element. The int8 rule above cannot
+# tell those apart: the merge's output spread is 0.06 at the tower's shape,
+# and #12's attention term is 0.02 on a residual of 0.3. These two kernels
+# are held instead to the share of bit-equal elements and to the RMS
+# difference over the spread of what the kernel computes (the output; for
+# #12 the attention term, out - hidden), and each check runs controls,
+# neighbouring functions that must fail it. The bounds sit between the
+# readings of the first card run that took them: the kernels at the path
+# shapes and edge cases 0.9735-1.0 bit-equal and 0-0.0045 RMS; the
+# controls 0.069-0.794 bit-equal and 0.0156-0.0288 RMS. #12 with fp32
+# hidden is held to F32_ATOL instead (its largest difference read 1.2e-7).
+EXACT_MIN_SHARE = 0.9
+EXACT_MAX_RMS = 0.008
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
 TRAIN_FRAMES, TRAIN_TEXT, TRAIN_IGNORED = 64, 128, 8
@@ -753,6 +779,88 @@ def _block_args(gen, b, s, h, dtype, dev):
     return (hidden, ln_w, ln_b, *mats)
 
 
+def _bit_close(name, out, ref, base=None, **info) -> dict:
+    """The share of bit-equal elements and the RMS difference over the
+    spread of `ref` (of ref - base where `base` is given), each against its
+    bound (EXACT_MIN_SHARE, EXACT_MAX_RMS)."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise RuntimeError(f"{name}: {out.dtype}{tuple(out.shape)} vs plain "
+                           f"{ref.dtype}{tuple(ref.shape)}")
+    diff = out.float() - ref.float()
+    spread = (ref.float() - (0.0 if base is None else base.float())).std()
+    row = {"case": name, **info, "exact_share": float((diff == 0).float().mean()),
+           "rms_over_spread": float(diff.pow(2).mean().sqrt() / spread),
+           "max_abs_err": float(diff.abs().max()),
+           "spread_of": "output" if base is None else "output - hidden",
+           "tol": f"exact_share >= {EXACT_MIN_SHARE}, rms_over_spread <= {EXACT_MAX_RMS}"}
+    row["held"] = row["exact_share"] >= EXACT_MIN_SHARE and row["rms_over_spread"] <= EXACT_MAX_RMS
+    return row
+
+
+def _hold_bitwise(name, out, ref, base=None, **info) -> dict:
+    """A kernel against its plain version, held to _bit_close's bounds."""
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    row = _bit_close(name, out, ref, base, **info)
+    log(json.dumps(row))
+    if not row["held"]:
+        raise RuntimeError(f"{name}: kernel and plain version disagree ({row})")
+    return row
+
+
+def _must_fail(name, out, ref, base=None, **info):
+    """A neighbouring function through the kernel's check: it must fail,
+    or the check could not tell the kernel from it. `out` is cast to the
+    kernel's dtype (the composed halves add an fp32 bias)."""
+    row = _bit_close(name, out.to(ref.dtype), ref, base, **info)
+    log(json.dumps({"control": "must fail", **row}))
+    if row["held"]:
+        raise RuntimeError(f"{name}: a neighbouring function passes the kernel check ({row})")
+
+
+def _hold_f32(name, out, ref, **info) -> dict:
+    """An fp32 output against its plain version at F32_ATOL + F32_RTOL."""
+    diff = (out - ref).abs()
+    row = {"case": name, **info, "max_abs_err": float(diff.max()),
+           "outside": int((diff > F32_ATOL + F32_RTOL * ref.abs()).sum()),
+           "tol": f"every element within atol {F32_ATOL} + rtol {F32_RTOL}"}
+    log(json.dumps(row))
+    if out.dtype != torch.float32 or row["outside"] or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"{name}: kernel and plain version disagree ({row})")
+    return row
+
+
+def _hold_equal(name, out, ref, **info) -> dict:
+    """An output that must equal its plain version bit for bit: the int8
+    GEMM's int32 sums are exact and both cast them through fp32 to bf16."""
+    row = _compare(name, out, ref, **info)
+    if not torch.equal(out, ref):
+        raise RuntimeError(f"{name}: kernel and plain version differ ({row})")
+    return row
+
+
+def _int8_scores_kv_per_block(q, k, v, valid, block=64):
+    """The int8_scores function with K and V scaled per `block` keys instead
+    of over the whole key axis: a control for the kernel check. Codes times
+    their scales in float64, which equals the integer products rescaled."""
+    b, nh, s, d = q.shape
+    tile = flash.merge_q_tile(s)
+
+    def dequant(x, rows):
+        x = F.pad(x.double(), (0, 0, 0, -s % rows)).view(b, nh, -1, rows, d)
+        sc = flash._scalar_scale(x)
+        return (flash._codes(x, sc) * sc).view(b, nh, -1, d)[:, :, :s]
+
+    qd = dequant(q.float() * (d ** -0.5 * flash.LOG2E), tile)
+    sc = torch.matmul(qd, dequant(k, block).transpose(-1, -2))
+    sc = torch.where(torch.arange(s, device=q.device) < valid[:, None, None, None],
+                     sc, flash.MASK_VALUE).float()
+    p = torch.exp2(sc - sc.amax(dim=-1, keepdim=True))
+    out = torch.matmul(torch.round(p * 127.0).double(), dequant(v, block)) / 127.0
+    out = (out / p.sum(dim=-1, keepdim=True).double()).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, s, nh * d)
+
+
 def phase_int8_attn_kernels():
     """The int8_scores merge, the fused attention half-block, the int8
     ceiling GEMM and the decode GEMV against their plain versions at their
@@ -769,9 +877,17 @@ def phase_int8_attn_kernels():
     valid = torch.full((b,), s, dtype=torch.int32, device=dev)
     out = flash.flash_attention_merge_heads_int8_scores(q, k, v, valid)
     torch.cuda.synchronize()
-    errs = [_compare("int8_scores", out, flash.flash_attention_merge_heads_int8_scores_reference(
-        q, k, v, valid), q=list(q.shape), q_tile=flash.merge_q_tile(s))["max_abs_err"]]
-    jax_class = _jax_class(out, flash.flash_attention_merge_heads(q, k, v, valid))
+    ref = flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, valid)
+    errs = [_hold_bitwise("int8_scores", out, ref, q=list(q.shape),
+                          q_tile=flash.merge_q_tile(s))["max_abs_err"]]
+    exact = flash.flash_attention_merge_heads(q, k, v, valid)
+    for control, got in (
+            ("the exact merge kernel", exact),
+            ("q tiles of 16 rows", flash.flash_attention_merge_heads_int8_scores_reference(
+                q, k, v, valid, block_q=16)),
+            ("K/V scales per 64-key block", _int8_scores_kv_per_block(q, k, v, valid))):
+        _must_fail(f"int8_scores control: {control}", got, ref)
+    jax_class = _jax_class(out, exact)
     log(json.dumps({"int8_scores_vs_exact_kernel": "tower shape", **jax_class,
                     "tol": "abs_diff_std_over_std < 0.03, corr > 0.999 (JAX's bound)"}))
     if not (jax_class["abs_diff_std_over_std"] < 0.03 and jax_class["corr"] > 0.999):
@@ -785,7 +901,7 @@ def phase_int8_attn_kernels():
         "library_call": "scaled_dot_product_attention (64, 16, 729, 72) bf16, the function "
                         "the mode approximates",
         "bound_ms": bound, "bound_by": by, "vs_exact_kernel": jax_class}
-    del q, k, v, out
+    del q, k, v, out, ref, exact
     # ragged valid lengths, a batch with no valid key, ragged last q tiles
     # (S 150 takes 8-row tiles, the last of 6 rows), D 64 and 128, a block_q
     for lens, dd, ss, block_q in (((77, 150), 72, 150, 128), ((0, 150), 72, 150, 128),
@@ -797,16 +913,21 @@ def phase_int8_attn_kernels():
         out = flash.flash_attention_merge_heads_int8_scores(q, k, v, vl, block_q=block_q)
         torch.cuda.synchronize()
         ref = flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, vl, block_q=block_q)
-        errs.append(_compare(f"int8_scores_edge_{lens}_d{dd}", out, ref, q=list(q.shape),
-                             q_tile=flash.merge_q_tile(ss, block_q))["max_abs_err"])
+        errs.append(_hold_bitwise(f"int8_scores_edge_{lens}_d{dd}", out, ref, q=list(q.shape),
+                                  q_tile=flash.merge_q_tile(ss, block_q))["max_abs_err"])
     rows["int8_scores"]["max_abs_err"] = max(errs)
 
     # --- fused_attn_block_int8 at the tower's shape
     args = _block_args(gen, b, s, h, torch.bfloat16, dev)
     out = attn_block.fused_attn_block_int8(*args, nh=nh, valid=s)
     torch.cuda.synchronize()
-    errs = [_compare("attn_block", out, attn_block.fused_attn_block_int8_reference(
-        *args, nh=nh, valid=s), hidden=list(args[0].shape), nh=nh)["max_abs_err"]]
+    ref = attn_block.fused_attn_block_int8_reference(*args, nh=nh, valid=s)
+    errs = [_hold_bitwise("attn_block", out, ref, args[0], hidden=list(args[0].shape),
+                          nh=nh)["max_abs_err"]]
+    for control, fn in zip(("qkv -> merge -> int8_linear", "qkv -> out_proj_int8"),
+                           _composed_halves(args, nh, s)):
+        _must_fail(f"attn_block control: {control}", fn(), ref, args[0])
+    del ref
     m = b * s
     xq = torch.randint(-127, 128, (m, h), generator=gen, device=dev, dtype=torch.int8)
     qb, kb, vb = (torch.randn((b, nh, s, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -833,17 +954,19 @@ def phase_int8_attn_kernels():
         args = _block_args(gen, bb, ss, hh, dtype, dev)
         out = attn_block.fused_attn_block_int8(*args, nh=nhh, valid=vv)
         torch.cuda.synchronize()
-        errs.append(_compare(f"attn_block_edge_nh{nhh}_valid{vv}", out,
-                             attn_block.fused_attn_block_int8_reference(*args, nh=nhh, valid=vv),
-                             hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+        ref = attn_block.fused_attn_block_int8_reference(*args, nh=nhh, valid=vv)
+        name, info = f"attn_block_edge_nh{nhh}_valid{vv}", {"hidden": list(args[0].shape)}
+        row = (_hold_f32(name, out, ref, **info) if dtype == torch.float32
+               else _hold_bitwise(name, out, ref, args[0], **info))
+        errs.append(row["max_abs_err"])
     rows["attn_block"]["max_abs_err"] = max(errs)
 
     # --- int8_gemm_bf16 at the ceiling tool's shape
     xq, wq, xb, wb = int8_ceiling.operands(seed=11)
     out = int8_ceiling.int8_gemm_bf16(xq, wq)
     torch.cuda.synchronize()
-    errs = [_compare("int8_gemm_bf16", out, int8_ceiling.int8_gemm_bf16_reference(xq, wq),
-                     x=list(xq.shape), n=int8_ceiling.N)["max_abs_err"]]
+    errs = [_hold_equal("int8_gemm_bf16", out, int8_ceiling.int8_gemm_bf16_reference(xq, wq),
+                        x=list(xq.shape), n=int8_ceiling.N)["max_abs_err"]]
     mm, kk = xq.shape
     bound, by = _bound(2.0 * mm * kk * int8_ceiling.N, PEAK_INT8, _nbytes(xq, wq, out))
     rows["int8_gemm"] = {
@@ -859,8 +982,8 @@ def phase_int8_attn_kernels():
                                              dtype=torch.int8))
         out = int8_ceiling.int8_gemm_bf16(x, w)
         torch.cuda.synchronize()
-        errs.append(_compare(f"int8_gemm_bf16_edge_{mm}x{kk}x{nn}", out,
-                             int8_ceiling.int8_gemm_bf16_reference(x, w))["max_abs_err"])
+        errs.append(_hold_equal(f"int8_gemm_bf16_edge_{mm}x{kk}x{nn}", out,
+                                int8_ceiling.int8_gemm_bf16_reference(x, w))["max_abs_err"])
     rows["int8_gemm"]["max_abs_err"] = max(errs)
 
     # --- gemv: the tool's 12-layer chain, timed as one CUDA-graph replay
@@ -934,8 +1057,11 @@ def phase_attn_block():
     """#12 at the tower's shape (64 x 729 x 1152, 16 heads, valid 729) and at
     the tool's padded stream (64 x 768, valid 729), on seeded int8 weights,
     beside the two composed halves it would replace: timed in turns, and
-    its drift from them held to the fused-vs-composed bound. Returns the
-    launch counts of #12's two calls."""
+    its drift from them held to the fused-vs-composed bound. That bound
+    holds #12 to the class of the composition, which is another function;
+    that #12 computes its own is held in phase_int8_attn_kernels, where
+    both compositions are controls that must fail. Returns the launch
+    counts of #12's two calls."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     nh, valid = 16, 729
@@ -960,7 +1086,11 @@ def phase_attn_block():
             ref = fn()
             rms = _rms(block[:, :rows], ref[:, :rows])
             err = float((block[:, :rows].float() - ref[:, :rows].float()).abs().max())
-            drift[name] = {"rms_over_std": rms, "max_abs": err}
+            term = (ref[:, :rows].float() - x[:, :rows].float()).std()
+            drift[name] = {"rms_over_std": rms, "max_abs": err,
+                           "rms_over_attention_term_std": float(
+                               (block[:, :rows].float() - ref[:, :rows].float()).pow(2).mean()
+                               .sqrt() / term)}
             if not (rms <= FUSED_VS_COMPOSED_RMS and err <= INT8_MAX_ABS):
                 raise RuntimeError(f"attention block at S={s} drifts from {name}: {drift}")
         if not bool(torch.isfinite(block).all()):
@@ -1508,9 +1638,9 @@ def _int8_scores_tower(cfg, params, gen):
            "tie_flip_floor_abs_diff_std_over_std": floor,
            "rms_over_std": _rms(approx, exact), "floor_rms_over_std": _rms(perturbed, exact),
            "encode_frames_ms_median_of_5_two_readings": times,
-           "tol": f"drift < {INT8_SCORES_TOWER_DRIFT}"}
+           "tol": f"drift <= {FUSED_FLOOR_FACTOR} x the tie-flip floor of this run"}
     log(json.dumps(row))
-    if not drift < INT8_SCORES_TOWER_DRIFT:
+    if not drift <= FUSED_FLOOR_FACTOR * floor:
         raise RuntimeError(f"int8_scores tower drifts from the exact tower: {row}")
     return launches
 

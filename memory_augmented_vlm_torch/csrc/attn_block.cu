@@ -27,10 +27,11 @@
 //   1. LN + row quant + the q/k/v products into head-major bf16 scratch:
 //      the C entry of qkv_int8.cu, whose function this stage is.
 //   2. Per-head attention, one block per 64-row q slab, head and frame:
-//      flash_merge.cu's two-sweep structure (the row max first, so P
-//      rounds against the final max) with this kernel's softmax, and an
-//      epilogue that quantizes each row's hd outputs into int8 codes
-//      (B*S, H) and a per-(row, head) scale (B*S, NH).
+//      the two-sweep kernel of two_sweep.cuh that flash_merge.cu also
+//      runs (the row max first, so P rounds against the final max), with
+//      this kernel's softmax and an epilogue that quantizes each row's hd
+//      outputs into int8 codes (B*S, H) and a per-(row, head) scale
+//      (B*S, NH): AttnPolicy.
 //   3. The out-projection: a 128 x 128 output tile of 8 warps (the shape of
 //      int8_gemm.cuh's GEMM) loops over the heads outside the depth loop.
 //      A head's hd codes (72) are not a multiple of int8 mma's depth of
@@ -45,6 +46,7 @@
 
 #include "int8_gemm.cuh"
 #include "mma.cuh"
+#include "two_sweep.cuh"
 
 // qkv_int8.cu: LN + row quant + int8 q/k/v, head-major bf16
 extern "C" int qkv_int8(int dtype, const void* hidden, const void* ln_w, const void* ln_b,
@@ -61,205 +63,55 @@ using int8k::quant_code;
 using int8k::store2;
 using int8k::to_float;
 using mavlm::lds32;
-using mavlm::pack_bf16x2;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBM = 16 * kWarps;  // query rows per block, 16 per warp
-constexpr int kBN = 64;           // keys per K/V tile
 constexpr float kNegInf = -1e30f;  // pallas_attn_block.NEG_INF
 
-struct AttnParams {
+// #12's softmax for two_sweep.cuh: q as it is, the scale on the fp32
+// logits, base e, o = (P.v) / l, and an epilogue that quantizes each row's
+// hd outputs into int8 codes and one scale per (row, head).
+struct AttnPolicy {
   const __nv_bfloat16* q;  // (B, NH, S, D), contiguous
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   int8_t* oq;              // (B * S, NH * D) codes of o
   float* sa;               // (B * S, NH) their scales
-  int NH, S, valid;
+  int NH, S, valid_keys;
   float scale;
-};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_heads_kernel(const AttnParams p) {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  constexpr int DK = (D + 15) / 16 * 16;  // QK^T depth, zero-padded to 16
-  constexpr int KSTR = DK + 8;            // Q/K tile row stride (bank skew)
-  constexpr int VSTR = kBN + 8;           // transposed V tile row stride
-  constexpr int NT = kBN / 8;             // 8-key score tiles per warp
-  constexpr int DT = D / 8;               // 8-wide output tiles
-  constexpr int KC = DK / 16;             // 16-deep steps of QK^T
-  constexpr int CH = DK / 8;              // 16-byte chunks per Q/K tile row
-  static_assert(kBM == kBN, "the Q tile is staged in the K buffer");
+  static constexpr float kMask = kNegInf;
+  __device__ int valid(int) const { return valid_keys; }
+  __device__ float q_in(float x) const { return x; }
+  __device__ float logit(float qk) const { return __fmul_rn(qk, scale); }
+  __device__ float prob(float s, float m) const { return expf(__fsub_rn(s, m)); }
 
-  __shared__ __align__(16) __nv_bfloat16 sK[kBN * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * VSTR];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBM;
-  const int S = p.S, valid = p.valid;
-  const long long head = (static_cast<long long>(b) * p.NH + h) * S * D;
-  const __nv_bfloat16* q = p.q + head;
-  const __nv_bfloat16* k = p.k + head;
-  const __nv_bfloat16* v = p.v + head;
-  const int kv_end = valid > 0 ? min(valid, S) : S;
-
-  // q as it is (the scale goes on the logits); zero rows past S, depth past D
-  for (int i = tid; i < kBM * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S && c < D) {
-      raw = *reinterpret_cast<const uint4*>(q + static_cast<long long>(q0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(sK + r * KSTR + c) = raw;
-  }
-  __syncthreads();
-
-  uint32_t qf[KC][4];
-  {
-    const __nv_bfloat16* qs = sK + warp * 16 * KSTR;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      qf[kc][0] = lds32(qs + g * KSTR + kc * 16 + 2 * t);
-      qf[kc][1] = lds32(qs + (g + 8) * KSTR + kc * 16 + 2 * t);
-      qf[kc][2] = lds32(qs + g * KSTR + kc * 16 + 8 + 2 * t);
-      qf[kc][3] = lds32(qs + (g + 8) * KSTR + kc * 16 + 8 + 2 * t);
-    }
-  }
-
-  // Stage keys [n0, n0 + kBN) (and V, transposed, when with_v); rows past
-  // kv_end are zero.
-  auto load_tile = [&](int n0, bool with_v) {
-    for (int i = tid; i < kBN * CH; i += kThreads) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = n0 + r < kv_end && c < D;
-      uint4 kraw = make_uint4(0, 0, 0, 0);
-      if (in) kraw = *reinterpret_cast<const uint4*>(k + static_cast<long long>(n0 + r) * D + c);
-      *reinterpret_cast<uint4*>(sK + r * KSTR + c) = kraw;
-      if (with_v && c < D) {
-        uint4 vraw = make_uint4(0, 0, 0, 0);
-        if (in) vraw = *reinterpret_cast<const uint4*>(v + static_cast<long long>(n0 + r) * D + c);
-        const __nv_bfloat16* vx = reinterpret_cast<const __nv_bfloat16*>(&vraw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sVt[(c + j) * VSTR + r] = vx[j];
-      }
-    }
-  };
-
-  // Logits of this warp's 16 rows against the staged keys: keys at or past
-  // S are not keys (-inf, p = 0); keys at or past valid get -1e30.
-  auto logits = [&](int n0, float (&s)[NT][4]) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* ks = sK + (nt * 8 + g) * KSTR + 2 * t;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        mavlm::mma_bf16_16816(s[nt], qf[kc], lds32(ks + kc * 16), lds32(ks + kc * 16 + 8));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = __fmul_rn(s[nt][e], p.scale);
-        if (col >= S) {
-          s[nt][e] = -INFINITY;
-        } else if (col >= valid) {
-          s[nt][e] = kNegInf;
-        }
-      }
-    }
-  };
-
-  // sweep 1: the row max over every key
-  float m_row[2] = {-INFINITY, -INFINITY};
-  for (int n0 = 0; n0 < kv_end; n0 += kBN) {
-    __syncthreads();  // the previous tile (or the Q stage) is consumed
-    load_tile(n0, false);
-    __syncthreads();
-    float s[NT][4];
-    logits(n0, s);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      m_row[0] = fmaxf(m_row[0], fmaxf(s[nt][0], s[nt][1]));
-      m_row[1] = fmaxf(m_row[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 1));
-    m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 2));
-  }
-
-  // sweep 2: p against the final max, l and PV
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  for (int n0 = 0; n0 < kv_end; n0 += kBN) {
-    __syncthreads();
-    load_tile(n0, true);
-    __syncthreads();
-    float s[NT][4];
-    logits(n0, s);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(__fsub_rn(s[nt][e], m_row[e >> 1]));
-        l_run[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vs = sVt + (dt * 8 + g) * VSTR + kc * 16 + 2 * t;
-        mavlm::mma_bf16_16816(acc[dt], a, lds32(vs), lds32(vs + 8));
-      }
-    }
-  }
-
-  // o = acc / l, then each row's hd values -> int8 codes and one scale
-  const int row0 = q0 + warp * 16 + g;
-  const int HD = p.NH * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+  template <int D>
+  __device__ void store(int b, int h, int row, int t, const float (&acc)[D / 8][4], int r,
+                        float l) const {
+    float o[D / 8][2];
     float amax = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][2 * r] = __fdiv_rn(acc[dt][2 * r], l);
-      acc[dt][2 * r + 1] = __fdiv_rn(acc[dt][2 * r + 1], l);
-      amax = fmaxf(amax, fmaxf(fabsf(acc[dt][2 * r]), fabsf(acc[dt][2 * r + 1])));
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[dt][0] = __fdiv_rn(acc[dt][2 * r], l);
+      o[dt][1] = __fdiv_rn(acc[dt][2 * r + 1], l);
+      amax = fmaxf(amax, fmaxf(fabsf(o[dt][0]), fabsf(o[dt][1])));
     }
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
     const float s = fmaxf(amax, kQuantFloor) / 127.f;
     const float inv = 1.f / s;
-    const int row = row0 + 8 * r;
-    if (row < S) {
-      const long long m = static_cast<long long>(b) * S + row;
-      int8_t* orow = p.oq + m * HD + h * D;
+    if (row >= S) return;
+    const long long m = static_cast<long long>(b) * S + row;
+    int8_t* orow = oq + m * (NH * D) + h * D;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        char2 c2;
-        c2.x = quant_code(acc[dt][2 * r], inv);
-        c2.y = quant_code(acc[dt][2 * r + 1], inv);
-        *reinterpret_cast<char2*>(orow + dt * 8 + 2 * t) = c2;
-      }
-      if (t == 0) p.sa[m * p.NH + h] = s;
+    for (int dt = 0; dt < D / 8; ++dt) {
+      char2 c2;
+      c2.x = quant_code(o[dt][0], inv);
+      c2.y = quant_code(o[dt][1], inv);
+      *reinterpret_cast<char2*>(orow + dt * 8 + 2 * t) = c2;
     }
+    if (t == 0) sa[m * NH + h] = s;
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // The out-projection with a per-(row, head) scale
@@ -406,10 +258,10 @@ oproj_heads_kernel(const int8_t* __restrict__ oq, const float* __restrict__ sa,
 }
 
 template <int HD>
-int attention_and_oproj(int dtype, const AttnParams& p, int B, const int8_t* wo, const float* so,
+int attention_and_oproj(int dtype, const AttnPolicy& p, int B, const int8_t* wo, const float* so,
                         const float* bo, const void* hidden, void* out, int M, int H,
                         cudaStream_t st) {
-  attn_heads_kernel<HD><<<dim3((p.S + kBM - 1) / kBM, p.NH, B), kThreads, 0, st>>>(p);
+  mavlm::two_sweep::launch<HD>(p, B, st);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int mt = (M + int8k::BM - 1) / int8k::BM;
@@ -456,7 +308,7 @@ extern "C" int attn_block_int8(int dtype, const void* hidden, const void* ln_w,
   int rc = qkv_int8(dtype, hidden, ln_w, ln_b, wq, sq, bq, wk, sk, bk, wv, sv, bv, q, k, v,
                     xq, sx, B, S, H, NH, eps, stream);
   if (rc != 0) return rc;
-  AttnParams p;
+  AttnPolicy p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
@@ -464,7 +316,7 @@ extern "C" int attn_block_int8(int dtype, const void* hidden, const void* ln_w,
   p.sa = static_cast<float*>(sa);
   p.NH = NH;
   p.S = S;
-  p.valid = valid;
+  p.valid_keys = valid;
   p.scale = scale;
   const auto* w = static_cast<const int8_t*>(wo);
   const auto* s = static_cast<const float*>(so);

@@ -30,10 +30,13 @@
 //      of each (batch, head): the k/v scales span the whole key axis, which
 //      no block of stage 2 sees, and a per-block max would be another
 //      function.
-//   2. The structure of flash_merge.cu (one block per 64-row q slab, head
+//   2. The structure of two_sweep.cuh (one block per 64-row q slab, head
 //      and batch; 4 warps of 16 rows; two sweeps over the keys, so that P
 //      rounds against the final row max as on the TPU) with int8
-//      mma.sync m16n8k32 for both products. A block quantizes its q rows
+//      mma.sync m16n8k32 for both products. It is not a policy of that
+//      kernel: the operands it stages, their fragments and PV's key order
+//      all differ, which leaves only the loop skeleton in common. A block
+//      quantizes its q rows
 //      (each with its own tile's scale) and each K/V tile as it stages it.
 //      QK^T's depth is zero-padded to 32 (72 -> 96); PV's keys come 64 to a
 //      tile. PV's A operand is P straight from the score registers: a

@@ -383,3 +383,71 @@ def test_new_wrappers_reject_bad_arguments():
         tgemv.gemv(x, w[:10])
     with pytest.raises(ValueError):
         tgemv.gemv(x.to("meta"), w.to("meta"))
+
+
+# ------------------------------------------- the card's check, on the CPU
+
+
+def _merge_case():
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(x).to(torch.bfloat16) for x in _qkv(rng, 2, 4, 200, 72))
+    valid = torch.tensor([200, 150], dtype=torch.int32)
+    return (q, k, v, valid), flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, valid)
+
+
+def _block_case():
+    import chip_smoke
+
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    args = chip_smoke._block_args(gen, 2, 100, 256, torch.bfloat16, "cpu")
+    return args, attn_block.fused_attn_block_int8_reference(*args, nh=4, valid=100)
+
+
+def _merge_control(name):
+    import chip_smoke
+
+    (q, k, v, valid), ref = _merge_case()
+    got = {"exact merge": lambda: flash.flash_attention_merge_heads(q, k, v, valid),
+           # S 200 takes 8-row q tiles; block_q 4 takes 4
+           "q tiles of 4 rows": lambda: flash.flash_attention_merge_heads_int8_scores_reference(
+               q, k, v, valid, block_q=4),
+           "K/V scales per 64 keys": lambda: chip_smoke._int8_scores_kv_per_block(q, k, v, valid),
+           }[name]()
+    return chip_smoke._bit_close(name, got, ref)
+
+
+def _block_control(name):
+    import chip_smoke
+
+    args, ref = _block_case()
+    merge_path, oproj_path = chip_smoke._composed_halves(args, 4, 100)
+    got = {"qkv -> merge -> int8_linear": merge_path, "qkv -> out_proj_int8": oproj_path}[name]()
+    return chip_smoke._bit_close(name, got.to(ref.dtype), ref, args[0])
+
+
+@pytest.mark.parametrize("control", ["exact merge", "q tiles of 4 rows", "K/V scales per 64 keys",
+                                     "qkv -> merge -> int8_linear", "qkv -> out_proj_int8"])
+def test_chip_smoke_kernel_check_fails_neighbouring_functions(control):
+    """chip_smoke holds the int8_scores merge and #12 to their plain versions
+    by the share of bit-equal elements and the RMS over the spread
+    (`_bit_close`); each neighbouring function it runs as a control on the
+    card fails that check here too, at a small size on the plain versions."""
+    row = (_block_control(control) if control.startswith("qkv") else _merge_control(control))
+    assert not row["held"], row
+
+
+def test_chip_smoke_kernel_check_holds_the_function_itself():
+    """The same check passes the plain versions against themselves, and the
+    control `_int8_scores_kv_per_block` with one block over the whole key
+    axis, which is the int8_scores function again (its products run as
+    dequantized float64 values, so a few elements round apart)."""
+    import chip_smoke
+
+    (q, k, v, valid), ref = _merge_case()
+    assert chip_smoke._bit_close("self", ref.clone(), ref)["held"]
+    row = chip_smoke._bit_close("one block", chip_smoke._int8_scores_kv_per_block(
+        q, k, v, valid, block=200), ref)
+    assert row["held"], row
+    args, ref = _block_case()
+    assert chip_smoke._bit_close("self", ref.clone(), ref, args[0])["held"]
