@@ -15,12 +15,15 @@ each of which raises on failure:
                 kernel's, the plain version's and a library call's times
                 (CUDA events, median of 5) and the card's bound: the three
                 training kernels at the LM's train shape (S = 9557, causal,
-                GQA 14/2) and at edge cases in bf16 and fp32, the backward
+                GQA 14/2; dQ and dK/dV also run twice for the same bits and
+                beside three neighbouring functions that must fail their
+                check) and at edge cases in bf16 and fp32, the backward
                 of flash_fwd at the memory's fuse shape, flash_fwd, the
                 three int8 kernels of the default tower, the four of the
                 fused configuration and the w8a8 layer (int8_matmul,
                 fused_mlp_int8, fused_swiglu_block_int8,
-                flash_attention_out_proj_int8), and the four of the
+                flash_attention_out_proj_int8; all but the SwiGLU block
+                held bit-close with controls, as below), and the four of the
                 approximate attention and the micro-benchmarks (the
                 int8_scores merge and fused_attn_block_int8, each held
                 to its plain version bit-close, EXACT_MIN_SHARE, with
@@ -58,10 +61,11 @@ each of which raises on failure:
                 groups) on distinct seeded batches: finite losses, 120
                 target tokens, exact per-step launch counts, frozen tower,
                 projector and PE bit-identical, nothing moved at lr 0 and
-                every trainable group moved by the last step; then one more
-                step with its stages synchronised, one under torch.profiler
-                (kernel time by kind, device idle share), and the peak
-                memory;
+                every trainable group moved by the last step; two more
+                from one state and batch, which must give the same loss
+                and gradient leaves bit for bit; then one more step with
+                its stages synchronised, one under torch.profiler (kernel
+                time by kind, device idle share), and the peak memory;
   7. parity   — full widths cut to 2 tower and 2 LM layers, fp32: the card
                 (through the kernels) against the CPU (plain versions) on the
                 same weights, for the bf16-path model (8 frames), the int8
@@ -185,6 +189,15 @@ FUSED_FLOOR_FACTOR = 3.0
 # hidden is held to F32_ATOL instead (its largest difference read 1.2e-7).
 EXACT_MIN_SHARE = 0.9
 EXACT_MAX_RMS = 0.008
+# The same rule holds fused_mlp_block_int8, fused_mlp_int8 and int8_matmul
+# (first card run: kernels 0.98-1.0 bit-equal and <= 0.0011 RMS; controls
+# 0.44-0.75 and >= 0.0029). flash_attention_out_proj_int8 is held tighter:
+# its attention term (out - hidden) is small against the bf16 residual, so
+# the composed merge -> quant.int8_linear + residual, which differs from it
+# only by rounding the projection to bf16 before the bias, read 0.9625
+# bit-equal and 0.0101 RMS, close to the general bounds, while the kernel
+# read 0.9961-0.9991 and 0.0008-0.0031 at its path shape and edge cases.
+OPROJ_BOUNDS = {"min_share": 0.99, "max_rms": 0.006}
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
 TRAIN_FRAMES, TRAIN_TEXT, TRAIN_IGNORED = 64, 128, 8
@@ -476,8 +489,12 @@ def phase_int8_kernels():
     args = _mlp_args(gen, m, h, inter, torch.bfloat16, dev)
     out = mlp_int8.fused_mlp_block_int8(*args)
     torch.cuda.synchronize()
-    errs = [_compare("mlp", out, mlp_int8.fused_mlp_block_int8_reference(*args),
-                     hidden=list(args[0].shape))["max_abs_err"]]
+    ref = mlp_int8.fused_mlp_block_int8_reference(*args)
+    errs = [_hold_bitwise("mlp", out, ref, args[0], hidden=list(args[0].shape))["max_abs_err"]]
+    with _erf_gelu():
+        _must_fail("mlp control: erf GELU", mlp_int8.fused_mlp_block_int8_reference(*args), ref,
+                   args[0])
+    del ref
     xq, _ = quant.quantize_rows(args[0])
     hq = torch.randint(-127, 128, (m, inter), generator=gen, device=dev, dtype=torch.int8)
     bound, by = _bound(2.0 * m * h * inter * 2, PEAK_INT8,
@@ -494,8 +511,9 @@ def phase_int8_kernels():
         args = _mlp_args(gen, mm, h, inter, dtype, dev)
         out = mlp_int8.fused_mlp_block_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_compare(f"mlp_edge_{mm}", out, mlp_int8.fused_mlp_block_int8_reference(*args),
-                             hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+        errs.append(_hold_bitwise(f"mlp_edge_{mm}", out,
+                                  mlp_int8.fused_mlp_block_int8_reference(*args), args[0],
+                                  hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
     rows["mlp"]["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
     return [
@@ -535,6 +553,63 @@ def _oproj_args(gen, b, s, nh, d, valid, dtype, dev):
     return (q, k, v, vl, hidden, *_int8_weight(gen, nh * d, nh * d, dev))
 
 
+@contextlib.contextmanager
+def _erf_gelu():
+    """The int8 MLP's plain versions with exact (erf) GELU in place of tanh
+    GELU: a neighbouring function (the projector's and fuser's GELU)."""
+    tanh = mlp_int8.gelu_tanh
+    mlp_int8.gelu_tanh = F.gelu
+    try:
+        yield
+    finally:
+        mlp_int8.gelu_tanh = tanh
+
+
+def _oproj_out(attn, hidden, wo, so, bo):
+    """hidden + the row-quantized int8 out-projection of `attn` (B, S, H), in
+    fp32 and cast once: the epilogue of #5's plain version."""
+    b, s, h = hidden.shape
+    xq, sx = quant.quantize_rows(attn.to(torch.bfloat16).reshape(b * s, h))
+    y = quant.int_mm(xq, wo).float() * sx * so.float() + bo.float()
+    return (hidden.float() + y.reshape(b, s, h)).to(hidden.dtype)
+
+
+def _oproj_controls(args):
+    """Neighbouring functions of flash_attention_out_proj_int8 (#5) on its
+    arguments (q, k, v, valid, hidden, wo, so, bo), each of which its check
+    must tell apart: the composed merge -> quant.int8_linear + residual (the
+    tower's unfused layer); the attention quantized per (row, head) with the
+    heads' products summed in head order (#12's out-projection); and an fp32
+    base-e softmax without the bf16 rounding of q and P."""
+    q, k, v, vl, hidden, wo, so, bo = args
+    b, nh, s, d = q.shape
+
+    def composed():
+        attn = flash.flash_attention_merge_heads(q, k, v, vl)
+        return hidden + quant.int8_linear({"kernel_int8": wo, "scale": so, "bias": bo}, attn)
+
+    def per_head_quant():
+        attn = flash.flash_attention_merge_heads_reference(q, k, v, vl).to(torch.bfloat16)
+        oq, s_row = quant.quantize_rows(attn.reshape(b * s, nh, d))
+        wo3 = wo.double().reshape(nh, d, nh * d)
+        acc = torch.zeros((b * s, nh * d), dtype=torch.float32, device=q.device)
+        for i in range(nh):
+            acc = acc + torch.matmul(oq[:, i].double(), wo3[i]).float() * s_row[:, i]
+        y = acc * so.float() + bo.float()
+        return (hidden.float() + y.reshape(b, s, nh * d)).to(hidden.dtype)
+
+    def f32_softmax():
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d ** -0.5
+        keep = torch.arange(s, device=q.device)[None, :] < vl[:, None]
+        p = torch.softmax(torch.where(keep[:, None, None, :], sc, flash.MASK_VALUE), dim=-1)
+        attn = torch.einsum("bhqk,bhkd->bqhd", p, v.float()).reshape(b, s, nh * d)
+        return _oproj_out(attn, hidden, wo, so, bo)
+
+    return [("merge -> quant.int8_linear + residual", composed),
+            ("attention quantized per (row, head)", per_head_quant),
+            ("fp32 base-e softmax, q and P not rounded", f32_softmax)]
+
+
 def phase_fused_kernels():
     """int8_matmul, fused_mlp_int8, fused_swiglu_block_int8 and
     flash_attention_out_proj_int8 at the shapes of the chain path, the LM
@@ -555,9 +630,12 @@ def phase_fused_kernels():
         w, sw, bias = _int8_weight(gen, k, n, dev)
         out = pallas_int8.int8_matmul(x, w, sw, bias)
         torch.cuda.synchronize()
-        err = _compare(f"matmul_{name}", out, pallas_int8.int8_matmul_reference(x, w, sw, bias),
-                       x=list(x.shape), n=n)["max_abs_err"]
+        ref = pallas_int8.int8_matmul_reference(x, w, sw, bias)
+        err = _hold_bitwise(f"matmul_{name}", out, ref, x=list(x.shape), n=n)["max_abs_err"]
         errs.append(err)
+        _must_fail(f"matmul_{name} control: quant.int8_linear (bias after the cast)",
+                   quant.int8_linear({"kernel_int8": w, "scale": sw, "bias": bias}, x), ref)
+        del ref
         xq, _ = quant.quantize_rows(x)
         xq32 = F.pad(xq, (0, 0, 0, 32 - mm)) if mm < 32 else xq  # _int_mm takes > 16 rows
         bound, by = _bound(2.0 * mm * k * n, PEAK_INT8,
@@ -587,10 +665,10 @@ def phase_fused_kernels():
         bias = bias if with_bias else None
         out = pallas_int8.int8_matmul(x, w, sw, bias)
         torch.cuda.synchronize()
-        errs.append(_compare(f"matmul_edge_{mm}", out,
-                             pallas_int8.int8_matmul_reference(x, w, sw, bias),
-                             x=list(x.shape), dtype=str(dtype),
-                             bias=with_bias)["max_abs_err"])
+        errs.append(_hold_bitwise(f"matmul_edge_{mm}", out,
+                                  pallas_int8.int8_matmul_reference(x, w, sw, bias),
+                                  x=list(x.shape), dtype=str(dtype),
+                                  bias=with_bias)["max_abs_err"])
         if float(out[mm // 2].float().abs().max()) > (float(bias.abs().max()) if with_bias
                                                       else 0.0):
             raise RuntimeError("int8_matmul: a zero row gave more than its bias")
@@ -601,8 +679,11 @@ def phase_fused_kernels():
     args = (args[0], *args[3:])  # no LayerNorm
     out = mlp_int8.fused_mlp_int8(*args)
     torch.cuda.synchronize()
-    errs = [_compare("mlp_core", out, mlp_int8.fused_mlp_int8_reference(*args),
-                     x=list(args[0].shape))["max_abs_err"]]
+    ref = mlp_int8.fused_mlp_int8_reference(*args)
+    errs = [_hold_bitwise("mlp_core", out, ref, x=list(args[0].shape))["max_abs_err"]]
+    with _erf_gelu():
+        _must_fail("mlp_core control: erf GELU", mlp_int8.fused_mlp_int8_reference(*args), ref)
+    del ref
     xq, _ = quant.quantize_rows(args[0])
     hq = torch.randint(-127, 128, (m, inter), generator=gen, device=dev, dtype=torch.int8)
     bound, by = _bound(2.0 * m * h * inter * 2, PEAK_INT8,
@@ -620,8 +701,9 @@ def phase_fused_kernels():
         args = (args[0], *args[3:])
         out = mlp_int8.fused_mlp_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_compare(f"mlp_core_edge_{mm}", out, mlp_int8.fused_mlp_int8_reference(*args),
-                             x=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+        errs.append(_hold_bitwise(f"mlp_core_edge_{mm}", out,
+                                  mlp_int8.fused_mlp_int8_reference(*args),
+                                  x=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
     rows["mlp_core"]["max_abs_err"] = max(errs)
 
     # --- fused_swiglu_block_int8
@@ -658,8 +740,12 @@ def phase_fused_kernels():
     args = _oproj_args(gen, b, s, nh, 72, [s] * b, torch.bfloat16, dev)
     out = flash.flash_attention_out_proj_int8(*args)
     torch.cuda.synchronize()
-    errs = [_compare("oproj", out, flash.flash_attention_out_proj_int8_reference(*args),
-                     q=list(args[0].shape))["max_abs_err"]]
+    ref = flash.flash_attention_out_proj_int8_reference(*args)
+    errs = [_hold_bitwise("oproj", out, ref, args[4], **OPROJ_BOUNDS,
+                          q=list(args[0].shape))["max_abs_err"]]
+    for control, fn in _oproj_controls(args):
+        _must_fail(f"oproj control: {control}", fn(), ref, args[4], **OPROJ_BOUNDS)
+    del ref
     xq = torch.randint(-127, 128, (m, h), generator=gen, device=dev, dtype=torch.int8)
     q, k, v = args[:3]
     t_ops = 4.0 * b * nh * s * s * 72 / PEAK_BF16 + 2.0 * m * h * h / PEAK_INT8
@@ -679,9 +765,10 @@ def phase_fused_kernels():
         args = _oproj_args(gen, 2, 150, nh, 72, valid, dtype, dev)
         out = flash.flash_attention_out_proj_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_compare(f"oproj_edge_{valid}", out,
-                             flash.flash_attention_out_proj_int8_reference(*args),
-                             q=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+        errs.append(_hold_bitwise(f"oproj_edge_{valid}", out,
+                                  flash.flash_attention_out_proj_int8_reference(*args), args[4],
+                                  **OPROJ_BOUNDS, q=list(args[0].shape),
+                                  dtype=str(dtype))["max_abs_err"])
     rows["oproj"]["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
     return [
@@ -779,21 +866,30 @@ def _block_args(gen, b, s, h, dtype, dev):
     return (hidden, ln_w, ln_b, *mats)
 
 
-def _bit_close(name, out, ref, base=None, **info) -> dict:
+def _bit_close(name, out, ref, base=None, min_share=EXACT_MIN_SHARE,
+               max_rms=EXACT_MAX_RMS, **info) -> dict:
     """The share of bit-equal elements and the RMS difference over the
     spread of `ref` (of ref - base where `base` is given), each against its
-    bound (EXACT_MIN_SHARE, EXACT_MAX_RMS)."""
+    bound (EXACT_MIN_SHARE, EXACT_MAX_RMS). fp32 outputs are compared
+    rounded to bf16: a LayerNorm summed in another order flips an int8 code
+    at a rounding tie, which moves every fp32 output of its row by far less
+    than a bf16 step (the first card run read 0.871 of fp32 elements
+    bit-equal and an RMS of 7e-5 of the spread for #4)."""
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise RuntimeError(f"{name}: {out.dtype}{tuple(out.shape)} vs plain "
                            f"{ref.dtype}{tuple(ref.shape)}")
+    if ref.dtype == torch.float32:
+        out, ref = out.to(torch.bfloat16), ref.to(torch.bfloat16)
+        base = None if base is None else base.to(torch.bfloat16)
+        info["compared_in"] = "bfloat16"
     diff = out.float() - ref.float()
     spread = (ref.float() - (0.0 if base is None else base.float())).std()
     row = {"case": name, **info, "exact_share": float((diff == 0).float().mean()),
            "rms_over_spread": float(diff.pow(2).mean().sqrt() / spread),
            "max_abs_err": float(diff.abs().max()),
            "spread_of": "output" if base is None else "output - hidden",
-           "tol": f"exact_share >= {EXACT_MIN_SHARE}, rms_over_spread <= {EXACT_MAX_RMS}"}
-    row["held"] = row["exact_share"] >= EXACT_MIN_SHARE and row["rms_over_spread"] <= EXACT_MAX_RMS
+           "tol": f"exact_share >= {min_share}, rms_over_spread <= {max_rms}"}
+    row["held"] = row["exact_share"] >= min_share and row["rms_over_spread"] <= max_rms
     return row
 
 
@@ -1146,6 +1242,8 @@ TRAIN_REPLACES = {
     "flash_bwd_dq": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:148",
     "flash_bwd_dkv": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:232",
 }
+TRAIN_SOURCES = {"flash_fwd_lse": "flash_train.cu", "flash_bwd_dq": "flash_bwd_sm90.cu",
+                 "flash_bwd_dkv": "flash_bwd_sm90.cu"}
 # flops per (query, valid key) pair and head dim: QK^T and PV in the forward;
 # the dQ kernel recomputes QK^T and does dO V^T and dS K; the dK/dV kernel
 # recomputes QK^T and does dO V^T, P^T dO and dS^T Q
@@ -1167,11 +1265,68 @@ def _train_bounds(q, k, valid, causal):
             for name, f in TRAIN_FLOPS_PER_PAIR.items()}
 
 
+def _train_outside(got, ref) -> int:
+    """Elements of a training kernel's output outside the rule it is held
+    to against its plain version: atol + rtol * |ref|, bf16 or fp32 class."""
+    atol, rtol = (BF16_ATOL, BF16_RTOL) if ref.dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
+    return int(((got.float() - ref.float()).abs() > atol + rtol * ref.float().abs()).sum())
+
+
+def _backward_without(q, k, v, g, lse, delta, vl, drop, *, causal, scale, kv_groups):
+    """The plain dQ, dK and dV with the (query, key) pairs where `drop`
+    (Sq, Skv) is true left out: a neighbouring function for the controls."""
+    p, ds = flash_bwd._dscores(q, k, v, g, lse, delta, vl, causal, scale, kv_groups)
+    p, ds = p.masked_fill(drop, 0.0), ds.masked_fill(drop, 0.0)
+    rk, rv = (flash_bwd._repeat(x, kv_groups).float() for x in (k, v))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), rk).to(q.dtype)
+    dv = torch.einsum("bhqk,bqhd->bhkd", p.to(g.dtype).float(), g.float())
+    dk = torch.einsum("bhqk,bqhd->bhkd", ds.to(q.dtype).float(), q.float())
+    return (dq, *(flash_bwd.group_sum(x, kv_groups).to(k.dtype) for x in (dk, dv)))
+
+
+def _train_controls(q, k, v, g, lse, delta, vl, refs, **kw):
+    """Neighbouring functions of flash_bwd_dq and flash_bwd_dkv that their
+    check (`_train_outside` == 0) must tell apart, each against the plain
+    output it would replace: dK/dV with the first query head of each group
+    left out; dK/dV with the first query tile each dK/dV item visits (the
+    diagonal's, when causal) skipped; dQ with the last key tile each dQ item
+    visits left out. Yields (label, output, plain output)."""
+    rq, rk, rv = refs
+    b, sq, h, d = q.shape
+    kv_groups = kw["kv_groups"]
+    pk, pv = flash_bwd.backward_dkv_partials_reference(q, k, v, g, lse, delta, vl, **kw)
+    keep = (torch.arange(h, device=q.device) % kv_groups != 0)[None, :, None, None]
+    for name, part, ref in (("dk", pk, rk), ("dv", pv, rv)):
+        yield (f"{name}, one query head of each group left out",
+               flash_bwd.group_sum(part * keep, kv_groups).to(ref.dtype), ref)
+    del pk, pv
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(k.shape[1], device=q.device)[None, :]
+    block_k = flash_bwd.dkv_block_k(d)
+    first = (cols // block_k * block_k // flash_bwd.DKV_BLOCK_Q if kw["causal"]
+             else torch.zeros_like(cols))
+    _, dk, dv = _backward_without(q, k, v, g, lse, delta, vl,
+                                  rows // flash_bwd.DKV_BLOCK_Q == first, **kw)
+    yield "dk, each key tile's first query tile skipped", dk, rk
+    yield "dv, each key tile's first query tile skipped", dv, rv
+    del dk, dv
+    blk = flash_bwd.dq_block_q(d)
+    end = torch.minimum((rows // blk + 1) * blk, vl.min().clamp_min(1)) if kw["causal"] \
+        else vl.min().clamp_min(1).expand_as(rows)
+    last = (end - 1) // flash_bwd.DQ_BLOCK_K
+    dq, _, _ = _backward_without(q, k, v, g, lse, delta, vl,
+                                 cols // flash_bwd.DQ_BLOCK_K == last, **kw)
+    yield "dq, the last key tile of each query tile left out", dq, rq
+
+
 def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=torch.bfloat16,
                         timed=False):
     """Run the three training kernels on one input and hold each output
     against its plain version (lse on its finite entries, and -inf where
-    the plain version has -inf). Returns {kernel: row}."""
+    the plain version has -inf). The timed case (the train shape) also runs
+    dQ and dK/dV a second time and requires the same bits, and runs the
+    controls of `_train_controls`, each of which must fail the check.
+    Returns {kernel: row}."""
     atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
     dev = "cuda"
     q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
@@ -1195,7 +1350,7 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: non-finite kernel output")
         diff = (got.float() - ref.float()).abs()
-        bad = int((diff > atol + rtol * ref.float().abs()).sum())
+        bad = _train_outside(got, ref)
         if bad:
             raise RuntimeError(f"{name} {label}: {bad} elements outside tolerance "
                                f"(max err {float(diff.max())})")
@@ -1207,11 +1362,27 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
         raise RuntimeError(f"{name}: lse is -inf on other rows than the plain version's")
     errs = {"flash_fwd_lse": max(held("out", out, rout), held("lse", lse[fin], rlse[fin]))}
     del rout, rlse
-    errs["flash_bwd_dq"] = held("dq", dq, flash_bwd.backward_dq_reference(
-        q, k, v, g, lse, delta, vl, **kw))
+    rdq = flash_bwd.backward_dq_reference(q, k, v, g, lse, delta, vl, **kw)
+    errs["flash_bwd_dq"] = held("dq", dq, rdq)
     rdk, rdv = flash_bwd.backward_dkv_reference(q, k, v, g, lse, delta, vl, **kw)
     errs["flash_bwd_dkv"] = max(held("dk", dk, rdk), held("dv", dv, rdv))
-    del rdk, rdv
+    if timed:
+        repeat = (dq_fn(), *dkv_fn())
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip((dq, dk, dv), repeat)]
+        log(json.dumps({"case": name, "second_run_bit_equal": dict(zip(("dq", "dk", "dv"), same))}))
+        if not all(same):
+            raise RuntimeError(f"{name}: a second run of the backward kernels differs: {same}")
+        del repeat
+        for label, got, ref in _train_controls(q, k, v, g, lse, delta, vl, (rdq, rdk, rdv), **kw):
+            outside = _train_outside(got, ref)
+            log(json.dumps({"control": "must fail", "case": name, "neighbour": label,
+                            "elements_outside": outside, "of": ref.numel(), "tol": info["tol"]}))
+            if not outside:
+                raise RuntimeError(f"{name}: a neighbouring function passes the kernel check "
+                                   f"({label})")
+            del got
+    del rdq, rdk, rdv
     empty = (vl == 0).nonzero().flatten().tolist()
     for i in empty:  # no valid key: zero output and grads, lse -inf
         if any(float(x[i].abs().max()) for x in (out, dq, dk, dv)) or bool(
@@ -1229,6 +1400,9 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
         for kname, fn in (("flash_fwd_lse", fwd), ("flash_bwd_dq", dq_fn),
                           ("flash_bwd_dkv", dkv_fn)):
             rows[kname]["ms"] = _time_ms(fn)
+            # ten calls in a row: the card's time without the host's gap
+            # before each single call
+            rows[kname]["ms_back_to_back"] = _time_ms(lambda: [fn() for _ in range(10)]) / 10
             rows[kname]["plain_ms"] = _time_ms(plain[kname], reps=3)
             torch.cuda.empty_cache()
         lib_fwd, lib_bwd = _sdpa_train_ms(q, k, v, g, causal, h // hkv)
@@ -1325,10 +1499,10 @@ def phase_train_kernels():
     kernels = []
     for kname, row in main_rows.items():
         kernels.append({
-            "name": kname, "route": "cuda", "source": CSRC + "flash_train.cu",
+            "name": kname, "route": "cuda", "source": CSRC + TRAIN_SOURCES[kname],
             "replaces": TRAIN_REPLACES[kname], "max_abs_err": max(errs[kname]),
-            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "library_call")}})
+            **{key: row[key] for key in ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "library_call")}})
     return kernels, backward
 
 
@@ -1848,9 +2022,105 @@ def _leaves(tree):
     return [(path_str(p), x) for p, x in leaves_with_path(tree)]
 
 
+def _step_grads(step, state, batch):
+    """One train step from `state`, keeping the gradients it computes:
+    (metrics, [(path, gradient)])."""
+    captured = []
+    inner = trainer.value_and_grad_params
+
+    def capture(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        captured.append(out[1])
+        return out
+
+    trainer.value_and_grad_params = capture
+    try:
+        _, metrics = step(state, batch)
+    finally:
+        trainer.value_and_grad_params = inner
+    return metrics, _leaves(captured[-1])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A checksum of a tensor's raw bits (int64, on its device)."""
+    x = x.detach()
+    if x.is_floating_point():
+        x = x.contiguous().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()])
+    return x.to(torch.int64).sum() if x.numel() else torch.zeros((), dtype=torch.int64,
+                                                                   device=x.device)
+
+
+def _op_trace(fn):
+    """Run `fn` and record every aten op it dispatches with checksums of its
+    tensor inputs and outputs: [(op, [input sums], [output sums])]. Ops that
+    only allocate are skipped (their memory is uninitialised)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    trace = []
+
+    class Trace(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if "empty" not in name:
+                trace.append((name, [_bits(x) for x in tree_leaves((args, kwargs))
+                                     if isinstance(x, torch.Tensor)],
+                              [_bits(x) for x in tree_leaves(out) if isinstance(x, torch.Tensor)]))
+            return out
+
+    with Trace():
+        fn()
+    return [(name, [int(x) for x in ins], [int(x) for x in outs]) for name, ins, outs in trace]
+
+
+def _first_divergent_op(fn) -> dict:
+    """Run `fn` twice and name the first op whose outputs differ. If its
+    inputs differ too, they came from outside the dispatcher: one of the
+    port's ctypes kernels, launched just before it."""
+    first, second = _op_trace(fn), _op_trace(fn)
+    for i, ((name, ins_a, outs_a), (name_b, ins_b, outs_b)) in enumerate(zip(first, second)):
+        if name != name_b:
+            return {"op_index": i, "op": name, "other_run": name_b, "finding": "op order differs"}
+        if outs_a != outs_b:
+            return {"op_index": i, "ops": len(first), "op": name, "inputs_equal": ins_a == ins_b,
+                    "finding": "this op is not deterministic" if ins_a == ins_b else
+                    "its inputs differ: they come from a kernel outside the dispatcher"}
+    return {"ops": len(first), "finding": "every op's output repeated"}
+
+
+def _check_step_determinism(step, state, batch) -> list:
+    """Two train steps from the same state and batch must give equal losses
+    and gradient leaves, bit for bit; then two more under
+    torch.use_deterministic_algorithms(True) (warn_only: cuBLAS is not
+    configured for it, and the check is of the port's own ops). If a pair
+    differs, name the first op whose output differs
+    (`_first_divergent_op`) and raise."""
+    rows = []
+    for deterministic in (False, True):
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            (m0, g0), (m1, g1) = [_step_grads(step, state, batch) for _ in range(2)]
+            differ = [name for (name, a), (_, b) in zip(g0, g1) if not torch.equal(a, b)]
+            row = {"train_determinism": "two steps from one state and batch",
+                   "use_deterministic_algorithms": deterministic,
+                   "loss": [float(m0["loss"]), float(m1["loss"])], "grad_leaves": len(g0),
+                   "leaves_differing": len(differ), "first_leaves_differing": differ[:5]}
+            if differ or not torch.equal(m0["loss"], m1["loss"]):
+                row["first_divergent_op"] = _first_divergent_op(lambda: step(state, batch))
+                log(json.dumps(row))
+                raise RuntimeError(f"the train step is not bit-reproducible: {row}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 def _kernel_category(name: str) -> str:
     n = name.lower()
-    for key, label in (("bwd_dkv", "flash_bwd_dkv"), ("bwd_dq", "flash_bwd_dq"),
+    for key, label in (("bwd_dkv", "flash_bwd_dkv"), ("dkv_group_sum", "flash_bwd_dkv"),
+                       ("bwd_dq", "flash_bwd_dq"),
                        ("fwd_lse", "flash_fwd_lse"), ("flash_fwd", "flash_fwd")):
         if key in n:
             return label
@@ -1884,8 +2154,10 @@ def _profiled_step(step, state, batch):
         by_kind[kind] = by_kind.get(kind, 0.0) + (t1 - t0) / 1e3
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
+    attn_bwd = by_kind.get("flash_bwd_dq", 0.0) + by_kind.get("flash_bwd_dkv", 0.0)
     return state, {"wall_s": wall, "kernels": len(spans), "device_busy_s": busy / 1e6,
                    "device_idle_share": 1.0 - busy / 1e6 / wall,
+                   "attention_backward_share_of_busy": attn_bwd / (busy / 1e3),
                    "kernel_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))}
 
 
@@ -1941,6 +2213,8 @@ def phase_train():
     if not all(moved[g] for g in set(groups[n] for n, t in trainable.items() if t)):
         raise RuntimeError(f"a trainable group never moved: {moved}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = _train_batch(rng, cfg, TRAIN_FRAMES, cfg.memory.num_fine_frames, dev, torch.bfloat16)
+    _check_step_determinism(step, state, batch)
     totals = {}
     batch = _train_batch(rng, cfg, TRAIN_FRAMES, cfg.memory.num_fine_frames, dev, torch.bfloat16)
     with _stage_clock(totals, TRAIN_STAGES):
@@ -1977,30 +2251,18 @@ def phase_train_parity():
     params = vlm.init_params(cfg, seed=6, device="cpu", dtype=torch.float32)
     opt = _bench_opt()
     step = trainer.make_train_step(cfg, opt, nseg=2)
-    captured = []
-    inner = trainer.value_and_grad_params
-
-    def capture(*args, **kwargs):  # keep the step's own gradients
-        out = inner(*args, **kwargs)
-        captured.append(out[1])
-        return out
-
     results = {}
-    trainer.value_and_grad_params = capture
-    try:
-        for dev in ("cuda", "cpu"):
-            batch = _train_batch(np.random.default_rng(7), cfg, 40, 8, dev, torch.float32)
-            state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
-            _reset_launches()
-            t0 = time.perf_counter()
-            _, metrics = step(state, batch)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                if _launches() != _expected_train_launches(cfg, 40):
-                    raise RuntimeError(f"train parity: launches {_launches()}")
-            results[dev] = (metrics, _leaves(captured[-1]), time.perf_counter() - t0)
-    finally:
-        trainer.value_and_grad_params = inner
+    for dev in ("cuda", "cpu"):
+        batch = _train_batch(np.random.default_rng(7), cfg, 40, 8, dev, torch.float32)
+        state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
+        _reset_launches()
+        t0 = time.perf_counter()
+        metrics, grads = _step_grads(step, state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if _launches() != _expected_train_launches(cfg, 40):
+                raise RuntimeError(f"train parity: launches {_launches()}")
+        results[dev] = (metrics, grads, time.perf_counter() - t0)
     (mg, gg, tg), (mc, gc, tc) = results["cuda"], results["cpu"]
     model_max = max(float(b.abs().max()) for _, b in gc)
     worst = []

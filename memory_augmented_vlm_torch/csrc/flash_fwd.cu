@@ -416,5 +416,6 @@ extern "C" const char* kernel_error_string(int code) {
   if (code == -1) return "unsupported head dim";
   if (code == -2) return "unsupported dtype";
   if (code == -3) return "unsupported shape";
+  if (code == -4) return "TMA tensor map refused (alignment or strides)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

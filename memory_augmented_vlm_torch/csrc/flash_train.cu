@@ -1,10 +1,11 @@
 // Flash attention for training on Hopper (sm_90a), bound to Python with ctypes:
-// the forward that saves the log-sum-exp, and the two backward kernels.
+// the forward that saves the log-sum-exp (bf16 and fp32), and the fp32
+// backward kernels. The bf16 backward kernels are in flash_bwd_sm90.cu.
 //
 // Replaces the TPU kernels of memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:
 //   flash_fwd_lse  <- _forward_with_lse (_fwd_lse_kernel)
-//   flash_bwd_dq   <- _backward's dq pallas_call (_dq_kernel)
-//   flash_bwd_dkv  <- _backward's dk/dv pallas_call (_dkv_kernel)
+//   flash_bwd_dq   <- _backward's dq pallas_call (_dq_kernel), fp32
+//   flash_bwd_dkv  <- _backward's dk/dv pallas_call (_dkv_kernel), fp32
 // and computes their function:
 //   - q is scaled by scale*log2(e) and rounded to the input dtype before QK^T;
 //     the softmax is base 2 and the saved lse is in log2 units,
@@ -14,28 +15,24 @@
 //     diagonal when causal);
 //   - p = exp2(s - lse); ds = p * (dp - delta) * scale, in raw-score units,
 //     with delta = rowsum(dO * O) computed by the caller;
-//   - p is rounded to dO's dtype before dV += p^T dO, and ds to q/k's dtype
-//     before dQ += ds K and dK += ds^T Q (Q unscaled);
+//   - dQ = ds K, dV = p^T dO, dK = ds^T Q (Q unscaled);
 //   - GQA is native: query head h reads K/V head h / kv_groups. dK/dV of a
 //     KV head sum over its whole group inside one block, so the result is
 //     deterministic (no atomics).
 // Layout is bshd for q/k/v/o/dO/dQ/dK/dV (read through strides, the head dim
 // contiguous) and (B, H, Sq) fp32 for lse and delta.
 //
-// What bounds them on the H100: at the LM's training shape (S = 9557, D = 64,
-// 14 query heads over 2 KV heads, causal) all three are compute-bound: every
-// K/V (or Q/dO) tile staged in shared memory is reused by 64 rows, and the
-// (Sq, Skv) score matrix never reaches device memory. The design runs every
-// product on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate),
-// keeps scores, probabilities and their gradients in registers, and turns
-// each C fragment straight into the A fragment of the next product. One
-// block per 64-row tile; a loop inside the block over the other axis takes
-// the place of the TPU's sequential grid axis and is cut at the valid length
-// and the causal diagonal. Operands that a product needs transposed are
-// staged twice in shared memory (row-major and transposed). There is no
-// copy/compute overlap yet (cp.async or TMA pipelining and wgmma are later
-// work), and the dK/dV kernel's longest block (the first key tile, which
-// every query tile of all 7 heads of its group reaches) sets its time.
+// What bounds the forward on the H100: at the LM's training shape (S = 9557,
+// D = 64, 14 query heads over 2 KV heads, causal) it is compute-bound: every
+// K/V tile staged in shared memory is reused by 64 rows, and the (Sq, Skv)
+// score matrix never reaches device memory. The bf16 forward runs its
+// products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate), keeps scores and probabilities in registers, and turns each
+// C fragment straight into the A fragment of the next product. One block per
+// 64-row tile; a loop inside the block over the key tiles takes the place of
+// the TPU's sequential grid axis and is cut at the valid length and the
+// causal diagonal. V is staged transposed in shared memory; there is no
+// copy/compute overlap yet.
 //
 // fp32 inputs take SIMT kernels (a warp per query or key row, lanes over
 // the other axis). They serve fp32 parity runs only.
@@ -294,157 +291,6 @@ __global__ void __launch_bounds__(kThreads) fwd_lse_bf16_kernel(const TrainParam
   store_rows<D>(o, p.o_ss, row0, p.Sq, acc, inv[0], inv[1], t);
 }
 
-// dQ for a tile of 64 query rows of one head, looping over key tiles.
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_bf16_kernel(const TrainParams p) {
-  using T = Tiles<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTile][STR]
-  __nv_bfloat16* sV = sK + kTile * T::STR;                           // [kTile][STR]
-  __nv_bfloat16* sKt = sV + kTile * T::STR;                          // [D][kTStr]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int hk = h / p.kv_groups;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const __nv_bfloat16* dout =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb + h * p.d_sh;
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
-
-  int kv_end = kv_limit(p, b);
-  if (p.causal) kv_end = min(kv_end, q0 + kTile);
-
-  stage_tile<D>(q, p.q_ss, q0, p.Sq, sK, nullptr, p.scale_log2);
-  stage_tile<D>(dout, p.d_ss, q0, p.Sq, sV, nullptr, 1.f);
-  __syncthreads();
-  uint32_t qf[T::KC][4], df[T::KC][4];
-  load_a_frags<D>(sK, warp, g, t, qf);
-  load_a_frags<D>(sV, warp, g, t, df);
-
-  const int row0 = q0 + warp * 16 + g;
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const long long idx = ((long long)b * p.H + h) * p.Sq + row;
-    lse[r] = row < p.Sq ? p.lse[idx] : INFINITY;  // p = 0 on rows past Sq
-    delta[r] = row < p.Sq ? p.delta[idx] : 0.f;
-  }
-  float acc[T::DT][4];
-#pragma unroll
-  for (int dt = 0; dt < T::DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int n0 = 0; n0 < kv_end; n0 += kTile) {
-    __syncthreads();
-    stage_tile<D>(k, p.k_ss, n0, kv_end, sK, sKt, 1.f);
-    stage_tile<D>(v, p.v_ss, n0, kv_end, sV, nullptr, 1.f);
-    __syncthreads();
-
-    float s[T::NT][4], dp[T::NT][4];
-    mma_rows<D>(s, qf, sK, g, t);
-    mma_rows<D>(dp, df, sV, g, t);
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const int row = row0 + 8 * r;
-        const bool ok = col < kv_end && (!p.causal || col <= row);
-        const float pr = ok ? exp2f(s[nt][e] - lse[r]) : 0.f;
-        s[nt][e] = pr * (dp[nt][e] - delta[r]) * p.scale;
-      }
-    }
-    mma_cols<D>(acc, s, sKt, g, t);  // ds rounded to bf16, times K
-  }
-  store_rows<D>(dq, p.o_ss, row0, p.Sq, acc, 1.f, 1.f, t);
-}
-
-// dK and dV for a tile of 64 keys of one KV head, looping over every query
-// head of its group and every query tile that reaches these keys. Scores
-// are taken transposed (keys x queries), as in the TPU kernel.
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_bf16_kernel(const TrainParams p) {
-  using T = Tiles<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTile][STR], scaled q
-  __nv_bfloat16* sDO = sQs + kTile * T::STR;                          // [kTile][STR]
-  __nv_bfloat16* sQt = sDO + kTile * T::STR;                          // [D][kTStr], raw q
-  __nv_bfloat16* sDOt = sQt + D * kTStr;                              // [D][kTStr]
-  float* sLse = reinterpret_cast<float*>(sDOt + D * kTStr);           // [kTile]
-  float* sDelta = sLse + kTile;                                       // [kTile]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kTile;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + hk * p.o_sh;
-  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.out2) + b * p.o_sb + hk * p.o_sh;
-
-  const int kv_end = kv_limit(p, b);
-  const int key0 = k0 + warp * 16 + g;  // the thread's keys: key0, key0 + 8
-  float dk_acc[T::DT][4], dv_acc[T::DT][4];
-#pragma unroll
-  for (int dt = 0; dt < T::DT; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-  }
-
-  if (k0 < kv_end) {
-    stage_tile<D>(k, p.k_ss, k0, kv_end, sQs, nullptr, 1.f);
-    stage_tile<D>(v, p.v_ss, k0, kv_end, sDO, nullptr, 1.f);
-    __syncthreads();
-    uint32_t kf[T::KC][4], vf[T::KC][4];
-    load_a_frags<D>(sQs, warp, g, t, kf);
-    load_a_frags<D>(sDO, warp, g, t, vf);
-    const int m_first = p.causal ? (k0 / kTile) * kTile : 0;
-
-    for (int hq = hk * p.kv_groups; hq < (hk + 1) * p.kv_groups; ++hq) {
-      const __nv_bfloat16* q =
-          static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + hq * p.q_sh;
-      const __nv_bfloat16* dout =
-          static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb + hq * p.d_sh;
-      const long long row_base = ((long long)b * p.H + hq) * p.Sq;
-      for (int m0 = m_first; m0 < p.Sq; m0 += kTile) {
-        __syncthreads();
-        stage_tile<D>(q, p.q_ss, m0, p.Sq, sQs, sQt, p.scale_log2);
-        stage_tile<D>(dout, p.d_ss, m0, p.Sq, sDO, sDOt, 1.f);
-        for (int i = threadIdx.x; i < kTile; i += kThreads) {
-          const bool in = m0 + i < p.Sq;
-          sLse[i] = in ? p.lse[row_base + m0 + i] : INFINITY;
-          sDelta[i] = in ? p.delta[row_base + m0 + i] : 0.f;
-        }
-        __syncthreads();
-
-        float st[T::NT][4], dpt[T::NT][4];
-        mma_rows<D>(st, kf, sQs, g, t);   // (keys x queries) scores
-        mma_rows<D>(dpt, vf, sDO, g, t);  // V dO^T
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = nt * 8 + 2 * t + (e & 1);
-            const int qi = m0 + qc;
-            const int key = key0 + ((e >> 1) << 3);
-            const bool ok = key < kv_end && (!p.causal || key <= qi);
-            const float pr = ok ? exp2f(st[nt][e] - sLse[qc]) : 0.f;
-            st[nt][e] = pr;
-            dpt[nt][e] = pr * (dpt[nt][e] - sDelta[qc]) * p.scale;
-          }
-        }
-        mma_cols<D>(dv_acc, st, sDOt, g, t);  // p^T (bf16) dO
-        mma_cols<D>(dk_acc, dpt, sQt, g, t);  // ds^T (bf16) Q
-      }
-    }
-  }
-  store_rows<D>(dk, p.o_ss, key0, p.Skv, dk_acc, 1.f, 1.f, t);
-  store_rows<D>(dv, p.o_ss, key0, p.Skv, dv_acc, 1.f, 1.f, t);
-}
-
 // ---------------------------------------------------------------------------
 // fp32 SIMT kernels (parity runs)
 // ---------------------------------------------------------------------------
@@ -655,31 +501,16 @@ __global__ void __launch_bounds__(32 * kRowsF32) bwd_dkv_f32_kernel(const TrainP
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <int D>
-int launch_bf16(Which which, const TrainParams& p, int B, int Hkv, cudaStream_t stream) {
+int launch_bf16(const TrainParams& p, int B, cudaStream_t stream) {
   using T = Tiles<D>;
-  const dim3 block(kThreads);
-  const size_t tile = (size_t)kTile * T::STR * sizeof(__nv_bfloat16);
-  const size_t ttile = (size_t)D * kTStr * sizeof(__nv_bfloat16);
-  void (*kernel)(const TrainParams);
-  dim3 grid;
-  size_t smem;
-  if (which == kFwd) {
-    kernel = fwd_lse_bf16_kernel<D>;
-    grid = dim3((p.Sq + kTile - 1) / kTile, p.H, B);
-    smem = tile + ttile;
-  } else if (which == kDq) {
-    kernel = bwd_dq_bf16_kernel<D>;
-    grid = dim3((p.Sq + kTile - 1) / kTile, p.H, B);
-    smem = 2 * tile + ttile;
-  } else {
-    kernel = bwd_dkv_bf16_kernel<D>;
-    grid = dim3((p.Skv + kTile - 1) / kTile, Hkv, B);
-    smem = 2 * tile + 2 * ttile + 2 * kTile * sizeof(float);
-  }
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = (size_t)kTile * T::STR * sizeof(__nv_bfloat16) +
+                      (size_t)D * kTStr * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(fwd_lse_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, block, smem, stream>>>(p);
+  const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, B);
+  fwd_lse_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return 0;
 }
 
@@ -701,10 +532,10 @@ int launch(Which which, int dtype, int head_dim, const TrainParams& p, int B, in
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == 0) {
+  if (dtype == 0 && which == kFwd) {  // bf16 dQ and dK/dV: flash_bwd_sm90.cu
     switch (head_dim) {
-      case 64: rc = launch_bf16<64>(which, p, B, Hkv, s); break;
-      case 128: rc = launch_bf16<128>(which, p, B, Hkv, s); break;
+      case 64: rc = launch_bf16<64>(p, B, s); break;
+      case 128: rc = launch_bf16<128>(p, B, s); break;
       default: return -1;
     }
   } else if (dtype == 1) {
@@ -764,7 +595,7 @@ extern "C" int flash_fwd_lse(int dtype, int head_dim, const void* q, const void*
   return launch(kFwd, dtype, head_dim, p, B, H / kv_groups, stream);
 }
 
-// dq (B, Sq, H, D) is written.
+// dq (B, Sq, H, D) is written; fp32 only (bf16: flash_bwd_dq_sm90).
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* delta, void* dq, const void* valid_len, int B, int Sq,
@@ -784,7 +615,8 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* 
   return launch(kDq, dtype, head_dim, p, B, H / kv_groups, stream);
 }
 
-// dk and dv (B, Skv, H / kv_groups, D), with the strides of dk, are written.
+// dk and dv (B, Skv, H / kv_groups, D), with the strides of dk, are written;
+// fp32 only (bf16: flash_bwd_dkv_sm90).
 extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, const void* valid_len,

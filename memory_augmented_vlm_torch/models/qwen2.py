@@ -60,9 +60,13 @@ class KVCache(NamedTuple):
               dtype=torch.bfloat16) -> "KVCache":
         shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
                  cfg.head_dim)
+        # an int8 cache carries a zero fp32 scale per (layer, row, position,
+        # head), one tensor each for K and V since decode_step writes in place
+        scales = [torch.zeros(shape[:-1], device=device, dtype=torch.float32)
+                  for _ in range(2)] if dtype == torch.int8 else [None, None]
         return KVCache(torch.zeros(shape, device=device, dtype=dtype),
                        torch.zeros(shape, device=device, dtype=dtype),
-                       torch.zeros((batch,), device=device, dtype=torch.int32))
+                       torch.zeros((batch,), device=device, dtype=torch.int32), *scales)
 
 
 def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -159,9 +159,21 @@ def load() -> ctypes.CDLL:
     # flash_bwd_dkv(..., dk, dv, valid_len, ...): as flash_bwd_dq with two outputs
     lib.flash_bwd_dkv.argtypes = ([c_int, c_int] + [ptr] * 9 + [c_int] * 6 + [strides] * 5
                                   + [ctypes.c_float] * 2 + [ptr])
+    # flash_bwd_dq_sm90(head_dim, qs, k, v, dout, lse, delta, dq, valid_len, items,
+    #                   n_items, B, Sq, Skv, H, kv_groups, causal, 5 x strides, scale, stream)
+    lib.flash_bwd_dq_sm90.argtypes = ([c_int] + [ptr] * 9 + [c_int] * 7 + [strides] * 5
+                                      + [ctypes.c_float, ptr])
+    # flash_bwd_dkv_sm90(head_dim, qs, q, k, v, dout, lse, delta, dk_part, dv_part, dk, dv,
+    #                    valid_len, items, n_items, B, Sq, Skv, H, kv_groups, causal,
+    #                    6 x strides, scale, stream)
+    lib.flash_bwd_dkv_sm90.argtypes = ([c_int] + [ptr] * 13 + [c_int] * 7 + [strides] * 6
+                                       + [ctypes.c_float, ptr])
+    # flash_bwd_tiles(head_dim, &dq_rows, &dq_keys, &dkv_rows, &dkv_keys)
+    lib.flash_bwd_tiles.argtypes = [c_int] + [ctypes.POINTER(c_int)] * 4
     for fn in (lib.flash_fwd, lib.flash_merge, lib.flash_merge_oproj, lib.qkv_int8,
                lib.mlp_int8, lib.mlp_int8_core, lib.swiglu_int8, lib.int8_matmul,
-               lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_merge_int8,
+               lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_dq_sm90,
+               lib.flash_bwd_dkv_sm90, lib.flash_bwd_tiles, lib.flash_merge_int8,
                lib.attn_block_int8, lib.int8_gemm_bf16, lib.gemv_bf16):
         fn.restype = c_int
     lib.kernel_error_string.argtypes = [c_int]

@@ -18,14 +18,22 @@ layout, GQA through `kv_groups`):
   - `flash_attention_train`, a `torch.autograd.Function` whose forward
     saves (q, k, v, out, lse, kv_valid_len), as `_flash_train_fwd` does.
 
+The bf16 backward runs `csrc/flash_bwd_sm90.cu` (TMA and wgmma) over a
+work list built here once per shape (`work_list`): items of (batch, query
+head, tile), longest loop first. dK/dV items write each query head's fp32
+partials, which a second kernel sums over the group in head order
+(`backward_dkv_partials_reference` and `group_sum` are their plain
+versions). fp32 runs the SIMT kernels of `csrc/flash_train.cu`.
+
 Each kernel wrapper takes its plain version (`*_reference`) only for
 tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
-head dims 64 and 128) or raises, and counts the launch in `.launches`.
+head dims 64 and 128) or raises, and counts the call in `.launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -35,6 +43,20 @@ from memory_augmented_vlm_torch.ops.flash import (_KERNEL_DTYPES, LOG2E, MASK_VA
                                                   _check_kernel_args, _shapes, attention_mask)
 
 TRAIN_HEAD_DIMS = (64, 128)
+# Tiles of the bf16 backward kernels (`csrc/flash_bwd_sm90.cu`, checked
+# against its `flash_bwd_tiles` when a list first goes to the card): a dQ
+# item takes 64 query rows (128 at head dim 128) and loops over 64-key
+# tiles; a dK/dV item takes 128 keys (64 at head dim 128) and loops over
+# 64-row query tiles.
+DQ_BLOCK_K = DKV_BLOCK_Q = 64
+
+
+def dq_block_q(head_dim: int) -> int:
+    return 64 if head_dim == 64 else 128
+
+
+def dkv_block_k(head_dim: int) -> int:
+    return 128 if head_dim == 64 else 64
 
 
 def _repeat(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -108,8 +130,115 @@ def backward_dkv_reference(q, k, v, dout, lse, delta, kv_valid_len, *, causal: b
     return group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
 
 
+def group_sum(partials: torch.Tensor, kv_groups: int) -> torch.Tensor:
+    """(B, H, Skv, D) per-head fp32 partials -> (B, Skv, H // kv_groups, D):
+    the heads of each group summed in head order, as the bf16 dK/dV
+    kernel's second pass sums them."""
+    b, h, skv, d = partials.shape
+    x = partials.reshape(b, h // kv_groups, kv_groups, skv, d)
+    total = x[:, :, 0]
+    for i in range(1, kv_groups):
+        total = total + x[:, :, i]
+    return total.transpose(1, 2)
+
+
+def backward_dkv_partials_reference(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool,
+                                    scale: float, kv_groups: int = 1
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of what the bf16 dK/dV kernel writes before its group
+    sum: each query head's fp32 dK and dV, (B, H, Skv, D)."""
+    p, ds = _dscores(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups)
+    dv = torch.einsum("bhqk,bqhd->bhkd", p.to(dout.dtype).float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bhkd", ds.to(q.dtype).float(), q.float())
+    return dk, dv
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dq_key_tiles(m: int, sq: int, skv: int, causal: bool, block_q: int,
+                 block_k: int = DQ_BLOCK_K) -> range:
+    """Key tiles the dQ kernel's loop visits for query tile `m` when every key
+    is valid: all of them, or up to the diagonal's when causal. The kernel
+    also stops at kv_valid_len, which lives on the card."""
+    end = min(skv, (m + 1) * block_q) if causal else skv
+    return range(_cdiv(end, block_k))
+
+
+def dkv_query_tiles(n: int, sq: int, skv: int, causal: bool, block_q: int,
+                    block_k: int) -> range:
+    """Query tiles the dK/dV kernel's loop visits for key tile `n` when every
+    key is valid: from the diagonal's tile when causal, to the last."""
+    k0 = n * block_k
+    if k0 >= skv:
+        return range(0)
+    return range(k0 // block_q if causal else 0, _cdiv(sq, block_q))
+
+
+@functools.lru_cache(maxsize=32)
+def work_list(kind: str, b: int, sq: int, skv: int, h: int, causal: bool, block_q: int,
+              block_k: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The bf16 backward's work items, (batch, query head, tile), one block
+    each: `kind` "dq" takes query tiles (its loop runs over `dq_key_tiles`),
+    "dkv" key tiles (`dkv_query_tiles`). Longest loop first, so the blocks
+    that run longest start first and short ones fill the tail; ties keep
+    (tile, batch, head) order. Shapes only: the kernels cut each loop at
+    kv_valid_len themselves."""
+    if kind == "dq":
+        tiles = _cdiv(sq, block_q)
+        length = [len(dq_key_tiles(i, sq, skv, causal, block_q, block_k)) for i in range(tiles)]
+    elif kind == "dkv":
+        tiles = _cdiv(skv, block_k)
+        length = [len(dkv_query_tiles(i, sq, skv, causal, block_q, block_k))
+                  for i in range(tiles)]
+    else:
+        raise ValueError(f"work list kind is dq or dkv, not {kind!r}")
+    items = [(bi, hi, i) for i in range(tiles) for bi in range(b) for hi in range(h)]
+    return tuple(sorted(items, key=lambda item: -length[item[2]]))
+
+
+_WORK_ITEMS = {}
+
+
+def _work_items(kind, b, sq, skv, h, causal, d, device) -> torch.Tensor:
+    """`work_list` as an (n, 3) int32 tensor on `device`, made once per shape."""
+    block_q, block_k = ((dq_block_q(d), DQ_BLOCK_K) if kind == "dq"
+                        else (DKV_BLOCK_Q, dkv_block_k(d)))
+    key = (kind, b, sq, skv, h, causal, block_q, block_k, str(device))
+    if key not in _WORK_ITEMS:
+        tiles = [ctypes.c_int() for _ in range(4)]
+        lib = cuda_lib.load()
+        cuda_lib.check(lib, lib.flash_bwd_tiles(d, *map(ctypes.byref, tiles)), "flash_bwd_tiles")
+        want = (dq_block_q(d), DQ_BLOCK_K, DKV_BLOCK_Q, dkv_block_k(d))
+        if tuple(x.value for x in tiles) != want:
+            raise RuntimeError(f"backward tiles {[x.value for x in tiles]} != {want}")
+        items = work_list(kind, b, sq, skv, h, causal, block_q, block_k)
+        _WORK_ITEMS[key] = torch.tensor(items, dtype=torch.int32, device=device).reshape(-1, 3)
+    return _WORK_ITEMS[key]
+
+
+def scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale * log2(e), rounded to q's dtype: the operand of the backward
+    kernels' score products, made once per backward (one elementwise op)."""
+    return q * (scale * LOG2E)
+
+
 def _strides(x: torch.Tensor):
     return (ctypes.c_longlong * 3)(*x.stride()[:3])
+
+
+def _map_strides(x: torch.Tensor):
+    """Strides for a TMA tensor map: a dim of size 1 is never stepped, so its
+    stride only has to be a valid one."""
+    return (ctypes.c_longlong * 3)(*(st if n > 1 else 8
+                                     for st, n in zip(x.stride()[:3], x.shape[:3])))
+
+
+def _check_qs(q, qs):
+    if (qs.shape != q.shape or qs.dtype != q.dtype or qs.device != q.device
+            or qs.stride(3) != 1 or any(st % 8 for st in qs.stride()[:3]) or qs.data_ptr() % 16):
+        raise ValueError("qs must have q's shape, dtype and device, with 16-byte rows")
 
 
 def _check_train_args(q, k, v, kv_valid_len, d, *extra):
@@ -165,8 +294,10 @@ def _check_dout(q, dout):
 
 
 def backward_dq(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
-                kv_groups: int = 1) -> torch.Tensor:
-    """dQ; see `backward_dq_reference`. CUDA tensors launch `flash_bwd_dq`."""
+                kv_groups: int = 1, qs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ; see `backward_dq_reference`. CUDA tensors launch
+    `flash_bwd_dq_sm90` (bf16; `qs`, the `scaled_q` of q, is made here unless
+    given) or `flash_bwd_dq` (fp32)."""
     b, sq, skv, h, d = _backward_args(q, k, v, dout, lse, delta, kv_groups, causal)
     if q.device.type == "cpu":
         return backward_dq_reference(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
@@ -179,12 +310,24 @@ def backward_dq(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale:
     if b == 0 or sq == 0:
         return dq
     lib = cuda_lib.load()
-    rc = lib.flash_bwd_dq(
-        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv,
-        h, kv_groups, int(causal), _strides(q), _strides(k), _strides(v), _strides(dout),
-        _strides(dq), scale, scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_lib.check(lib, rc, "flash_bwd_dq")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        qs = scaled_q(q, scale) if qs is None else qs
+        _check_qs(q, qs)
+        items = _work_items("dq", b, sq, skv, h, causal, d, q.device)
+        rc = lib.flash_bwd_dq_sm90(
+            d, qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), kv_valid_len.data_ptr(), items.data_ptr(),
+            items.shape[0], b, sq, skv, h, kv_groups, int(causal), _map_strides(qs),
+            _map_strides(k), _map_strides(v), _map_strides(dout), _strides(dq), scale, stream)
+        cuda_lib.check(lib, rc, "flash_bwd_dq_sm90")
+    else:
+        rc = lib.flash_bwd_dq(
+            _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
+            _strides(k), _strides(v), _strides(dout), _strides(dq), scale, scale * LOG2E, stream)
+        cuda_lib.check(lib, rc, "flash_bwd_dq")
     backward_dq.launches += 1
     return dq
 
@@ -193,10 +336,12 @@ backward_dq.launches = 0
 
 
 def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
-                 kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                 kv_groups: int = 1, qs: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV; see `backward_dkv_reference`. CUDA tensors launch
-    `flash_bwd_dkv`: one block per 64 keys of a KV head accumulates its
-    whole group of query heads."""
+    `flash_bwd_dkv_sm90` (bf16: per-head fp32 partials into a scratch, then
+    the group sum; one counted call) or `flash_bwd_dkv` (fp32: one block per
+    64 keys of a KV head accumulates its whole group)."""
     b, sq, skv, h, d = _backward_args(q, k, v, dout, lse, delta, kv_groups, causal)
     if q.device.type == "cpu":
         return backward_dkv_reference(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
@@ -210,13 +355,27 @@ def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale
     if b == 0 or skv == 0:
         return dk, dv
     lib = cuda_lib.load()
-    rc = lib.flash_bwd_dkv(
-        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
-        _strides(k), _strides(v), _strides(dout), _strides(dk), scale, scale * LOG2E,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_lib.check(lib, rc, "flash_bwd_dkv")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        qs = scaled_q(q, scale) if qs is None else qs
+        _check_qs(q, qs)
+        items = _work_items("dkv", b, sq, skv, h, causal, d, q.device)
+        part = torch.empty((2, b, h, skv, d), dtype=torch.float32, device=q.device)
+        rc = lib.flash_bwd_dkv_sm90(
+            d, qs.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), kv_valid_len.data_ptr(), items.data_ptr(),
+            items.shape[0], b, sq, skv, h, kv_groups, int(causal), _map_strides(qs),
+            _map_strides(q), _map_strides(k), _map_strides(v), _map_strides(dout), _strides(dk),
+            scale, stream)
+        cuda_lib.check(lib, rc, "flash_bwd_dkv_sm90")
+    else:
+        rc = lib.flash_bwd_dkv(
+            _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
+            _strides(k), _strides(v), _strides(dout), _strides(dk), scale, scale * LOG2E, stream)
+        cuda_lib.check(lib, rc, "flash_bwd_dkv")
     backward_dkv.launches += 1
     return dk, dv
 
@@ -235,6 +394,8 @@ def backward(q, k, v, out, lse, dout, kv_valid_len, *, causal: bool, scale: floa
     dout = dout.contiguous()
     delta = attention_delta(out, dout)
     kw = dict(causal=causal, scale=scale, kv_groups=kv_groups)
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        kw["qs"] = scaled_q(q, scale)  # one pass, read by both kernels
     dq = backward_dq(q, k, v, dout, lse, delta, kv_valid_len, **kw)
     dk, dv = backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, **kw)
     return dq, dk, dv

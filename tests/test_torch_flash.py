@@ -114,9 +114,9 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
-    assert [p.name for p in srcs] == ["attn_block.cu", "flash_fwd.cu", "flash_merge.cu",
-                                      "flash_merge_int8.cu", "flash_train.cu", "gemv.cu",
-                                      "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
+    assert [p.name for p in srcs] == ["attn_block.cu", "flash_bwd_sm90.cu", "flash_fwd.cu",
+                                      "flash_merge.cu", "flash_merge_int8.cu", "flash_train.cu",
+                                      "gemv.cu", "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
                                       "swiglu_int8.cu"]
     # each C entry that cuda_lib.load binds is defined (not only declared)
     # in exactly one of them
@@ -124,7 +124,8 @@ def test_build_command_targets_sm90a_and_sources_exist():
     for entry in ("flash_fwd", "flash_merge", "flash_merge_oproj", "qkv_int8", "mlp_int8",
                   "mlp_int8_core", "swiglu_int8", "int8_matmul", "flash_fwd_lse",
                   "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string", "flash_merge_int8",
-                  "attn_block_int8", "int8_gemm_bf16", "gemv_bf16"):
+                  "attn_block_int8", "int8_gemm_bf16", "gemv_bf16", "flash_bwd_dq_sm90",
+                  "flash_bwd_dkv_sm90", "flash_bwd_tiles"):
         definition = re.compile(r'extern "C" [\w ]+\*? ?' + entry + r"\([^;{]*\)\s*\{")
         assert len(definition.findall(text)) == 1, entry
     assert all(p.is_file() for p in srcs)

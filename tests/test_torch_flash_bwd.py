@@ -15,6 +15,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from memory_augmented_vlm_tpu.ops import pallas_flash
 from memory_augmented_vlm_tpu.ops.attention import repeat_kv
@@ -185,3 +187,127 @@ def test_flash_forward_backward_matches_pallas_vjp():
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **OUT_TOL)
     for name, a, ref in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(ref), **GRAD_TOL, err_msg=f"d{name}")
+
+
+# ------------------------------------ the bf16 backward's work split
+
+
+def _reachable(sq, skv, causal, block_q, block_k):
+    """(query tile, key tile) pairs in which some query sees some key when
+    every key is valid, from the element mask."""
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(skv)[None, :]
+    mask = (cols <= rows) if causal else np.ones((sq, skv), bool)
+    return {(int(r) // block_q, int(c) // block_k) for r, c in zip(*np.nonzero(mask))}
+
+
+@settings(max_examples=60, deadline=None)
+@given(s=st.integers(1, 700), s_kv=st.integers(1, 700), b=st.integers(1, 2),
+       h=st.integers(1, 3), causal=st.booleans(), kind=st.sampled_from(["dq", "dkv"]),
+       block_q=st.sampled_from([32, 64, 128]), block_k=st.sampled_from([32, 64, 128]))
+def test_work_list_covers_each_reachable_tile_pair_once(s, s_kv, b, h, causal, kind, block_q,
+                                                        block_k):
+    """Each (batch, query tile, key tile, head) that the mask reaches is
+    visited by exactly one item's loop, and nothing else is; items come
+    longest loop first."""
+    sq, skv = s, (s if causal else s_kv)
+    items = flash_bwd.work_list(kind, b, sq, skv, h, causal, block_q, block_k)
+    visited, lengths = [], []
+    for bi, hi, tile in items:
+        if kind == "dq":
+            loop = [(tile, n) for n in flash_bwd.dq_key_tiles(tile, sq, skv, causal, block_q,
+                                                              block_k)]
+        else:
+            loop = [(m, tile) for m in flash_bwd.dkv_query_tiles(tile, sq, skv, causal, block_q,
+                                                                 block_k)]
+        visited += [(bi, hi, m, n) for m, n in loop]
+        lengths.append(len(loop))
+    want = {(bi, hi, m, n) for bi in range(b) for hi in range(h)
+            for m, n in _reachable(sq, skv, causal, block_q, block_k)}
+    assert len(visited) == len(set(visited)) and set(visited) == want
+    assert lengths == sorted(lengths, reverse=True)
+    tiles = -(-sq // block_q) if kind == "dq" else -(-skv // block_k)
+    assert sorted(items) == [(bi, hi, i) for bi in range(b) for hi in range(h)
+                             for i in range(tiles)]
+
+
+@pytest.mark.parametrize("kind,items,longest,total", [("dq", 2100, 150, 158550),
+                                                       ("dkv", 1050, 150, 79800)])
+def test_work_list_at_the_train_shape_is_balanced(kind, items, longest, total):
+    """At the LM's train shape (head dim 64) no item's loop is longer than
+    150 tiles, under 1/7 of the 1050 that the longest block of a
+    group-per-block dK/dV split runs."""
+    s = 9557
+    bq, bk = ((flash_bwd.dq_block_q(64), flash_bwd.DQ_BLOCK_K) if kind == "dq"
+              else (flash_bwd.DKV_BLOCK_Q, flash_bwd.dkv_block_k(64)))
+    work = flash_bwd.work_list(kind, 1, s, s, 14, True, bq, bk)
+    loop = (flash_bwd.dq_key_tiles if kind == "dq" else flash_bwd.dkv_query_tiles)
+    lengths = [len(loop(t, s, s, True, bq, bk)) for _, _, t in work]
+    assert (len(work), max(lengths), sum(lengths)) == (items, longest, total)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 200, 200, 6, 64, True, (200, 77)),
+                                  (1, 128, 300, 4, 128, False, (300,))])
+def test_dkv_partials_and_group_sum_are_the_reference(case, dtype):
+    """The plain version of the bf16 dK/dV kernel's two passes (per-head fp32
+    partials, then the group summed in head order and cast once) equals
+    `backward_dkv_reference` bit for bit."""
+    b, sq, skv, h, d, causal, valid = case
+    q, k, v, vl = _inputs(case, seed=8, hkv=2)
+    g = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tg = (_t(x).to(getattr(torch, dtype)) for x in (q, k, v, g))
+    kw = dict(causal=causal, scale=d ** -0.5, kv_groups=h // 2)
+    out, lse = flash_bwd.forward_with_lse(tq, tk, tv, _t(vl), **kw)
+    delta = flash_bwd.attention_delta(out, tg)
+    pk, pv = flash_bwd.backward_dkv_partials_reference(tq, tk, tv, tg, lse, delta, _t(vl), **kw)
+    assert pk.shape == (b, h, skv, d) and pk.dtype == torch.float32
+    rk, rv = flash_bwd.backward_dkv_reference(tq, tk, tv, tg, lse, delta, _t(vl), **kw)
+    assert torch.equal(flash_bwd.group_sum(pk, h // 2).to(rk.dtype), rk)
+    assert torch.equal(flash_bwd.group_sum(pv, h // 2).to(rv.dtype), rv)
+
+
+def test_dkv_partials_match_pallas_group_sum():
+    """The partials' group sum against JAX's Pallas backward in interpret
+    mode on the same numpy inputs (JAX repeats K/V, so its dK/dV arrive
+    summed over each group), at the file's gradient tolerance."""
+    case = (2, 256, 256, 6, 64, True, (256, 200))
+    q, k, v, vl = _inputs(case, seed=10, hkv=2)
+    g = np.random.default_rng(11).standard_normal(q.shape).astype(np.float32)
+    scale = 64 ** -0.5
+    jq, jk, jv = (jnp.asarray(x) for x in (q, repeat_kv(jnp.asarray(k), 3),
+                                           repeat_kv(jnp.asarray(v), 3)))
+    jout, jlse = _forward_with_lse(jq, jk, jv, jnp.asarray(vl), True, scale, BLOCK, BLOCK, True)
+    _, jdk, jdv = _backward(jq, jk, jv, jout, jlse, jnp.asarray(g), jnp.asarray(vl), True, scale,
+                            BLOCK, BLOCK, True)
+    lse = _t(np.asarray(jlse)[:, :, 0, :]).contiguous()
+    delta = flash_bwd.attention_delta(_t(jout), _t(g))
+    pk, pv = flash_bwd.backward_dkv_partials_reference(
+        _t(q), _t(k), _t(v), _t(g), lse, delta, _t(vl), causal=True, scale=scale, kv_groups=3)
+    jdk, jdv = (np.asarray(x).reshape(2, 256, 2, 3, 64).sum(axis=3) for x in (jdk, jdv))
+    np.testing.assert_allclose(flash_bwd.group_sum(pk, 3).numpy(), jdk, **GRAD_TOL)
+    np.testing.assert_allclose(flash_bwd.group_sum(pv, 3).numpy(), jdv, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("control", range(5))
+def test_chip_smoke_train_kernel_controls_fail_its_check(control):
+    """Each neighbouring function that chip_smoke runs as a control at the
+    train shape fails `_train_kernels_case`'s rule (every element within
+    1e-2 + 1e-2 |ref|, bf16) here too, on the plain versions at S = 300."""
+    import chip_smoke
+
+    case = (1, 300, 300, 4, 64, True, (300,))
+    q, k, v, vl = (_t(x) for x in _inputs(case, seed=12, hkv=2))
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    g = torch.from_numpy(np.random.default_rng(13).standard_normal(q.shape).astype(np.float32))
+    g = g.bfloat16()
+    kw = dict(causal=True, scale=64 ** -0.5, kv_groups=2)
+    out, lse = flash_bwd.forward_with_lse(q, k, v, vl, **kw)
+    delta = flash_bwd.attention_delta(out, g)
+    refs = (flash_bwd.backward_dq_reference(q, k, v, g, lse, delta, vl, **kw),
+            *flash_bwd.backward_dkv_reference(q, k, v, g, lse, delta, vl, **kw))
+    controls = list(chip_smoke._train_controls(q, k, v, g, lse, delta, vl, refs, **kw))
+    assert len(controls) == 5
+    label, got, ref = controls[control]
+    assert chip_smoke._train_outside(got, ref) > 0, label
+    assert chip_smoke._train_outside(ref.clone(), ref) == 0

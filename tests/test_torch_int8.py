@@ -369,6 +369,36 @@ def test_int8_lm_prefill_cache_and_decode_match_jax():
     np.testing.assert_allclose(tc.v_scale.numpy(), np.asarray(jc.v_scale), rtol=1e-4, atol=1e-7)
 
 
+def test_int8_kv_cache_zeros_has_scales_as_jax():
+    """`KVCache.zeros(..., int8)` carries zero fp32 K and V scales of shape
+    (L, B, Smax, Hkv), as JAX's does (exact: both are zeros), and
+    `decode_step` runs on it, writing one position's codes and scales."""
+    pcfg = tconfig.LMConfig(**{f.name: getattr(LM, f.name)
+                               for f in dataclasses.fields(tconfig.LMConfig)})
+    jc = jqwen2.KVCache.zeros(LM, 2, 9, jnp.int8)
+    tc = tqwen2.KVCache.zeros(pcfg, 2, 9, "cpu", torch.int8)
+    for name in ("k", "v", "length", "k_scale", "v_scale"):
+        want = np.asarray(getattr(jc, name))
+        got = getattr(tc, name)
+        assert tuple(got.shape) == want.shape and str(got.dtype)[6:] == str(want.dtype), name
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    assert tc.k_scale.data_ptr() != tc.v_scale.data_ptr()  # decode_step writes each in place
+    assert tqwen2.KVCache.zeros(pcfg, 2, 9, "cpu").k_scale is None  # bf16: no scales
+    jp = jqwen2.prequantize_int8(jqwen2.init_params(LM, jax.random.key(14)))
+    layers = [jax.tree.map(lambda a: np.asarray(a)[i], jp["layers"])
+              for i in range(LM.num_hidden_layers)]
+    tp = convert._tree({**jax.tree.map(np.asarray, jp), "layers": layers}, "cpu", None)
+    ids = np.array([[3], [7]])
+    th, tc = tqwen2.decode_step(tp, pcfg, tqwen2.embed_tokens(tp, _t(ids)), tc)
+    jh, jc = jqwen2.decode_step(jp, LM, jqwen2.embed_tokens(jp, jnp.asarray(ids)), jc)
+    # 2e-4 as in the prefill/decode test above: an fp32 sum in another order
+    # can flip one int8 code at a tie (module docstring)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-4, atol=2e-4)
+    assert tc.length.tolist() == [1, 1]
+    assert (tc.k_scale[:, :, 0] > 0).all() and not tc.k_scale[:, :, 1:].any()
+    np.testing.assert_allclose(tc.v_scale.numpy(), np.asarray(jc.v_scale), rtol=1e-4, atol=1e-7)
+
+
 # -------------------------------------------------------------- the slice
 
 MAX_NEW = 6

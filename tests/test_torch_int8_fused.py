@@ -508,3 +508,66 @@ def test_device_is_explicit_in_the_table_and_rope_helpers():
     _, _, pcfg = _int8_lm()
     cos, sin = tqwen2._rope_tables(pcfg, torch.zeros((1, 3), dtype=torch.long, device="meta"))
     assert cos.device.type == sin.device.type == "meta"
+
+
+# ------------------------------------------- the card's check, on the CPU
+
+
+def _fault1_case(kernel):
+    """(plain output, residual or None, {control: output}) of #4, #5, #6 or
+    #8 on chip_smoke's own inputs at a reduced row count, on the CPU."""
+    import chip_smoke
+
+    gen = torch.Generator()
+    gen.manual_seed(21)
+    if kernel in ("fused_mlp_block_int8", "fused_mlp_int8"):
+        args = chip_smoke._mlp_args(gen, 128, 1152, 4304, torch.bfloat16, "cpu")
+        fn = mlp_int8.fused_mlp_block_int8_reference
+        base = args[0]
+        if kernel == "fused_mlp_int8":
+            args, fn, base = (args[0], *args[3:]), mlp_int8.fused_mlp_int8_reference, None
+        with chip_smoke._erf_gelu():
+            controls = {"erf GELU": fn(*args)}
+        return fn(*args), base, controls
+    if kernel == "int8_matmul":
+        x = torch.randn((256, 1152), generator=gen).to(torch.bfloat16)
+        w, sw, bias = chip_smoke._int8_weight(gen, 1152, 4304, "cpu")
+        controls = {"quant.int8_linear": quant.int8_linear(
+            {"kernel_int8": w, "scale": sw, "bias": bias}, x)}
+        return pallas_int8.int8_matmul_reference(x, w, sw, bias), None, controls
+    args = chip_smoke._oproj_args(gen, 1, 256, 16, 72, [256], torch.bfloat16, "cpu")
+    controls = {name: fn() for name, fn in chip_smoke._oproj_controls(args)}
+    return flash.flash_attention_out_proj_int8_reference(*args), args[4], controls
+
+
+FAULT1_CONTROLS = [("fused_mlp_block_int8", "erf GELU"), ("fused_mlp_int8", "erf GELU"),
+                   ("int8_matmul", "quant.int8_linear"),
+                   ("flash_attention_out_proj_int8", "merge -> quant.int8_linear + residual"),
+                   ("flash_attention_out_proj_int8", "attention quantized per (row, head)"),
+                   ("flash_attention_out_proj_int8", "fp32 base-e softmax, q and P not rounded")]
+
+
+@pytest.mark.parametrize("kernel,control", FAULT1_CONTROLS)
+def test_chip_smoke_int8_checks_fail_neighbouring_functions(kernel, control):
+    """chip_smoke holds #4, #5, #6 and #8 to their plain versions by the share
+    of bit-equal elements and the RMS over the spread (`_bit_close`, for #4
+    and #5 of out - hidden, #5 at its tighter OPROJ_BOUNDS); each
+    neighbouring function it runs as a control on the card fails that check
+    here too, on the plain versions at a reduced row count."""
+    import chip_smoke
+
+    ref, base, controls = _fault1_case(kernel)
+    bounds = chip_smoke.OPROJ_BOUNDS if kernel == "flash_attention_out_proj_int8" else {}
+    row = chip_smoke._bit_close(control, controls[control].to(ref.dtype), ref, base, **bounds)
+    assert not row["held"], row
+
+
+@pytest.mark.parametrize("kernel", ["fused_mlp_block_int8", "fused_mlp_int8", "int8_matmul",
+                                    "flash_attention_out_proj_int8"])
+def test_chip_smoke_int8_checks_hold_the_function_itself(kernel):
+    import chip_smoke
+
+    ref, base, _ = _fault1_case(kernel)
+    bounds = chip_smoke.OPROJ_BOUNDS if kernel == "flash_attention_out_proj_int8" else {}
+    assert chip_smoke._bit_close("self", ref.clone(), ref, base, **bounds)["held"]
+
