@@ -22,15 +22,17 @@ each of which raises on failure:
                 three int8 kernels of the default tower, the four of the
                 fused configuration and the w8a8 layer (int8_matmul,
                 fused_mlp_int8, fused_swiglu_block_int8,
-                flash_attention_out_proj_int8; all but the SwiGLU block
-                held bit-close with controls, as below), and the four of the
+                flash_attention_out_proj_int8), and the four of the
                 approximate attention and the micro-benchmarks (the
-                int8_scores merge and fused_attn_block_int8, each held
-                to its plain version bit-close, EXACT_MIN_SHARE, with
-                neighbouring functions as controls that must fail, the
-                merge also to JAX's bound against the exact merge;
-                int8_gemm_bf16, bit for bit; gemv, its 12-layer chain
-                timed from a CUDA graph);
+                int8_scores merge, whose prep pass's codes and scales must
+                equal their plain version bit for bit, and
+                fused_attn_block_int8; int8_gemm_bf16, bit for bit; gemv,
+                its 12-layer chain timed from a CUDA graph). Every int8
+                kernel and the exact merge are held to their plain
+                versions bit-close (EXACT_MIN_SHARE), each with
+                neighbouring functions as controls that must fail; the
+                int8_scores merge also to JAX's bound against the exact
+                merge;
   4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
                 (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
                 between against one fused_mlp_int8 call, held against each
@@ -89,6 +91,7 @@ import json
 import math
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
@@ -101,7 +104,8 @@ from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
 from memory_augmented_vlm_torch.microbench.timing import graph_ms, require_card
 from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
 from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_bwd, mlp_int8,
-                                            pallas_int8, qkv_int8, quant, swiglu_int8)
+                                            norms, pallas_int8, qkv_int8, quant,
+                                            swiglu_int8)
 from memory_augmented_vlm_torch.train import optimizer, trainer
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str
 
@@ -191,7 +195,11 @@ EXACT_MIN_SHARE = 0.9
 EXACT_MAX_RMS = 0.008
 # The same rule holds fused_mlp_block_int8, fused_mlp_int8 and int8_matmul
 # (first card run: kernels 0.98-1.0 bit-equal and <= 0.0011 RMS; controls
-# 0.44-0.75 and >= 0.0029). flash_attention_out_proj_int8 is held tighter:
+# 0.44-0.75 and >= 0.0029), and the exact merge, fused_qkv_int8 and
+# fused_swiglu_block_int8 (the merge 0.9976-0.9997 bit-equal and <= 0.00014
+# RMS, mma.sync and wgmma kernels alike; its controls 0.458-0.659 and
+# 0.0022-0.0035; qkv and SwiGLU 0.9995-1.0 and <= 0.00032, their controls
+# 0.036-0.250 and >= 0.0069). flash_attention_out_proj_int8 is held tighter:
 # its attention term (out - hidden) is small against the bf16 residual, so
 # the composed merge -> quant.int8_linear + residual, which differs from it
 # only by rounding the projection to bf16 before the bias, read 0.9625
@@ -411,6 +419,92 @@ def _qkv_args(gen, b, s, h, dtype, dev):
     return (hidden, ln_w, ln_b, *mats)
 
 
+def _qkv_controls(args, nh):
+    """Neighbouring functions of fused_qkv_int8 (#3) on its arguments, each
+    of which its check must tell apart: the tower's unfused projections
+    (the LayerNorm cast to hidden's dtype, then quant.int8_linear, which
+    adds its bias after the bf16 cast) and an RMS normalisation (no mean
+    subtracted, the same weight and bias) in place of the LayerNorm."""
+    hidden, ln_w, ln_b = args[:3]
+    projections = [args[3 + 3 * i:6 + 3 * i] for i in range(3)]
+    b, s, h = hidden.shape
+
+    def heads(y):
+        return y.to(torch.bfloat16).view(b, s, nh, h // nh).transpose(1, 2).contiguous()
+
+    def int8_linear():
+        x = norms.layer_norm(hidden, ln_w, ln_b, 1e-6)
+        return tuple(heads(quant.int8_linear({"kernel_int8": w, "scale": sc, "bias": bias}, x))
+                     for w, sc, bias in projections)
+
+    def rms_norm():
+        hf = hidden.float()
+        x = hf * torch.rsqrt(hf.square().mean(dim=-1, keepdim=True) + 1e-6) * ln_w + ln_b
+        xq, sx = quant.quantize_rows(x.reshape(b * s, h))
+        return tuple(heads((quant.int_mm(xq, w).float() * sx * sc + bias).view(b, s, h))
+                     for w, sc, bias in projections)
+
+    return [("LayerNorm -> quant.int8_linear (bias after the bf16 cast)", int8_linear),
+            ("RMS normalisation in place of the LayerNorm", rms_norm)]
+
+
+def _merge_variant(q, k, v, valid, *, round_q=True, round_p=True):
+    """The merge's plain version with q left unrounded or P left in fp32
+    for PV: neighbouring functions of #2."""
+    b, nh, s, d = q.shape
+    qs = q.float() * (d ** -0.5 * flash.LOG2E)
+    qs = qs.to(q.dtype).float() if round_q else qs
+    sc = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
+    keep = torch.arange(s, device=q.device)[None, :] < valid[:, None]
+    sc = torch.where(keep[:, None, None, :], sc, flash.MASK_VALUE)
+    p = torch.exp2(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if round_p else p
+    o = torch.einsum("bhqk,bhkd->bhqd", pv, v.float()) * (1.0 / l)
+    return o.to(q.dtype).transpose(1, 2).reshape(b, s, nh * d)
+
+
+def _online_merge(q, k, v, valid, block=64):
+    """#1's online softmax (flash_fwd.cu's function) in the merged layout:
+    per block of 64 keys the running max, P rounded to bf16 against it, the
+    accumulator and l rescaled as the max moves, the finite MASK_VALUE for
+    keys at or past the valid length."""
+    b, nh, s, d = q.shape
+    qs = (q.float() * (d ** -0.5 * flash.LOG2E)).to(q.dtype).float()
+    m = torch.full((b, nh, s, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, nh, s, 1), device=q.device)
+    acc = torch.zeros((b, nh, s, d), device=q.device)
+    for n0 in range(0, s, block):
+        sc = torch.einsum("bhqd,bhkd->bhqk", qs, k[:, :, n0:n0 + block].float())
+        keep = torch.arange(n0, min(n0 + block, s), device=q.device)[None, :] < valid[:, None]
+        sc = torch.where(keep[:, None, None, :], sc, flash.MASK_VALUE)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+                                         v[:, :, n0:n0 + block].float())
+        m = m_new
+    return (acc / l).to(q.dtype).transpose(1, 2).reshape(b, s, nh * d)
+
+
+def _merge_controls(q, k, v, valid):
+    """Neighbouring functions of flash_attention_merge_heads (#2) on its
+    inputs, in plain torch, each of which its check must tell apart."""
+    b, nh, s, d = q.shape
+
+    def sdpa():
+        keep = torch.arange(s, device=q.device)[None, :] < valid[:, None]
+        mask = None if bool(keep.all()) else keep[:, None, None, :]
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return o.transpose(1, 2).reshape(b, s, nh * d)
+
+    return [("scaled_dot_product_attention", sdpa),
+            ("P left in fp32 for PV", lambda: _merge_variant(q, k, v, valid, round_p=False)),
+            ("q not rounded to bf16", lambda: _merge_variant(q, k, v, valid, round_q=False)),
+            ("#1's online softmax", lambda: _online_merge(q, k, v, valid))]
+
+
 def _mlp_args(gen, m, k, i, dtype, dev):
     hidden = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     ln_w = 1.0 + 0.1 * torch.randn((k,), generator=gen, device=dev)
@@ -432,8 +526,12 @@ def phase_int8_kernels():
     out = qkv_int8.fused_qkv_int8(*args, nh=nh)
     torch.cuda.synchronize()
     ref = qkv_int8.fused_qkv_int8_reference(*args, nh=nh)
-    errs = [_compare(f"qkv_{n}", o, r, hidden=list(args[0].shape))["max_abs_err"]
+    errs = [_hold_bitwise(f"qkv_{n}", o, r, hidden=list(args[0].shape))["max_abs_err"]
             for n, o, r in zip("qkv", out, ref)]
+    for control, fn in _qkv_controls(args, nh):
+        for n, o, r in zip("qkv", fn(), ref):
+            _must_fail(f"qkv_{n} control: {control}", o, r)
+    del ref
     xq, _ = quant.quantize_rows(args[0].reshape(-1, h))
     w_qkv = quant.column_major(torch.cat([args[3], args[6], args[9]], dim=1))
     ops = 2.0 * b * s * h * 3 * h
@@ -444,14 +542,14 @@ def phase_int8_kernels():
         "library_ms": _time_ms(lambda: torch._int_mm(xq, w_qkv)),
         "library_call": "torch._int_mm (46656x1152 @ 1152x3456): the matmul share only",
         "bound_ms": bound, "bound_by": by}
-    del args, out, ref, xq, w_qkv
+    del args, out, xq, w_qkv
     for bb, ss, dtype in ((2, 150, torch.bfloat16), (2, 150, torch.float32), (1, 5, torch.float32)):
         args = _qkv_args(gen, bb, ss, h, dtype, dev)
         out = qkv_int8.fused_qkv_int8(*args, nh=nh)
         torch.cuda.synchronize()
         ref = qkv_int8.fused_qkv_int8_reference(*args, nh=nh)
-        errs += [_compare(f"qkv_edge_{n}", o, r, hidden=list(args[0].shape),
-                          dtype=str(dtype))["max_abs_err"] for n, o, r in zip("qkv", out, ref)]
+        errs += [_hold_bitwise(f"qkv_edge_{n}", o, r, hidden=list(args[0].shape),
+                               dtype=str(dtype))["max_abs_err"] for n, o, r in zip("qkv", out, ref)]
     rows["qkv"]["max_abs_err"] = max(errs)
 
     # --- flash_attention_merge_heads
@@ -460,8 +558,11 @@ def phase_int8_kernels():
     valid = torch.full((b,), s, dtype=torch.int32, device=dev)
     out = flash.flash_attention_merge_heads(q, k, v, valid)
     torch.cuda.synchronize()
-    errs = [_compare("merge", out, flash.flash_attention_merge_heads_reference(q, k, v, valid),
-                     q=list(q.shape))["max_abs_err"]]
+    ref = flash.flash_attention_merge_heads_reference(q, k, v, valid)
+    errs = [_hold_bitwise("merge", out, ref, q=list(q.shape))["max_abs_err"]]
+    for control, fn in _merge_controls(q, k, v, valid):
+        _must_fail(f"merge control: {control}", fn(), ref)
+    del ref
     bound, by = _bound(4.0 * b * nh * s * s * 72, PEAK_BF16, _nbytes(q, k, v, out))
     rows["merge"] = {
         "ms": _time_ms(lambda: flash.flash_attention_merge_heads(q, k, v, valid)),
@@ -470,14 +571,18 @@ def phase_int8_kernels():
         "library_call": "scaled_dot_product_attention (64, 16, 729, 72) bf16",
         "bound_ms": bound, "bound_by": by}
     del q, k, v, out
-    for lens in ((77, 150), (0, 150)):  # ragged, and a batch with no valid key
-        q, k, v = (torch.randn((2, nh, 150, 72), generator=gen, device=dev).to(torch.bfloat16)
+    # ragged valid lengths, a batch with no valid key, head dims 64 and 128,
+    # S off the tiles
+    for lens, dd, ss in (((77, 150), 72, 150), ((0, 150), 72, 150), ((150, 33), 64, 150),
+                         ((0, 200), 128, 200), ((97, 100), 128, 100)):
+        q, k, v = (torch.randn((2, nh, ss, dd), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         valid = torch.tensor(lens, dtype=torch.int32, device=dev)
         out = flash.flash_attention_merge_heads(q, k, v, valid)
         torch.cuda.synchronize()
         ref = flash.flash_attention_merge_heads_reference(q, k, v, valid)
-        errs.append(_compare(f"merge_edge_{lens}", out, ref, q=list(q.shape))["max_abs_err"])
+        errs.append(_hold_bitwise(f"merge_edge_{lens}_d{dd}", out, ref,
+                                  q=list(q.shape))["max_abs_err"])
         if lens[0] == 0:  # the TPU kernel's semantics: the mean of V over all S keys
             mean_v = v[0].float().mean(dim=1).reshape(1, -1)
             if float((out[0].float() - mean_v).abs().max()) > 2e-2:
@@ -543,6 +648,33 @@ def _swiglu_args(gen, m, k, i, dtype, dev):
                                              _int8_weight(gen, k, i, dev),
                                              _int8_weight(gen, i, k, dev))
     return (hidden, rms_w, wg, sg, wu, su, wd, sd)
+
+
+def _swiglu_controls(args):
+    """Neighbouring functions of fused_swiglu_block_int8 (#7) on its
+    arguments: the LM's unfused `_mlp_half` (the bf16 RMSNorm, three
+    quant.int8_linear calls, the residual added in bf16) and the plain
+    version with GELU in place of SiLU."""
+    hidden, rms_w, wg, sg, wu, su, wd, sd = args
+    layer = {"post_attention_layernorm": rms_w.to(hidden.dtype),
+             "gate_proj": {"kernel_int8": wg, "scale": sg},
+             "up_proj": {"kernel_int8": wu, "scale": su},
+             "down_proj": {"kernel_int8": wd, "scale": sd}}
+
+    def unfused():
+        with _fused_flags(swiglu=False):
+            return qwen2._mlp_half(layer, hidden[None],
+                                   types.SimpleNamespace(rms_norm_eps=1e-6))[0]
+
+    def gelu():
+        silu = swiglu_int8.silu_f32
+        swiglu_int8.silu_f32 = F.gelu
+        try:
+            return swiglu_int8.fused_swiglu_block_int8_reference(*args)
+        finally:
+            swiglu_int8.silu_f32 = silu
+
+    return [("the unfused _mlp_half", unfused), ("GELU in place of SiLU", gelu)]
 
 
 def _oproj_args(gen, b, s, nh, d, valid, dtype, dev):
@@ -710,8 +842,11 @@ def phase_fused_kernels():
     args = _swiglu_args(gen, lm_rows, lm_h, lm_i, torch.bfloat16, dev)
     out = swiglu_int8.fused_swiglu_block_int8(*args)
     torch.cuda.synchronize()
-    errs = [_compare("swiglu", out, swiglu_int8.fused_swiglu_block_int8_reference(*args),
-                     hidden=list(args[0].shape))["max_abs_err"]]
+    ref = swiglu_int8.fused_swiglu_block_int8_reference(*args)
+    errs = [_hold_bitwise("swiglu", out, ref, args[0], hidden=list(args[0].shape))["max_abs_err"]]
+    for control, fn in _swiglu_controls(args):
+        _must_fail(f"swiglu control: {control}", fn(), ref, args[0])
+    del ref
     xq, _ = quant.quantize_rows(args[0])
     hq = torch.randint(-127, 128, (lm_rows, lm_i), generator=gen, device=dev, dtype=torch.int8)
     bound, by = _bound(2.0 * lm_rows * lm_h * lm_i * 3, PEAK_INT8,
@@ -729,9 +864,9 @@ def phase_fused_kernels():
         args = _swiglu_args(gen, mm, lm_h, lm_i, dtype, dev)
         out = swiglu_int8.fused_swiglu_block_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_compare(f"swiglu_edge_{mm}", out,
-                             swiglu_int8.fused_swiglu_block_int8_reference(*args),
-                             hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
+        errs.append(_hold_bitwise(f"swiglu_edge_{mm}", out,
+                                  swiglu_int8.fused_swiglu_block_int8_reference(*args), args[0],
+                                  hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
         if not torch.equal(out[mm // 2], args[0][mm // 2]):
             raise RuntimeError("swiglu: a zero row did not come back as it went in")
     rows["swiglu"]["max_abs_err"] = max(errs)
@@ -884,8 +1019,12 @@ def _bit_close(name, out, ref, base=None, min_share=EXACT_MIN_SHARE,
         info["compared_in"] = "bfloat16"
     diff = out.float() - ref.float()
     spread = (ref.float() - (0.0 if base is None else base.float())).std()
+    rms = diff.pow(2).mean().sqrt()
+    # an output that is its residual alone (a row of zeros in, the same row
+    # out) has no spread: bit-equal reads 0, anything else infinity
+    rms = rms / spread if spread > 0 else (0.0 if rms == 0 else math.inf)
     row = {"case": name, **info, "exact_share": float((diff == 0).float().mean()),
-           "rms_over_spread": float(diff.pow(2).mean().sqrt() / spread),
+           "rms_over_spread": float(rms),
            "max_abs_err": float(diff.abs().max()),
            "spread_of": "output" if base is None else "output - hidden",
            "tol": f"exact_share >= {min_share}, rms_over_spread <= {max_rms}"}
@@ -935,6 +1074,20 @@ def _hold_equal(name, out, ref, **info) -> dict:
     return row
 
 
+def _hold_prep(name, k, v):
+    """The int8_scores kernel's prep pass (K codes, V^T codes in PV's key
+    order, the two scales) against its plain version, bit for bit."""
+    got = flash.merge_int8_prep(k, v)
+    torch.cuda.synchronize()
+    want = flash.merge_int8_prep_reference(k, v)
+    equal = {part: torch.equal(a, b)
+             for part, a, b in zip(("k_codes", "vt_codes", "scales"), got, want)}
+    log(json.dumps({"case": name, "kv": list(k.shape), "bit_equal": equal,
+                    "tol": "every code and scale equal"}))
+    if not all(equal.values()):
+        raise RuntimeError(f"{name}: the prep pass differs from its plain version: {equal}")
+
+
 def _int8_scores_kv_per_block(q, k, v, valid, block=64):
     """The int8_scores function with K and V scaled per `block` keys instead
     of over the whole key axis: a control for the kernel check. Codes times
@@ -976,6 +1129,7 @@ def phase_int8_attn_kernels():
     ref = flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, valid)
     errs = [_hold_bitwise("int8_scores", out, ref, q=list(q.shape),
                           q_tile=flash.merge_q_tile(s))["max_abs_err"]]
+    _hold_prep("int8_scores_prep", k, v)
     exact = flash.flash_attention_merge_heads(q, k, v, valid)
     for control, got in (
             ("the exact merge kernel", exact),
@@ -1011,6 +1165,7 @@ def phase_int8_attn_kernels():
         ref = flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, vl, block_q=block_q)
         errs.append(_hold_bitwise(f"int8_scores_edge_{lens}_d{dd}", out, ref, q=list(q.shape),
                                   q_tile=flash.merge_q_tile(ss, block_q))["max_abs_err"])
+        _hold_prep(f"int8_scores_prep_edge_d{dd}_s{ss}", k, v)
     rows["int8_scores"]["max_abs_err"] = max(errs)
 
     # --- fused_attn_block_int8 at the tower's shape

@@ -26,9 +26,10 @@
 // three stages on one stream:
 //   1. LN + row quant + the q/k/v products into head-major bf16 scratch:
 //      the C entry of qkv_int8.cu, whose function this stage is.
-//   2. Per-head attention, one block per 64-row q slab, head and frame:
+//   2. Per-head attention, one block per 128-row q slab, head and frame:
 //      the two-sweep kernel of two_sweep.cuh that flash_merge.cu also
-//      runs (the row max first, so P rounds against the final max), with
+//      runs (the row max first, so P rounds against the final max; TMA and
+//      wgmma), with
 //      this kernel's softmax and an epilogue that quantizes each row's hd
 //      outputs into int8 codes (B*S, H) and a per-(row, head) scale
 //      (B*S, NH): AttnPolicy.
@@ -261,8 +262,7 @@ template <int HD>
 int attention_and_oproj(int dtype, const AttnPolicy& p, int B, const int8_t* wo, const float* so,
                         const float* bo, const void* hidden, void* out, int M, int H,
                         cudaStream_t st) {
-  mavlm::two_sweep::launch<HD>(p, B, st);
-  const int rc = static_cast<int>(cudaGetLastError());
+  const int rc = mavlm::two_sweep::launch<HD>(p, B, st);
   if (rc != 0) return rc;
   const int mt = (M + int8k::BM - 1) / int8k::BM;
   if (mt > 65535) return -3;

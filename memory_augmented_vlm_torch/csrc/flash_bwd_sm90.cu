@@ -74,14 +74,14 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using mavlm::pack_bf16x2;
+using namespace mavlm::sm90;
 
 constexpr int kWgRows = 64;     // rows of one warpgroup's tile (wgmma M)
-constexpr int kSwzCols = 64;    // bf16 columns of one 128-byte swizzled row
-constexpr int kRowBytes = 128;  // bytes of one swizzled row
 constexpr int kStepRows = 64;   // rows of the looped tile (dQ's keys, dK/dV's queries)
 
 struct BwdParams {
@@ -96,80 +96,6 @@ struct BwdParams {
   float scale;
 };
 
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// one arrival that also raises the bytes the current phase waits for
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that never
-// ends (a broken phase count) traps after ~2^26 polls, so it surfaces as a
-// launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) asm volatile("trap;");
-  }
-}
-
-// a [rows][64] bf16 box at (col, row, head, batch) of a 4-d bshd tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-         "r"(head), "r"(batch)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// After wg_wait_all: the compiler sees wgmma's registers as written by the
-// (synchronous-looking) asm that issued it, so reads must not move above
-// the wait. Re-defining each register here pins them below it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// 2^x on the special-function unit (results below 2^-126 flush to 0: a p
-// that small changes no sum).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Named barriers 1 and 2 order the two consumer warpgroups' score products
 // (ping-pong): a warpgroup waits for its turn, issues, and hands the turn
 // over, so one warpgroup's softmax runs under the other's products.
@@ -178,92 +104,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Tiles in shared memory are what TMA writes with 128-byte swizzling: a
-// tile of R rows by D bf16 columns is D / 64 blocks of [R][64], each row
-// 128 bytes, every block 1024-byte aligned.
-//
-// K-major operand (its rows are M or N, its columns the reduction dim): the
-// 16 columns from 16 * kk, the 64 (A) or N (B) rows from row0. Within a
-// swizzled row the k-step is a 32-byte offset of the start address; the
-// hardware applies the swizzle to the address bits, as TMA did. The
-// leading offset is unused; 8-row groups are 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row0, int kk) {
-  return desc_sw128(tile + (kk >> 2) * rows * kRowBytes + row0 * kRowBytes + (kk & 3) * 32,
-                    16, 1024);
-}
-
-// MN-major B operand (its rows are the reduction dim, its columns N): rows
-// 16 * kk .. 16 * kk + 15 of one 64-column block of a [64][D] tile. The
-// products here take N = 64, one block, so the leading offset (to the next
-// block) is never stepped; the stride offset steps 8 rows.
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 16 * kRowBytes, kStepRows * kRowBytes, 1024);
-}
-
-// D(64 x 64, fp32) = A(64 x 16) B(16 x 64) (+ D when `accumulate`); A and B
-// K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate)
-      : "memory");
-}
-
-// D(64 x 64, fp32) += A(64 x 16, bf16 in registers) B(16 x 64); B MN-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-      : "memory");
-}
-
-// The accumulator of a 64 x 64 product, rounded to bf16, as the register A
-// operand of the next product (k-step kk takes columns 16 kk .. 16 kk + 15):
-// a thread holds columns {2t, 2t + 1} of each 8-column chunk in rows g and
-// g + 8, which is the A fragment's layout.
-__device__ __forceinline__ void acc_to_a(const float (&c)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
-  }
 }
 
 // acc[64 x D] += A(64 x 64, registers) . B, where B is a [64][D] tile read
@@ -276,7 +116,8 @@ __device__ __forceinline__ void mma_rows_by_tile(float (&acc)[D / 64][32],
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int cb = 0; cb < D / 64; ++cb) {
-      wgmma_rs_n64(acc[cb], a[kk], desc_mnmajor(tile + cb * kStepRows * kRowBytes, kk));
+      wgmma_rs_n64<1>(acc[cb], a[kk], desc_mnmajor(tile + cb * kStepRows * kRowBytes,
+                                                   kStepRows, kk), 1);
     }
   }
 }
@@ -340,7 +181,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 4 * NWG);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -492,7 +333,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
       mbar_init(full0 + 8 * s, 32);  // the producer's lanes
       mbar_init(empty0 + 8 * s, 4 * NWG);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -651,52 +492,6 @@ __global__ void dkv_group_sum_kernel(const float* dk_part, const float* dv_part,
 
 // --------------------------------------------------------------- host
 
-constexpr int kTmaRejected = -4;
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver function; it is fetched through the
-// runtime's entry-point query, so the library needs no link to libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A 4-d map {D, S, H, B} of a bshd bf16 tensor (strides in elements:
-// batch, sequence, head), read in boxes of `rows` rows by 64 columns with
-// 128-byte swizzling; rows past S read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
-              const long long* st, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kSwzCols, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 BwdParams make_params(const void* lse, const void* delta, const void* valid_len,
                       const void* items, int H, int Sq, int Skv, int kv_groups, int causal,
                       float scale) {
@@ -712,12 +507,6 @@ BwdParams make_params(const void* lse, const void* delta, const void* valid_len,
   p.causal = causal;
   p.scale = scale;
   return p;
-}
-
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
 // The configuration each head dim runs (the wrapper's work list uses the
@@ -754,7 +543,7 @@ int run_dq(const void* qs, const void* k, const void* v, const void* dout, void*
   BwdParams p = params;
   p.out = dq;
   const auto kernel = bwd_dq_sm90_kernel<D, C::NWG, C::MINB>;
-  const int rc = prepare(kernel, S::SMEM);
+  const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
   kernel<<<n_items, C::NWG * 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
@@ -782,7 +571,7 @@ int run_dkv(const void* qs, const void* q, const void* k, const void* v, const v
   p.out = dk_part;
   p.out2 = dv_part;
   const auto kernel = bwd_dkv_sm90_kernel<D, NWG>;
-  int rc = prepare(kernel, S::SMEM);
+  int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
   kernel<<<n_items, NWG * 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
   rc = static_cast<int>(cudaGetLastError());

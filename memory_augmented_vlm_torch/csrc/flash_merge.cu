@@ -29,10 +29,11 @@
 // so the tensor cores bound it (0.158 ms at 989 TFLOP/s); the out-projection
 // adds 123.8 GOP of int8 work (0.063 ms at 1,979 TOP/s).
 //
-// Design: the two-sweep kernel of two_sweep.cuh (the structure of
-// flash_fwd.cu, but the row max first, so that P rounds against the final
-// max as on the TPU), with this function's policy, MergePolicy: q scaled
-// and rounded to bf16, base 2, a multiply by 1/l and a merged bf16 store.
+// Design: the two-sweep kernel of two_sweep.cuh (the row max first, so that
+// P rounds against the final max as on the TPU; TMA into an mbarrier ring,
+// wgmma for both products), with this function's policy, MergePolicy: q
+// scaled and rounded to bf16, base 2, a multiply by 1/l and a merged bf16
+// store.
 //
 // The out-projection cannot start before all 16 heads of a query row are
 // done (its row scale is the max over the merged row), and the TPU kernel's
@@ -83,7 +84,8 @@ struct MergePolicy {
   }
 };
 
-// Returns 0, or -1 for a head dim the library was not built for.
+// Returns 0, a cudaError_t, -4 (a tensor map refused) or -1 for a head dim
+// the library was not built for.
 int launch_merge(int head_dim, const void* q, const void* k, const void* v, void* o,
                  const void* valid_len, int B, int NH, int S, float scale_log2,
                  cudaStream_t st) {
@@ -97,12 +99,11 @@ int launch_merge(int head_dim, const void* q, const void* k, const void* v, void
   p.S = S;
   p.scale_log2 = scale_log2;
   switch (head_dim) {
-    case 64: mavlm::two_sweep::launch<64>(p, B, st); break;
-    case 72: mavlm::two_sweep::launch<72>(p, B, st); break;
-    case 128: mavlm::two_sweep::launch<128>(p, B, st); break;
+    case 64: return mavlm::two_sweep::launch<64>(p, B, st);
+    case 72: return mavlm::two_sweep::launch<72>(p, B, st);
+    case 128: return mavlm::two_sweep::launch<128>(p, B, st);
     default: return -1;
   }
-  return 0;
 }
 
 template <typename T>

@@ -136,9 +136,11 @@ def load() -> ctypes.CDLL:
     #                   attn, xq, sx, B, NH, S, scale_log2, stream)
     lib.flash_merge_oproj.argtypes = ([c_int] + [ptr] * 4 + [c_int] + [ptr] * 8 + [c_int] * 3
                                       + [ctypes.c_float, ptr])
-    # flash_merge_int8(head_dim, q, k, v, o, valid_len, scales, B, NH, S, tile,
+    # flash_merge_int8(head_dim, q, k, v, o, valid_len, kq, vt, scales, B, NH, S, tile,
     #                  scale_log2, stream)
-    lib.flash_merge_int8.argtypes = [c_int] + [ptr] * 6 + [c_int] * 4 + [ctypes.c_float, ptr]
+    lib.flash_merge_int8.argtypes = [c_int] + [ptr] * 8 + [c_int] * 4 + [ctypes.c_float, ptr]
+    # flash_merge_int8_prep(head_dim, k, v, kq, vt, scales, B, NH, S, stream)
+    lib.flash_merge_int8_prep.argtypes = [c_int] + [ptr] * 5 + [c_int] * 3 + [ptr]
     # attn_block_int8(dtype, hidden, ln_w, ln_b, 4 x (w, s, b), out, xq, sx, q, k, v, oq,
     #                 sa, B, S, H, NH, valid, eps, scale, stream)
     lib.attn_block_int8.argtypes = ([c_int] + [ptr] * 23 + [c_int] * 5 + [ctypes.c_float] * 2
@@ -174,6 +176,7 @@ def load() -> ctypes.CDLL:
                lib.mlp_int8, lib.mlp_int8_core, lib.swiglu_int8, lib.int8_matmul,
                lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_dq_sm90,
                lib.flash_bwd_dkv_sm90, lib.flash_bwd_tiles, lib.flash_merge_int8,
+               lib.flash_merge_int8_prep,
                lib.attn_block_int8, lib.int8_gemm_bf16, lib.gemv_bf16):
         fn.restype = c_int
     lib.kernel_error_string.argtypes = [c_int]

@@ -264,7 +264,7 @@ def flash_attention_merge_heads_reference(
     return out.transpose(1, 2).reshape(b, s, nh * d)
 
 
-def _check_merge_kernel_args(q, k, v, kv_valid_len):
+def _check_merge_kernel_args(q, k, v, kv_valid_len=None):
     """What `csrc/flash_merge.cu` takes: bf16 contiguous CUDA q/k/v of a
     built head dim and an int32 valid length beside them."""
     b, nh, _, d = q.shape
@@ -277,8 +277,9 @@ def _check_merge_kernel_args(q, k, v, kv_valid_len):
             raise TypeError(f"merge kernel takes bf16, {name} is {x.dtype}")
         if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned on {q.device}")
-    if (kv_valid_len.device != q.device or kv_valid_len.dtype != torch.int32
-            or not kv_valid_len.is_contiguous()):
+    if kv_valid_len is not None and (kv_valid_len.device != q.device
+                                     or kv_valid_len.dtype != torch.int32
+                                     or not kv_valid_len.is_contiguous()):
         raise ValueError("kv_valid_len must be a contiguous int32 tensor on q's device")
     if b > 65535 or nh > 65535:
         raise ValueError("batch and head counts must fit a CUDA grid axis")
@@ -335,8 +336,12 @@ def merge_q_tile(s: int, block_q: int = 128) -> int:
 
 
 def _scalar_scale(x: torch.Tensor) -> torch.Tensor:
-    """max(|x|, 1e-12) / 127 over the last two axes, kept as (..., 1, 1)."""
-    return x.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(QUANT_FLOOR) / 127.0
+    """max(|x|, 1e-12) / 127 over the last two axes, kept as (..., 1, 1). The
+    divisor is a tensor: on a CUDA tensor, PyTorch divides by a Python
+    scalar as a multiply by its reciprocal, which is not the division the
+    kernel and the CPU do."""
+    amax = x.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(QUANT_FLOOR)
+    return amax / amax.new_tensor(127.0)
 
 
 def _codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -383,14 +388,76 @@ def flash_attention_merge_heads_int8_scores_reference(
     return out.transpose(1, 2).reshape(b, s, nh * d)
 
 
+def int8_scores_key_order(n: int) -> torch.Tensor:
+    """The key at each of the first `n` places of PV's contraction in the
+    `int8_scores` kernel: within each 32-key step, thread t's four P codes
+    (keys 2t, 2t+1, 8+2t, 9+2t of its score accumulator, and 16 + those)
+    are places 4t..4t+3 (and 16 + those) of the 8-bit A fragment, so place
+    bits s3 s2 s1 s0 hold key bits s1 s3 s2 s0."""
+    pl = torch.arange(n)
+    return ((pl & ~15) | (((pl >> 1) & 1) << 3) | (((pl >> 3) & 1) << 2)
+            | (((pl >> 2) & 1) << 1) | (pl & 1))
+
+
+def merge_int8_prep_reference(k: torch.Tensor, v: torch.Tensor):
+    """Plain version of the `int8_scores` kernel's prep pass, which
+    quantizes K and V once per (batch, head). k, v (B, NH, S, D). Returns
+    kq (B, NH, S, DK) int8, the K codes with the depth zero-padded to DK = D
+    rounded up to 32; vt (B, NH, D, S16) int8, the V codes transposed with S
+    rounded up to 16 and the keys in `int8_scores_key_order` (zero for keys
+    past S); and scales (B, NH, 2) fp32, sk and sv, each over all S rows."""
+    b, nh, s, d = k.shape
+    dk, sp = -(-d // 32) * 32, -(-s // 16) * 16
+    kf, vf = k.float(), v.float()
+    sk, sv = _scalar_scale(kf), _scalar_scale(vf)
+    kq = torch.nn.functional.pad(_codes(kf, sk), (0, dk - d)).to(torch.int8)
+    vq = torch.nn.functional.pad(_codes(vf, sv), (0, 0, 0, sp - s))
+    vt = vq[:, :, int8_scores_key_order(sp).to(vq.device)].transpose(-1, -2).contiguous()
+    return kq, vt.to(torch.int8), torch.cat([sk, sv], dim=-1).view(b, nh, 2)
+
+
+def merge_int8_prep(k: torch.Tensor, v: torch.Tensor):
+    """The prep pass alone, as the `int8_scores` wrapper launches it before
+    its main kernel; see `merge_int8_prep_reference`. CPU tensors take the
+    plain version; CUDA tensors launch `csrc/flash_merge_int8.cu`'s prep
+    kernel and count one launch in `merge_int8_prep.launches`."""
+    if k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be one (B, NH, S, D) shape, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, nh, s, d = k.shape
+    if k.device.type == "cpu":
+        return merge_int8_prep_reference(k, v)
+    _check_merge_kernel_args(k, k, v)
+    kq, vt, scales = _int8_prep_scratch(b, nh, s, d, k.device)
+    if b == 0 or s == 0:
+        return kq, vt, scales
+    lib = cuda_lib.load()
+    rc = lib.flash_merge_int8_prep(d, k.data_ptr(), v.data_ptr(), kq.data_ptr(), vt.data_ptr(),
+                                   scales.data_ptr(), b, nh, s,
+                                   torch.cuda.current_stream(k.device).cuda_stream)
+    cuda_lib.check(lib, rc, "flash_merge_int8_prep")
+    merge_int8_prep.launches += 1
+    return kq, vt, scales
+
+
+merge_int8_prep.launches = 0
+
+
+def _int8_prep_scratch(b, nh, s, d, dev):
+    return (torch.empty((b, nh, s, -(-d // 32) * 32), dtype=torch.int8, device=dev),
+            torch.empty((b, nh, d, -(-s // 16) * 16), dtype=torch.int8, device=dev),
+            torch.empty((b, nh, 2), dtype=torch.float32, device=dev))
+
+
 def flash_attention_merge_heads_int8_scores(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid_len: torch.Tensor,
     *, scale: Optional[float] = None, block_q: int = 128,
 ) -> torch.Tensor:
     """The approximate `int8_scores` mode of the merge-heads attention; see
     `flash_attention_merge_heads_int8_scores_reference`. CPU tensors take
-    the plain version; CUDA tensors launch `csrc/flash_merge_int8.cu`
-    (bf16, contiguous, head dims 64/72/128) and count one launch in
+    the plain version; CUDA tensors launch `csrc/flash_merge_int8.cu` (its
+    prep pass, then its main kernel; bf16, contiguous, head dims 64/72/128)
+    and count one launch in
     `flash_attention_merge_heads_int8_scores.launches`."""
     b, nh, s, d = _merge_shapes(q, k, v, kv_valid_len)
     tile = merge_q_tile(s, block_q)
@@ -402,13 +469,13 @@ def flash_attention_merge_heads_int8_scores(
     out = torch.empty((b, s, nh * d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
-    nt = -(-s // tile)
-    # scratch: per (batch, head), the nt q-tile scales, then sk and sv
-    scales = torch.empty((b * nh, nt + 2), dtype=torch.float32, device=q.device)
+    # scratch: the prep pass's K codes, V^T codes and scales
+    kq, vt, scales = _int8_prep_scratch(b, nh, s, d, q.device)
     lib = cuda_lib.load()
     rc = lib.flash_merge_int8(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              kv_valid_len.data_ptr(), scales.data_ptr(), b, nh, s, tile,
-                              scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+                              kv_valid_len.data_ptr(), kq.data_ptr(), vt.data_ptr(),
+                              scales.data_ptr(), b, nh, s, tile, scale * LOG2E,
+                              torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(lib, rc, "flash_merge_int8")
     flash_attention_merge_heads_int8_scores.launches += 1
     return out

@@ -125,7 +125,7 @@ def test_build_command_targets_sm90a_and_sources_exist():
                   "mlp_int8_core", "swiglu_int8", "int8_matmul", "flash_fwd_lse",
                   "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string", "flash_merge_int8",
                   "attn_block_int8", "int8_gemm_bf16", "gemv_bf16", "flash_bwd_dq_sm90",
-                  "flash_bwd_dkv_sm90", "flash_bwd_tiles"):
+                  "flash_bwd_dkv_sm90", "flash_bwd_tiles", "flash_merge_int8_prep"):
         definition = re.compile(r'extern "C" [\w ]+\*? ?' + entry + r"\([^;{]*\)\s*\{")
         assert len(definition.findall(text)) == 1, entry
     assert all(p.is_file() for p in srcs)
@@ -147,3 +147,29 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_lib.build()
     assert not (tmp_path / "kernels").exists() or not os.listdir(tmp_path / "kernels")
+
+
+def test_merge_kernels_are_tma_fed_wgmma_on_the_shared_header():
+    """The merge-heads kernels (#2 on two_sweep.cuh, #2s in
+    flash_merge_int8.cu) and the training backward take their Hopper
+    helpers from one header; the merge kernels load their tiles by TMA and
+    issue wgmma for both products, with nothing left of their mma.sync
+    bodies, no transposed V staged by scalar stores and no quantization in
+    #2s's key loops."""
+    csrc = cuda_lib.CSRC_DIR
+    for name in ("two_sweep.cuh", "flash_merge_int8.cu", "flash_bwd_sm90.cu"):
+        assert '#include "sm90.cuh"' in (csrc / name).read_text(), name
+    header = (csrc / "sm90.cuh").read_text()
+    for helper in ("smem_u32", "mbar_wait", "tma_load", "wg_fence", "desc_kmajor",
+                   "desc_mnmajor", "acc_to_a", "encode_tiled"):
+        assert f" {helper}(" in header, helper
+    two_sweep = (csrc / "two_sweep.cuh").read_text()
+    int8 = (csrc / "flash_merge_int8.cu").read_text()
+    assert "tma_load" in two_sweep and "tma_load_3d" in int8
+    assert "wgmma_ss_n64(" in two_sweep and "wgmma_rs_n64<1>(" in two_sweep  # QK^T, PV
+    assert int8.count("sm90::wgmma_s8(") == 2  # QK^T and PV
+    for src in (two_sweep, int8):
+        assert "mma_bf16_16816" not in src and "mma_s8_16832" not in src
+    assert "sVt" not in two_sweep and "scales_kernel" not in int8 and "load_tile" not in int8
+    main = int8[int8.index("merge_int8_kernel("):]
+    assert main.count("quant_code(") == 4  # q's codes, once per block; K and V's in the prep

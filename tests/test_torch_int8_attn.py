@@ -23,6 +23,8 @@ elements to the tight tolerance, all of them to it plus a stated code step.
 import functools
 
 import numpy as np
+from hypothesis import given, settings
+from hypothesis import strategies as st
 import jax
 import jax.numpy as jnp
 import pytest
@@ -385,6 +387,85 @@ def test_new_wrappers_reject_bad_arguments():
         tgemv.gemv(x.to("meta"), w.to("meta"))
 
 
+def _int8_scores_from_prep(q, valid, kq, vt, scales, block_q):
+    """The int8_scores function contracted as csrc/flash_merge_int8.cu
+    contracts it, from the prep pass's codes: QK^T over the K codes' padded
+    depth, and PV with the P codes put in the V^T codes' key order
+    (`int8_scores_key_order`), keys past S coded 0. Integer products run in
+    float64, where they are exact."""
+    b, nh, s, d = q.shape
+    dk, sp = kq.shape[-1], vt.shape[-1]
+    tile = flash.merge_q_tile(s, block_q)
+    nt = -(-s // tile)
+    qf = torch.nn.functional.pad(q.float() * (d ** -0.5 * flash.LOG2E),
+                                 (0, dk - d, 0, nt * tile - s)).view(b, nh, nt, tile, dk)
+    sq = flash._scalar_scale(qf)
+    qq = flash._codes(qf, sq).view(b, nh, nt * tile, dk)[:, :, :s]
+    sq = sq.view(b, nh, nt, 1).repeat_interleave(tile, dim=2)[:, :, :s]
+    sk, sv = scales[..., 0, None, None], scales[..., 1, None, None]
+    raw = torch.matmul(qq.double(), kq.double().transpose(-1, -2)).float()
+    keep = torch.arange(s)[None, :] < valid[:, None]
+    sc = torch.where(keep[:, None, None, :], raw * (sq * sk), flash.MASK_VALUE)
+    p = torch.exp2(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    codes = torch.nn.functional.pad(torch.round(p * 127.0), (0, sp - s))
+    placed = codes[..., flash.int8_scores_key_order(sp)]
+    acc = torch.matmul(placed.double(), vt.double().transpose(-1, -2)).float()
+    out = (acc * ((sv / 127.0) / l)).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, s, nh * d)
+
+
+@settings(max_examples=30, deadline=None)
+@given(s=st.integers(1, 200), d=st.sampled_from([64, 72, 128]),
+       block_q=st.sampled_from([128, 16, 8]), valid0=st.integers(0, 210),
+       seed=st.integers(0, 2 ** 16))
+def test_int8_scores_prep_codes_contract_to_the_reference(s, d, block_q, valid0, seed):
+    """The plain version of the kernel's prep pass (scales; K codes with a
+    zero depth pad to 96 at D 72; V^T codes in PV's key order, zero past S)
+    contracted in the kernel's order gives the int8_scores reference's
+    output exactly: any S (a ragged last q tile, keys past a 32-key step),
+    valid lengths 0, ragged and past S."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_t(x).to(torch.bfloat16) for x in _qkv(rng, 2, 2, s, d))
+    valid = torch.tensor([valid0, min(valid0, s) // 2], dtype=torch.int32)
+    kq, vt, scales = flash.merge_int8_prep_reference(k, v)
+    dk, sp = -(-d // 32) * 32, -(-s // 16) * 16
+    assert kq.shape == (2, 2, s, dk) and kq.dtype == torch.int8
+    assert vt.shape == (2, 2, d, sp) and vt.dtype == torch.int8
+    assert not kq[..., d:].any()
+    order = flash.int8_scores_key_order(sp)
+    assert not vt[..., order >= s].any()
+    got = _int8_scores_from_prep(q, valid, kq, vt, scales, block_q)
+    want = flash.flash_attention_merge_heads_int8_scores_reference(q, k, v, valid, block_q=block_q)
+    assert torch.equal(got, want)
+
+
+def test_int8_scores_key_order_is_the_fragment_order():
+    """Place 4t + e of each 16 holds the thread's e-th P code: keys 2t,
+    2t + 1 of its first 8-key chunk, then 8 + 2t, 9 + 2t (the 8-bit A
+    fragment of the k32 wgmma and mma.sync); the order is a permutation
+    inside each 32-key step."""
+    order = flash.int8_scores_key_order(64)
+    for base in (0, 16, 32, 48):
+        for t in range(4):
+            assert order[base + 4 * t: base + 4 * t + 4].tolist() == [
+                base + 2 * t, base + 2 * t + 1, base + 8 + 2 * t, base + 9 + 2 * t]
+    assert sorted(order.tolist()) == list(range(64))
+
+
+def test_merge_int8_prep_takes_its_plain_version_on_cpu():
+    rng = np.random.default_rng(3)
+    _, k, v = (_t(x).to(torch.bfloat16) for x in _qkv(rng, 1, 2, 40, 72))
+    before = flash.merge_int8_prep.launches
+    for got, want in zip(flash.merge_int8_prep(k, v), flash.merge_int8_prep_reference(k, v)):
+        assert torch.equal(got, want)
+    assert flash.merge_int8_prep.launches == before
+    with pytest.raises(ValueError):
+        flash.merge_int8_prep(k, v[:, :1])
+    with pytest.raises(ValueError):  # neither cpu nor cuda: no silent fallback
+        flash.merge_int8_prep(k.to("meta"), v.to("meta"))
+
+
 # ------------------------------------------- the card's check, on the CPU
 
 
@@ -451,3 +532,59 @@ def test_chip_smoke_kernel_check_holds_the_function_itself():
     assert row["held"], row
     args, ref = _block_case()
     assert chip_smoke._bit_close("self", ref.clone(), ref, args[0])["held"]
+
+
+def _exact_merge_case():
+    rng = np.random.default_rng(9)
+    q, k, v = (_t(x).to(torch.bfloat16) for x in _qkv(rng, 2, 4, 200, 72))
+    valid = torch.tensor([200, 150], dtype=torch.int32)
+    return (q, k, v, valid), flash.flash_attention_merge_heads_reference(q, k, v, valid)
+
+
+MERGE_CONTROLS = ["scaled_dot_product_attention", "P left in fp32 for PV",
+                  "q not rounded to bf16", "#1's online softmax"]
+
+
+@pytest.mark.parametrize("control", MERGE_CONTROLS)
+def test_chip_smoke_merge_check_fails_neighbouring_functions(control):
+    """chip_smoke holds the exact merge (#2) to its plain version by
+    `_bit_close`, at the bounds the int8 kernels share; each neighbouring function it runs as a
+    control on the card fails that check here too, on the plain versions."""
+    import chip_smoke
+
+    args, ref = _exact_merge_case()
+    got = dict(chip_smoke._merge_controls(*args))[control]()
+    row = chip_smoke._bit_close(control, got.to(ref.dtype), ref)
+    assert not row["held"], row
+
+
+def test_chip_smoke_merge_check_holds_the_function_itself():
+    """The same check passes the plain merge against itself, and against the
+    controls' own code with nothing changed: `_merge_variant` rounding q and
+    P, and the online softmax over one block of all keys (whose running max
+    is the final max)."""
+    import chip_smoke
+
+    (q, k, v, valid), ref = _exact_merge_case()
+    assert chip_smoke._bit_close("self", ref.clone(), ref)["held"]
+    for name, got in (("variant", chip_smoke._merge_variant(q, k, v, valid)),
+                      ("one block", chip_smoke._online_merge(q, k, v, valid, block=200))):
+        row = chip_smoke._bit_close(name, got, ref)
+        assert row["held"], row
+
+
+def test_merge_ab_reads_the_ptxas_report():
+    """The A/B timing tool keeps, of nvcc's -Xptxas -v output, the
+    registers and spills of the merge-heads kernels only."""
+    from memory_augmented_vlm_torch.microbench import merge_ab
+
+    log = """ptxas info    : Compiling entry function '_ZN5mavlm9two_sweep6kernelILi72EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN5mavlm9two_sweep6kernelILi72EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 142 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z13gemv_kernelPKv' for 'sm_90a'
+ptxas info    : Used 40 registers"""
+    report = merge_ab.ptxas_report(log)
+    assert list(report) == ["_ZN5mavlm9two_sweep6kernelILi72EE"]
+    assert "Used 142 registers" in report["_ZN5mavlm9two_sweep6kernelILi72EE"]
+    assert "0 bytes spill stores" in report["_ZN5mavlm9two_sweep6kernelILi72EE"]

@@ -40,8 +40,8 @@ from memory_augmented_vlm_torch import convert
 from memory_augmented_vlm_torch.models import position_encoding as tpe
 from memory_augmented_vlm_torch.models import qwen2 as tqwen2
 from memory_augmented_vlm_torch.models import siglip as tsiglip
-from memory_augmented_vlm_torch.ops import (flash, int8_common, mlp_int8, pallas_int8, quant,
-                                            rope, swiglu_int8)
+from memory_augmented_vlm_torch.ops import (flash, int8_common, mlp_int8, pallas_int8,
+                                            qkv_int8, quant, rope, swiglu_int8)
 from test_torch_int8 import (BF16_STEP, F32, LM, TOWER, H, I, NH, _int8_tower, _int8_weight,
                              _t, _tower_vlm_cfg)
 
@@ -514,8 +514,9 @@ def test_device_is_explicit_in_the_table_and_rope_helpers():
 
 
 def _fault1_case(kernel):
-    """(plain output, residual or None, {control: output}) of #4, #5, #6 or
-    #8 on chip_smoke's own inputs at a reduced row count, on the CPU."""
+    """(plain output, residual or None, {control: output}) of #3, #4, #5,
+    #6, #7 or #8 on chip_smoke's own inputs at a reduced row count, on the
+    CPU."""
     import chip_smoke
 
     gen = torch.Generator()
@@ -535,6 +536,14 @@ def _fault1_case(kernel):
         controls = {"quant.int8_linear": quant.int8_linear(
             {"kernel_int8": w, "scale": sw, "bias": bias}, x)}
         return pallas_int8.int8_matmul_reference(x, w, sw, bias), None, controls
+    if kernel == "fused_qkv_int8":  # q, k and v held as one stacked output
+        args = chip_smoke._qkv_args(gen, 2, 64, 1152, torch.bfloat16, "cpu")
+        controls = {name: torch.stack(fn()) for name, fn in chip_smoke._qkv_controls(args, 16)}
+        return torch.stack(qkv_int8.fused_qkv_int8_reference(*args, nh=16)), None, controls
+    if kernel == "fused_swiglu_block_int8":
+        args = chip_smoke._swiglu_args(gen, 128, 896, 4864, torch.bfloat16, "cpu")
+        controls = {name: fn() for name, fn in chip_smoke._swiglu_controls(args)}
+        return swiglu_int8.fused_swiglu_block_int8_reference(*args), args[0], controls
     args = chip_smoke._oproj_args(gen, 1, 256, 16, 72, [256], torch.bfloat16, "cpu")
     controls = {name: fn() for name, fn in chip_smoke._oproj_controls(args)}
     return flash.flash_attention_out_proj_int8_reference(*args), args[4], controls
@@ -544,14 +553,19 @@ FAULT1_CONTROLS = [("fused_mlp_block_int8", "erf GELU"), ("fused_mlp_int8", "erf
                    ("int8_matmul", "quant.int8_linear"),
                    ("flash_attention_out_proj_int8", "merge -> quant.int8_linear + residual"),
                    ("flash_attention_out_proj_int8", "attention quantized per (row, head)"),
-                   ("flash_attention_out_proj_int8", "fp32 base-e softmax, q and P not rounded")]
+                   ("flash_attention_out_proj_int8", "fp32 base-e softmax, q and P not rounded"),
+                   ("fused_qkv_int8", "LayerNorm -> quant.int8_linear (bias after the bf16 cast)"),
+                   ("fused_qkv_int8", "RMS normalisation in place of the LayerNorm"),
+                   ("fused_swiglu_block_int8", "the unfused _mlp_half"),
+                   ("fused_swiglu_block_int8", "GELU in place of SiLU")]
 
 
 @pytest.mark.parametrize("kernel,control", FAULT1_CONTROLS)
 def test_chip_smoke_int8_checks_fail_neighbouring_functions(kernel, control):
-    """chip_smoke holds #4, #5, #6 and #8 to their plain versions by the share
-    of bit-equal elements and the RMS over the spread (`_bit_close`, for #4
-    and #5 of out - hidden, #5 at its tighter OPROJ_BOUNDS); each
+    """chip_smoke holds #3, #4, #5, #6, #7 and #8 to their plain versions by
+    the share of bit-equal elements and the RMS over the spread
+    (`_bit_close`, for #4, #5 and #7 of out - hidden, #5 at its tighter
+    OPROJ_BOUNDS); each
     neighbouring function it runs as a control on the card fails that check
     here too, on the plain versions at a reduced row count."""
     import chip_smoke
@@ -563,7 +577,8 @@ def test_chip_smoke_int8_checks_fail_neighbouring_functions(kernel, control):
 
 
 @pytest.mark.parametrize("kernel", ["fused_mlp_block_int8", "fused_mlp_int8", "int8_matmul",
-                                    "flash_attention_out_proj_int8"])
+                                    "flash_attention_out_proj_int8", "fused_qkv_int8",
+                                    "fused_swiglu_block_int8"])
 def test_chip_smoke_int8_checks_hold_the_function_itself(kernel):
     import chip_smoke
 
