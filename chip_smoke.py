@@ -28,11 +28,13 @@ each of which raises on failure:
                 equal their plain version bit for bit, and
                 fused_attn_block_int8; int8_gemm_bf16, bit for bit; gemv,
                 its 12-layer chain timed from a CUDA graph). Every int8
-                kernel and the exact merge are held to their plain
-                versions bit-close (EXACT_MIN_SHARE), each with
-                neighbouring functions as controls that must fail; the
-                int8_scores merge also to JAX's bound against the exact
-                merge;
+                kernel, the exact merge and the bf16 flash forward
+                (flash_fwd, and flash_fwd_lse's out, against the online
+                softmax over the kernel's 64-key tiles; its lse to the fp32
+                rule) are held to their plain versions bit-close
+                (EXACT_MIN_SHARE), each with neighbouring functions as
+                controls that must fail; the int8_scores merge also to
+                JAX's bound against the exact merge;
   4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
                 (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
                 between against one fused_mlp_int8 call, held against each
@@ -115,9 +117,10 @@ PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12  # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 
-# bf16 flash kernel vs plain version: both round q and P to bf16 but at
-# different points of the softmax (running vs final max), and the output is
-# bf16 (2^-8 relative steps), so they agree to the bf16 class, not bit for bit.
+# The bf16 backward kernels (dQ, dK/dV) vs their plain versions: both round
+# P and dS to bf16, from fp32 sums taken in another order, and the outputs
+# are bf16 (2^-8 relative steps), so they agree to the bf16 class. The bf16
+# forward kernels are held bit-close instead (EXACT_MIN_SHARE, below).
 BF16_ATOL = BF16_RTOL = 1e-2
 # fp32 flash kernel vs plain version: the same math in another summation order.
 F32_ATOL = F32_RTOL = 1e-5
@@ -205,6 +208,13 @@ EXACT_MAX_RMS = 0.008
 # only by rounding the projection to bf16 before the bias, read 0.9625
 # bit-equal and 0.0101 RMS, close to the general bounds, while the kernel
 # read 0.9961-0.9991 and 0.0008-0.0031 at its path shape and edge cases.
+# The bf16 flash forward (flash_fwd; flash_fwd_lse's out) is held to the
+# shared bounds against the online softmax over the kernel's key tile
+# (flash.online_softmax): the mma.sync kernels, in the first card run that
+# took the rule, read 0.9920-0.9999 bit-equal and <= 0.00024 RMS at the path
+# shapes and edge cases, and their controls (SDPA, the one-tile plain
+# version, q unrounded, P in fp32, the diagonal moved by one key or the
+# valid length one less) 0.17-0.66 and 0.0016-0.31.
 OPROJ_BOUNDS = {"min_share": 0.99, "max_rms": 0.006}
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
@@ -266,35 +276,77 @@ def _nbytes(*tensors) -> int:
 
 
 def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.bfloat16,
-                timed=False):
-    atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
+                timed=False, controls=False):
+    """flash_fwd on one input against its plain version: bf16 held bit-close
+    (`_hold_bitwise`) to the online softmax over the kernel's key tile
+    (`flash.forward_tiles`), fp32 to every element within F32_ATOL +
+    F32_RTOL of the one-tile plain version. `controls` runs `_flash_controls`
+    through the same check, each of which must fail it."""
     q, k, v = (x.to(dtype) for x in (q, k, v))
     out = flash.flash_attention(q, k, v, valid, causal=causal, kv_groups=kv_groups)
     torch.cuda.synchronize()
-    ref = flash.flash_attention_reference(q, k, v, valid, causal=causal, kv_groups=kv_groups)
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    bad = int((diff > atol + rtol * ref.float().abs()).sum())
     if not torch.isfinite(out).all():
         raise RuntimeError(f"{name}: non-finite kernel output")
     zero_rows = (valid == 0).nonzero().flatten().tolist()
     for b in zero_rows:
         if out[b].abs().max() != 0:
             raise RuntimeError(f"{name}: batch {b} has valid length 0 but nonzero output")
-    row = {"case": name, "q": list(q.shape), "kv": list(k.shape),
-           "valid": valid.tolist(), "causal": causal, "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}"}
+    info = {"q": list(q.shape), "kv": list(k.shape), "valid": valid.tolist(), "causal": causal,
+            "dtype": str(dtype).split(".")[-1]}
+    block_k = flash.forward_tiles(q.shape[-1])[0] if dtype == torch.bfloat16 else None
+    plain = functools.partial(flash.flash_attention_reference, q, k, v, valid, causal=causal,
+                              kv_groups=kv_groups, block_k=block_k)
+    ref = plain()
+    if dtype == torch.bfloat16:
+        row = _hold_bitwise(name, out, ref, block_k=block_k, **info)
+    else:
+        row = _hold_f32(name, out, ref, **info)
+    if controls:
+        for label, fn in _flash_controls(q, k, v, valid, causal, kv_groups, block_k):
+            _must_fail(f"{name} control: {label}", fn()[0], ref)
+    del ref
     if timed:
         row["ms"] = _time_ms(lambda: flash.flash_attention(q, k, v, valid, causal=causal,
                                                            kv_groups=kv_groups))
-        row["plain_ms"] = _time_ms(lambda: flash.flash_attention_reference(
-            q, k, v, valid, causal=causal, kv_groups=kv_groups))
+        row["plain_ms"] = _time_ms(plain)
         row["library_ms"] = _time_ms(_sdpa_call(q, k, v, valid, causal, kv_groups))
         row["bound_ms"], row["bound_by"] = _flash_bound(q, k, v, valid, causal, kv_groups)
-    log(json.dumps(row))
-    if bad:
-        raise RuntimeError(f"{name}: {bad} elements outside tolerance (max err {err})")
+        log(json.dumps(row))
     return row
+
+
+def _online_variant(q, k, v, valid, *, causal, kv_groups, block_k, round_q=True,
+                    round_p=True, diagonal=0):
+    """The kernels' online softmax (`flash.online_softmax`) with one knob
+    turned: q left unrounded, P left in fp32, the causal diagonal moved.
+    Returns (out in q's dtype, lse in log2 units)."""
+    qs = q.float() * (q.shape[-1] ** -0.5 * flash.LOG2E)
+    qs = qs.to(q.dtype).float() if round_q else qs
+    k, v = (x.repeat_interleave(kv_groups, dim=2) for x in (k, v))
+    out, m, l = flash.online_softmax(qs, k, v, valid, causal, block_k, round_p=round_p,
+                                     diagonal=diagonal)
+    return out.to(q.dtype), m + torch.log2(l.clamp_min(1e-30))
+
+
+def _flash_controls(q, k, v, valid, causal, kv_groups, block_k):
+    """Neighbouring functions of flash_fwd and flash_fwd_lse on their inputs,
+    in plain torch, which their bf16 check must tell apart: SDPA, the
+    one-tile plain version (P rounded against the final max), q unrounded,
+    P in fp32; with `causal` the diagonal moved by one key, else the valid
+    length one less. Yields (label, fn giving (out, lse or None))."""
+    kw = dict(causal=causal, kv_groups=kv_groups, block_k=block_k)
+    sdpa = _sdpa_call(q, k, v, valid, causal, kv_groups)
+    yield "scaled_dot_product_attention", lambda: (sdpa().transpose(1, 2), None)
+    yield "one tile over the whole key axis", lambda: flash_bwd.forward_with_lse_reference(
+        q, k, v, valid, causal=causal, scale=q.shape[-1] ** -0.5, kv_groups=kv_groups)
+    yield "q not rounded to bf16", lambda: _online_variant(q, k, v, valid, round_q=False, **kw)
+    yield "P left in fp32 for PV", lambda: _online_variant(q, k, v, valid, round_p=False, **kw)
+    if causal:
+        yield "the causal diagonal moved by one key", lambda: _online_variant(
+            q, k, v, valid, diagonal=1, **kw)
+    else:
+        yield "the valid length one less", lambda: _online_variant(
+            q, k, v, (valid - 1).clamp_min(0), **kw)
 
 
 def _sdpa_call(q, k, v, valid, causal, kv_groups):
@@ -348,15 +400,15 @@ def phase_flash_kernel():
 
     path_rows = [
         _check_case("tower", randn(64, 729, 16, 72), randn(64, 729, 16, 72),
-                    randn(64, 729, 16, 72), lens(*[729] * 64), timed=True),
+                    randn(64, 729, 16, 72), lens(*[729] * 64), timed=True, controls=True),
         _check_case("memory_fuse", randn(1, 1568, 8, 112), randn(1, 6272, 8, 112),
-                    randn(1, 6272, 8, 112), lens(3136), timed=True),
+                    randn(1, 6272, 8, 112), lens(3136), timed=True, controls=True),
         _check_case("memory_evolve", randn(1, 1568, 8, 112), randn(1, 15680, 8, 112),
-                    randn(1, 15680, 8, 112), lens(3136), timed=True),
+                    randn(1, 15680, 8, 112), lens(3136), timed=True, controls=True),
         # the 64-frame request's spliced length: 9429 visual + 15 text tokens
         _check_case("lm_prefill", randn(1, 9472, 14, 64), randn(1, 9472, 2, 64),
                     randn(1, 9472, 2, 64), lens(9444), causal=True, kv_groups=7,
-                    timed=True),
+                    timed=True, controls=True),
     ]
     errs = [r["max_abs_err"] for r in path_rows]
     for d in flash.KERNEL_HEAD_DIMS:
@@ -369,7 +421,7 @@ def phase_flash_kernel():
         errs.append(_check_case(f"cross_d{d}", randn(2, 100, 2, d), randn(2, 333, 2, d),
                                 randn(2, 333, 2, d), lens(333, 65))["max_abs_err"])
     return {
-        "name": "flash_fwd", "route": "cuda", "source": CSRC + "flash_fwd.cu",
+        "name": "flash_fwd", "route": "cuda", "source": CSRC + "flash_fwd_sm90.cu",
         "replaces": "memory_augmented_vlm_tpu/ops/pallas_flash.py:567",
         "max_abs_err": max(errs),
         **{key: sum(r[key] for r in path_rows)
@@ -465,27 +517,14 @@ def _merge_variant(q, k, v, valid, *, round_q=True, round_p=True):
 
 
 def _online_merge(q, k, v, valid, block=64):
-    """#1's online softmax (flash_fwd.cu's function) in the merged layout:
-    per block of 64 keys the running max, P rounded to bf16 against it, the
-    accumulator and l rescaled as the max moves, the finite MASK_VALUE for
-    keys at or past the valid length."""
+    """#1's online softmax (`flash.online_softmax`, P rounded to bf16
+    against the running max of each block of 64 keys) in the merged
+    layout."""
     b, nh, s, d = q.shape
     qs = (q.float() * (d ** -0.5 * flash.LOG2E)).to(q.dtype).float()
-    m = torch.full((b, nh, s, 1), -math.inf, device=q.device)
-    l = torch.zeros((b, nh, s, 1), device=q.device)
-    acc = torch.zeros((b, nh, s, d), device=q.device)
-    for n0 in range(0, s, block):
-        sc = torch.einsum("bhqd,bhkd->bhqk", qs, k[:, :, n0:n0 + block].float())
-        keep = torch.arange(n0, min(n0 + block, s), device=q.device)[None, :] < valid[:, None]
-        sc = torch.where(keep[:, None, None, :], sc, flash.MASK_VALUE)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(sc - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
-                                         v[:, :, n0:n0 + block].float())
-        m = m_new
-    return (acc / l).to(q.dtype).transpose(1, 2).reshape(b, s, nh * d)
+    out = flash.online_softmax(qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), valid,
+                               False, block)[0]
+    return out.to(q.dtype).reshape(b, s, nh * d)
 
 
 def _merge_controls(q, k, v, valid):
@@ -1053,16 +1092,29 @@ def _must_fail(name, out, ref, base=None, **info):
         raise RuntimeError(f"{name}: a neighbouring function passes the kernel check ({row})")
 
 
+def _f32_close(name, out, ref, **info) -> dict:
+    """Elements of an fp32 output outside F32_ATOL + F32_RTOL of `ref`."""
+    diff = (out - ref).abs()
+    return {"case": name, **info, "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "outside": int((diff > F32_ATOL + F32_RTOL * ref.abs()).sum()),
+            "tol": f"every element within atol {F32_ATOL} + rtol {F32_RTOL}"}
+
+
 def _hold_f32(name, out, ref, **info) -> dict:
     """An fp32 output against its plain version at F32_ATOL + F32_RTOL."""
-    diff = (out - ref).abs()
-    row = {"case": name, **info, "max_abs_err": float(diff.max()),
-           "outside": int((diff > F32_ATOL + F32_RTOL * ref.abs()).sum()),
-           "tol": f"every element within atol {F32_ATOL} + rtol {F32_RTOL}"}
+    row = _f32_close(name, out, ref, **info)
     log(json.dumps(row))
     if out.dtype != torch.float32 or row["outside"] or not bool(torch.isfinite(out).all()):
         raise RuntimeError(f"{name}: kernel and plain version disagree ({row})")
     return row
+
+
+def _must_fail_f32(name, out, ref):
+    """A neighbouring function through `_hold_f32`'s rule: it must fail."""
+    row = _f32_close(name, out, ref)
+    log(json.dumps({"control": "must fail", **row}))
+    if not row["outside"]:
+        raise RuntimeError(f"{name}: a neighbouring function passes the kernel check ({row})")
 
 
 def _hold_equal(name, out, ref, **info) -> dict:
@@ -1397,7 +1449,7 @@ TRAIN_REPLACES = {
     "flash_bwd_dq": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:148",
     "flash_bwd_dkv": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:232",
 }
-TRAIN_SOURCES = {"flash_fwd_lse": "flash_train.cu", "flash_bwd_dq": "flash_bwd_sm90.cu",
+TRAIN_SOURCES = {"flash_fwd_lse": "flash_fwd_sm90.cu", "flash_bwd_dq": "flash_bwd_sm90.cu",
                  "flash_bwd_dkv": "flash_bwd_sm90.cu"}
 # flops per (query, valid key) pair and head dim: QK^T and PV in the forward;
 # the dQ kernel recomputes QK^T and does dO V^T and dS K; the dK/dV kernel
@@ -1511,11 +1563,28 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
                                f"(max err {float(diff.max())})")
         return float(diff.max()) if diff.numel() else 0.0
 
-    rout, rlse = flash_bwd.forward_with_lse_reference(q, k, v, vl, **kw)
+    # bf16: out held bit-close to the online softmax over the kernel's key
+    # tile, lse to the fp32 rule on its finite rows; fp32: the one-tile plain
+    # version at the fp32 class
+    block_k = flash.forward_tiles(d)[0] if dtype == torch.bfloat16 else None
+    rout, rlse = flash_bwd.forward_with_lse_reference(q, k, v, vl, block_k=block_k, **kw)
     fin = torch.isfinite(rlse)
     if not torch.equal(torch.isfinite(lse), fin):
         raise RuntimeError(f"{name}: lse is -inf on other rows than the plain version's")
-    errs = {"flash_fwd_lse": max(held("out", out, rout), held("lse", lse[fin], rlse[fin]))}
+    if dtype == torch.bfloat16:
+        fwd_err = _hold_bitwise(f"{name} out", out, rout, block_k=block_k, **info)["max_abs_err"]
+    else:
+        fwd_err = held("out", out, rout)
+    errs = {"flash_fwd_lse": max(fwd_err, _hold_f32(f"{name} lse", lse[fin], rlse[fin],
+                                                    **info)["max_abs_err"])}
+    if timed:
+        for label, fn in _flash_controls(q, k, v, vl, causal, h // hkv, block_k):
+            c_out, c_lse = fn()
+            _must_fail(f"{name} out control: {label}", c_out, rout)
+            if label == "the causal diagonal moved by one key":
+                _must_fail_f32(f"{name} lse control: {label}", c_lse[fin], rlse[fin])
+        _must_fail_f32(f"{name} lse control: natural-log units", rlse[fin] * math.log(2.0),
+                       rlse[fin])
     del rout, rlse
     rdq = flash_bwd.backward_dq_reference(q, k, v, g, lse, delta, vl, **kw)
     errs["flash_bwd_dq"] = held("dq", dq, rdq)
@@ -1547,7 +1616,8 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
             for kname, err in errs.items()}
     if timed:
         plain = {
-            "flash_fwd_lse": lambda: flash_bwd.forward_with_lse_reference(q, k, v, vl, **kw),
+            "flash_fwd_lse": lambda: flash_bwd.forward_with_lse_reference(
+                q, k, v, vl, block_k=block_k, **kw),
             "flash_bwd_dq": lambda: flash_bwd.backward_dq_reference(
                 q, k, v, g, lse, delta, vl, **kw),
             "flash_bwd_dkv": lambda: flash_bwd.backward_dkv_reference(

@@ -30,16 +30,6 @@ __device__ __forceinline__ uint32_t lds32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // D(16x8, s32) += A(16x32, s8, row) * B(32x8, s8, col)
 __device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a,
                                              uint32_t b0, uint32_t b1) {

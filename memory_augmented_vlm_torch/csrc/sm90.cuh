@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed wgmma kernels
-// (flash_bwd_sm90.cu, two_sweep.cuh, flash_merge_int8.cu): shared-memory
-// addresses, mbarriers, TMA loads, wgmma fences, shared-memory matrix
-// descriptors, the wgmma shapes the kernels issue, the accumulator-to-operand
-// repack, and the host-side tensor-map encoder.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, two_sweep.cuh, flash_merge_int8.cu):
+// shared-memory addresses, mbarriers, TMA loads, wgmma fences, shared-memory
+// matrix descriptors, the wgmma shapes the kernels issue, the
+// accumulator-to-operand repack, and the host-side tensor-map encoder.
 //
 // Layouts in shared memory are what TMA writes with a swizzle, and what the
 // matching descriptor tells wgmma to read:

@@ -111,11 +111,13 @@ def load() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build()))
     c_int, c_ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    # flash_fwd(dtype, head_dim, q, k, v, o, valid_len, B, Sq, Skv, H, kv_groups, causal,
+    #           12 strides, scale_log2, stream, items, n_items, block_rows)
     lib.flash_fwd.argtypes = (
         [c_int, c_int, ptr, ptr, ptr, ptr, ptr]
         + [c_int] * 6
         + [c_ll] * 12
-        + [ctypes.c_float, ptr])
+        + [ctypes.c_float, ptr, ptr, c_int, c_int])
     lib.flash_merge.argtypes = [c_int, ptr, ptr, ptr, ptr, ptr, c_int, c_int, c_int,
                                 ctypes.c_float, ptr]
     # qkv_int8(dtype, hidden, ln_w, ln_b, 3 x (w, s, b), q, k, v, xq, sx,
@@ -151,9 +153,10 @@ def load() -> ctypes.CDLL:
     lib.gemv_bf16.argtypes = [ptr] * 4 + [c_int] * 5 + [ptr]
     strides = ctypes.POINTER(c_ll)
     # flash_fwd_lse(dtype, head_dim, q, k, v, out, lse, valid_len, B, Sq, Skv,
-    #               H, kv_groups, causal, 4 x strides, scale, scale_log2, stream)
+    #               H, kv_groups, causal, 4 x strides, scale, scale_log2, stream,
+    #               items, n_items, block_rows)
     lib.flash_fwd_lse.argtypes = ([c_int, c_int] + [ptr] * 6 + [c_int] * 6 + [strides] * 4
-                                  + [ctypes.c_float] * 2 + [ptr])
+                                  + [ctypes.c_float] * 2 + [ptr, ptr, c_int, c_int])
     # flash_bwd_dq(dtype, head_dim, q, k, v, dout, lse, delta, dq, valid_len,
     #              B, Sq, Skv, H, kv_groups, causal, 5 x strides, scale, scale_log2, stream)
     lib.flash_bwd_dq.argtypes = ([c_int, c_int] + [ptr] * 8 + [c_int] * 6 + [strides] * 5
@@ -172,10 +175,13 @@ def load() -> ctypes.CDLL:
                                        + [ctypes.c_float, ptr])
     # flash_bwd_tiles(head_dim, &dq_rows, &dq_keys, &dkv_rows, &dkv_keys)
     lib.flash_bwd_tiles.argtypes = [c_int] + [ctypes.POINTER(c_int)] * 4
+    # flash_fwd_tiles(head_dim, &key_tile, &max_block_rows)
+    lib.flash_fwd_tiles.argtypes = [c_int] + [ctypes.POINTER(c_int)] * 2
     for fn in (lib.flash_fwd, lib.flash_merge, lib.flash_merge_oproj, lib.qkv_int8,
                lib.mlp_int8, lib.mlp_int8_core, lib.swiglu_int8, lib.int8_matmul,
                lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_dq_sm90,
-               lib.flash_bwd_dkv_sm90, lib.flash_bwd_tiles, lib.flash_merge_int8,
+               lib.flash_bwd_dkv_sm90, lib.flash_bwd_tiles, lib.flash_fwd_tiles,
+               lib.flash_merge_int8,
                lib.flash_merge_int8_prep,
                lib.attn_block_int8, lib.int8_gemm_bf16, lib.gemv_bf16):
         fn.restype = c_int

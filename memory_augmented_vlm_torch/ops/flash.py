@@ -1,5 +1,6 @@
-"""Flash attention: the CUDA kernels `csrc/flash_fwd.cu` and
-`csrc/flash_merge.cu` and their plain PyTorch versions.
+"""Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu` (bf16) and
+`csrc/flash_fwd.cu` (fp32), `csrc/flash_merge.cu` and their plain PyTorch
+versions.
 
 Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash.py::
 pallas_flash_attention` (bshd layout). Both versions compute the TPU
@@ -30,7 +31,9 @@ CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -74,6 +77,52 @@ def attention_mask(b: int, sq: int, skv: int, kv_valid_len: Optional[torch.Tenso
     return mask
 
 
+def online_softmax(qs, k, v, kv_valid_len, causal, block_k, *, round_p=True, diagonal=0):
+    """The TPU kernels' online softmax (`_accumulate` of `_flash_fwd_kernel`
+    and `_fwd_lse_kernel`), step by step over tiles of `block_k` keys: the
+    running max m, alpha = exp2(m_prev - m_next), p = exp2(s - m_next)
+    rounded to v's dtype for PV (left in fp32 with `round_p=False`), l and
+    the fp32 accumulator rescaled by alpha, MASK_VALUE for masked scores.
+
+    qs: (B, Sq, H, D), q already scaled (in log2 units); k, v: (B, Skv, H,
+    D), one K/V head per query head; kv_valid_len: (B,). A tile at or past
+    a batch's valid length runs for none of its rows, as on the TPU; with
+    `causal`, rows above a tile see none of its keys and are left out (a
+    fully masked tile is an exact no-op for a row that has seen a key).
+    `diagonal` moves the causal diagonal by that many keys. Returns (out =
+    acc * (1 / l), zero where l = 0, as (B, Sq, H, D); m, l (B, H, Sq)),
+    fp32; a row that ran no tile has m = -inf and l = 0."""
+    b, sq, h, d = qs.shape
+    skv, dev = k.shape[1], qs.device
+    valid = kv_valid_len.to(dev)
+    m = torch.full((b, h, sq), -math.inf, device=dev)
+    l = torch.zeros((b, h, sq), device=dev)
+    acc = torch.zeros((b, h, sq, d), device=dev)
+    for n0 in range(0, skv, block_k):
+        n1 = min(n0 + block_k, skv)
+        r0 = min(max(n0 - diagonal, 0), sq) if causal else 0
+        cols = torch.arange(n0, n1, device=dev)
+        keep = (cols[None, :] < valid[:, None])[:, None, None, :]
+        if causal:
+            keep = keep & (cols[None, :] <= torch.arange(r0, sq, device=dev)[:, None] + diagonal)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs[:, r0:], k[:, n0:n1].float())
+        s = torch.where(keep, s, MASK_VALUE)
+        m_prev, l_prev, a_prev = m[:, :, r0:], l[:, :, r0:], acc[:, :, r0:]
+        m_next = torch.maximum(m_prev, s.amax(dim=-1))
+        alpha = torch.exp2(m_prev - m_next)
+        p = torch.exp2(s - m_next[..., None])
+        l_next = alpha * l_prev + p.sum(dim=-1)
+        pv = p.to(v.dtype).float() if round_p else p
+        a_next = a_prev * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", pv,
+                                                          v[:, n0:n1].float())
+        run = (n0 < valid)[:, None, None]  # no block runs a tile past the valid length
+        m[:, :, r0:] = torch.where(run, m_next, m_prev)
+        l[:, :, r0:] = torch.where(run, l_next, l_prev)
+        acc[:, :, r0:] = torch.where(run[..., None], a_next, a_prev)
+    out = acc * torch.where(l == 0, 1.0, 1.0 / l)[..., None]
+    return out.transpose(1, 2), m, l
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -83,18 +132,30 @@ def flash_attention_reference(
     causal: bool = False,
     scale: Optional[float] = None,
     kv_groups: int = 1,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same base-2 math.
 
     q: (B, Sq, H, D); k, v: (B, Skv, H // kv_groups, D); kv_valid_len: (B,)
     int. Query head h reads key/value head h // kv_groups (HF `repeat_kv`
-    order). Returns (B, Sq, H, D) in q.dtype."""
+    order). Returns (B, Sq, H, D) in q.dtype.
+
+    `block_k=None` takes one tile over the whole key axis: P is rounded to
+    q's dtype against the row's final max. An integer runs the kernels'
+    online softmax over tiles of `block_k` keys (`online_softmax`): P is
+    rounded against the running max of each tile, which is the function
+    the TPU kernel and the bf16 CUDA kernel compute at that tile, and the
+    output is acc * (1 / l) (zero where l = 0)."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     scale = d ** -0.5 if scale is None else scale
     if kv_groups > 1:
         k = k.repeat_interleave(kv_groups, dim=2)
         v = v.repeat_interleave(kv_groups, dim=2)
     qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    if block_k is not None:
+        if kv_valid_len is None:
+            kv_valid_len = torch.full((b,), skv, dtype=torch.int32)
+        return online_softmax(qs, k, v, kv_valid_len, causal, block_k)[0].to(q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
     mask = attention_mask(b, sq, skv, kv_valid_len, causal, q.device)
     s = s.masked_fill(~mask, float("-inf"))
@@ -106,6 +167,13 @@ def flash_attention_reference(
     l = l.transpose(1, 2)[..., None]  # (B, Sq, H, 1)
     o = torch.where(l == 0, torch.zeros_like(o), o / l)
     return o.to(q.dtype)
+
+
+def map_strides(x: torch.Tensor):
+    """x's (batch, sequence, head) strides, as a TMA tensor map takes them:
+    a dim of size 1 is never stepped, so its stride only has to be a valid
+    one (16 bytes)."""
+    return tuple(st if n > 1 else 8 for st, n in zip(x.stride()[:3], x.shape[:3]))
 
 
 def _check_kernel_args(q, k, v, kv_valid_len, d):
@@ -132,6 +200,60 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise ValueError("batch and head counts must fit a CUDA grid axis")
 
 
+def forward_tiles(head_dim: int) -> Tuple[int, int]:
+    """(keys per K/V tile, most query rows per block) of the bf16 forward
+    kernel at a head dim, as the built library reports them: its online
+    softmax rounds P against the running max of each key tile, so the plain
+    version that holds it takes the same `block_k`."""
+    key_tile, rows = ctypes.c_int(), ctypes.c_int()
+    lib = cuda_lib.load()
+    cuda_lib.check(lib, lib.flash_fwd_tiles(head_dim, ctypes.byref(key_tile),
+                                            ctypes.byref(rows)), "flash_fwd_tiles")
+    return key_tile.value, rows.value
+
+
+def forward_block_rows(b: int, sq: int, h: int, max_rows: int, sms: int) -> int:
+    """Query rows per block of the bf16 forward kernel: `max_rows` (three
+    consumer warpgroups of 64 rows, two at D >= 112) when that grid gives
+    each of the card's `sms` SMs two blocks or more, else one warpgroup's 64
+    (two such blocks share an SM). The memory's cross-attentions, 8 heads of
+    1568 rows, would make 72 blocks of 192 rows; they take 200 of 64, since
+    the kernel does not split the key axis (that would move P's rounding
+    points)."""
+    return max_rows if b * h * -(-sq // max_rows) >= 2 * sms else 64
+
+
+def forward_work_list(b: int, sq: int, skv: int, h: int, causal: bool, block_rows: int,
+                      key_tile: int):
+    """The bf16 forward kernel's blocks, (batch, query head, query tile of
+    `block_rows` rows). Causal: the dQ kernel's work list at the forward's
+    tiles (its loop is dQ's), the longest loop first so that short ones
+    fill the tail. Otherwise every loop is as long, and each head's tiles
+    come side by side, so the blocks that read one head's K/V run together."""
+    if causal:
+        from memory_augmented_vlm_torch.ops import flash_bwd  # it imports this module
+        return flash_bwd.work_list("dq", b, sq, skv, h, True, block_rows, key_tile)
+    tiles = -(-sq // block_rows)
+    return tuple((bi, hi, i) for bi in range(b) for hi in range(h) for i in range(tiles))
+
+
+_FWD_PLANS = {}
+
+
+def forward_plan(b, sq, skv, h, d, causal, device) -> Tuple[int, torch.Tensor]:
+    """(block rows, work items as an (n, 3) int32 tensor on `device`) of the
+    bf16 forward kernel, made once per shape."""
+    key = (b, sq, skv, h, d, causal, str(device))
+    if key not in _FWD_PLANS:
+        key_tile, max_rows = forward_tiles(d)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        rows = forward_block_rows(b, sq, h, max_rows, sms)
+        items = forward_work_list(b, sq, skv, h, causal, rows, key_tile)
+        _FWD_PLANS[key] = rows, torch.tensor(items, dtype=torch.int32,
+                                             device=device).reshape(-1, 3)
+    return _FWD_PLANS[key]
+
+
 def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     if q.device.type == "cpu":
@@ -145,11 +267,14 @@ def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
         return out
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    rows, items = (forward_plan(b, sq, skv, h, d, causal, q.device) if q.dtype == torch.bfloat16
+                   else (0, None))
     rc = lib.flash_fwd(
         _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups,
-        int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], scale * LOG2E, stream)
+        int(causal), *map_strides(q), *map_strides(k), *map_strides(v),
+        *out.stride()[:3], scale * LOG2E, stream, None if items is None else items.data_ptr(),
+        0 if items is None else items.shape[0], rows)
     cuda_lib.check(lib, rc, "flash_fwd")
     flash_attention.launches += 1
     return out
@@ -214,9 +339,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention over bshd tensors; see `flash_attention_reference` for
     the arguments. CPU tensors take the plain version; CUDA tensors launch
-    `csrc/flash_fwd.cu` (head dims 64/72/112/128, bf16 or fp32) and count
-    the launch in `flash_attention.launches`. Differentiable: the backward
-    is `_FlashAttention`'s plain recompute."""
+    `csrc/flash_fwd_sm90.cu` (bf16; one block per item of `forward_plan`)
+    or `csrc/flash_fwd.cu` (fp32), head dims 64/72/112/128, and count the
+    launch in `flash_attention.launches`. Differentiable: the backward is
+    `_FlashAttention`'s plain recompute."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     scale = d ** -0.5 if scale is None else scale
     if kv_valid_len is None:

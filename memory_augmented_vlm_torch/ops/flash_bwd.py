@@ -1,5 +1,6 @@
 """Differentiable flash attention for training: the CUDA kernels of
-`csrc/flash_train.cu` and their plain PyTorch versions.
+`csrc/flash_fwd_sm90.cu`, `csrc/flash_bwd_sm90.cu` and `csrc/flash_train.cu`
+and their plain PyTorch versions.
 
 Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py` (bshd
 layout, GQA through `kv_groups`):
@@ -18,12 +19,14 @@ layout, GQA through `kv_groups`):
   - `flash_attention_train`, a `torch.autograd.Function` whose forward
     saves (q, k, v, out, lse, kv_valid_len), as `_flash_train_fwd` does.
 
-The bf16 backward runs `csrc/flash_bwd_sm90.cu` (TMA and wgmma) over a
-work list built here once per shape (`work_list`): items of (batch, query
-head, tile), longest loop first. dK/dV items write each query head's fp32
-partials, which a second kernel sums over the group in head order
-(`backward_dkv_partials_reference` and `group_sum` are their plain
-versions). fp32 runs the SIMT kernels of `csrc/flash_train.cu`.
+The bf16 forward runs `csrc/flash_fwd_sm90.cu`, the kernel of
+`flash.flash_attention`, with the lse epilogue. The bf16 backward runs
+`csrc/flash_bwd_sm90.cu` (TMA and wgmma) over a work list built here once
+per shape (`work_list`): items of (batch, query head, tile), longest loop
+first (the causal forward takes dQ's list at its own tiles). dK/dV items
+write each query head's fp32 partials, which a second kernel sums over the
+group in head order (`backward_dkv_partials_reference` and `group_sum` are
+their plain versions). fp32 runs the SIMT kernels of `csrc/flash_train.cu`.
 
 Each kernel wrapper takes its plain version (`*_reference`) only for
 tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
@@ -40,7 +43,8 @@ import torch
 
 from memory_augmented_vlm_torch.ops import cuda_lib
 from memory_augmented_vlm_torch.ops.flash import (_KERNEL_DTYPES, LOG2E, MASK_VALUE,
-                                                  _check_kernel_args, _shapes, attention_mask)
+                                                  _check_kernel_args, _shapes, attention_mask,
+                                                  forward_plan, map_strides, online_softmax)
 
 TRAIN_HEAD_DIMS = (64, 128)
 # Tiles of the bf16 backward kernels (`csrc/flash_bwd_sm90.cu`, checked
@@ -70,10 +74,20 @@ def _scaled_scores(q, k, scale, kv_groups):
 
 
 def forward_with_lse_reference(q, k, v, kv_valid_len, *, causal: bool, scale: float,
-                               kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                               kv_groups: int = 1, block_k: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `forward_with_lse`: (out (B, Sq, H, D) in q's dtype,
-    lse (B, H, Sq) fp32 in log2 units)."""
+    lse (B, H, Sq) fp32 in log2 units). `block_k=None` takes one tile over
+    the whole key axis (P rounded against the final max); an integer runs
+    the kernels' online softmax over tiles of `block_k` keys
+    (`flash.online_softmax`), the function the TPU kernel and the bf16 CUDA
+    kernel compute at that tile."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
+    if block_k is not None:
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+        o, m, l = online_softmax(qs, _repeat(k, kv_groups), _repeat(v, kv_groups),
+                                 kv_valid_len, causal, block_k)
+        return o.to(q.dtype), m + torch.log2(l.clamp_min(1e-30))
     mask = attention_mask(b, sq, skv, kv_valid_len, causal, q.device)
     s = _scaled_scores(q, k, scale, kv_groups).masked_fill(~mask, MASK_VALUE)
     m = s.amax(dim=-1)
@@ -229,10 +243,7 @@ def _strides(x: torch.Tensor):
 
 
 def _map_strides(x: torch.Tensor):
-    """Strides for a TMA tensor map: a dim of size 1 is never stepped, so its
-    stride only has to be a valid one."""
-    return (ctypes.c_longlong * 3)(*(st if n > 1 else 8
-                                     for st, n in zip(x.stride()[:3], x.shape[:3])))
+    return (ctypes.c_longlong * 3)(*map_strides(x))
 
 
 def _check_qs(q, qs):
@@ -253,7 +264,9 @@ def _check_train_args(q, k, v, kv_valid_len, d, *extra):
 def forward_with_lse(q, k, v, kv_valid_len, *, causal: bool, scale: float,
                      kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward that also returns lse; see `forward_with_lse_reference`.
-    CUDA tensors launch `flash_fwd_lse` of `csrc/flash_train.cu`."""
+    CUDA tensors launch `flash_fwd_lse`: bf16 runs `csrc/flash_fwd_sm90.cu`
+    (one block per item of `flash.forward_plan`), fp32 the SIMT kernel of
+    `csrc/flash_train.cu`."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     if q.device.type == "cpu":
         return forward_with_lse_reference(q, k, v, kv_valid_len, causal=causal, scale=scale,
@@ -266,11 +279,15 @@ def forward_with_lse(q, k, v, kv_valid_len, *, causal: bool, scale: float,
     if b == 0 or sq == 0:
         return out, lse
     lib = cuda_lib.load()
+    rows, items = (forward_plan(b, sq, skv, h, d, causal, q.device) if q.dtype == torch.bfloat16
+                   else (0, None))
     rc = lib.flash_fwd_lse(
         _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal),
-        _strides(q), _strides(k), _strides(v), _strides(out), scale, scale * LOG2E,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _map_strides(q), _map_strides(k), _map_strides(v), _strides(out), scale, scale * LOG2E,
+        torch.cuda.current_stream(q.device).cuda_stream,
+        None if items is None else items.data_ptr(), 0 if items is None else items.shape[0],
+        rows)
     cuda_lib.check(lib, rc, "flash_fwd_lse")
     forward_with_lse.launches += 1
     return out, lse

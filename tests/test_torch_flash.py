@@ -1,13 +1,17 @@
 """The flash kernel's plain PyTorch version against the JAX Pallas kernel
 (interpret mode on the CPU, as tests/test_pallas_flash.py runs it) and
 against `_xla_attention`; the wrapper's CPU dispatch and argument checks;
-the kernel build helper.
+the bf16 kernel's host-side plan (rows per block, work list); the card
+check's controls; the kernel build helper.
 
-fp32 cases agree to fp32 rounding (rtol/atol 1e-5). The bf16 case rounds q
-and P to bf16 on both sides at different points of the online softmax, and
-rounds its output to bf16: it is held at the bf16 class (rtol/atol 2e-2).
-The CUDA kernel itself runs only on the card: `chip_smoke.py` compares it
-with `flash_attention_reference` there.
+fp32 cases agree to fp32 rounding (rtol/atol 1e-5). The one-tile bf16 case
+rounds P against the final max where the TPU kernel rounds it against the
+running max of each key tile, and rounds its output to bf16: it is held at
+the bf16 class (rtol/atol 2e-2). The tiled plain version (`block_k=64`)
+computes the TPU kernel's own function at 64-key tiles and is held bit for
+bit but for XLA's CPU rounding (TILED_MIN_SHARE). The CUDA kernel itself
+runs only on the card: `chip_smoke.py` holds it to the tiled plain version
+there.
 """
 
 import os
@@ -19,10 +23,25 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from memory_augmented_vlm_tpu.ops.attention import repeat_kv
 from memory_augmented_vlm_tpu.ops.pallas_flash import _xla_attention, pallas_flash_attention
-from memory_augmented_vlm_torch.ops import cuda_lib, flash
+from memory_augmented_vlm_torch.ops import cuda_lib, flash, flash_bwd
 
 F32 = dict(rtol=1e-5, atol=1e-5)
+# The tiled plain version against JAX's Pallas kernel in interpret mode at
+# the same 64-row, 64-key blocks, bf16: the two compute one function, but
+# XLA's CPU code and torch sum the fp32 products and exp2 in another order,
+# so now and then a P or an output lands one bf16 step away (the first
+# reading: 0.9992-0.9999 of the elements bit-equal, the rest one step off;
+# the one-tile version read 0.855-0.894).
+TILED_MIN_SHARE = 0.995
+TILED_CASES = [
+    # (B, Sq, Skv, H, H_kv, causal, valid)
+    (2, 200, 200, 4, 2, True, (200, 131)),   # causal, GQA, ragged, Sq off the tiles
+    (2, 150, 150, 2, 2, True, (0, 150)),     # causal, a batch with valid length 0
+    (2, 130, 300, 2, 2, False, (300, 0)),    # cross attention, Sq != Skv, valid 0
+    (1, 257, 257, 6, 2, False, (100,)),      # GQA, a prefix valid length
+]
 
 
 def _inputs(seed, b, sq, skv, h, d, hkv=None):
@@ -59,6 +78,45 @@ def test_reference_matches_pallas_interpret(d, sq, skv, valid, causal):
     for b, n in enumerate(valid):
         if n == 0:
             assert not got[b].any()
+
+
+def _bf16_case(case, d, seed):
+    b, sq, skv, h, hkv, causal, valid = case
+    q, k, v = _inputs(seed, b, sq, skv, h, d, hkv=hkv)
+    return [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)], (q, k, v)
+
+
+def _share_equal(got, want) -> float:
+    return float((got == want).mean())
+
+
+@pytest.mark.parametrize("d", [64, 72, 112, 128])
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_tiled_reference_matches_pallas_interpret_bitwise(d, case):
+    """`flash_attention_reference(block_k=64)` is the function of
+    `pallas_flash_attention` at block_q = block_k = 64 (JAX repeats K/V for
+    GQA): bit for bit but for XLA's CPU rounding, never more than one bf16
+    step apart, zero where no key is valid, and closer to it than the
+    one-tile version."""
+    b, sq, skv, h, hkv, causal, valid = case
+    (tq, tk, tv), (q, k, v) = _bf16_case(case, d, seed=d + sq)
+    g = h // hkv
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = pallas_flash_attention(jq, repeat_kv(jk, g), repeat_kv(jv, g), causal=causal,
+                                  kv_valid_len=jnp.asarray(valid, jnp.int32), block_q=64,
+                                  block_k=64, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    vl = torch.tensor(valid, dtype=torch.int32)
+    got = flash.flash_attention_reference(tq, tk, tv, vl, causal=causal, kv_groups=g,
+                                          block_k=64).float().numpy()
+    one_tile = flash.flash_attention_reference(tq, tk, tv, vl, causal=causal,
+                                               kv_groups=g).float().numpy()
+    assert _share_equal(got, want) >= TILED_MIN_SHARE
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+    assert _share_equal(one_tile, want) < _share_equal(got, want)
+    for bi, n in enumerate(valid):
+        if n == 0:
+            assert not got[bi].any()
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -115,8 +173,9 @@ def test_wrapper_rejects_bad_arguments():
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
     assert [p.name for p in srcs] == ["attn_block.cu", "flash_bwd_sm90.cu", "flash_fwd.cu",
-                                      "flash_merge.cu", "flash_merge_int8.cu", "flash_train.cu",
-                                      "gemv.cu", "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
+                                      "flash_fwd_sm90.cu", "flash_merge.cu",
+                                      "flash_merge_int8.cu", "flash_train.cu", "gemv.cu",
+                                      "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
                                       "swiglu_int8.cu"]
     # each C entry that cuda_lib.load binds is defined (not only declared)
     # in exactly one of them
@@ -125,7 +184,8 @@ def test_build_command_targets_sm90a_and_sources_exist():
                   "mlp_int8_core", "swiglu_int8", "int8_matmul", "flash_fwd_lse",
                   "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string", "flash_merge_int8",
                   "attn_block_int8", "int8_gemm_bf16", "gemv_bf16", "flash_bwd_dq_sm90",
-                  "flash_bwd_dkv_sm90", "flash_bwd_tiles", "flash_merge_int8_prep"):
+                  "flash_bwd_dkv_sm90", "flash_bwd_tiles", "flash_merge_int8_prep",
+                  "flash_fwd_tiles"):
         definition = re.compile(r'extern "C" [\w ]+\*? ?' + entry + r"\([^;{]*\)\s*\{")
         assert len(definition.findall(text)) == 1, entry
     assert all(p.is_file() for p in srcs)
@@ -173,3 +233,141 @@ def test_merge_kernels_are_tma_fed_wgmma_on_the_shared_header():
     assert "sVt" not in two_sweep and "scales_kernel" not in int8 and "load_tile" not in int8
     main = int8[int8.index("merge_int8_kernel("):]
     assert main.count("quant_code(") == 4  # q's codes, once per block; K and V's in the prep
+
+
+def test_flash_forward_kernels_are_tma_fed_wgmma_on_the_shared_header():
+    """#1's and #9's bf16 path is one kernel, flash_fwd_sm90.cu, on the
+    shared Hopper header: TMA loads tracked by mbarriers, wgmma for QK^T
+    (both operands in shared memory) and PV (P from registers), nothing of
+    the mma.sync kernels left in either entry point's source."""
+    csrc = cuda_lib.CSRC_DIR
+    kernel = (csrc / "flash_fwd_sm90.cu").read_text()
+    assert '#include "sm90.cuh"' in kernel
+    for helper in ("tma_load(", "mbar_wait(", "mbar_arrive_tx(", "wgmma_ss_n64(",
+                   "wgmma_rs_n64<1>(", "wgmma_rs_n16<1>(", "acc_to_a("):
+        assert helper in kernel, helper
+    for name in ("flash_fwd.cu", "flash_train.cu"):
+        src = (csrc / name).read_text()
+        assert "fwd_sm90::run(" in src, name  # the bf16 branch of its entry point
+        for gone in ("mma_bf16_16816", "sVt", "fwd_lse_bf16_kernel", "flash_fwd_bf16_kernel",
+                     "lds32"):
+            assert gone not in src, (name, gone)
+    assert "mma_bf16_16816" not in kernel and "sVt" not in kernel
+
+
+@pytest.mark.parametrize("b,sq,h,max_rows,rows", [
+    (64, 729, 16, 192, 192),   # the tower: 4096 blocks of 192 rows
+    (1, 9472, 14, 192, 192),   # the LM prefill: 700
+    (1, 1568, 8, 128, 64),     # the memory's attentions: 104 of 128 rows would idle SMs
+    (1, 9557, 14, 128, 128),   # the train shape at head dim 128: 1050
+    (2, 150, 4, 192, 64),      # an edge case
+])
+def test_forward_block_rows_by_shape(b, sq, h, max_rows, rows):
+    """The bf16 forward takes its largest blocks where the grid gives each
+    of 132 SMs two of them, else blocks of one warpgroup (64 rows)."""
+    assert flash.forward_block_rows(b, sq, h, max_rows, sms=132) == rows
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rows", [64, 128, 192])
+def test_forward_work_list_covers_each_block_once(causal, rows):
+    """Every (batch, head, query tile) is one item. Causal: the dQ kernel's
+    list at the forward's tiles, longest key loop first; otherwise the tiles
+    of one head side by side."""
+    b, s, h = 2, 700, 3
+    items = flash.forward_work_list(b, s, s, h, causal, rows, 64)
+    tiles = -(-s // rows)
+    assert sorted(items) == [(bi, hi, i) for bi in range(b) for hi in range(h)
+                             for i in range(tiles)]
+    if causal:
+        assert items == flash_bwd.work_list("dq", b, s, s, h, True, rows, 64)
+        loops = [len(flash_bwd.dq_key_tiles(i, s, s, True, rows, 64)) for _, _, i in items]
+        assert loops == sorted(loops, reverse=True)
+    else:
+        assert list(items) == sorted(items)
+
+
+def test_forward_work_list_at_the_lm_prefill_shape():
+    """The causal 9472-token prefill in blocks of 192 rows: 50 tiles of 14
+    heads, the longest looping over 148 key tiles, the shortest over 3,
+    53,522 block-iterations in all (the TPU's 64-row grid runs 148 x 149 / 2
+    x 14 = 154,364 tile steps, each a third of the rows)."""
+    s, rows = 9472, 192
+    items = flash.forward_work_list(1, s, s, 14, True, rows, 64)
+    loops = [len(flash_bwd.dq_key_tiles(i, s, s, True, rows, 64)) for _, _, i in items]
+    assert (len(items), loops[0], loops[-1], sum(loops)) == (700, 148, 3, 53522)
+
+
+def _control_case(causal):
+    b, sq, skv, h, hkv, d, valid = ((1, 512, 512, 4, 2, 64, (500,)) if causal
+                                    else (1, 256, 1024, 2, 2, 112, (700,)))
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(21, b, sq, skv, h, d, hkv=hkv))
+    return q, k, v, torch.tensor(valid, dtype=torch.int32), h // hkv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("control", range(5))
+def test_chip_smoke_flash_controls_fail_its_check(causal, control):
+    """Each neighbouring function that chip_smoke runs as a control for
+    flash_fwd and flash_fwd_lse (SDPA, the one-tile plain version, q
+    unrounded, P in fp32, the diagonal moved by one key or the valid length
+    one less) fails the kernel's bf16 check against the tiled plain
+    version here too, at a small size."""
+    import chip_smoke
+
+    q, k, v, vl, g = _control_case(causal)
+    ref = flash.flash_attention_reference(q, k, v, vl, causal=causal, kv_groups=g, block_k=64)
+    label, fn = list(chip_smoke._flash_controls(q, k, v, vl, causal, g, 64))[control]
+    row = chip_smoke._bit_close(label, fn()[0].to(ref.dtype), ref)
+    assert not row["held"], row
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chip_smoke_flash_check_holds_the_tpu_kernel(causal):
+    """The same check passes JAX's own Pallas kernel at 64-key blocks (in
+    interpret mode) against the tiled plain version: it tells the function
+    apart from its neighbours, not the two implementations."""
+    import chip_smoke
+
+    q, k, v, vl, g = _control_case(causal)
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    want = pallas_flash_attention(jq, repeat_kv(jk, g), repeat_kv(jv, g), causal=causal,
+                                  kv_valid_len=jnp.asarray(vl.numpy()), block_q=64, block_k=64,
+                                  interpret=True)
+    ref = flash.flash_attention_reference(q, k, v, vl, causal=causal, kv_groups=g, block_k=64)
+    tpu = torch.from_numpy(np.asarray(want.astype(jnp.float32))).to(torch.bfloat16)
+    assert chip_smoke._bit_close("pallas", tpu, ref)["held"]
+
+
+def test_flash_ab_calls_only_entry_points_every_tree_has():
+    """microbench/flash_ab.py also runs against older trees of the port: of
+    the port's modules it calls only entry points that every tree has had
+    since the train step was ported, and of nvcc's ptxas report it keeps
+    the bf16 flash forward kernels, the mma.sync ones and the wgmma one
+    alike."""
+    import ast
+    import inspect
+
+    from memory_augmented_vlm_torch.microbench import flash_ab
+
+    modules = {"flash", "flash_bwd", "siglip", "qwen2", "cuda_lib"}
+    used = {(n.value.id, n.attr) for n in ast.walk(ast.parse(inspect.getsource(flash_ab)))
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id in modules}
+    assert used == {("flash", "flash_attention"), ("flash_bwd", "forward_with_lse"),
+                    ("siglip", "init_params"), ("siglip", "forward"), ("qwen2", "init_params"),
+                    ("qwen2", "forward"), ("cuda_lib", "load"), ("cuda_lib", "BUILD_LOG")}
+    assert callable(flash_ab.main) and callable(flash_ab.measure)
+    log = """ptxas info    : Compiling entry function '_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv' for 'sm_90a'
+ptxas info    : Function properties for x
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 114 registers, used 2 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119fwd_lse_bf16_kernelILi64EEEv' for 'sm_90a'
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z13gemv_kernelPKv' for 'sm_90a'
+ptxas info    : Used 40 registers"""
+    report = flash_ab.ptxas_report(log)
+    assert list(report) == ["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv",
+                            "_ZN12_GLOBAL__N_119fwd_lse_bf16_kernelILi64EEEv"]
+    assert "Used 114 registers" in report["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv"]

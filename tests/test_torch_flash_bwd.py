@@ -84,6 +84,95 @@ def test_forward_with_lse_matches_pallas(case):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0, :sq], **OUT_TOL)
 
 
+# (B, Sq, Skv, H, H_kv, causal, valid): causal GQA with a ragged batch;
+# causal with a batch of valid length 0; cross attention with Sq != Skv and
+# valid length 0; GQA with a prefix valid length
+TILED_CASES = [
+    (2, 200, 200, 4, 2, True, (200, 131)),
+    (2, 150, 150, 2, 2, True, (0, 150)),
+    (2, 130, 300, 2, 2, False, (300, 0)),
+    (1, 257, 257, 6, 2, False, (100,)),
+]
+
+
+def _tiled_case(case, d, seed=14):
+    b, sq, skv, h, hkv, causal, valid = case
+    rng = np.random.default_rng(seed + d + sq)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+    return arrays, [torch.from_numpy(x).to(torch.bfloat16) for x in arrays]
+
+
+@pytest.mark.parametrize("d", [64, 72, 112, 128])
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_tiled_forward_with_lse_matches_pallas_interpret(d, case):
+    """`forward_with_lse_reference(block_k=64)` is the function of
+    `_forward_with_lse` at 64-row, 64-key blocks in bf16 (JAX repeats K/V
+    for GQA): out bit for bit but for XLA's CPU rounding (the share of
+    tests/test_torch_flash.py, TILED_MIN_SHARE; one bf16 step at most), lse
+    to 1e-6 relative (the two sides sum l in another order) on its finite
+    rows and -inf on the same rows."""
+    from tests.test_torch_flash import TILED_MIN_SHARE
+
+    b, sq, skv, h, hkv, causal, valid = case
+    (q, k, v), (tq, tk, tv) = _tiled_case(case, d)
+    g = h // hkv
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jout, jlse = _forward_with_lse(jq, repeat_kv(jk, g), repeat_kv(jv, g),
+                                   jnp.asarray(valid, jnp.int32), causal, d ** -0.5, 64, 64, True)
+    jout = np.asarray(jout.astype(jnp.float32))
+    jlse = np.asarray(jlse)[:, :, 0, :sq]
+    out, lse = flash_bwd.forward_with_lse_reference(
+        tq, tk, tv, torch.tensor(valid, dtype=torch.int32), causal=causal, scale=d ** -0.5,
+        kv_groups=g, block_k=64)
+    out, lse = out.float().numpy(), lse.numpy()
+    assert float((out == jout).mean()) >= TILED_MIN_SHARE
+    assert np.abs(out - jout).max() <= 2.0 ** -7 * np.abs(jout).max()
+    fin = np.isfinite(jlse)
+    assert np.array_equal(np.isfinite(lse), fin) and (lse[~fin] < 0).all()
+    np.testing.assert_allclose(lse[fin], jlse[fin], rtol=1e-6, atol=1e-6)
+
+
+def _lse_control_case():
+    case = (1, 512, 512, 4, 2, True, (500,))
+    _, (q, k, v) = _tiled_case(case, 64, seed=15)
+    vl = torch.tensor(case[-1], dtype=torch.int32)
+    kw = dict(causal=True, scale=64 ** -0.5, kv_groups=2)
+    return q, k, v, vl, kw
+
+
+def test_chip_smoke_lse_controls_fail_its_check():
+    """chip_smoke holds the lse of flash_fwd_lse to every element within
+    1e-5 + 1e-5 |ref| of the tiled plain version on its finite rows. Its two
+    controls fail that rule here too: the lse in natural-log units, and the
+    online softmax with the causal diagonal moved by one key."""
+    import chip_smoke
+
+    q, k, v, vl, kw = _lse_control_case()
+    _, lse = flash_bwd.forward_with_lse_reference(q, k, v, vl, block_k=64, **kw)
+    fin = torch.isfinite(lse)
+    _, moved = chip_smoke._online_variant(q, k, v, vl, causal=True, kv_groups=2, block_k=64,
+                                          diagonal=1)
+    for control in (lse * np.log(2.0), moved):
+        assert chip_smoke._f32_close("control", control[fin], lse[fin])["outside"] > 0
+    assert chip_smoke._f32_close("self", lse[fin].clone(), lse[fin])["outside"] == 0
+
+
+def test_chip_smoke_lse_check_holds_the_tpu_kernel():
+    """JAX's `_forward_with_lse` at 64-key blocks (interpret mode) passes
+    the lse rule against the tiled plain version."""
+    import chip_smoke
+
+    q, k, v, vl, kw = _lse_control_case()
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    _, jlse = _forward_with_lse(jq, repeat_kv(jk, 2), repeat_kv(jv, 2), jnp.asarray(vl.numpy()),
+                                True, kw["scale"], 64, 64, True)
+    jlse = torch.from_numpy(np.array(jlse)[:, :, 0, :512])
+    _, lse = flash_bwd.forward_with_lse_reference(q, k, v, vl, block_k=64, **kw)
+    fin = torch.isfinite(lse)
+    assert chip_smoke._f32_close("pallas", jlse[fin], lse[fin])["outside"] == 0
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_backward_kernels_match_pallas_on_saved_residuals(case):
     """dQ and dK/dV from JAX's own (out, lse), on both sides."""
