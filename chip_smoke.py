@@ -34,7 +34,13 @@ each of which raises on failure:
                 rule) are held to their plain versions bit-close
                 (EXACT_MIN_SHARE), each with neighbouring functions as
                 controls that must fail; the int8_scores merge also to
-                JAX's bound against the exact merge;
+                JAX's bound against the exact merge. The three int8 MLP
+                half-blocks (fused_mlp_block_int8, fused_mlp_int8,
+                fused_swiglu_block_int8) also run at rows around their GEMM
+                core's 64- and 128-row edges (1, 47, 63, 65, 129) and at a
+                K and an I that are multiples of 16 but not of 128 (144,
+                272), and their controls include the plain version with h
+                rounded to bf16 before the requant;
   4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
                 (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
                 between against one fused_mlp_int8 call, held against each
@@ -544,6 +550,18 @@ def _merge_controls(q, k, v, valid):
             ("#1's online softmax", lambda: _online_merge(q, k, v, valid))]
 
 
+def _mlp_edges(k, i, small):
+    """(rows, K, I, dtype) edge cases of the int8 MLP half-blocks: 300 rows
+    in bf16 and fp32, `small` rows, rows at and around the GEMM core's
+    64-row warpgroup and 128-row block edges (1, 47, 63, 65, 129), and a K
+    and an I that are multiples of 16 but not of its 128-byte k-step (144,
+    272) in bf16 and fp32 hidden."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [(300, k, i, bf16), (300, k, i, f32), (small, k, i, bf16),
+            *((mm, k, i, bf16) for mm in (1, 47, 63, 65, 129) if mm != small),
+            (129, 144, 272, bf16), (129, 144, 272, f32)]
+
+
 def _mlp_args(gen, m, k, i, dtype, dev):
     hidden = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     ln_w = 1.0 + 0.1 * torch.randn((k,), generator=gen, device=dev)
@@ -638,6 +656,9 @@ def phase_int8_kernels():
     with _erf_gelu():
         _must_fail("mlp control: erf GELU", mlp_int8.fused_mlp_block_int8_reference(*args), ref,
                    args[0])
+    with _h_in_bf16():
+        _must_fail("mlp control: h rounded to bf16 before the requant",
+                   mlp_int8.fused_mlp_block_int8_reference(*args), ref, args[0])
     del ref
     xq, _ = quant.quantize_rows(args[0])
     hq = torch.randint(-127, 128, (m, inter), generator=gen, device=dev, dtype=torch.int8)
@@ -651,11 +672,11 @@ def phase_int8_kernels():
                         "the matmul share only",
         "bound_ms": bound, "bound_by": by}
     del args, out, xq, hq
-    for mm, dtype in ((300, torch.bfloat16), (300, torch.float32), (5, torch.bfloat16)):
-        args = _mlp_args(gen, mm, h, inter, dtype, dev)
+    for mm, k, i, dtype in _mlp_edges(h, inter, 5):
+        args = _mlp_args(gen, mm, k, i, dtype, dev)
         out = mlp_int8.fused_mlp_block_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_hold_bitwise(f"mlp_edge_{mm}", out,
+        errs.append(_hold_bitwise(f"mlp_edge_{mm}x{k}x{i}", out,
                                   mlp_int8.fused_mlp_block_int8_reference(*args), args[0],
                                   hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
     rows["mlp"]["max_abs_err"] = max(errs)
@@ -692,8 +713,9 @@ def _swiglu_args(gen, m, k, i, dtype, dev):
 def _swiglu_controls(args):
     """Neighbouring functions of fused_swiglu_block_int8 (#7) on its
     arguments: the LM's unfused `_mlp_half` (the bf16 RMSNorm, three
-    quant.int8_linear calls, the residual added in bf16) and the plain
-    version with GELU in place of SiLU."""
+    quant.int8_linear calls, the residual added in bf16), the plain
+    version with GELU in place of SiLU, and the plain version with h
+    rounded to bf16 before the requant."""
     hidden, rms_w, wg, sg, wu, su, wd, sd = args
     layer = {"post_attention_layernorm": rms_w.to(hidden.dtype),
              "gate_proj": {"kernel_int8": wg, "scale": sg},
@@ -713,7 +735,8 @@ def _swiglu_controls(args):
         finally:
             swiglu_int8.silu_f32 = silu
 
-    return [("the unfused _mlp_half", unfused), ("GELU in place of SiLU", gelu)]
+    return [("the unfused _mlp_half", unfused), ("GELU in place of SiLU", gelu),
+            ("h rounded to bf16 before the requant", lambda: _swiglu_bf16_h(args))]
 
 
 def _oproj_args(gen, b, s, nh, d, valid, dtype, dev):
@@ -722,6 +745,33 @@ def _oproj_args(gen, b, s, nh, d, valid, dtype, dev):
     hidden = torch.randn((b, s, nh * d), generator=gen, device=dev).to(dtype)
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
     return (q, k, v, vl, hidden, *_int8_weight(gen, nh * d, nh * d, dev))
+
+
+@contextlib.contextmanager
+def _h_in_bf16():
+    """The int8 MLP's plain versions with h (the GELU output) rounded to
+    bf16 before the requant: the shortcut that halves h's round trip, and
+    a neighbouring function (its codes move wherever a bf16 step crosses a
+    code boundary)."""
+    gelu = mlp_int8.gelu_tanh
+    mlp_int8.gelu_tanh = lambda x: gelu(x).to(torch.bfloat16).float()
+    try:
+        yield
+    finally:
+        mlp_int8.gelu_tanh = gelu
+
+
+def _swiglu_bf16_h(args):
+    """fused_swiglu_block_int8's plain version with h = silu(g) * u rounded
+    to bf16 before the requant (see _h_in_bf16)."""
+    hidden, rms_w, wg, sg, wu, su, wd, sd = args
+    hf = hidden.float()
+    var = hf.square().mean(dim=-1, keepdim=True)
+    xq, sx = quant.quantize_rows(hf * torch.rsqrt(var + 1e-6) * rms_w.float())
+    g = quant.int_mm(xq, wg).float() * sx * sg.float()
+    u = quant.int_mm(xq, wu).float() * sx * su.float()
+    hq, sh = quant.quantize_rows((swiglu_int8.silu_f32(g) * u).to(torch.bfloat16).float())
+    return (hf + quant.int_mm(hq, wd).float() * sh * sd.float()).to(hidden.dtype)
 
 
 @contextlib.contextmanager
@@ -854,6 +904,9 @@ def phase_fused_kernels():
     errs = [_hold_bitwise("mlp_core", out, ref, x=list(args[0].shape))["max_abs_err"]]
     with _erf_gelu():
         _must_fail("mlp_core control: erf GELU", mlp_int8.fused_mlp_int8_reference(*args), ref)
+    with _h_in_bf16():
+        _must_fail("mlp_core control: h rounded to bf16 before the requant",
+                   mlp_int8.fused_mlp_int8_reference(*args), ref)
     del ref
     xq, _ = quant.quantize_rows(args[0])
     hq = torch.randint(-127, 128, (m, inter), generator=gen, device=dev, dtype=torch.int8)
@@ -867,12 +920,12 @@ def phase_fused_kernels():
                         "the matmul share only",
         "bound_ms": bound, "bound_by": by}
     del args, out, xq, hq
-    for mm, dtype in ((300, torch.bfloat16), (300, torch.float32), (1, torch.bfloat16)):
-        args = _mlp_args(gen, mm, h, inter, dtype, dev)
+    for mm, k, i, dtype in _mlp_edges(h, inter, 1):
+        args = _mlp_args(gen, mm, k, i, dtype, dev)
         args = (args[0], *args[3:])
         out = mlp_int8.fused_mlp_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_hold_bitwise(f"mlp_core_edge_{mm}", out,
+        errs.append(_hold_bitwise(f"mlp_core_edge_{mm}x{k}x{i}", out,
                                   mlp_int8.fused_mlp_int8_reference(*args),
                                   x=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
     rows["mlp_core"]["max_abs_err"] = max(errs)
@@ -899,11 +952,11 @@ def phase_fused_kernels():
                         "the matmul share only",
         "bound_ms": bound, "bound_by": by}
     del args, out, xq, hq
-    for mm, dtype in ((300, torch.bfloat16), (300, torch.float32), (1, torch.bfloat16)):
-        args = _swiglu_args(gen, mm, lm_h, lm_i, dtype, dev)
+    for mm, k, i, dtype in _mlp_edges(lm_h, lm_i, 1):
+        args = _swiglu_args(gen, mm, k, i, dtype, dev)
         out = swiglu_int8.fused_swiglu_block_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_hold_bitwise(f"swiglu_edge_{mm}", out,
+        errs.append(_hold_bitwise(f"swiglu_edge_{mm}x{k}x{i}", out,
                                   swiglu_int8.fused_swiglu_block_int8_reference(*args), args[0],
                                   hidden=list(args[0].shape), dtype=str(dtype))["max_abs_err"])
         if not torch.equal(out[mm // 2], args[0][mm // 2]):

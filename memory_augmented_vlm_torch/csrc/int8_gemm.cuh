@@ -18,10 +18,8 @@
 // three-stage cp.async ring; ragged M, N and K edges are zero-filled on
 // load (K a multiple of 16, so a 16-byte chunk is all in or all out) and
 // masked in the epilogue. blockIdx.z selects one of up to three B matrices
-// (q, k, v share one A). With Epi::kInterleaveB the GEMM's column n is row
-// n / 2 of B matrix n % 2, so the two accumulators a thread holds for
-// columns (n, n + 1) belong to the same channel of two weight matrices (the
-// gate and the up projection of a SwiGLU).
+// (q, k, v share one A). The int8 MLP half-blocks run on the Hopper core of
+// int8_gemm_sm90.cuh instead.
 
 #pragma once
 
@@ -46,7 +44,8 @@ __device__ __forceinline__ int8_t quant_code(float x, float inv_scale) {
 
 // ---------------------------------------------------------------------------
 // LayerNorm + per-row int8 quant: one warp per row, the row's fp32 LN
-// output held in shared memory between its passes.
+// output held in shared memory between its passes. zero_rows, when given,
+// gets 0 at each row (the row max a later GEMM folds with atomicMax).
 // ---------------------------------------------------------------------------
 
 constexpr int kRowWarps = 8;
@@ -55,7 +54,8 @@ template <typename T>
 __global__ void __launch_bounds__(32 * kRowWarps)
 ln_rowquant_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, int8_t* __restrict__ xq,
-                   float* __restrict__ sx, int M, int K, float eps) {
+                   float* __restrict__ sx, int M, int K, float eps,
+                   float* __restrict__ zero_rows) {
   extern __shared__ float ybuf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + warp;
@@ -85,12 +85,16 @@ ln_rowquant_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const float inv = 1.f / s;
   int8_t* qr = xq + static_cast<long long>(row) * K;
   for (int i = lane; i < K; i += 32) qr[i] = quant_code(y[i], inv);
-  if (lane == 0) sx[row] = s;
+  if (lane == 0) {
+    sx[row] = s;
+    if (zero_rows != nullptr) zero_rows[row] = 0.f;
+  }
 }
 
 template <typename T>
 int launch_ln_rowquant(const void* x, const float* w, const float* b, int8_t* xq,
-                       float* sx, int M, int K, float eps, cudaStream_t stream) {
+                       float* sx, int M, int K, float eps, cudaStream_t stream,
+                       float* zero_rows = nullptr) {
   const size_t smem = sizeof(float) * kRowWarps * K;
   if (smem > 227 * 1024) return -3;
   auto* kern = ln_rowquant_kernel<T>;
@@ -99,7 +103,7 @@ int launch_ln_rowquant(const void* x, const float* w, const float* b, int8_t* xq
                          static_cast<int>(smem));
   }
   kern<<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, smem, stream>>>(
-      static_cast<const T*>(x), w, b, xq, sx, M, K, eps);
+      static_cast<const T*>(x), w, b, xq, sx, M, K, eps, zero_rows);
   return 0;
 }
 
@@ -107,12 +111,14 @@ int launch_ln_rowquant(const void* x, const float* w, const float* b, int8_t* xq
 // Per-row int8 quant of x itself, or (kRms) of its RMSNorm
 // x * rsqrt(mean(x^2) + eps) * w: one warp per row. Nothing is staged: each
 // pass re-reads the row (from L1/L2) and recomputes the value it quantizes.
+// zero_rows: as ln_rowquant_kernel's.
 // ---------------------------------------------------------------------------
 
 template <typename T, bool kRms>
 __global__ void __launch_bounds__(32 * kRowWarps)
 rowquant_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K, float eps) {
+                int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K, float eps,
+                float* __restrict__ zero_rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + warp;
   if (row >= M) return;
@@ -140,14 +146,17 @@ rowquant_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const float inv = 1.f / s;
   int8_t* qr = xq + static_cast<long long>(row) * K;
   for (int i = lane; i < K; i += 32) qr[i] = quant_code(value(i), inv);
-  if (lane == 0) sx[row] = s;
+  if (lane == 0) {
+    sx[row] = s;
+    if (zero_rows != nullptr) zero_rows[row] = 0.f;
+  }
 }
 
 template <typename T, bool kRms>
 void launch_rowquant(const void* x, const float* w, int8_t* xq, float* sx, int M, int K,
-                     float eps, cudaStream_t stream) {
+                     float eps, cudaStream_t stream, float* zero_rows = nullptr) {
   rowquant_kernel<T, kRms><<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, stream>>>(
-      static_cast<const T*>(x), w, xq, sx, M, K, eps);
+      static_cast<const T*>(x), w, xq, sx, M, K, eps, zero_rows);
 }
 
 // h (M, I) fp32 -> codes with s = max(row max, 1e-12) / 127; one warp per
@@ -200,7 +209,6 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
 template <typename T>
 struct RowScaleEpi {
   static constexpr bool kRowMax = false;
-  static constexpr bool kInterleaveB = false;
   const float* sx;
   const float* s;
   const float* bias;
@@ -248,7 +256,7 @@ struct BOperands {
 // Epi: float operator()(int z, int row, int col, int acc0, int acc1) const
 // handles columns col and col + 1 of one row (col is even) and returns what
 // the row-max reduction takes (when Epi::kRowMax, it then receives
-// row_max(row, m)). Epi::kInterleaveB: see the top of this file.
+// row_max(row, m)).
 template <class Epi>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, int N,
@@ -277,12 +285,7 @@ gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, in
       const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
       const int n = n0 + r;
       const bool ok = n < N && k0 + c < K;
-      const int8_t* src;
-      if constexpr (Epi::kInterleaveB) {
-        src = bs.ptr[n & 1] + (n >> 1) * bs.ld + k0 + c;
-      } else {
-        src = B + n * bs.ld + k0 + c;
-      }
+      const int8_t* src = B + n * bs.ld + k0 + c;
       cp_async16(sB + r * SROW + c, ok ? src : B, ok);
     }
   };

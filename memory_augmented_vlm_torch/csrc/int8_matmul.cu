@@ -50,7 +50,6 @@ int run(const void* x, const int8_t* w, const float* sw, const float* bias, void
 // acc -> fp32 -> bf16
 struct Int32ToBf16Epi {
   static constexpr bool kRowMax = false;
-  static constexpr bool kInterleaveB = false;
   __nv_bfloat16* out;
   int N;
 

@@ -27,19 +27,29 @@
 // memory, and a 64-row fp32 intermediate alone is 1.1 MB. So the block is
 // split at the two points where a whole row must be known:
 //   1. (LayerNorm +) row quant of the input -> int8 scratch (one warp per
-//      row);
-//   2. fc1 GEMM; the epilogue applies the scales, bias and tanh GELU,
-//      stores h in fp32 and folds |h| into a per-row max with atomicMax on
-//      the float's bits (non-negative floats order as their int bits);
-//   3. h -> int8 with its row's scale, one warp per row;
-//   4. fc2 GEMM over the I-deep codes (4304, zero-filled past it to the
-//      64-byte step) whose epilogue adds b2 (and the residual).
-// h stays fp32 until the requant: rounding it first would change the
-// codes. The cost is the fp32 intermediate's round trip (~0.8 GB written
-// and read at 46656 x 4304), which the TPU design avoids and a later
-// version can cut by recomputing fc1 instead.
+//      row), which also zeroes h's row maxima;
+//   2. fc1 on the Hopper GEMM core (int8_gemm_sm90.cuh: TMA ring, s8
+//      wgmma from shared memory) in 128 x 128 tiles, two blocks an SM, so
+//      that one block's epilogue (its tanh GELU costs about what the
+//      1152-deep products do) runs beside the other's products. The
+//      epilogue applies the scales, bias and tanh GELU, stores h in fp32
+//      in row-contiguous vectors, and folds |h| into a per-row max, one
+//      atomicMax on the float's bits per (row, tile) (non-negative floats
+//      order as their int bits);
+//   3. h -> int8 with its row's scale, one warp per row (requant_kernel);
+//   4. fc2 on the same core over the I-deep codes (4304: TMA zero-fills
+//      the last 128-byte step past it), in tiles of 128 x 256 (or 128 x
+//      128 for a grid of under four waves), whose epilogue adds b2 (and
+//      the residual).
+// h stays fp32 until the requant: rounding it first (to bf16, say) would
+// change the codes wherever a bf16 step crosses a code boundary, not only
+// at ties. The cost is the fp32 intermediate's round trip (~0.8 GB written
+// and read at 46656 x 4304), which the TPU design avoids; two ways around
+// it measured slower on the H100 (PERF.md): recomputing fc1 (a pass for
+// the row maxima, a second that writes codes), and requantizing each
+// 128-row block in the fc1 block that finishes it last, from L2.
 
-#include "int8_gemm.cuh"
+#include "int8_gemm_sm90.cuh"
 
 namespace {
 
@@ -53,27 +63,27 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
 }
 
+// fc1 + GELU: h in fp32 and its row max
 struct Fc1Epi {
   static constexpr bool kRowMax = true;
-  static constexpr bool kInterleaveB = false;
+  static constexpr bool kPaired = false;
   const float* sx;
   const float* s1;
   const float* b1;
   float* h;
-  int* hmax_bits;
+  float* hmax;
   int I;
 
-  __device__ __forceinline__ float operator()(int, int row, int col, int a0, int a1) const {
-    const float x = sx[row];
-    const float g0 = gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(a0), x), s1[col]),
-                                         b1[col]));
-    const float g1 = gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(a1), x),
-                                                   s1[col + 1]), b1[col + 1]));
-    *reinterpret_cast<float2*>(h + static_cast<long long>(row) * I + col) = make_float2(g0, g1);
-    return fmaxf(fabsf(g0), fabsf(g1));
+  __device__ __forceinline__ float row_scale(int row) const { return sx[row]; }
+  __device__ __forceinline__ float value(float x, int col, int a) const {
+    return gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(a), x), s1[col]),
+                               b1[col]));
   }
   __device__ __forceinline__ void row_max(int row, float m) const {
-    atomicMax(hmax_bits + row, __float_as_int(m));
+    atomicMax(reinterpret_cast<int*>(hmax) + row, __float_as_int(m));
+  }
+  __device__ __forceinline__ void store4(int row, int col, float4 v) const {
+    *reinterpret_cast<float4*>(h + static_cast<long long>(row) * I + col) = v;
   }
 };
 
@@ -86,21 +96,18 @@ int run(const void* x, const float* ln_w, const float* ln_b, const int8_t* w1,
         int M, int K, int I, float eps, cudaStream_t st) {
   int rc = 0;
   if constexpr (kBlock) {
-    rc = launch_ln_rowquant<T>(x, ln_w, ln_b, xq, sx, M, K, eps, st);
+    rc = launch_ln_rowquant<T>(x, ln_w, ln_b, xq, sx, M, K, eps, st, hmax);
   } else {
-    launch_rowquant<T, false>(x, nullptr, xq, sx, M, K, 0.f, st);
+    launch_rowquant<T, false>(x, nullptr, xq, sx, M, K, 0.f, st, hmax);
   }
   if (rc != 0) return rc;
-  cudaMemsetAsync(hmax, 0, sizeof(float) * M, st);
-  Fc1Epi fc1{sx, s1, b1, h, reinterpret_cast<int*>(hmax), I};
-  BOperands b1s{{w1, nullptr, nullptr}, K};
-  rc = launch_gemm(xq, K, b1s, 1, M, I, K, fc1, st);
+  rc = int8h::launch_gemm_sm90<1, 2>(xq, K, w1, w1, K, I, M, I, K,
+                                     Fc1Epi{sx, s1, b1, h, hmax, I}, st);
   if (rc != 0) return rc;
   launch_requant(h, hmax, hq, sh, M, I, st);
-  RowScaleEpi<T> fc2{sh, s2, b2, kBlock ? static_cast<const T*>(x) : nullptr,
-                     static_cast<T*>(out), K};
-  BOperands b2s{{w2, nullptr, nullptr}, I};
-  return launch_gemm(hq, I, b2s, 1, M, K, I, fc2, st);
+  int8h::RowScaleOut<T> fc2{sh, s2, b2, kBlock ? static_cast<const T*>(x) : nullptr,
+                            static_cast<T*>(out), K};
+  return int8h::launch_gemm_sm90_by_shape(hq, I, w2, I, K, M, K, I, fc2, st);
 }
 
 template <bool kBlock>
@@ -126,8 +133,8 @@ int dispatch(int dtype, const void* x, const void* ln_w, const void* ln_b, const
 
 // dtype: 0 = bf16 hidden, 1 = fp32 hidden. w1 is (K, I) and w2 (I, K), both
 // column-major. xq (M, K) int8, h (M, I) fp32, hq (M, I) int8 and sx, hmax,
-// sh (M,) fp32 are scratch. Returns 0, a cudaError_t, -2 (dtype) or -3
-// (shape).
+// sh (M,) fp32 are scratch. Returns 0, a cudaError_t, -2 (dtype), -3
+// (shape) or -4 (a tensor map refused).
 extern "C" int mlp_int8(int dtype, const void* hidden, const void* ln_w, const void* ln_b,
                         const void* w1, const void* s1, const void* b1,
                         const void* w2, const void* s2, const void* b2, void* out,

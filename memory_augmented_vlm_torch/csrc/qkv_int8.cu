@@ -31,7 +31,6 @@ using namespace int8k;
 
 struct QkvEpi {
   static constexpr bool kRowMax = false;
-  static constexpr bool kInterleaveB = false;
   const float* sx;
   const float* scale[3];
   const float* bias[3];

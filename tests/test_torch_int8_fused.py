@@ -206,6 +206,41 @@ def test_fused_swiglu_matches_pallas_interpret(m, dtype):
     _assert_close_but_for_flips(got, want, flip=2e-2)
 
 
+@pytest.mark.parametrize("m", [1, 47, 65, 129])
+@pytest.mark.parametrize("kernel", ["fused_mlp_block_int8", "fused_mlp_int8",
+                                    "fused_swiglu_block_int8"])
+def test_int8_mlp_plain_versions_match_pallas_at_the_gemm_core_edges(kernel, m):
+    """On the card the Hopper GEMM core of #4, #6 and #7 is held to these
+    plain versions at rows around its 64-row warpgroup and 128-row block
+    edges, and at K = 144, I = 272 (multiples of 16, not of its 128-byte
+    k-step); here the plain versions meet JAX's kernels (interpret mode) at
+    the same shapes."""
+    k, i = 144, 272
+    rng = np.random.default_rng(26 + m)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if kernel == "fused_swiglu_block_int8":
+        x[m // 2] = 0.0
+        jargs, targs = _swiglu_args(rng, k, i)
+        want = jmlp.fused_swiglu_block_int8(jnp.asarray(x), *jargs, block_m=32, interpret=True)
+        got = swiglu_int8.fused_swiglu_block_int8(_t(x), *targs)
+        torch.testing.assert_close(got[m // 2], _t(x)[m // 2], rtol=0, atol=0)
+        flip = 2e-2
+    else:
+        (j1, t1), (j2, t2) = _int8_weight(rng, k, i), _int8_weight(rng, i, k)
+        if kernel == "fused_mlp_int8":
+            want = jmlp.fused_mlp_int8(jnp.asarray(x), *j1, *j2, block_m=32, interpret=True)
+            got = mlp_int8.fused_mlp_int8(_t(x), *t1, *t2)
+        else:
+            lw = (1.0 + rng.standard_normal(k) * 0.05).astype(np.float32)
+            lb = (rng.standard_normal(k) * 0.02).astype(np.float32)
+            want = jmlp.fused_mlp_block_int8(jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lb),
+                                             *j1, *j2, block_m=32, interpret=True)
+            got = mlp_int8.fused_mlp_block_int8(_t(x), _t(lw), _t(lb), *t1, *t2)
+        flip = 4e-3
+    assert got.shape == (m, k) and bool(torch.isfinite(got).all())
+    _assert_close_but_for_flips(got, want, flip=flip)
+
+
 def test_silu_f32_is_silu():
     g = torch.linspace(-100, 100, 4001)  # exp(-g) overflows to inf below -88: 0, not NaN
     got = swiglu_int8.silu_f32(g)
@@ -529,6 +564,8 @@ def _fault1_case(kernel):
             args, fn, base = (args[0], *args[3:]), mlp_int8.fused_mlp_int8_reference, None
         with chip_smoke._erf_gelu():
             controls = {"erf GELU": fn(*args)}
+        with chip_smoke._h_in_bf16():
+            controls["h rounded to bf16 before the requant"] = fn(*args)
         return fn(*args), base, controls
     if kernel == "int8_matmul":
         x = torch.randn((256, 1152), generator=gen).to(torch.bfloat16)
@@ -550,6 +587,8 @@ def _fault1_case(kernel):
 
 
 FAULT1_CONTROLS = [("fused_mlp_block_int8", "erf GELU"), ("fused_mlp_int8", "erf GELU"),
+                   ("fused_mlp_block_int8", "h rounded to bf16 before the requant"),
+                   ("fused_mlp_int8", "h rounded to bf16 before the requant"),
                    ("int8_matmul", "quant.int8_linear"),
                    ("flash_attention_out_proj_int8", "merge -> quant.int8_linear + residual"),
                    ("flash_attention_out_proj_int8", "attention quantized per (row, head)"),
@@ -557,7 +596,8 @@ FAULT1_CONTROLS = [("fused_mlp_block_int8", "erf GELU"), ("fused_mlp_int8", "erf
                    ("fused_qkv_int8", "LayerNorm -> quant.int8_linear (bias after the bf16 cast)"),
                    ("fused_qkv_int8", "RMS normalisation in place of the LayerNorm"),
                    ("fused_swiglu_block_int8", "the unfused _mlp_half"),
-                   ("fused_swiglu_block_int8", "GELU in place of SiLU")]
+                   ("fused_swiglu_block_int8", "GELU in place of SiLU"),
+                   ("fused_swiglu_block_int8", "h rounded to bf16 before the requant")]
 
 
 @pytest.mark.parametrize("kernel,control", FAULT1_CONTROLS)
