@@ -600,12 +600,21 @@ def phase_int8_kernels():
         "library_call": "torch._int_mm (46656x1152 @ 1152x3456): the matmul share only",
         "bound_ms": bound, "bound_by": by}
     del args, out, xq, w_qkv
-    for bb, ss, dtype in ((2, 150, torch.bfloat16), (2, 150, torch.float32), (1, 5, torch.float32)):
-        args = _qkv_args(gen, bb, ss, h, dtype, dev)
-        out = qkv_int8.fused_qkv_int8(*args, nh=nh)
+    # ragged rows against the 128-row tiles; H 144 (K and N ragged against
+    # the 128-byte step and the tiles) with head dim 72, and with head dim 18
+    # (four columns of a store may open the next head)
+    edges = [(2, 150, h, nh, torch.bfloat16), (2, 150, h, nh, torch.float32),
+             (1, 5, h, nh, torch.float32)]
+    edges += [(1, rr, h, nh, dtype) for rr in (1, 47, 63, 65, 129)
+              for dtype in (torch.bfloat16, torch.float32)]
+    edges += [(1, 129, 144, nhh, dtype) for nhh in (2, 8)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for bb, ss, hh, nhh, dtype in edges:
+        args = _qkv_args(gen, bb, ss, hh, dtype, dev)
+        out = qkv_int8.fused_qkv_int8(*args, nh=nhh)
         torch.cuda.synchronize()
-        ref = qkv_int8.fused_qkv_int8_reference(*args, nh=nh)
-        errs += [_hold_bitwise(f"qkv_edge_{n}", o, r, hidden=list(args[0].shape),
+        ref = qkv_int8.fused_qkv_int8_reference(*args, nh=nhh)
+        errs += [_hold_bitwise(f"qkv_edge_{n}", o, r, hidden=list(args[0].shape), nh=nhh,
                                dtype=str(dtype))["max_abs_err"] for n, o, r in zip("qkv", out, ref)]
     rows["qkv"]["max_abs_err"] = max(errs)
 
@@ -1302,11 +1311,16 @@ def phase_int8_attn_kernels():
         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     del args, out, xq, qb, kb, vb
     torch.cuda.empty_cache()
-    # valid < S, nh 2 / 8 / 16 (head dims 128, 32, 72), fp32 hidden, valid 0
+    # valid < S, nh 2 / 4 / 8 / 16 (head dims 128, 64, 32, 72), fp32 hidden,
+    # valid 0, rows ragged against the 128-row tiles
     for bb, ss, hh, nhh, vv, dtype in ((2, 150, 1152, 16, 77, torch.bfloat16),
                                        (2, 150, 256, 2, 100, torch.bfloat16),
+                                       (2, 150, 256, 4, 120, torch.bfloat16),
                                        (2, 150, 256, 8, 150, torch.float32),
-                                       (1, 97, 1152, 16, 0, torch.float32)):
+                                       (1, 97, 1152, 16, 0, torch.float32),
+                                       (1, 1, 1152, 16, 1, torch.bfloat16),
+                                       (1, 65, 1152, 16, 65, torch.bfloat16),
+                                       (1, 129, 1152, 16, 129, torch.bfloat16)):
         args = _block_args(gen, bb, ss, hh, dtype, dev)
         out = attn_block.fused_attn_block_int8(*args, nh=nhh, valid=vv)
         torch.cuda.synchronize()

@@ -112,8 +112,7 @@ int out_proj(const void* attn, const void* hidden, const int8_t* wo, const float
              cudaStream_t st) {
   int8k::launch_rowquant<__nv_bfloat16, false>(attn, nullptr, xq, sx, M, H, 0.f, st);
   int8k::RowScaleEpi<T> epi{sx, so, bo, static_cast<const T*>(hidden), static_cast<T*>(out), H};
-  int8k::BOperands bs{{wo, nullptr, nullptr}, H};
-  return int8k::launch_gemm(xq, H, bs, 1, M, H, H, epi, st);
+  return int8k::launch_gemm(xq, H, wo, H, M, H, H, epi, st);
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 // mlp_int8.cu, swiglu_int8.cu, int8_matmul.cu and the out-projection of
 // flash_merge.cu): per-row quantization passes (plain, or after a LayerNorm
 // or an RMSNorm), the requantization of an fp32 intermediate, and an int8 x
-// int8 -> int32 tensor-core GEMM whose epilogue is a functor.
+// int8 -> int32 mma.sync GEMM whose epilogue is a functor, which only
+// int8_matmul.cu and flash_merge.cu still run.
 //
 // Rounding follows the JAX kernels: LayerNorm in fp32 with a two-pass
 // biased variance, s = max(|row|, 1e-12) / 127, q = clip(rint(x * (1/s)),
@@ -17,9 +18,8 @@
 // tile 128 x 128, 8 warps of 64 x 32, K in 64-byte steps through a
 // three-stage cp.async ring; ragged M, N and K edges are zero-filled on
 // load (K a multiple of 16, so a 16-byte chunk is all in or all out) and
-// masked in the epilogue. blockIdx.z selects one of up to three B matrices
-// (q, k, v share one A). The int8 MLP half-blocks run on the Hopper core of
-// int8_gemm_sm90.cuh instead.
+// masked in the epilogue. The int8 MLP half-blocks and the q/k/v
+// projections run on the Hopper core of int8_gemm_sm90.cuh instead.
 
 #pragma once
 
@@ -216,7 +216,7 @@ struct RowScaleEpi {
   T* out;
   int N;
 
-  __device__ __forceinline__ float operator()(int, int row, int col, int a0, int a1) const {
+  __device__ __forceinline__ float operator()(int row, int col, int a0, int a1) const {
     const float x = sx[row];
     const long long off = static_cast<long long>(row) * N + col;
     float y0 = __fmul_rn(__fmul_rn(static_cast<float>(a0), x), s[col]);
@@ -248,24 +248,17 @@ constexpr int SROW = BK + 16;                       // bytes; the skew keeps fra
 constexpr int STAGE_BYTES = (BM + BN) * SROW;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
 
-struct BOperands {
-  const int8_t* ptr[3];
-  long long ld;  // bytes between two of B's N rows
-};
-
-// Epi: float operator()(int z, int row, int col, int acc0, int acc1) const
+// Epi: float operator()(int row, int col, int acc0, int acc1) const
 // handles columns col and col + 1 of one row (col is even) and returns what
 // the row-max reduction takes (when Epi::kRowMax, it then receives
 // row_max(row, m)).
 template <class Epi>
 __global__ void __launch_bounds__(THREADS)
-gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, int N,
-            int K, const Epi epi) {
+gemm_kernel(const int8_t* __restrict__ A, long long lda, const int8_t* __restrict__ B,
+            long long ldb, int M, int N, int K, const Epi epi) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int z = blockIdx.z;
-  const int8_t* __restrict__ B = bs.ptr[z];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
   const int nk = (K + BK - 1) / BK;
@@ -285,7 +278,7 @@ gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, in
       const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
       const int n = n0 + r;
       const bool ok = n < N && k0 + c < K;
-      const int8_t* src = B + n * bs.ld + k0 + c;
+      const int8_t* src = B + n * ldb + k0 + c;
       cp_async16(sB + r * SROW + c, ok ? src : B, ok);
     }
   };
@@ -345,7 +338,7 @@ gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, in
       for (int ni = 0; ni < NI; ++ni) {
         const int col = n0 + wn0 + ni * 8 + 2 * t;
         if (row < M && col < N) {
-          rmax = fmaxf(rmax, epi(z, row, col, acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]));
+          rmax = fmaxf(rmax, epi(row, col, acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]));
         }
       }
       if constexpr (Epi::kRowMax) {
@@ -357,17 +350,18 @@ gemm_kernel(const int8_t* __restrict__ A, long long lda, BOperands bs, int M, in
   }
 }
 
-// Requires K % 16 == 0 and N even (callers check); returns 0 or -3.
+// B is stored as N rows of K, ldb bytes apart. Requires K % 16 == 0 and N
+// even (callers check); returns 0 or -3.
 template <class Epi>
-int launch_gemm(const int8_t* A, long long lda, BOperands bs, int nb, int M, int N, int K,
-                const Epi& epi, cudaStream_t stream) {
-  if (K % 16 || N % 2 || lda % 16 || bs.ld % 16 || nb < 1 || nb > 3) return -3;
+int launch_gemm(const int8_t* A, long long lda, const int8_t* B, long long ldb, int M, int N,
+                int K, const Epi& epi, cudaStream_t stream) {
+  if (K % 16 || N % 2 || lda % 16 || ldb % 16) return -3;
   const int mt = (M + BM - 1) / BM;
   if (mt > 65535) return -3;
   auto* kern = gemm_kernel<Epi>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  dim3 grid((N + BN - 1) / BN, mt, nb);
-  kern<<<grid, THREADS, SMEM_BYTES, stream>>>(A, lda, bs, M, N, K, epi);
+  dim3 grid((N + BN - 1) / BN, mt);
+  kern<<<grid, THREADS, SMEM_BYTES, stream>>>(A, lda, B, ldb, M, N, K, epi);
   return 0;
 }
 

@@ -1,6 +1,8 @@
 // The Hopper int8 GEMM core of the int8 MLP half-blocks (mlp_int8.cu,
-// swiglu_int8.cu): C(M, N) = A(M, K) B(K, N) in int32, exact, handed to a
-// functor epilogue, with an optional per-row max of |epilogue value|.
+// swiglu_int8.cu) and of the q/k/v projections (qkv_int8.cu): C(M, N) =
+// A(M, K) B(K, N) in int32, exact, handed to a functor epilogue, with an
+// optional per-row max of |epilogue value|. Its epilogue (store_tile) also
+// serves attn_block.cu's out-projection, whose accumulators are fp32.
 //
 // It computes what int8k::gemm_kernel (int8_gemm.cuh) computes, on
 // Hopper's own tools: a producer warp issues TMA loads of A and B tiles
@@ -17,7 +19,11 @@
 // column blocks of one B; a paired GEMM (Epi::kPaired) takes the same
 // column block [n0, n0 + HN) of two B matrices over the same A tile, so a
 // thread holds both products of a (row, column) in equal registers (the
-// gate and the up projection of a SwiGLU; no interleaved weight copy).
+// gate and the up projection of a SwiGLU; no interleaved weight copy). A
+// stacked GEMM runs up to three plain GEMMs over the same A in one grid
+// (q, k and v from one set of LayerNorm codes): blockIdx.x picks the B
+// matrix and the column tile, matrix-major, so the blocks of one row tile
+// run together and read their A tile from L2 after the first.
 // MINB = 2 runs two blocks an SM (at most 128 B rows, 64 accumulators a
 // thread, so that ptxas keeps a thread within 112 registers), so one
 // block's epilogue runs beside the other's products.
@@ -27,17 +33,13 @@
 // previous one's group (wgmma.wait_group 1) before it releases that stage:
 // two waits in the source, and cuobjdump -sass shows two WARPGROUP.DEPBARs.
 //
-// Epilogue: the accumulators go to shared memory as they lie (the ring, free
-// by then; a thread of warp w of its warpgroup holds rows 16 w + g and + 8,
-// columns 8 j + 2 t and + 1, g = lane / 4, t = lane % 4), so a warp then
-// reads its 16 rows back row by row, four columns a lane (two rows at a
-// time for a 64-column tile): the functor maps each int32 to an fp32 value
-// (with the row's factor and the column's scales, read by neighbouring
-// lanes from neighbouring addresses), |value| is folded over the row by
-// the warp before one atomicMax per (row, tile), and the values leave in
-// row-contiguous 16-byte stores, 512 bytes a warp (Epi::store4). Nothing of the epilogue holds the accumulators past their
-// first store, which keeps the two-half kernels within ptxas's 168
-// registers (a block of 288 threads) without spills.
+// Epilogue (store_tile): the accumulators go to shared memory as they lie
+// (the ring, free by then), and a warp reads its 16 rows back row by row,
+// four columns a lane, through the functor, leaving in row-contiguous
+// stores, 512 bytes a warp (Epi::store4). Nothing of the epilogue holds
+// the accumulators past their first store, which keeps the two-half
+// kernels within ptxas's 168 registers (a block of 288 threads) without
+// spills.
 //
 // Epi:
 //   static constexpr bool kRowMax, kPaired;
@@ -46,7 +48,8 @@
 //   float value(float x, int col, int a, int b) const;  // kPaired: a of B0, b of B1
 //   void row_max(int row, float m) const;               // when kRowMax
 //   void store4(int row, int col, float4 v) const;      // columns col .. col + 3
-// with col < n_out (the epilogue's columns: N, or B's rows when paired).
+// with col < n_out (the epilogue's columns: N, or B's rows when paired; z
+// * n_out + c for matrix z of a stacked GEMM).
 
 #pragma once
 
@@ -89,11 +92,103 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers * 128) : "memory");
 }
 
+template <typename Acc>
+struct Acc4;
+template <>
+struct Acc4<int> {
+  using type = int4;
+};
+template <>
+struct Acc4<float> {
+  using type = float4;
+};
+__device__ __forceinline__ int2 pair(int a, int b) { return make_int2(a, b); }
+__device__ __forceinline__ float2 pair(float a, float b) { return make_float2(a, b); }
+
+// The epilogue of a block's tile of 128 rows from m0 and OW columns from c0,
+// its accumulators (int32 products, or fp32 sums) in the registers where
+// wgmma left them. The caller has synchronised the consumers, so the ring
+// is free: the accumulators go to it as they lie (a thread of warp w of its
+// warpgroup holds rows 16 w + g and + 8, columns 8 j + 2 t and + 1, g =
+// lane / 4, t = lane % 4), and a warp reads its 16 rows back row by row,
+// four columns a lane (two rows at a time for a 64-column tile): the
+// functor maps each value to an fp32 output (with the row's factor and the
+// column's scales, read by neighbouring lanes from neighbouring addresses),
+// |value| is folded over the row by the warp before one atomicMax per (row,
+// tile), and the values leave in row-contiguous stores (Epi::store4). The
+// functor sees column zc + c0 + c (zc: the offset of a stacked GEMM's
+// matrix, 0 otherwise).
+template <int NHALF, int HN, int SROW, class Epi, typename Acc>
+__device__ __forceinline__ void store_tile(const Acc (&acc)[NHALF][HN / 2], Acc* staged,
+                                           const Epi& epi, int m0, int c0, int zc, int M,
+                                           int n_out) {
+  constexpr int OW = Epi::kPaired ? HN : NHALF * HN;  // output columns of a tile
+  using V2 = decltype(pair(Acc(), Acc()));
+  using V4 = typename Acc4<Acc>::type;
+  const int warp = sm90::warp_index(), lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  Acc* st = staged + warp * 16 * SROW;
+#pragma unroll
+  for (int h = 0; h < NHALF; ++h) {
+#pragma unroll
+    for (int i = 0; i < HN / 2; i += 2) {
+      const int row = g + 8 * ((i >> 1) & 1), col = h * HN + 8 * (i >> 2) + 2 * t;
+      *reinterpret_cast<V2*>(st + row * SROW + col) = pair(acc[h][i], acc[h][i + 1]);
+    }
+  }
+  __syncwarp();
+  // LPR lanes take a row, four columns each per step, RPP rows at a time;
+  // the rows are unrolled so that one row's loads and maths overlap the
+  // next one's
+  constexpr int LPR = OW >= 128 ? 32 : OW / 4, RPP = 32 / LPR;
+  const int sub = lane / LPR, ln = lane % LPR;
+  const int row_base = m0 + 64 * wg + 16 * wl;
+#pragma unroll
+  for (int r = sub; r < 16; r += RPP) {
+    const int row = row_base + r;
+    float mx = 0.f;
+    if (row < M) {
+      const float x = epi.row_scale(row);
+#pragma unroll
+      for (int c = 4 * ln; c < OW; c += 4 * LPR) {
+        if (c0 + c < n_out) {  // n_out % 16 == 0: four columns or none
+          const int col = zc + c0 + c;
+          const V4 a = *reinterpret_cast<const V4*>(st + r * SROW + c);
+          float4 v;
+          if constexpr (Epi::kPaired) {
+            const V4 b = *reinterpret_cast<const V4*>(st + r * SROW + HN + c);
+            v = make_float4(epi.value(x, col, a.x, b.x), epi.value(x, col + 1, a.y, b.y),
+                            epi.value(x, col + 2, a.z, b.z), epi.value(x, col + 3, a.w, b.w));
+          } else {
+            v = make_float4(epi.value(x, col, a.x), epi.value(x, col + 1, a.y),
+                            epi.value(x, col + 2, a.z), epi.value(x, col + 3, a.w));
+          }
+          if constexpr (Epi::kRowMax) {
+            mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+          }
+          epi.store4(row, col, v);
+        }
+      }
+    }
+    if constexpr (Epi::kRowMax) {  // over the row's LPR lanes
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      if (ln == 0 && row < M) epi.row_max(row, mx);
+    }
+  }
+}
+
+// blockIdx.x = z * tiles + column tile: a stacked GEMM (gridDim.x a multiple
+// of the column tiles) takes B matrix z of tm_b0, tm_b1, tm_b2 for both
+// halves; a paired one takes tm_b0 and tm_b1 as its halves.
 template <int NHALF, int HN, int MINB, class Epi>
 __global__ void __launch_bounds__(kThreads, MINB)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                  const __grid_constant__ CUtensorMap tm_b0,
-                 const __grid_constant__ CUtensorMap tm_b1, int M, int n_out, int K,
+                 const __grid_constant__ CUtensorMap tm_b1,
+                 const __grid_constant__ CUtensorMap tm_b2, int M, int n_out, int K,
                  const Epi epi) {
   using G = GemmShape<NHALF, HN, MINB>;
   static_assert(!Epi::kPaired || NHALF == 2, "a paired GEMM takes two B matrices");
@@ -103,7 +198,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
   const uint32_t base = (raw + 1023u) & ~1023u;
   int* staged = reinterpret_cast<int*>(smem_raw + (base - raw));
   const uint32_t full0 = base + G::STAGES * G::STAGE, empty0 = full0 + 8 * G::STAGES;
-  const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * OW;
+  const int tiles = (n_out + OW - 1) / OW;
+  const int z = blockIdx.x / tiles;
+  const int m0 = blockIdx.y * kBM, c0 = (blockIdx.x - z * tiles) * OW;
   const int nk = (K + kBK - 1) / kBK;
   const int warp = sm90::warp_index(), lane = threadIdx.x & 31;
 
@@ -118,6 +215,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
 
   if (warp == 4 * kConsumers) {  // the producer warp
     if (lane == 0) {
+      const CUtensorMap* bz = z == 0 ? &tm_b0 : z == 1 ? &tm_b1 : &tm_b2;
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % G::STAGES;
         const uint32_t a_tile = base + s * G::STAGE, full = full0 + 8 * s;
@@ -126,15 +224,16 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
         sm90::tma_load_2d(a_tile, &tm_a, full, kt * kBK, m0);
 #pragma unroll
         for (int h = 0; h < NHALF; ++h) {
-          sm90::tma_load_2d(a_tile + G::A_BYTES + h * G::HALF_BYTES, h == 0 ? &tm_b0 : &tm_b1,
-                            full, kt * kBK, Epi::kPaired ? c0 : c0 + h * HN);
+          sm90::tma_load_2d(a_tile + G::A_BYTES + h * G::HALF_BYTES,
+                            Epi::kPaired ? (h == 0 ? &tm_b0 : &tm_b1) : bz, full, kt * kBK,
+                            Epi::kPaired ? c0 : c0 + h * HN);
         }
       }
     }
     return;
   }
 
-  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2;
   auto release = [&](int s) {
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(empty0 + 8 * s);
@@ -175,72 +274,25 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
 
   // every product of both warpgroups is done: the ring is free for staging
   consumers_sync();
-  int* st = staged + warp * 16 * G::SROW;
-#pragma unroll
-  for (int h = 0; h < NHALF; ++h) {
-#pragma unroll
-    for (int i = 0; i < HN / 2; i += 2) {
-      const int row = g + 8 * ((i >> 1) & 1), col = h * HN + 8 * (i >> 2) + 2 * t;
-      *reinterpret_cast<int2*>(st + row * G::SROW + col) = make_int2(acc[h][i], acc[h][i + 1]);
-    }
-  }
-  __syncwarp();
-  // LPR lanes take a row, four columns each per step, RPP rows at a time;
-  // the rows are unrolled so that one row's loads and maths overlap the
-  // next one's
-  constexpr int LPR = OW >= 128 ? 32 : OW / 4, RPP = 32 / LPR;
-  const int sub = lane / LPR, ln = lane % LPR;
-  const int row_base = m0 + 64 * wg + 16 * wl;
-#pragma unroll
-  for (int r = sub; r < 16; r += RPP) {
-    const int row = row_base + r;
-    float mx = 0.f;
-    if (row < M) {
-      const float x = epi.row_scale(row);
-#pragma unroll
-      for (int c = 4 * ln; c < OW; c += 4 * LPR) {
-        if (c0 + c < n_out) {  // n_out % 16 == 0: four columns or none
-          const int4 a = *reinterpret_cast<const int4*>(st + r * G::SROW + c);
-          float4 v;
-          if constexpr (Epi::kPaired) {
-            const int4 b = *reinterpret_cast<const int4*>(st + r * G::SROW + HN + c);
-            v = make_float4(epi.value(x, c0 + c, a.x, b.x), epi.value(x, c0 + c + 1, a.y, b.y),
-                            epi.value(x, c0 + c + 2, a.z, b.z),
-                            epi.value(x, c0 + c + 3, a.w, b.w));
-          } else {
-            v = make_float4(epi.value(x, c0 + c, a.x), epi.value(x, c0 + c + 1, a.y),
-                            epi.value(x, c0 + c + 2, a.z), epi.value(x, c0 + c + 3, a.w));
-          }
-          if constexpr (Epi::kRowMax) {
-            mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
-          }
-          epi.store4(row, c0 + c, v);
-        }
-      }
-    }
-    if constexpr (Epi::kRowMax) {  // over the row's LPR lanes
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      if (ln == 0 && row < M) epi.row_max(row, mx);
-    }
-  }
+  store_tile<NHALF, HN, G::SROW>(acc, staged, epi, m0, c0, z * n_out, M, n_out);
 }
 
-// A (M, K) int8 row-major with rows lda bytes apart; B0 and B1 (nb rows of
-// K, rows ldb bytes apart; B1 is read only by a paired or two-half GEMM
-// and may equal B0). n_out: the epilogue's columns (N of a plain GEMM, nb
-// of a paired one). Needs K, lda, ldb and n_out multiples of 16 and
-// 16-byte aligned bases; returns 0, a cudaError_t, -3 (shape) or -4 (a
-// tensor map refused).
+// A (M, K) int8 row-major with rows lda bytes apart; B[0..nz) (nb rows of
+// K each, rows ldb bytes apart). nz = 1: one GEMM; a paired or two-half
+// GEMM reads B[0] and B[1] (B[1] may equal B[0]). nz = 2 or 3: a stacked
+// GEMM, nz plain GEMMs over the same A in one grid, matrix z's columns seen
+// by the epilogue as z * n_out + c. n_out: the epilogue's columns of one
+// matrix (N of a plain GEMM, nb of a paired one). Needs K, lda, ldb and
+// n_out multiples of 16 and 16-byte aligned bases; returns 0, a
+// cudaError_t, -3 (shape) or -4 (a tensor map refused).
 template <int NHALF, int MINB = 1, int HN = 128, class Epi>
-int launch_gemm_sm90(const int8_t* A, long long lda, const int8_t* B0, const int8_t* B1,
-                     long long ldb, int nb, int M, int n_out, int K, const Epi& epi,
-                     cudaStream_t stream) {
+int launch_gemm_sm90_stacked(const int8_t* A, long long lda, const int8_t* const* B, int nz,
+                             long long ldb, int nb, int M, int n_out, int K, const Epi& epi,
+                             cudaStream_t stream) {
   using G = GemmShape<NHALF, HN, MINB>;
   constexpr int OW = Epi::kPaired ? HN : NHALF * HN;
   if (M < 1 || K < 16 || K % 16 || n_out % 16 || lda % 16 || ldb % 16 || nb < 1) return -3;
+  if (nz < 1 || nz > 3 || (nz > 1 && Epi::kPaired)) return -3;
   const int mt = (M + kBM - 1) / kBM;
   if (mt > 65535) return -3;
   // {K, rows} int8 maps read in boxes of 128 bytes by 128 (A) or HN (B)
@@ -251,21 +303,36 @@ int launch_gemm_sm90(const int8_t* A, long long lda, const int8_t* B0, const int
   const cuuint64_t astride[1] = {(cuuint64_t)lda};
   const cuuint64_t bdims[2] = {(cuuint64_t)K, (cuuint64_t)nb};
   const cuuint64_t bstride[1] = {(cuuint64_t)ldb};
-  CUtensorMap ma, mb0, mb1;
+  CUtensorMap ma, mb[3];
   if (!sm90::encode_map(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, A, adims, astride, abox,
-                        CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !sm90::encode_map(&mb0, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, B0, bdims, bstride, bbox,
-                        CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !sm90::encode_map(&mb1, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, B1, bdims, bstride, bbox,
                         CU_TENSOR_MAP_SWIZZLE_128B)) {
     return sm90::kTmaRejected;
+  }
+  const int nmaps = nz > 1 ? nz : 2;
+  for (int i = 0; i < 3; ++i) {
+    if (!sm90::encode_map(&mb[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, B[i < nmaps ? i : 0],
+                          bdims, bstride, bbox, CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return sm90::kTmaRejected;
+    }
   }
   const auto kern = gemm_sm90_kernel<NHALF, HN, MINB, Epi>;
   const int rc = sm90::set_smem(kern, G::SMEM);
   if (rc != 0) return rc;
-  kern<<<dim3((n_out + OW - 1) / OW, mt), kThreads, G::SMEM, stream>>>(ma, mb0, mb1, M, n_out,
-                                                                       K, epi);
+  const int tiles = (n_out + OW - 1) / OW;
+  kern<<<dim3(nz * tiles, mt), kThreads, G::SMEM, stream>>>(ma, mb[0], mb[1], mb[2], M, n_out,
+                                                            K, epi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One GEMM over B0 (and B1, which a paired or two-half GEMM reads and which
+// may equal B0): launch_gemm_sm90_stacked with nz = 1.
+template <int NHALF, int MINB = 1, int HN = 128, class Epi>
+int launch_gemm_sm90(const int8_t* A, long long lda, const int8_t* B0, const int8_t* B1,
+                     long long ldb, int nb, int M, int n_out, int K, const Epi& epi,
+                     cudaStream_t stream) {
+  const int8_t* const b[2] = {B0, B1};
+  return launch_gemm_sm90_stacked<NHALF, MINB, HN>(A, lda, b, 1, ldb, nb, M, n_out, K, epi,
+                                                   stream);
 }
 
 // A plain GEMM in 128 x 256 tiles where the grid holds at least four waves

@@ -43,8 +43,7 @@ int run(const void* x, const int8_t* w, const float* sw, const float* bias, void
         int8_t* xq, float* sx, int M, int N, int K, cudaStream_t st) {
   launch_rowquant<T, false>(x, nullptr, xq, sx, M, K, 0.f, st);
   RowScaleEpi<T> epi{sx, sw, bias, nullptr, static_cast<T*>(out), N};
-  BOperands bs{{w, nullptr, nullptr}, K};
-  return launch_gemm(xq, K, bs, 1, M, N, K, epi, st);
+  return launch_gemm(xq, K, w, K, M, N, K, epi, st);
 }
 
 // acc -> fp32 -> bf16
@@ -53,7 +52,7 @@ struct Int32ToBf16Epi {
   __nv_bfloat16* out;
   int N;
 
-  __device__ __forceinline__ float operator()(int, int row, int col, int a0, int a1) const {
+  __device__ __forceinline__ float operator()(int row, int col, int a0, int a1) const {
     store2(out + static_cast<long long>(row) * N + col, __int2float_rn(a0), __int2float_rn(a1));
     return 0.f;
   }
@@ -82,9 +81,8 @@ extern "C" int int8_matmul(int dtype, const void* x, const void* w, const void* 
 extern "C" int int8_gemm_bf16(const void* x, const void* w, void* out, int M, int N, int K,
                               void* stream) {
   const Int32ToBf16Epi epi{static_cast<__nv_bfloat16*>(out), N};
-  const BOperands bs{{static_cast<const int8_t*>(w), nullptr, nullptr}, K};
-  const int rc = launch_gemm(static_cast<const int8_t*>(x), K, bs, 1, M, N, K, epi,
-                             static_cast<cudaStream_t>(stream));
+  const int rc = launch_gemm(static_cast<const int8_t*>(x), K, static_cast<const int8_t*>(w), K,
+                             M, N, K, epi, static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,47 +15,75 @@
 //
 // Design: two launches. (1) one warp per row computes the LayerNorm and the
 // row's int8 codes and scale into a (M, H) int8 scratch (1 byte per element,
-// read back by the GEMM from L2); (2) the int8 tensor-core GEMM of
-// int8_gemm.cuh with blockIdx.z picking Wq, Wk or Wv, whose epilogue
-// rescales, adds the bias, rounds to bf16 and scatters each column pair to
-// (b, head, s, d). The TPU kernel keeps the LN output in VMEM instead; here
-// the int8 round trip costs ~0.1 GB of traffic and keeps the GEMM a plain
-// tiled product. The head split is index arithmetic in the epilogue, so
-// head dims that are not tile multiples (72) need no padding.
+// read back by the GEMM from L2); (2) the three products on the Hopper int8
+// GEMM core of int8_gemm_sm90.cuh (TMA into an mbarrier ring, s8 wgmma from
+// shared memory) as one stacked GEMM: blockIdx.x picks Wq, Wk or Wv, each
+// read through its own tensor map (no (3H, H) copy), and the blocks of one
+// 128-row tile run together, so the codes are read from device memory once.
+// The epilogue rescales, adds the bias, rounds to bf16 and scatters four
+// columns at a time to (b, head, s, d): one 8-byte store when the head dim
+// is a multiple of 4 (the four columns then lie in one head), else two
+// 4-byte pairs, the second possibly in the next head. The TPU kernel keeps
+// the LN output in VMEM instead; here the int8 round trip costs ~0.1 GB of
+// traffic and keeps the GEMM a plain tiled product. The head split is index
+// arithmetic in the epilogue, so head dims that are not tile multiples (72)
+// need no padding. Tiles and launches: PERF.md §6.
 
-#include "int8_gemm.cuh"
+#include "int8_gemm_sm90.cuh"
 
 namespace {
 
 using namespace int8k;
 
-struct QkvEpi {
+// 128 x 128 tiles, two blocks an SM: on an H100 80GB HBM3 at 700 W the
+// products take 0.59 ms at the tower's shape, against 0.61 as three
+// launches, 0.76 at one block an SM and 0.82 in 128 x 256 tiles (1152
+// columns are 4.5 of them) (PERF.md §6).
+constexpr int kHalves = 1, kBlocksPerSM = 2;
+
+template <class P>
+__device__ __forceinline__ P pick(const P (&p)[3], int z) {
+  return z == 0 ? p[0] : z == 1 ? p[1] : p[2];
+}
+
+// Column c of the stacked product is column c - z H of projection z.
+struct QkvOut {
   static constexpr bool kRowMax = false;
+  static constexpr bool kPaired = false;
   const float* sx;
   const float* scale[3];
   const float* bias[3];
   __nv_bfloat16* out[3];
-  int S, NH, HD;
+  int H, S, NH, HD;
 
-  __device__ __forceinline__ float operator()(int z, int row, int col, int a0, int a1) const {
-    const float x = sx[row];
-    const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(a0), x), scale[z][col]),
-                               bias[z][col]);
-    const float y1 = __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(a1), x), scale[z][col + 1]),
-                               bias[z][col + 1]);
-    const int b = row / S, s = row - b * S;
-    const int head = col / HD, d = col - head * HD;  // HD is even: col, col+1 share a head
-    const long long off = ((static_cast<long long>(b) * NH + head) * S + s) * HD + d;
-    *reinterpret_cast<uint32_t*>(out[z] + off) = pack_bf16x2(y0, y1);
-    return 0.f;
+  __device__ __forceinline__ int which(int c) const { return c >= H ? (c >= 2 * H ? 2 : 1) : 0; }
+  __device__ __forceinline__ float row_scale(int row) const { return sx[row]; }
+  __device__ __forceinline__ float value(float x, int c, int a) const {
+    const int z = which(c), col = c - z * H;
+    return __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(a), x), pick(scale, z)[col]),
+                     pick(bias, z)[col]);
   }
   __device__ void row_max(int, float) const {}
+  __device__ __forceinline__ void store4(int row, int c, float4 v) const {
+    const int z = which(c), col = c - z * H;
+    const int b = row / S, s = row - b * S;
+    const int head = col / HD, d = col - head * HD;
+    __nv_bfloat16* o = pick(out, z) + ((static_cast<long long>(b) * NH + head) * S + s) * HD + d;
+    if (HD % 4 == 0) {  // d % 4 == 0: one aligned 8-byte store in one head
+      *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+    } else {  // HD % 4 == 2: columns col + 2, + 3 may open the next head
+      *reinterpret_cast<uint32_t*>(o) = pack_bf16x2(v.x, v.y);
+      __nv_bfloat16* o2 = d + 2 < HD ? o + 2 : o - d + static_cast<long long>(S) * HD;
+      *reinterpret_cast<uint32_t*>(o2) = pack_bf16x2(v.z, v.w);
+    }
+  }
 };
 
 }  // namespace
 
 // dtype: 0 = bf16 hidden, 1 = fp32 hidden. xq (B*S, H) int8 and sx (B*S,)
-// fp32 are scratch. Returns 0, a cudaError_t, -2 (dtype) or -3 (shape).
+// fp32 are scratch. Returns 0, a cudaError_t, -2 (dtype), -3 (shape) or -4
+// (a tensor map refused).
 extern "C" int qkv_int8(int dtype, const void* hidden, const void* ln_w, const void* ln_b,
                         const void* wq, const void* sq, const void* bq,
                         const void* wk, const void* sk, const void* bk,
@@ -80,25 +108,22 @@ extern "C" int qkv_int8(int dtype, const void* hidden, const void* ln_w, const v
     return -2;
   }
   if (rc != 0) return rc;
-  QkvEpi epi;
-  epi.sx = sxf;
   const void* scales[3] = {sq, sk, sv};
   const void* biases[3] = {bq, bk, bv};
   void* outs[3] = {q, k, v};
+  const int8_t* ws[3] = {static_cast<const int8_t*>(wq), static_cast<const int8_t*>(wk),
+                         static_cast<const int8_t*>(wv)};
+  QkvOut epi;
+  epi.sx = sxf;
   for (int i = 0; i < 3; ++i) {
     epi.scale[i] = static_cast<const float*>(scales[i]);
     epi.bias[i] = static_cast<const float*>(biases[i]);
     epi.out[i] = static_cast<__nv_bfloat16*>(outs[i]);
   }
+  epi.H = H;
   epi.S = S;
   epi.NH = NH;
   epi.HD = H / NH;
-  BOperands bs;
-  bs.ptr[0] = static_cast<const int8_t*>(wq);
-  bs.ptr[1] = static_cast<const int8_t*>(wk);
-  bs.ptr[2] = static_cast<const int8_t*>(wv);
-  bs.ld = H;
-  rc = launch_gemm(xq8, H, bs, 3, M, H, H, epi, st);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return int8h::launch_gemm_sm90_stacked<kHalves, kBlocksPerSM>(xq8, H, ws, 3, H, H, M, H, H,
+                                                                epi, st);
 }

@@ -45,12 +45,13 @@ from memory_augmented_vlm_torch.ops import cuda_lib, mlp_int8, quant, swiglu_int
 TOWER_ROWS, TOWER_H, TOWER_I = 64 * 729, 1152, 4304
 LM_ROWS, LM_H, LM_I = 9472, 896, 4864
 PREFILL_VALID = 9444  # the 64-frame request's spliced length
-KERNELS = re.compile(r"gemm|rowquant|requant")
+KERNELS = re.compile(r"gemm|rowquant|requant|oproj_heads")
 
 
 def ptxas_report(log: str) -> dict:
     """{entry: 'Used N registers, ...' and its spill line} for the int8 GEMM
-    and quant kernels, from nvcc's -Xptxas -v output."""
+    and quant kernels and #12's out-projection, from nvcc's -Xptxas -v
+    output."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -63,10 +64,10 @@ def ptxas_report(log: str) -> dict:
 
 
 def sass_report(lib: str) -> dict:
-    """{GEMM kernel: counts of its GMMA, WARPGROUP.ARRIVE and
-    WARPGROUP.DEPBAR instructions} in the library's SASS. A kernel that two
-    sources instantiate appears once per object; its first copy is
-    counted and `copies` says how many there are."""
+    """{GEMM kernel (and #12's out-projection): counts of its GMMA,
+    WARPGROUP.ARRIVE and WARPGROUP.DEPBAR instructions} in the library's
+    SASS. A kernel that two sources instantiate appears once per object;
+    its first copy is counted and `copies` says how many there are."""
     cuobjdump = os.path.join(os.path.dirname(cuda_lib.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -76,7 +77,7 @@ def sass_report(lib: str) -> dict:
         if m:
             fn = m.group(1)
             counted = None
-            if "gemm" in fn:
+            if "gemm" in fn or "oproj_heads" in fn:
                 if fn in counts:
                     counts[fn]["copies"] += 1
                 else:

@@ -17,8 +17,10 @@ heads' rescaled int32 products in order.
 
 Weights take the port's int8 layout, (H, H) stored column-major
 (`quant.column_major`); `convert.attn_block_weights` turns JAX's row-major
-ones into it. `fused_attn_block_int8` takes the plain version only for
-tensors on the CPU. For a CUDA tensor it launches the kernel or raises.
+ones into it. The kernel's out-projection reads Wo with each head's rows
+zero-padded to the s8 wgmma depth (`pad_head_rows`, built per call).
+`fused_attn_block_int8` takes the plain version only for tensors on the
+CPU. For a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,6 +35,28 @@ from memory_augmented_vlm_torch.ops.quant import quantize_rows
 
 NEG_INF = -1e30  # pallas_attn_block.NEG_INF
 KERNEL_HEAD_DIMS = (32, 64, 72, 128)
+WGMMA_DEPTH = 32  # bytes of K an s8 wgmma takes
+
+
+def padded_head_dim(hd: int) -> int:
+    """A head's depth as the out-projection reads it: hd rounded up to the
+    s8 wgmma depth (72 -> 96)."""
+    return -(-hd // WGMMA_DEPTH) * WGMMA_DEPTH
+
+
+def pad_head_rows(w: torch.Tensor, nh: int) -> torch.Tensor:
+    """w (nh * hd, N) int8 with each head's hd rows zero-padded to
+    `padded_head_dim(hd)`: (nh * kp, N), column-major as w. Row h * kp + d
+    is w's row h * hd + d for d < hd, and zero past it, so a product that
+    reads kp codes of a head meets zeros wherever it reads past the head."""
+    k, n = w.shape
+    if nh < 1 or k % nh:
+        raise ValueError(f"{k} rows do not split into {nh} heads")
+    hd = k // nh
+    kp = padded_head_dim(hd)
+    out = torch.zeros((n, nh, kp), dtype=w.dtype, device=w.device)
+    out[:, :, :hd] = w.t().reshape(n, nh, hd)
+    return out.reshape(n, nh * kp).t()
 
 
 def _shapes(hidden, weights, nh, valid):
@@ -115,12 +139,14 @@ def fused_attn_block_int8(hidden, ln_w, ln_b, wq, sq, bq, wk, sk, bk, wv, sv, bv
     if m == 0:
         return out
     # scratch: LN codes and row scales, head-major bf16 q/k/v, the attention
-    # output's codes and per-(row, head) scales
+    # output's codes (each head's zero-padded to the depth of Wo's padded
+    # rows) and per-(row, head) scales
     xq = torch.empty((m, h), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     qkv = [torch.empty((b, nh, s, hd), dtype=torch.bfloat16, device=dev) for _ in range(3)]
-    oq = torch.empty((m, h), dtype=torch.int8, device=dev)
+    oq = torch.empty((m, nh * padded_head_dim(hd)), dtype=torch.int8, device=dev)
     sa = torch.empty((m, nh), dtype=torch.float32, device=dev)
+    mats[3] = (pad_head_rows(mats[3][0], nh), *mats[3][1:])
     lib = cuda_lib.load()
     rc = lib.attn_block_int8(
         int8_common.DTYPES[hidden.dtype], hidden.data_ptr(), vecs[0].data_ptr(),

@@ -188,6 +188,60 @@ def test_attn_block_matches_pallas_interpret(block_r, valid):
     _assert_close_but_for_flips(got, want, flip=BLOCK_FLIP)
 
 
+@pytest.mark.parametrize("s", [1, 65, 129])
+def test_attn_block_matches_pallas_interpret_at_kernel_edges(s):
+    """The card's edge cases of #12 (chip_smoke.phase_int8_attn_kernels):
+    rows ragged against the 128-row tiles at the tower's width, 16 heads."""
+    got, want = _block_pair(*_block_setup(b=1, s=s, h=1152), nh=16, valid=s, block_r=256)
+    assert got.shape == (1, s, 1152)
+    _assert_close_but_for_flips(got, want, flip=BLOCK_FLIP)
+
+
+def _head_products(codes, head_stride, wo_padded, nh, kp):
+    """Each head's int32 product as the card's out-projection reads it: kp
+    codes of the head from column h * head_stride against rows h * kp ..
+    of the padded Wo (zeros past either's end, as TMA fills them)."""
+    m, n = codes.shape[0], wo_padded.shape[1]
+    wide = torch.cat([codes, torch.zeros((m, kp), dtype=codes.dtype)], dim=1)
+    tall = torch.cat([wo_padded, torch.zeros((kp, n), dtype=wo_padded.dtype)])
+    return [wide[:, h * head_stride:h * head_stride + kp].long()
+            @ tall[h * kp:(h + 1) * kp].long() for h in range(nh)]
+
+
+def test_padded_head_rows_give_the_per_head_products_exactly():
+    """`attn_block.pad_head_rows` (the Wo the kernel reads, head rows
+    zero-padded from 72 to 96): with the codes padded per head (zeros past
+    hd) or not (the next head's codes past hd, zeros past the last head),
+    every head's padded product equals its unpadded one exactly. Non-zero
+    pad rows, or a pad that is not the wgmma depth, do not."""
+    rng = np.random.default_rng(12)
+    m, nh, hd, n = 5, 4, 72, 64
+    kp = attn_block.padded_head_dim(hd)
+    assert kp == 96 and [attn_block.padded_head_dim(d) for d in (32, 64, 128)] == [32, 64, 128]
+    oq = torch.from_numpy(rng.integers(-127, 128, (m, nh * hd), dtype=np.int8))
+    wo = quant.column_major(torch.from_numpy(rng.integers(-127, 128, (nh * hd, n),
+                                                          dtype=np.int8)))
+    wp = attn_block.pad_head_rows(wo, nh)
+    assert tuple(wp.shape) == (nh * kp, n) and wp.dtype == torch.int8
+    assert wp.t().is_contiguous()  # column-major, as the kernel reads it
+    want = [oq[:, h * hd:(h + 1) * hd].long() @ wo[h * hd:(h + 1) * hd].long()
+            for h in range(nh)]
+    padded = torch.zeros((m, nh, kp), dtype=torch.int8)
+    padded[:, :, :hd] = oq.view(m, nh, hd)
+    for codes, stride in ((padded.reshape(m, nh * kp), kp), (oq, hd)):
+        for got, ref in zip(_head_products(codes, stride, wp, nh, kp), want):
+            assert torch.equal(got, ref)
+    bad = wp.clone()
+    bad[hd] = 1  # a pad row of head 0, which reads head 1's first codes
+    assert not torch.equal(_head_products(oq, hd, bad, nh, kp)[0], want[0])
+    short = torch.zeros((n, nh, 80), dtype=torch.int8)  # padded to 80, not 96
+    short[:, :, :hd] = wo.t().reshape(n, nh, hd)
+    short = short.reshape(n, nh * 80).t()
+    assert not all(torch.equal(g, r) for g, r in zip(_head_products(oq, hd, short, nh, kp), want))
+    with pytest.raises(ValueError):
+        attn_block.pad_head_rows(wo, 5)
+
+
 @pytest.mark.parametrize("nh", [2, 8])
 def test_attn_block_head_counts_match_pallas_interpret(nh):
     got, want = _block_pair(*_block_setup(), nh=nh, valid=128, block_r=64)
@@ -588,3 +642,34 @@ ptxas info    : Used 40 registers"""
     assert list(report) == ["_ZN5mavlm9two_sweep6kernelILi72EE"]
     assert "Used 142 registers" in report["_ZN5mavlm9two_sweep6kernelILi72EE"]
     assert "0 bytes spill stores" in report["_ZN5mavlm9two_sweep6kernelILi72EE"]
+
+
+def test_qkv_ab_calls_only_entry_points_every_tree_has():
+    """microbench/qkv_ab.py also runs against the parent tree of the port:
+    of the port's modules it calls only entry points that trees have had
+    since #12 was ported, and the ptxas report it takes from mlp_ab keeps
+    #12's out-projection beside the int8 GEMM kernels."""
+    import ast
+    import inspect
+
+    from memory_augmented_vlm_torch.microbench import mlp_ab, qkv_ab
+
+    modules = {"qkv_int8", "attn_block", "siglip", "quant", "cuda_lib"}
+    used = {(n.value.id, n.attr) for n in ast.walk(ast.parse(inspect.getsource(qkv_ab)))
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id in modules}
+    assert used == {("qkv_int8", "fused_qkv_int8"), ("attn_block", "fused_attn_block_int8"),
+                    ("siglip", "init_params"), ("siglip", "prequantize_int8"),
+                    ("siglip", "forward"), ("quant", "prequantize_kernel"),
+                    ("quant", "column_major"), ("cuda_lib", "load"), ("cuda_lib", "BUILD_LOG")}
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123oproj_heads_sm90_kernelILi72ELi64ELi2EfEEv' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 2 barriers
+ptxas info    : Compiling entry function '_ZN5int8h16gemm_sm90_kernelILi1ELi128ELi2EN6QkvOutEEEv' for 'sm_90a'
+ptxas info    : Used 90 registers, used 2 barriers
+ptxas info    : Compiling entry function '_Z13gemv_kernelPKv' for 'sm_90a'
+ptxas info    : Used 40 registers"""
+    oproj = "_ZN12_GLOBAL__N_123oproj_heads_sm90_kernelILi72ELi64ELi2EfEEv"
+    report = mlp_ab.ptxas_report(log)
+    assert list(report) == [oproj, "_ZN5int8h16gemm_sm90_kernelILi1ELi128ELi2EN6QkvOutEEEv"]
+    assert "Used 80 registers" in report[oproj] and "0 bytes spill stores" in report[oproj]
