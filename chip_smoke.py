@@ -27,8 +27,9 @@ each of which raises on failure:
                 int8_scores merge, whose prep pass's codes and scales must
                 equal their plain version bit for bit, and
                 fused_attn_block_int8; int8_gemm_bf16, bit for bit; gemv,
-                its 12-layer chain timed from a CUDA graph). Every int8
-                kernel, the exact merge and the bf16 flash forward
+                its 12-layer chain timed from a CUDA graph and held to the
+                int8 rule). Every int8 kernel, the decode GEMV's single
+                products, the exact merge and the bf16 flash forward
                 (flash_fwd, and flash_fwd_lse's out, against the online
                 softmax over the kernel's 64-key tiles; its lse to the fp32
                 rule) are held to their plain versions bit-close
@@ -40,7 +41,10 @@ each of which raises on failure:
                 core's 64- and 128-row edges (1, 47, 63, 65, 129) and at a
                 K and an I that are multiples of 16 but not of 128 (144,
                 272), and their controls include the plain version with h
-                rounded to bf16 before the requant;
+                rounded to bf16 before the requant. int8_matmul also runs
+                at N off the GEMM core's 16-column rule (200, 72, 34, 33),
+                and flash_attention_out_proj_int8 with fp32 hidden at the
+                tower's shape and at 65 rows;
   4. chain    — the dependent int8 MLP chain f2(f1(x)) at the tower's shape
                 (46656 x 1152 x 4304): two int8_matmul calls with a tanh GELU
                 between against one fused_mlp_int8 call, held against each
@@ -220,7 +224,13 @@ EXACT_MAX_RMS = 0.008
 # took the rule, read 0.9920-0.9999 bit-equal and <= 0.00024 RMS at the path
 # shapes and edge cases, and their controls (SDPA, the one-tile plain
 # version, q unrounded, P in fp32, the diagonal moved by one key or the
-# valid length one less) 0.17-0.66 and 0.0016-0.31.
+# valid length one less) 0.17-0.66 and 0.0016-0.31. The decode GEMV's
+# single products and edge cases (gemv) are held to the shared bounds too:
+# its fp32 sums run in another order and round to bf16 once (every element
+# bit-equal in the last card run under the int8 rule), while its controls
+# (the last K split dropped, the partial sums rounded to bf16, a bf16
+# accumulator) read 0.010, 0.58 and 0.059 bit-equal at the up product's
+# shape on the CPU's plain versions.
 OPROJ_BOUNDS = {"min_share": 0.99, "max_rms": 0.006}
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
@@ -886,18 +896,24 @@ def phase_fused_kernels():
         "library_call": "torch._int_mm (46656x1152 @ 1152x4304, 46656x4304 @ 4304x1152): "
                         "the matmul share only",
         "per_shape": shapes}
-    for mm, k, n, dtype, with_bias in ((300, h, inter, torch.float32, True),
-                                       (300, h, inter, torch.bfloat16, False),
-                                       (5, lm_h, lm_i, torch.float32, False)):
+    # rows past one 128-row tile and within it; N off the 16-column rule of
+    # the GEMM core (even, N % 4 != 0 and odd: rows whose base is not
+    # 4-aligned), K off its 128-byte step
+    edges = [(300, h, inter, torch.float32, True), (300, h, inter, torch.bfloat16, False),
+             (5, lm_h, lm_i, torch.float32, False)]
+    for n in (200, 72, 34, 33):
+        edges += [(300, h if n > 34 else 144, n, torch.bfloat16, False),
+                  (37, h if n > 34 else 144, n, torch.float32, True)]
+    for mm, k, n, dtype, with_bias in edges:
         x = torch.randn((mm, k), generator=gen, device=dev).to(dtype)
         x[mm // 2] = 0  # a zero row takes the floor scale
         w, sw, bias = _int8_weight(gen, k, n, dev)
         bias = bias if with_bias else None
         out = pallas_int8.int8_matmul(x, w, sw, bias)
         torch.cuda.synchronize()
-        errs.append(_hold_bitwise(f"matmul_edge_{mm}", out,
+        errs.append(_hold_bitwise(f"matmul_edge_{mm}x{k}x{n}", out,
                                   pallas_int8.int8_matmul_reference(x, w, sw, bias),
-                                  x=list(x.shape), dtype=str(dtype),
+                                  x=list(x.shape), n=n, dtype=str(dtype),
                                   bias=with_bias)["max_abs_err"])
         if float(out[mm // 2].float().abs().max()) > (float(bias.abs().max()) if with_bias
                                                       else 0.0):
@@ -996,15 +1012,21 @@ def phase_fused_kernels():
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     del args, out, xq, q, k, v
-    for valid, dtype in (((77, 150), torch.bfloat16), ((0, 150), torch.bfloat16),
-                         ((0, 77), torch.float32)):
-        args = _oproj_args(gen, 2, 150, nh, 72, valid, dtype, dev)
+    # valid lengths ragged and 0; fp32 hidden, at the tower's shape too;
+    # rows ragged against the GEMM's 128-row tiles (300, 65)
+    for name, bb, ss, valid, dtype in (("77_150", 2, 150, (77, 150), torch.bfloat16),
+                                       ("0_150", 2, 150, (0, 150), torch.bfloat16),
+                                       ("0_77_f32", 2, 150, (0, 77), torch.float32),
+                                       ("tower_f32", b, s, [s] * b, torch.float32),
+                                       ("1x65", 1, 65, (65,), torch.bfloat16)):
+        args = _oproj_args(gen, bb, ss, nh, 72, valid, dtype, dev)
         out = flash.flash_attention_out_proj_int8(*args)
         torch.cuda.synchronize()
-        errs.append(_hold_bitwise(f"oproj_edge_{valid}", out,
+        errs.append(_hold_bitwise(f"oproj_edge_{name}", out,
                                   flash.flash_attention_out_proj_int8_reference(*args), args[4],
                                   **OPROJ_BOUNDS, q=list(args[0].shape),
                                   dtype=str(dtype))["max_abs_err"])
+        del args, out
     rows["oproj"]["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
     return [
@@ -1224,6 +1246,37 @@ def _int8_scores_kv_per_block(q, k, v, valid, block=64):
     return out.transpose(1, 2).reshape(b, s, nh * d)
 
 
+def _gemv_controls(x, w, sms):
+    """Neighbouring functions of the decode GEMV (#14) on x (1, K) and w
+    (K, N), each of which its check must tell apart: the kernel's K split
+    (`gemv.split_plan` for `sms` SMs) with its last split dropped; its fp32
+    partial sums rounded to bf16 before they are summed; and the product
+    summed in a bf16 accumulator, row by row."""
+    k, n = w.shape
+    splits, rows = gemv.split_plan(k, n, 8 if n % 8 == 0 else 1, sms)
+    xf, wf = x.float(), w.float()
+
+    def last_split_dropped():
+        return gemv.gemv_reference(x[:, :(splits - 1) * rows], w[:(splits - 1) * rows])
+
+    def partials_in_bf16():
+        acc = torch.zeros((1, n), dtype=torch.float32, device=x.device)
+        for i in range(splits):
+            part = xf[:, i * rows:(i + 1) * rows] @ wf[i * rows:(i + 1) * rows]
+            acc = acc + part.to(torch.bfloat16).float()
+        return acc.to(x.dtype)
+
+    def summed_in_bf16():
+        acc = torch.zeros((1, n), dtype=torch.bfloat16, device=x.device)
+        for kk in range(k):
+            acc = (acc.float() + xf[:, kk:kk + 1] * wf[kk]).to(torch.bfloat16)
+        return acc.to(x.dtype)
+
+    return [("the last K split dropped", last_split_dropped),
+            ("fp32 partial sums rounded to bf16 before the sum", partials_in_bf16),
+            ("the product summed in bf16", summed_in_bf16)]
+
+
 def phase_int8_attn_kernels():
     """The int8_scores merge, the fused attention half-block, the int8
     ceiling GEMM and the decode GEMV against their plain versions at their
@@ -1356,14 +1409,23 @@ def phase_int8_attn_kernels():
                                 int8_ceiling.int8_gemm_bf16_reference(x, w))["max_abs_err"])
     rows["int8_gemm"]["max_abs_err"] = max(errs)
 
-    # --- gemv: the tool's 12-layer chain, timed as one CUDA-graph replay
+    # --- gemv: the tool's 12-layer chain, timed as one CUDA-graph replay.
+    # A single product repeats its plain version's fp32 sums in another
+    # order and rounds once to bf16, so it is held bit-close, with controls.
     x, w1, w2 = gemv.operands(seed=12)
     errs = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, xx, w in (("up", x, w1[0]), ("down", gemv.gemv_reference(x, w1[0]), w2[0])):
         out = gemv.gemv(xx, w)
         torch.cuda.synchronize()
-        errs.append(_compare(f"gemv_{name}", out, gemv.gemv_reference(xx, w),
-                             w=list(w.shape))["max_abs_err"])
+        ref = gemv.gemv_reference(xx, w)
+        errs.append(_hold_bitwise(f"gemv_{name}", out, ref, w=list(w.shape))["max_abs_err"])
+        if name == "up":
+            for control, fn in _gemv_controls(xx, w, sms):
+                _must_fail(f"gemv control: {control}", fn(), ref)
+    # the chain keeps the path rule: one bf16 step flipped in the first of
+    # its 24 products spreads through every later one, so most of its
+    # outputs differ in the last bits
     y = gemv.chain(gemv.gemv, x, w1, w2)
     torch.cuda.synchronize()
     errs.append(_compare("gemv_chain", y, gemv.chain(gemv.gemv_reference, x, w1, w2),
@@ -1383,7 +1445,8 @@ def phase_int8_attn_kernels():
         w = (torch.randn((kk, nn), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
         out = gemv.gemv(x, w)
         torch.cuda.synchronize()
-        errs.append(_compare(f"gemv_edge_{kk}x{nn}", out, gemv.gemv_reference(x, w))["max_abs_err"])
+        errs.append(_hold_bitwise(f"gemv_edge_{kk}x{nn}", out,
+                                  gemv.gemv_reference(x, w))["max_abs_err"])
     rows["gemv"]["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
     return [

@@ -27,7 +27,11 @@
 // What bounds it on the H100: at the tower's shape (B 64, 16 heads, S 729,
 // D 72) attention is 156.7 GFLOP of bf16 work against ~0.2 GB of q/k/v/out,
 // so the tensor cores bound it (0.158 ms at 989 TFLOP/s); the out-projection
-// adds 123.8 GOP of int8 work (0.063 ms at 1,979 TOP/s).
+// adds 123.8 GOP of int8 work (0.063 ms at 1,979 TOP/s). As the port runs
+// it (below), the out-projection's stages move ~0.54 GB (the bf16 scratch
+// written and read, 2 x 107 MB; its codes, 2 x 54 MB; hidden read and out
+// written, 2 x 107 MB), 0.16 ms at 3.35 TB/s: bytes, not operations, bound
+// that part.
 //
 // Design: the two-sweep kernel of two_sweep.cuh (the row max first, so that
 // P rounds against the final max as on the TPU; TMA into an mbarrier ring,
@@ -40,12 +44,18 @@
 // block holds every head of its rows in VMEM. Here heads are spread over
 // blocks, so flash_merge_oproj is three stages on one stream: the attention
 // kernel above into a bf16 scratch (the TPU kernel's a_scr, 107 MB at 64
-// frames, written and read once), the row quant of int8_gemm.cuh, and its
-// int8 GEMM with the rescale + bias + residual epilogue.
+// frames, written and read once), the row quant of int8_gemm.cuh, and the
+// int8 GEMM on the Hopper core of int8_gemm_sm90.cuh (TMA into an mbarrier
+// ring, s8 wgmma from shared memory) with the rescale + bias + residual
+// epilogue (int8h::RowScaleOut: the fp32 operations of the plain version in
+// its order). Its tiles are 128 x 128, two blocks an SM
+// (launch_gemm_sm90_by_shape's pick for a product 1152 deep: one block's
+// epilogue beside the other's products; 1152 columns are also 4.5 tiles
+// 256 wide; PERF.md §6).
 
 #include <math.h>
 
-#include "int8_gemm.cuh"
+#include "int8_gemm_sm90.cuh"
 #include "mma.cuh"
 #include "two_sweep.cuh"
 
@@ -111,8 +121,9 @@ int out_proj(const void* attn, const void* hidden, const int8_t* wo, const float
              const float* bo, void* out, int8_t* xq, float* sx, int M, int H,
              cudaStream_t st) {
   int8k::launch_rowquant<__nv_bfloat16, false>(attn, nullptr, xq, sx, M, H, 0.f, st);
-  int8k::RowScaleEpi<T> epi{sx, so, bo, static_cast<const T*>(hidden), static_cast<T*>(out), H};
-  return int8k::launch_gemm(xq, H, wo, H, M, H, H, epi, st);
+  const int8h::RowScaleOut<T> epi{sx, so, bo, static_cast<const T*>(hidden),
+                                  static_cast<T*>(out), H};
+  return int8h::launch_gemm_sm90_by_shape(xq, H, wo, H, H, M, H, H, epi, st);
 }
 
 }  // namespace
@@ -132,7 +143,7 @@ extern "C" int flash_merge(int head_dim, const void* q, const void* k, const voi
 // out (B, S, NH*D) in `dtype` (0 = bf16, 1 = fp32); wo (NH*D, NH*D) int8
 // column-major with so, bo (NH*D,) fp32. attn (B, S, NH*D) bf16, xq (B*S,
 // NH*D) int8 and sx (B*S,) fp32 are scratch. Returns 0, a cudaError_t, -1
-// (head dim), -2 (dtype) or -3 (shape).
+// (head dim), -2 (dtype), -3 (shape) or -4 (a tensor map refused).
 extern "C" int flash_merge_oproj(int head_dim, const void* q, const void* k, const void* v,
                                  const void* valid_len, int dtype, const void* hidden,
                                  const void* wo, const void* so, const void* bo, void* out,

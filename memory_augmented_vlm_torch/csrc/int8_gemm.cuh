@@ -1,9 +1,12 @@
-// The int8 building blocks of the fused int8 kernels (qkv_int8.cu,
-// mlp_int8.cu, swiglu_int8.cu, int8_matmul.cu and the out-projection of
-// flash_merge.cu): per-row quantization passes (plain, or after a LayerNorm
-// or an RMSNorm), the requantization of an fp32 intermediate, and an int8 x
-// int8 -> int32 mma.sync GEMM whose epilogue is a functor, which only
-// int8_matmul.cu and flash_merge.cu still run.
+// The int8 building blocks of the fused int8 kernels: per-row quantization
+// passes (plain, or after a LayerNorm or an RMSNorm), the requantization of
+// an fp32 intermediate, and an int8 x int8 -> int32 mma.sync GEMM whose
+// epilogue is a functor. The quant passes and quant_code serve every int8
+// kernel of the port (qkv_int8.cu, mlp_int8.cu, swiglu_int8.cu,
+// int8_matmul.cu, flash_merge.cu, flash_merge_int8.cu, attn_block.cu); the
+// mma.sync GEMM only int8_matmul.cu's int8_gemm_bf16 (the int8 ceiling
+// micro-benchmark). Every other int8 product runs on the Hopper core of
+// int8_gemm_sm90.cuh.
 //
 // Rounding follows the JAX kernels: LayerNorm in fp32 with a two-pass
 // biased variance, s = max(|row|, 1e-12) / 127, q = clip(rint(x * (1/s)),
@@ -18,8 +21,7 @@
 // tile 128 x 128, 8 warps of 64 x 32, K in 64-byte steps through a
 // three-stage cp.async ring; ragged M, N and K edges are zero-filled on
 // load (K a multiple of 16, so a 16-byte chunk is all in or all out) and
-// masked in the epilogue. The int8 MLP half-blocks and the q/k/v
-// projections run on the Hopper core of int8_gemm_sm90.cuh instead.
+// masked in the epilogue.
 
 #pragma once
 
@@ -190,50 +192,6 @@ inline void launch_requant(const float* h, const float* hmax, int8_t* hq, float*
   requant_kernel<kRowWarps><<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, stream>>>(
       h, hmax, hq, sh, M, I);
 }
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
-}
-
-// The epilogue of a projection back to an activation:
-//   out = [residual +] (acc * sx[row] * s[col] [+ bias[col]])
-// evaluated left to right in fp32 and cast once to T. bias and residual may
-// be null. out and residual are (M, N) row-major.
-template <typename T>
-struct RowScaleEpi {
-  static constexpr bool kRowMax = false;
-  const float* sx;
-  const float* s;
-  const float* bias;
-  const T* residual;
-  T* out;
-  int N;
-
-  __device__ __forceinline__ float operator()(int row, int col, int a0, int a1) const {
-    const float x = sx[row];
-    const long long off = static_cast<long long>(row) * N + col;
-    float y0 = __fmul_rn(__fmul_rn(static_cast<float>(a0), x), s[col]);
-    float y1 = __fmul_rn(__fmul_rn(static_cast<float>(a1), x), s[col + 1]);
-    if (bias != nullptr) {
-      y0 = __fadd_rn(y0, bias[col]);
-      y1 = __fadd_rn(y1, bias[col + 1]);
-    }
-    if (residual != nullptr) {
-      y0 = __fadd_rn(to_float(residual[off]), y0);
-      y1 = __fadd_rn(to_float(residual[off + 1]), y1);
-    }
-    store2(out + off, y0, y1);
-    return 0.f;
-  }
-  __device__ void row_max(int, float) const {}
-};
 
 // ---------------------------------------------------------------------------
 // GEMM

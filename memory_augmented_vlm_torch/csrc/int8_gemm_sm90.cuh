@@ -1,5 +1,7 @@
-// The Hopper int8 GEMM core of the int8 MLP half-blocks (mlp_int8.cu,
-// swiglu_int8.cu) and of the q/k/v projections (qkv_int8.cu): C(M, N) =
+// The Hopper int8 GEMM core of the port's int8 kernels: the MLP half-blocks
+// (mlp_int8.cu, swiglu_int8.cu), the q/k/v projections (qkv_int8.cu), the
+// w8a8 layer (int8_matmul.cu's int8_matmul) and the out-projection of the
+// merge-heads attention (flash_merge.cu's flash_merge_oproj): C(M, N) =
 // A(M, K) B(K, N) in int32, exact, handed to a functor epilogue, with an
 // optional per-row max of |epilogue value|. Its epilogue (store_tile) also
 // serves attn_block.cu's out-projection, whose accumulators are fp32.
@@ -36,20 +38,26 @@
 // Epilogue (store_tile): the accumulators go to shared memory as they lie
 // (the ring, free by then), and a warp reads its 16 rows back row by row,
 // four columns a lane, through the functor, leaving in row-contiguous
-// stores, 512 bytes a warp (Epi::store4). Nothing of the epilogue holds
+// stores, 512 bytes a warp (Epi::store4; Epi::store where N is ragged).
+// Nothing of the epilogue holds
 // the accumulators past their first store, which keeps the two-half
 // kernels within ptxas's 168 registers (a block of 288 threads) without
 // spills.
 //
 // Epi:
-//   static constexpr bool kRowMax, kPaired;
+//   static constexpr bool kRowMax, kPaired, kRagged;
 //   float row_scale(int row) const;                     // row < M
 //   float value(float x, int col, int a) const;         // !kPaired
 //   float value(float x, int col, int a, int b) const;  // kPaired: a of B0, b of B1
 //   void row_max(int row, float m) const;               // when kRowMax
 //   void store4(int row, int col, float4 v) const;      // columns col .. col + 3
+//   void store(int row, int col, float4 v, int nv) const;  // kRagged: col .. col + nv - 1
 // with col < n_out (the epilogue's columns: N, or B's rows when paired; z
-// * n_out + c for matrix z of a stacked GEMM).
+// * n_out + c for matrix z of a stacked GEMM). n_out is a multiple of 16,
+// so that four columns are all in or all out, unless kRagged: then n_out is
+// any width of a plain GEMM, value sees only columns below it, and store
+// takes the nv = min(4, n_out - col) columns of the step wherever the row's
+// base leaves them (row * n_out + col need not be 4-aligned).
 
 #pragma once
 
@@ -151,11 +159,16 @@ __device__ __forceinline__ void store_tile(const Acc (&acc)[NHALF][HN / 2], Acc*
       const float x = epi.row_scale(row);
 #pragma unroll
       for (int c = 4 * ln; c < OW; c += 4 * LPR) {
-        if (c0 + c < n_out) {  // n_out % 16 == 0: four columns or none
+        if (c0 + c < n_out) {  // four columns, or the ragged edge's nv
           const int col = zc + c0 + c;
           const V4 a = *reinterpret_cast<const V4*>(st + r * SROW + c);
           float4 v;
-          if constexpr (Epi::kPaired) {
+          if constexpr (Epi::kRagged) {
+            const int nv = min(4, n_out - c0 - c);
+            v = make_float4(epi.value(x, col, a.x), nv > 1 ? epi.value(x, col + 1, a.y) : 0.f,
+                            nv > 2 ? epi.value(x, col + 2, a.z) : 0.f,
+                            nv > 3 ? epi.value(x, col + 3, a.w) : 0.f);
+          } else if constexpr (Epi::kPaired) {
             const V4 b = *reinterpret_cast<const V4*>(st + r * SROW + HN + c);
             v = make_float4(epi.value(x, col, a.x, b.x), epi.value(x, col + 1, a.y, b.y),
                             epi.value(x, col + 2, a.z, b.z), epi.value(x, col + 3, a.w, b.w));
@@ -166,7 +179,11 @@ __device__ __forceinline__ void store_tile(const Acc (&acc)[NHALF][HN / 2], Acc*
           if constexpr (Epi::kRowMax) {
             mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
           }
-          epi.store4(row, col, v);
+          if constexpr (Epi::kRagged) {
+            epi.store(row, col, v, min(4, n_out - c0 - c));
+          } else {
+            epi.store4(row, col, v);
+          }
         }
       }
     }
@@ -192,6 +209,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                  const Epi epi) {
   using G = GemmShape<NHALF, HN, MINB>;
   static_assert(!Epi::kPaired || NHALF == 2, "a paired GEMM takes two B matrices");
+  static_assert(!(Epi::kRagged && Epi::kPaired), "a ragged edge for plain GEMMs only");
   constexpr int OW = Epi::kPaired ? HN : NHALF * HN;  // output columns of a tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
@@ -284,14 +302,16 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
 // by the epilogue as z * n_out + c. n_out: the epilogue's columns of one
 // matrix (N of a plain GEMM, nb of a paired one). Needs K, lda, ldb and
 // n_out multiples of 16 and 16-byte aligned bases; returns 0, a
-// cudaError_t, -3 (shape) or -4 (a tensor map refused).
+// cudaError_t, -3 (shape) or -4 (a tensor map refused). (n_out may be any
+// width >= 1 for an Epi::kRagged epilogue.)
 template <int NHALF, int MINB = 1, int HN = 128, class Epi>
 int launch_gemm_sm90_stacked(const int8_t* A, long long lda, const int8_t* const* B, int nz,
                              long long ldb, int nb, int M, int n_out, int K, const Epi& epi,
                              cudaStream_t stream) {
   using G = GemmShape<NHALF, HN, MINB>;
   constexpr int OW = Epi::kPaired ? HN : NHALF * HN;
-  if (M < 1 || K < 16 || K % 16 || n_out % 16 || lda % 16 || ldb % 16 || nb < 1) return -3;
+  if (M < 1 || K < 16 || K % 16 || lda % 16 || ldb % 16 || nb < 1 || n_out < 1) return -3;
+  if (n_out % 16 && !Epi::kRagged) return -3;
   if (nz < 1 || nz > 3 || (nz > 1 && Epi::kPaired)) return -3;
   const int mt = (M + kBM - 1) / kBM;
   if (mt > 65535) return -3;
@@ -335,13 +355,16 @@ int launch_gemm_sm90(const int8_t* A, long long lda, const int8_t* B0, const int
                                                    stream);
 }
 
-// A plain GEMM in 128 x 256 tiles where the grid holds at least four waves
-// of the card's SMs, else in 128 x 128 tiles, two blocks an SM: the wider
-// tile reads a third less from L2 per product (the tower's fc2: 0.61
-// against 0.77 ms in 128 x 128 tiles, one block an SM), the narrower one
-// fills the last wave of a small grid and runs one block's epilogue beside
-// the other's products (the LM's down projection, 74 x 4 wide tiles for
-// 132 SMs: 0.081 against 0.107 ms wide).
+// A plain GEMM in 128 x 256 tiles where the product is deep (K >= 2048)
+// and the grid holds at least four waves of the card's SMs, else in 128 x
+// 128 tiles, two blocks an SM: the wider tile reads a third less from L2
+// per product (the tower's fc2, K 4304: 0.61 against 0.77 ms in 128 x 128
+// tiles, one block an SM; #8's, 0.55 against 0.63 at two blocks), the
+// narrower one fills the last wave of a small grid (the LM's down
+// projection, 74 x 4 wide tiles for 132 SMs: 0.081 against 0.107 ms wide)
+// and runs one block's epilogue beside the other's products, which a
+// shallow product needs (K 1152: #8's fc1 0.65 against 0.73 ms wide, #5's
+// out-projection 0.23 against 0.32; PERF.md §6).
 template <class Epi>
 int launch_gemm_sm90_by_shape(const int8_t* A, long long lda, const int8_t* B, long long ldb,
                               int nb, int M, int n_out, int K, const Epi& epi,
@@ -354,20 +377,25 @@ int launch_gemm_sm90_by_shape(const int8_t* A, long long lda, const int8_t* B, l
   }
   const long long wide_tiles =
       static_cast<long long>((M + kBM - 1) / kBM) * ((n_out + 255) / 256);
-  if (wide_tiles >= 4LL * sms) {
+  if (K >= 2048 && wide_tiles >= 4LL * sms) {
     return launch_gemm_sm90<2, 1>(A, lda, B, B, ldb, nb, M, n_out, K, epi, stream);
   }
   return launch_gemm_sm90<1, 2>(A, lda, B, B, ldb, nb, M, n_out, K, epi, stream);
 }
 
-// The epilogue of a projection back to an activation, as int8k::RowScaleEpi:
+// The epilogue of a projection back to an activation:
 //   out = [residual +] (acc * sx[row] * s[col] [+ bias[col]])
-// left to right in fp32, cast once to T. bias and residual may be null;
-// out and residual are (M, N) row-major.
-template <typename T>
+// left to right in fp32 (__fmul_rn / __fadd_rn, so that nvcc forms no FMA
+// that the plain versions do not), cast once to T. bias and residual may
+// be null; out and residual are (M, N) row-major. RAGGED takes any N (see
+// Epi::kRagged): a step of four columns whose row base is 4-aligned
+// leaves as one vector, any other (N % 4 != 0, or the last columns) an
+// element at a time.
+template <typename T, bool RAGGED = false>
 struct RowScaleOut {
   static constexpr bool kRowMax = false;
   static constexpr bool kPaired = false;
+  static constexpr bool kRagged = RAGGED;
   const float* sx;
   const float* s;
   const float* bias;
@@ -403,6 +431,26 @@ struct RowScaleOut {
     } else {
       *reinterpret_cast<uint2*>(out + off) = make_uint2(pack_bf16x2(v.x, v.y),
                                                         pack_bf16x2(v.z, v.w));
+    }
+  }
+  __device__ __forceinline__ void store(int row, int col, float4 v, int nv) const {
+    const long long off = static_cast<long long>(row) * N + col;
+    if (nv == 4 && (off & 3) == 0) {
+      store4(row, col, v);
+      return;
+    }
+    const float y[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // unrolled, so that y stays in registers
+      if (j < nv) {
+        const float r = residual != nullptr
+                            ? __fadd_rn(int8k::to_float(residual[off + j]), y[j]) : y[j];
+        if constexpr (sizeof(T) == 4) {
+          out[off + j] = r;
+        } else {
+          out[off + j] = __float2bfloat16_rn(r);
+        }
+      }
     }
   }
 };

@@ -18,10 +18,21 @@
 // (1.3 us at 3.35 TB/s).
 //
 // Design: the TPU kernel is weights-stationary (a (K, 512) weight tile
-// stays in VMEM while the activation tiles stream past). Here the 128 x 128
-// output tiles of int8_gemm.cuh run in parallel with blockIdx.x over N
-// fastest, so the blocks in flight share a few activation row tiles and the
-// whole weight matrix (at most 5 MB) lives in the 50 MB L2.
+// stays in VMEM while the activation tiles stream past). Here the product
+// runs on the Hopper int8 GEMM core (int8_gemm_sm90.cuh: a producer warp
+// feeds A and B tiles by TMA into an mbarrier ring, two consumer
+// warpgroups issue s8 wgmma from shared memory), its blocks in flight
+// sharing a few activation row tiles and the whole weight matrix (at most
+// 5 MB) in the 50 MB L2, with the RowScaleOut epilogue (the plain
+// version's fp32 operations in its order).
+// Tiles by depth and grid size (launch_gemm_sm90_by_shape; PERF.md §6):
+// the chain's fc1 (K 1152) and one decode row in 128 x 128 tiles at
+// two blocks an SM, its fc2 (K 4304) in 128 x 256 tiles. One row's product
+// takes ~5 us of device time in every tile tried (38 or 76 blocks), and
+// the host's 0.03-0.08 ms to enqueue the call bounds it. Any N >= 1 (the
+// TPU kernel pads N to its block): TMA zero-fills B's rows past N, and the
+// epilogue masks its last columns and stores an element at a time where a
+// row's base is not 4-aligned (N % 4 != 0).
 //
 // int8_gemm_bf16 replaces the TPU kernel `_ws_kernel` behind
 // tools_int8_ceiling.py:80 build_pallas, the int8 ceiling micro-benchmark:
@@ -29,10 +40,11 @@
 // goes through fp32 (cvt.rn.f32.s32, then round to bf16), as XLA converts
 // an int32 to bf16: sums past 2^24 can round twice. Bound at the tool's
 // shape (46656 x 1152 x 4304): 462.7 GOP of int8 work, 0.234 ms at 1,979
-// TOP/s. The same GEMM with a cast for its epilogue; N is not padded to
-// the TPU's lane multiple (4352), the GEMM masks the ragged edge.
+// TOP/s. It still runs on the mma.sync GEMM of int8_gemm.cuh (int8k::
+// gemm_kernel) with a cast for its epilogue; N is not padded to the TPU's
+// lane multiple (4352), the GEMM masks the ragged edge.
 
-#include "int8_gemm.cuh"
+#include "int8_gemm_sm90.cuh"
 
 namespace {
 
@@ -42,8 +54,8 @@ template <typename T>
 int run(const void* x, const int8_t* w, const float* sw, const float* bias, void* out,
         int8_t* xq, float* sx, int M, int N, int K, cudaStream_t st) {
   launch_rowquant<T, false>(x, nullptr, xq, sx, M, K, 0.f, st);
-  RowScaleEpi<T> epi{sx, sw, bias, nullptr, static_cast<T*>(out), N};
-  return launch_gemm(xq, K, w, K, M, N, K, epi, st);
+  const int8h::RowScaleOut<T, true> epi{sx, sw, bias, nullptr, static_cast<T*>(out), N};
+  return int8h::launch_gemm_sm90_by_shape(xq, K, w, K, N, M, N, K, epi, st);
 }
 
 // acc -> fp32 -> bf16
@@ -53,7 +65,8 @@ struct Int32ToBf16Epi {
   int N;
 
   __device__ __forceinline__ float operator()(int row, int col, int a0, int a1) const {
-    store2(out + static_cast<long long>(row) * N + col, __int2float_rn(a0), __int2float_rn(a1));
+    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * N + col) =
+        pack_bf16x2(__int2float_rn(a0), __int2float_rn(a1));
     return 0.f;
   }
   __device__ void row_max(int, float) const {}
@@ -62,8 +75,9 @@ struct Int32ToBf16Epi {
 }  // namespace
 
 // dtype: 0 = bf16 x and out, 1 = fp32. w is (K, N) column-major; bias may
-// be null. xq (M, K) int8 and sx (M,) fp32 are scratch. Returns 0, a
-// cudaError_t, -2 (dtype) or -3 (shape: K % 16, N % 2).
+// be null. xq (M, K) int8 and sx (M,) fp32 are scratch; any M, N >= 1.
+// Returns 0, a cudaError_t, -2 (dtype), -3 (shape: K % 16) or -4 (a tensor
+// map refused).
 extern "C" int int8_matmul(int dtype, const void* x, const void* w, const void* sw,
                            const void* bias, void* out, void* xq, void* sx, int M, int N,
                            int K, void* stream) {

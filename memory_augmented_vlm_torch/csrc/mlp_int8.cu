@@ -67,6 +67,7 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 struct Fc1Epi {
   static constexpr bool kRowMax = true;
   static constexpr bool kPaired = false;
+  static constexpr bool kRagged = false;
   const float* sx;
   const float* s1;
   const float* b1;

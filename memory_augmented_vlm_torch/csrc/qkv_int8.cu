@@ -50,6 +50,7 @@ __device__ __forceinline__ P pick(const P (&p)[3], int z) {
 struct QkvOut {
   static constexpr bool kRowMax = false;
   static constexpr bool kPaired = false;
+  static constexpr bool kRagged = false;
   const float* sx;
   const float* scale[3];
   const float* bias[3];

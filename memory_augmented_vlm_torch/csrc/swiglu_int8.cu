@@ -48,6 +48,7 @@ using namespace int8k;
 struct GateUpEpi {
   static constexpr bool kRowMax = true;
   static constexpr bool kPaired = true;
+  static constexpr bool kRagged = false;
   const float* sx;
   const float* sg;
   const float* su;

@@ -56,8 +56,8 @@ def int8_matmul_reference(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.
 def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """See `int8_matmul_reference` for the arguments. CUDA tensors launch
-    `csrc/int8_matmul.cu` (x bf16 or fp32, contiguous, any M >= 1; weights
-    int8 column-major; K a multiple of 16, N even) and count one launch in
+    `csrc/int8_matmul.cu` (x bf16 or fp32, contiguous, any M and N >= 1;
+    weights int8 column-major; K a multiple of 16) and count one launch in
     `int8_matmul.launches`."""
     if x.dim() != 2:
         raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
@@ -72,8 +72,6 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
     int8_common.check_cuda(x, "x")
     dev = x.device
     int8_common.check_weight(w_int8, k, n, dev)
-    if n % 2:
-        raise ValueError(f"int8_matmul kernel needs an even N, got {n}")
     sw = int8_common.f32_vector(w_scale, n, dev, "w_scale")
     b = None if bias is None else int8_common.f32_vector(bias, n, dev, "bias")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)

@@ -59,19 +59,21 @@ _CUDA_MIN_ROWS = 32
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact. On CUDA, M <= 16
-    rows are zero-padded to 32 and sliced back (decode runs M = 1)."""
+    rows are zero-padded to 32 (decode runs M = 1) and N to a multiple of 8
+    (zero columns), and sliced back; K must be a multiple of 8."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"int_mm takes (M, K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError("int_mm takes int8 operands")
-    m = a.shape[0]
+    m, n = a.shape[0], b.shape[1]
     if a.device.type == "cuda":
-        if a.shape[1] % 8 or b.shape[1] % 8:
-            raise ValueError(f"int_mm on CUDA needs K and N multiples of 8, got "
-                             f"K={a.shape[1]} N={b.shape[1]}")
+        if a.shape[1] % 8:
+            raise ValueError(f"int_mm on CUDA needs K a multiple of 8, got K={a.shape[1]}")
         if m <= 16:
             a = torch.nn.functional.pad(a, (0, 0, 0, _CUDA_MIN_ROWS - m))
-    return torch._int_mm(a.contiguous(), b)[:m]
+        if n % 8:  # padded as N rows of K: b stays column-major
+            b = torch.nn.functional.pad(b.t(), (0, 0, 0, -n % 8)).t()
+    return torch._int_mm(a.contiguous(), b)[:m, :n]
 
 
 def int8_linear(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -355,6 +355,49 @@ def test_gemv_matches_kernel_body(k, n):
     assert (diff <= 2.0 ** -8 * np.abs(want) + 1e-7).all(), diff.max()
 
 
+def _gemv_up_case():
+    """The tool's up product (896 -> 4864) at its operands' scales."""
+    rng = np.random.default_rng(34)
+    x = _t(rng.standard_normal((1, tgemv.H)) * 0.1).float().to(torch.bfloat16)
+    w = _t(rng.standard_normal((tgemv.H, tgemv.I)) * 0.02).float().to(torch.bfloat16)
+    return x, w, tgemv.gemv_reference(x, w)
+
+
+GEMV_CONTROLS = ["the last K split dropped", "fp32 partial sums rounded to bf16 before the sum",
+                 "the product summed in bf16"]
+
+
+@pytest.mark.parametrize("control", GEMV_CONTROLS)
+def test_chip_smoke_gemv_check_fails_neighbouring_functions(control):
+    """chip_smoke holds #14's single products to their plain version by
+    `_bit_close`; each neighbouring function it runs as a control on the
+    card (`_gemv_controls`, split as on a 132-SM H100) fails that check here
+    too, on the plain versions."""
+    import chip_smoke
+
+    x, w, ref = _gemv_up_case()
+    got = dict(chip_smoke._gemv_controls(x, w, sms=132))[control]()
+    row = chip_smoke._bit_close(control, got, ref)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert not row["held"], row
+
+
+def test_chip_smoke_gemv_check_holds_the_function_itself():
+    """The same check passes the plain version against itself, and the
+    kernel's own arithmetic: fp32 partial sums over its K split, added in
+    split order, rounded once to bf16."""
+    import chip_smoke
+
+    x, w, ref = _gemv_up_case()
+    assert chip_smoke._bit_close("self", tgemv.gemv_reference(x, w), ref)["held"]
+    splits, rows = tgemv.split_plan(tgemv.H, tgemv.I, 8, sms=132)
+    acc = torch.zeros((1, tgemv.I))
+    for i in range(splits):
+        acc = acc + x[:, i * rows:(i + 1) * rows].float() @ w[i * rows:(i + 1) * rows].float()
+    row = chip_smoke._bit_close("split sums", acc.to(torch.bfloat16), ref)
+    assert row["held"], row
+
+
 def test_gemv_chain_and_split_plan():
     x, w1, w2 = (torch.randn(*shape).to(torch.bfloat16)
                  for shape in ((1, 64), (2, 64, 96), (2, 96, 64)))

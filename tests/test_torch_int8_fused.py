@@ -97,17 +97,25 @@ def test_quantize_weight_matches_jax():
     assert float(ts[5]) == np.float32(1e-12)
 
 
+LM_ROW_K, LM_ROW_N = 896, 4864  # the 0.5B LM's MLP up-projection
+
+
 @pytest.mark.parametrize("m,n,bias,dtype", [
     (100, 200, False, "float32"),   # M and N off the Pallas blocks (32, 128)
     (100, 200, True, "float32"),
     (1, 200, True, "float32"),      # one row: JAX pads M to 8
     (37, 72, True, "bfloat16"),
     (64, 128, False, "bfloat16"),
+    (37, 34, True, "bfloat16"),     # N even, not a multiple of 4: rows off 4-alignment
+    (100, 33, True, "float32"),     # N odd, which the kernel takes on the card too
+    (37, 33, False, "bfloat16"),
+    (1, LM_ROW_N, False, "bfloat16"),  # the LM's decode row, 896 -> 4864, full width
 ])
 def test_int8_matmul_matches_pallas_interpret(m, n, bias, dtype):
     rng = np.random.default_rng(21)
-    x = rng.standard_normal((m, H)).astype(np.float32)
-    (jw, js), (tw, ts) = _pallas_weight(rng, H, n)
+    k = LM_ROW_K if n == LM_ROW_N else H
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    (jw, js), (tw, ts) = _pallas_weight(rng, k, n)
     b = (rng.standard_normal(n) * 0.1).astype(np.float32) if bias else None
     want = jpallas_int8.int8_matmul(
         jnp.asarray(x, _jdtype(dtype)), jw, js, None if b is None else jnp.asarray(b),
@@ -472,6 +480,44 @@ def _wrapper_args():
         "swiglu": (x, torch.ones(H), t1[0], t1[1], t3[0], t3[1], t2[0], t2[1]),
         "oproj": (*qkv, torch.tensor([5], dtype=torch.int32), _t(hidden), *two),
     }
+
+
+def test_w8a8_and_out_projection_products_run_on_the_s8_wgmma_core():
+    """#8 (`int8_matmul`) and #5's out-projection launch their products on
+    the TMA-fed s8 wgmma core (`int8h::`, int8_gemm_sm90.cuh) with its
+    bias/residual epilogue, #8 with the ragged-N one; the mma.sync GEMM's
+    epilogue for them is gone, and that GEMM serves #13 alone."""
+    from memory_augmented_vlm_torch.ops import cuda_lib
+
+    csrc = cuda_lib.CSRC_DIR
+    merge = (csrc / "flash_merge.cu").read_text()
+    matmul = (csrc / "int8_matmul.cu").read_text()
+    out_proj = merge[merge.index("int out_proj("):merge.index("}  // namespace")]
+    run = matmul[matmul.index("int run("):matmul.index("// acc -> fp32 -> bf16")]
+    assert "int8h::RowScaleOut<T>" in out_proj and "int8h::launch_gemm_sm90" in out_proj
+    assert "int8h::RowScaleOut<T, true>" in run and "int8h::launch_gemm_sm90" in run
+    for body in (out_proj, run):
+        assert "launch_gemm(" not in body
+    assert "launch_gemm(" not in merge and matmul.count("launch_gemm(") == 1  # int8_gemm_bf16
+    assert not [p.name for p in csrc.iterdir() if "RowScaleEpi" in p.read_text()]
+
+
+def test_gemm_ab_calls_only_entry_points_every_tree_has():
+    """microbench/gemm_ab.py also runs against the parent tree of the port:
+    of the port's modules it calls only entry points that trees have had
+    since #5 and #8 were ported."""
+    import ast
+
+    from memory_augmented_vlm_torch.microbench import gemm_ab
+
+    modules = {"pallas_int8", "flash", "siglip", "quant", "cuda_lib"}
+    used = {(n.value.id, n.attr) for n in ast.walk(ast.parse(inspect.getsource(gemm_ab)))
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id in modules}
+    assert used == {("pallas_int8", "int8_matmul"), ("flash", "flash_attention_out_proj_int8"),
+                    ("siglip", "init_params"), ("siglip", "prequantize_int8"),
+                    ("siglip", "forward"), ("quant", "prequantize_kernel"), ("cuda_lib", "load"),
+                    ("cuda_lib", "BUILD_LOG")}
 
 
 def test_fused_wrappers_take_plain_versions_on_cpu():
