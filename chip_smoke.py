@@ -26,9 +26,11 @@ each of which raises on failure:
                 approximate attention and the micro-benchmarks (the
                 int8_scores merge, whose prep pass's codes and scales must
                 equal their plain version bit for bit, and
-                fused_attn_block_int8; int8_gemm_bf16, bit for bit; gemv,
-                its 12-layer chain timed from a CUDA graph and held to the
-                int8 rule). Every int8 kernel, the decode GEMV's single
+                fused_attn_block_int8; int8_gemm_bf16, bit for bit, at odd
+                N too; gemv, bit for bit to its own summation order and run
+                twice for the same bits, its 12-layer chain timed from a
+                CUDA graph, held to the int8 rule and bit for bit to its
+                own order). Every int8 kernel, the decode GEMV's single
                 products, the exact merge and the bf16 flash forward
                 (flash_fwd, and flash_fwd_lse's out, against the online
                 softmax over the kernel's 64-key tiles; its lse to the fp32
@@ -52,7 +54,9 @@ each of which raises on failure:
                 fused attention half-block at the tower's shape and at the
                 tool's 768-row stream, beside the two composed halves it
                 would replace (drift held, timed in turns); then both
-                micro-benchmarks (int8 GEMM TOP/s, GEMV chain GB/s);
+                micro-benchmarks (int8 GEMM TOP/s, GEMV chain GB/s, and the
+                device kernels of one graph replay of the GEMV chain: one
+                per product, and how many consecutive products overlap);
   5. requests — the full-width 0.5B int8 serving model (random weights from
                 a seed, prequantized on the card) answers 64-, 16- and
                 128-frame clips with 32 greedy tokens; the bf16 model answers
@@ -113,7 +117,7 @@ from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
-from memory_augmented_vlm_torch.microbench.timing import graph_ms, require_card
+from memory_augmented_vlm_torch.microbench.timing import graph_ms, replay_trace, require_card
 from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
 from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_bwd, mlp_int8,
                                             norms, pallas_int8, qkv_int8, quant,
@@ -226,11 +230,11 @@ EXACT_MAX_RMS = 0.008
 # version, q unrounded, P in fp32, the diagonal moved by one key or the
 # valid length one less) 0.17-0.66 and 0.0016-0.31. The decode GEMV's
 # single products and edge cases (gemv) are held to the shared bounds too:
-# its fp32 sums run in another order and round to bf16 once (every element
-# bit-equal in the last card run under the int8 rule), while its controls
-# (the last K split dropped, the partial sums rounded to bf16, a bf16
-# accumulator) read 0.010, 0.58 and 0.059 bit-equal at the up product's
-# shape on the CPU's plain versions.
+# its fp32 sums run in another order and round to bf16 once, while its
+# controls (the last cluster rank's slice of K dropped, the ranks' sums
+# rounded to bf16, a bf16 accumulator) read 0.0027, 0.58 and 0.051
+# bit-equal at the up product's shape on the CPU's plain versions; and to
+# its own summation order (gemv.gemv_in_kernel_order) bit for bit.
 OPROJ_BOUNDS = {"min_share": 0.99, "max_rms": 0.006}
 # bench_train.py's batch: 64 frames (2 segments, 32 fine frames) spliced into
 # 128 text tokens -> 128 + 9429 = 9557 tokens, all valid; 8 labels ignored
@@ -1203,7 +1207,8 @@ def _must_fail_f32(name, out, ref):
 
 def _hold_equal(name, out, ref, **info) -> dict:
     """An output that must equal its plain version bit for bit: the int8
-    GEMM's int32 sums are exact and both cast them through fp32 to bf16."""
+    GEMM's int32 sums are exact and both cast them through fp32 to bf16;
+    the GEMV's fp32 sums, taken in the kernel's own order, round alike."""
     row = _compare(name, out, ref, **info)
     if not torch.equal(out, ref):
         raise RuntimeError(f"{name}: kernel and plain version differ ({row})")
@@ -1248,22 +1253,22 @@ def _int8_scores_kv_per_block(q, k, v, valid, block=64):
 
 def _gemv_controls(x, w, sms):
     """Neighbouring functions of the decode GEMV (#14) on x (1, K) and w
-    (K, N), each of which its check must tell apart: the kernel's K split
-    (`gemv.split_plan` for `sms` SMs) with its last split dropped; its fp32
-    partial sums rounded to bf16 before they are summed; and the product
-    summed in a bf16 accumulator, row by row."""
+    (K, N), each of which its check must tell apart: the kernel's partition
+    (`gemv.plan` for `sms` SMs) with the last cluster rank's slice of K
+    dropped; each rank's fp32 sum rounded to bf16 before the ranks' sums
+    are added; and the product summed in a bf16 accumulator, row by row."""
     k, n = w.shape
-    splits, rows = gemv.split_plan(k, n, 8 if n % 8 == 0 else 1, sms)
+    slices = gemv.plan(k, n, sms).slices(k)
     xf, wf = x.float(), w.float()
 
     def last_split_dropped():
-        return gemv.gemv_reference(x[:, :(splits - 1) * rows], w[:(splits - 1) * rows])
+        end = slices[-1][0]
+        return gemv.gemv_reference(x[:, :end], w[:end])
 
     def partials_in_bf16():
         acc = torch.zeros((1, n), dtype=torch.float32, device=x.device)
-        for i in range(splits):
-            part = xf[:, i * rows:(i + 1) * rows] @ wf[i * rows:(i + 1) * rows]
-            acc = acc + part.to(torch.bfloat16).float()
+        for a, b in slices:
+            acc = acc + (xf[:, a:b] @ wf[a:b]).to(torch.bfloat16).float()
         return acc.to(x.dtype)
 
     def summed_in_bf16():
@@ -1399,7 +1404,10 @@ def phase_int8_attn_kernels():
         "library_call": "torch._int_mm (46656x1152 @ 1152x4304), int32 out",
         "bound_ms": bound, "bound_by": by}
     del xq, wq, xb, wb, out
-    for mm, kk, nn in ((1000, 1152, 1000), (1, 896, 130), (300, 4304, 1152)):  # ragged M, N
+    # ragged M and N; odd N, which the mma.sync GEMM before the s8 wgmma
+    # core refused
+    for mm, kk, nn in ((1000, 1152, 1000), (1, 896, 130), (300, 4304, 1152), (1, 896, 33),
+                       (300, 1152, 1)):
         x = torch.randint(-127, 128, (mm, kk), generator=gen, device=dev, dtype=torch.int8)
         w = quant.column_major(torch.randint(-127, 128, (kk, nn), generator=gen, device=dev,
                                              dtype=torch.int8))
@@ -1417,9 +1425,15 @@ def phase_int8_attn_kernels():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, xx, w in (("up", x, w1[0]), ("down", gemv.gemv_reference(x, w1[0]), w2[0])):
         out = gemv.gemv(xx, w)
+        again = gemv.gemv(xx, w)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise RuntimeError(f"gemv_{name}: two calls on the same operands differ")
         ref = gemv.gemv_reference(xx, w)
-        errs.append(_hold_bitwise(f"gemv_{name}", out, ref, w=list(w.shape))["max_abs_err"])
+        pl = gemv.plan(*w.shape, sms)
+        errs.append(_hold_bitwise(f"gemv_{name}", out, ref, w=list(w.shape),
+                                  plan=pl._asdict())["max_abs_err"])
+        _hold_equal(f"gemv_{name}_in_kernel_order", out, gemv.gemv_in_kernel_order(xx, w, pl))
         if name == "up":
             for control, fn in _gemv_controls(xx, w, sms):
                 _must_fail(f"gemv control: {control}", fn(), ref)
@@ -1430,6 +1444,13 @@ def phase_int8_attn_kernels():
     torch.cuda.synchronize()
     errs.append(_compare("gemv_chain", y, gemv.chain(gemv.gemv_reference, x, w1, w2),
                          layers=gemv.L)["max_abs_err"])
+    # ... and equals its own order product by product: each product read the
+    # output of the one before it only after that one had finished
+
+    def in_kernel_order(xx, w):
+        return gemv.gemv_in_kernel_order(xx, w, gemv.plan(*w.shape, sms))
+
+    _hold_equal("gemv_chain_in_kernel_order", y, gemv.chain(in_kernel_order, x, w1, w2))
     bound, by = _bound(4.0 * gemv.L * gemv.H * gemv.I, PEAK_F32, gemv.chain_bytes(x, w1, w2))
     rows["gemv"] = {
         "ms": graph_ms(lambda: gemv.chain(gemv.gemv, x, w1, w2)),
@@ -1440,13 +1461,30 @@ def phase_int8_attn_kernels():
                   "CUDA graph",
         "bound_ms": bound, "bound_by": by}
     del x, w1, w2, y
-    for kk, nn in ((1000, 777), (5, 3), (4864, 900), (33, 4104)):  # K, N off the block
+    # K and N off the block; N = 777, 3, 900 and 4100 give row strides that
+    # TMA refuses, so those load W with plain loads; the strips are 64, 32,
+    # 64, 128, 32 and 128 columns wide. Each W is written by the grid
+    # launched just before the call, which gemv (no programmatic edge) must
+    # wait for before it reads W; in the last case that grid is a gemv,
+    # which lets its dependents launch before it writes its output
+    for kk, nn in ((1000, 777), (5, 3), (4864, 900), (33, 4104), (896, 200), (896, 4100),
+                   (38, 128)):
         x = torch.randn((1, kk), generator=gen, device=dev).to(torch.bfloat16)
-        w = (torch.randn((kk, nn), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        if (kk, nn) == (38, 128):  # W is the up product's output, 38 x 128
+            x0 = torch.randn((1, gemv.H), generator=gen, device=dev).to(torch.bfloat16)
+            w0 = (torch.randn((gemv.H, gemv.I), generator=gen, device=dev) * 0.05).to(
+                torch.bfloat16)
+            w = gemv.gemv(x0, w0).view(kk, nn)
+        else:
+            w = (torch.randn((kk, nn), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
         out = gemv.gemv(x, w)
         torch.cuda.synchronize()
-        errs.append(_hold_bitwise(f"gemv_edge_{kk}x{nn}", out,
-                                  gemv.gemv_reference(x, w))["max_abs_err"])
+        pl = gemv.plan(kk, nn, sms)
+        errs.append(_hold_bitwise(f"gemv_edge_{kk}x{nn}", out, gemv.gemv_reference(x, w),
+                                  loads="tma" if gemv.loads_by_tma(w) else "plain",
+                                  plan=pl._asdict())["max_abs_err"])
+        _hold_equal(f"gemv_edge_{kk}x{nn}_in_kernel_order", out,
+                    gemv.gemv_in_kernel_order(x, w, pl))
     rows["gemv"]["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
     return [
@@ -1563,6 +1601,13 @@ def phase_microbench():
     torch.cuda.synchronize()
     paths["gemv_microbench"] = _launches()
     log(json.dumps({"gemv": gemv.measure(x, w1, w2)}))
+    # one device kernel per product in a graph replay of the chain, and
+    # whether consecutive products overlap (the programmatic edge kept)
+    trace = replay_trace(lambda: gemv.chain(gemv.gemv, x, w1, w2), "gemv")
+    log(json.dumps({"gemv_chain_graph_replay": trace}))
+    if trace["device_kernels"] != 2 * w1.shape[0]:
+        raise RuntimeError(f"gemv chain replay: {trace['device_kernels']} device kernels, "
+                           f"want {2 * w1.shape[0]}")
     want = {"int8_ceiling_microbench": {"int8_gemm_bf16": 1},
             "gemv_microbench": {"gemv": 2 * w1.shape[0]}}
     for path, counts in want.items():

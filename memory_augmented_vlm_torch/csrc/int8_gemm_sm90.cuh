@@ -1,15 +1,15 @@
 // The Hopper int8 GEMM core of the port's int8 kernels: the MLP half-blocks
 // (mlp_int8.cu, swiglu_int8.cu), the q/k/v projections (qkv_int8.cu), the
-// w8a8 layer (int8_matmul.cu's int8_matmul) and the out-projection of the
-// merge-heads attention (flash_merge.cu's flash_merge_oproj): C(M, N) =
-// A(M, K) B(K, N) in int32, exact, handed to a functor epilogue, with an
-// optional per-row max of |epilogue value|. Its epilogue (store_tile) also
-// serves attn_block.cu's out-projection, whose accumulators are fp32.
+// w8a8 layer and the int8 ceiling's bare GEMM (int8_matmul.cu's
+// int8_matmul and int8_gemm_bf16) and the out-projection of the merge-heads
+// attention (flash_merge.cu's flash_merge_oproj): C(M, N) = A(M, K) B(K, N)
+// in int32, exact, handed to a functor epilogue, with an optional per-row
+// max of |epilogue value|. Its epilogue (store_tile) also serves
+// attn_block.cu's out-projection, whose accumulators are fp32.
 //
-// It computes what int8k::gemm_kernel (int8_gemm.cuh) computes, on
-// Hopper's own tools: a producer warp issues TMA loads of A and B tiles
-// into an mbarrier ring, and two consumer warpgroups issue s8 wgmma with
-// both operands read from shared memory (8-bit wgmma reads both K-major,
+// It runs on Hopper's own tools: a producer warp issues TMA loads of A and
+// B tiles into an mbarrier ring, and two consumer warpgroups issue s8 wgmma
+// with both operands read from shared memory (8-bit wgmma reads both K-major,
 // which the port's layouts are: A is (M, K) row-major, B is stored as N
 // rows of K, the column-major (K, N) kernel layout of ops/quant.py).
 //

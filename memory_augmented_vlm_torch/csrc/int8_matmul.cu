@@ -40,9 +40,10 @@
 // goes through fp32 (cvt.rn.f32.s32, then round to bf16), as XLA converts
 // an int32 to bf16: sums past 2^24 can round twice. Bound at the tool's
 // shape (46656 x 1152 x 4304): 462.7 GOP of int8 work, 0.234 ms at 1,979
-// TOP/s. It still runs on the mma.sync GEMM of int8_gemm.cuh (int8k::
-// gemm_kernel) with a cast for its epilogue; N is not padded to the TPU's
-// lane multiple (4352), the GEMM masks the ragged edge.
+// TOP/s. It runs on the same core as int8_matmul's product, picked by the
+// same rule (at K 1152: 128 x 128 tiles, two blocks an SM), with the
+// Int32ToBf16Out epilogue; any N >= 1, the ragged edge masked as
+// int8_matmul's (N is not padded to the TPU's lane multiple, 4352).
 
 #include "int8_gemm_sm90.cuh"
 
@@ -58,18 +59,37 @@ int run(const void* x, const int8_t* w, const float* sw, const float* bias, void
   return int8h::launch_gemm_sm90_by_shape(xq, K, w, K, N, M, N, K, epi, st);
 }
 
-// acc -> fp32 -> bf16
-struct Int32ToBf16Epi {
+// The int8 ceiling's epilogue: the int32 sum cast to fp32 (cvt.rn.f32.s32)
+// and rounded once more to bf16, no scale; any N (RowScaleOut<bf16, true>'s
+// stores).
+struct Int32ToBf16Out {
   static constexpr bool kRowMax = false;
+  static constexpr bool kPaired = false;
+  static constexpr bool kRagged = true;
   __nv_bfloat16* out;
   int N;
 
-  __device__ __forceinline__ float operator()(int row, int col, int a0, int a1) const {
-    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * N + col) =
-        pack_bf16x2(__int2float_rn(a0), __int2float_rn(a1));
-    return 0.f;
+  __device__ __forceinline__ float row_scale(int) const { return 1.f; }
+  __device__ __forceinline__ float value(float, int, int a) const {
+    return static_cast<float>(a);
   }
   __device__ void row_max(int, float) const {}
+  __device__ __forceinline__ void store4(int row, int col, float4 v) const {
+    *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * N + col) =
+        make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  }
+  __device__ __forceinline__ void store(int row, int col, float4 v, int nv) const {
+    const long long off = static_cast<long long>(row) * N + col;
+    if (nv == 4 && (off & 3) == 0) {
+      store4(row, col, v);
+      return;
+    }
+    const float y[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // unrolled, so that y stays in registers
+      if (j < nv) out[off + j] = __float2bfloat16_rn(y[j]);
+    }
+  }
 };
 
 }  // namespace
@@ -90,13 +110,13 @@ extern "C" int int8_matmul(int dtype, const void* x, const void* w, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (M, K) int8 row-major, w (K, N) int8 column-major -> out (M, N) bf16.
-// Returns 0, a cudaError_t or -3 (shape: K % 16, N % 2).
+// x (M, K) int8 row-major, w (K, N) int8 column-major -> out (M, N) bf16;
+// any M, N >= 1. Returns 0, a cudaError_t, -3 (shape: K % 16) or -4 (a
+// tensor map refused).
 extern "C" int int8_gemm_bf16(const void* x, const void* w, void* out, int M, int N, int K,
                               void* stream) {
-  const Int32ToBf16Epi epi{static_cast<__nv_bfloat16*>(out), N};
-  const int rc = launch_gemm(static_cast<const int8_t*>(x), K, static_cast<const int8_t*>(w), K,
-                             M, N, K, epi, static_cast<cudaStream_t>(stream));
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  const Int32ToBf16Out epi{static_cast<__nv_bfloat16*>(out), N};
+  return int8h::launch_gemm_sm90_by_shape(static_cast<const int8_t*>(x), K,
+                                          static_cast<const int8_t*>(w), K, N, M, N, K, epi,
+                                          static_cast<cudaStream_t>(stream));
 }

@@ -20,7 +20,9 @@ GB/s and the share of 3.35 TB/s. It runs on the card only.
 
 from __future__ import annotations
 
+import functools
 import json
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +31,10 @@ from memory_augmented_vlm_torch.ops import cuda_lib
 
 H, I, L = 896, 4864, 12  # tools_gemv_bench.py's shapes
 PEAK_BYTES = 3.35e12  # H100 SXM, NVIDIA data sheet
-BLOCKS_PER_SM = 4
+STRIP_COLS = (128, 64, 32)  # a block's columns (256, 128 or 64 bytes of a W row), widest first
+MAX_CLUSTER = 16  # blocks of a strip along K: the most a (non-portable) cluster holds
+TILE_BYTES = 96 * 1024  # a block's W tile in shared memory, per pass over its slice
+MAX_BOX_ROWS = 256  # TMA's largest box side
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor):
@@ -44,21 +49,98 @@ def gemv_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def split_plan(k: int, n: int, vec: int, sms: int):
-    """(splits, rows per split) of K: about BLOCKS_PER_SM blocks per SM over
-    the column strips of 32 * vec columns, at least 8 rows (one per warp)
-    per split."""
-    strips = -(-n // (32 * vec))
-    splits = max(1, min(-(-BLOCKS_PER_SM * sms // strips), -(-k // 8), 65535))
-    rows = -(-k // splits)
-    rows = -(-rows // 8) * 8
-    return -(-k // rows), rows
+class Plan(NamedTuple):
+    """The kernel's partition of one product: strips of `cols` columns, each
+    the work of a cluster of `cluster` blocks along K; rank r sums rows r *
+    rows .. (r + 1) * rows (the last rank's slice may end past K), in passes
+    of `tile_rows` rows, each pass read as boxes of `box_rows` rows."""
+    cols: int
+    cluster: int
+    rows: int
+    tile_rows: int
+    box_rows: int
+
+    def strips(self, n: int) -> int:
+        return -(-n // self.cols)
+
+    def slices(self, k: int):
+        """(start, end) of each rank's rows of K, in rank order."""
+        return [(r * self.rows, min(k, (r + 1) * self.rows)) for r in range(self.cluster)]
 
 
-def gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def plan(k: int, n: int, sms: int) -> Plan:
+    """The partition `gemv` launches for x (1, k) . W (k, n) on a card of
+    `sms` SMs: the widest strip of STRIP_COLS whose strips, MAX_CLUSTER
+    ranks each, can fill the SMs (else the narrowest);
+    enough ranks per strip that strips x ranks fill the SMs (at most
+    MAX_CLUSTER, at least 8 rows each), each rank's slice cut into passes
+    of at most TILE_BYTES of W and each pass into at most MAX_BOX_ROWS-row
+    boxes, rows rounded up to multiples of 8, and the ranks then cut to
+    the fewest that cover k. A wider strip reads W in longer runs of a
+    row; filling the SMs keeps the down product's 896 columns at 64
+    (PERF.md §6)."""
+    cols = next((c for c in STRIP_COLS if -(-n // c) * MAX_CLUSTER >= sms), STRIP_COLS[-1])
+    strips = -(-n // cols)
+    cluster = max(1, min(-(-sms // strips), MAX_CLUSTER, -(-k // 8)))
+    per_rank = -(-k // cluster)
+    passes = -(-per_rank // (TILE_BYTES // (2 * cols)))
+    per_pass = -(-per_rank // passes)
+    boxes = -(-per_pass // MAX_BOX_ROWS)
+    box_rows = -(-(-(-per_pass // boxes)) // 8) * 8
+    rows = passes * boxes * box_rows
+    return Plan(cols, -(-k // rows), rows, boxes * box_rows, box_rows)
+
+
+def gemv_in_kernel_order(x: torch.Tensor, w: torch.Tensor, pl: Plan) -> torch.Tensor:
+    """The kernel's arithmetic in its order, on any device: for each rank
+    of `pl`'s partition, a thread's fp32 sum over every RG-th row of each
+    pass (RG = 256 / (cols / 8)), the row groups of a warp added pairwise
+    as its shuffles add them, the 8 warps in order, then the ranks in
+    order; rounded once to bf16. A bf16 x bf16 product is exact in fp32,
+    so the kernel's FMA and this multiply-then-add round alike (unless a
+    product falls below fp32's normal range)."""
+    k, n = _shapes(x, w)
+    tpr = pl.cols // 8
+    rg, ncols = 256 // tpr, pl.strips(n) * pl.cols
+    padded = pl.cluster * pl.rows
+    wf = torch.zeros((padded, ncols), dtype=torch.float32, device=w.device)
+    wf[:k, :n] = w.float()
+    xf = torch.zeros((padded, 1), dtype=torch.float32, device=x.device)
+    xf[:k, 0] = x[0].float()
+    prod = (xf * wf).view(pl.cluster, pl.rows // pl.tile_rows, pl.tile_rows, ncols)
+    acc = torch.zeros((pl.cluster, rg, ncols), dtype=torch.float32, device=w.device)
+    for ps in range(prod.shape[1]):
+        for r0 in range(0, pl.tile_rows, rg):
+            step = prod[:, ps, r0:r0 + rg]
+            acc[:, :step.shape[1]] = acc[:, :step.shape[1]] + step
+    acc = acc.view(pl.cluster, 8, 32 // tpr, ncols)  # (rank, warp, group of the warp, column)
+    while acc.shape[2] > 1:
+        acc = acc[:, :, 0::2] + acc[:, :, 1::2]
+    ranks = acc[:, 0, 0]
+    for wp in range(1, 8):
+        ranks = ranks + acc[:, wp, 0]
+    y = ranks[0]
+    for r in range(1, pl.cluster):
+        y = y + ranks[r]
+    return y[None, :n].to(x.dtype)
+
+
+def loads_by_tma(w: torch.Tensor) -> bool:
+    """Whether the kernel reads W by TMA: its row stride (2 N bytes) and its
+    base 16-byte aligned. Else plain loads, in the same kernel."""
+    return w.shape[1] % 8 == 0 and w.data_ptr() % 16 == 0
+
+
+def gemv(x: torch.Tensor, w: torch.Tensor, *, overlap: bool = False) -> torch.Tensor:
     """x (1, K) bf16; w (K, N) bf16 row-major. Returns (1, N) bf16. CPU
     tensors take the plain version; CUDA tensors launch the kernel (any K
-    and N; contiguous operands) and count one launch in `gemv.launches`."""
+    and N; contiguous operands; one launch, partitioned by `plan`) and
+    count one launch in `gemv.launches`. `overlap` launches it as a
+    programmatic dependent of the grid launched just before it on the
+    stream: it starts while that grid runs and reads w before that grid
+    has ended, so w must not be that grid's output; only `chain` passes
+    it, for the products whose grid before is the chain's previous
+    product."""
     k, n = _shapes(x, w)
     if x.device.type == "cpu":
         return gemv_reference(x, w)
@@ -75,13 +157,11 @@ def gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((1, n), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    vec = 8 if n % 8 == 0 and w.data_ptr() % 16 == 0 else 1
-    splits, rows = split_plan(k, n, vec, torch.cuda.get_device_properties(x.device)
-                              .multi_processor_count)
-    part = torch.empty((splits, n), dtype=torch.float32, device=x.device)  # scratch
+    pl = plan(k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
     lib = cuda_lib.load()
-    rc = lib.gemv_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(), k, n,
-                       splits, rows, vec, torch.cuda.current_stream(x.device).cuda_stream)
+    rc = lib.gemv_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(), k, n, pl.cols, pl.cluster,
+                       pl.rows, pl.tile_rows, pl.box_rows, int(loads_by_tma(w)), int(overlap),
+                       torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(lib, rc, "gemv_bf16")
     gemv.launches += 1
     return out
@@ -103,9 +183,16 @@ def operands(seed: int = 0, device="cuda"):
 
 
 def chain(fn, x, w1, w2):
-    """The tool's chain: y = fn(x, W1[l]); x = fn(y, W2[l]) over the layers."""
+    """The tool's chain: y = fn(x, W1[l]); x = fn(y, W2[l]) over the layers.
+    With fn = `gemv`, every product after the first overlaps the one before
+    it (`overlap=True`): that product writes only its own output, and the
+    weights were written before the chain began."""
+    step = fn
     for l in range(w1.shape[0]):
-        x = fn(fn(x, w1[l]), w2[l])
+        for w in (w1[l], w2[l]):
+            x = step(x, w)
+            if fn is gemv:
+                step = functools.partial(gemv, overlap=True)
     return x
 
 

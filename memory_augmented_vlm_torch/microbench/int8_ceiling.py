@@ -53,7 +53,7 @@ def int8_gemm_bf16_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def int8_gemm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K) int8; w (K, N) int8. Returns (M, N) bf16. CPU tensors take
     the plain version; CUDA tensors launch the kernel (x contiguous, w
-    column-major, K a multiple of 16, N even) and count one launch in
+    column-major, K a multiple of 16, any N) and count one launch in
     `int8_gemm_bf16.launches`."""
     m, n, k = _shapes(x, w)
     if x.device.type == "cpu":
@@ -64,12 +64,14 @@ def int8_gemm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
-    if w.stride() != (1, k) or w.data_ptr() % 16:
+    if w.stride(0) != 1 or (n > 1 and w.stride(1) != k) or w.data_ptr() % 16:
         raise ValueError("w must be column-major (quant.column_major) and 16-byte aligned")
-    if k % 16 or n % 2:
-        raise ValueError(f"int8_gemm_bf16 needs K % 16 == 0 and an even N, got K={k}, N={n}")
+    if k % 16:
+        raise ValueError(f"int8_gemm_bf16 needs K % 16 == 0 (TMA's row stride), got K={k}")
+    if k == 0:
+        return torch.zeros((m, n), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    if m == 0:
+    if m == 0 or n == 0:
         return out
     lib = cuda_lib.load()
     rc = lib.int8_gemm_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,

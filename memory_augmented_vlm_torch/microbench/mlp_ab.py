@@ -48,14 +48,14 @@ PREFILL_VALID = 9444  # the 64-frame request's spliced length
 KERNELS = re.compile(r"gemm|rowquant|requant|oproj_heads")
 
 
-def ptxas_report(log: str) -> dict:
-    """{entry: 'Used N registers, ...' and its spill line} for the int8 GEMM
-    and quant kernels and #12's out-projection, from nvcc's -Xptxas -v
-    output."""
+def ptxas_report(log: str, kernels: re.Pattern = KERNELS) -> dict:
+    """{entry: 'Used N registers, ...' and its spill line} for each entry
+    whose name `kernels` matches (by default the int8 GEMM and quant
+    kernels and #12's out-projection), from nvcc's -Xptxas -v output."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if not m or not KERNELS.search(m.group(1)):
+        if not m or not kernels.search(m.group(1)):
             continue
         found = [x.split("info    :")[-1].strip() for x in lines[i + 1:i + 4]
                  if "Used" in x or "spill" in x]

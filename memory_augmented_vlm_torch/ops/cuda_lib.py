@@ -149,8 +149,8 @@ def load() -> ctypes.CDLL:
                                     + [ptr])
     # int8_gemm_bf16(x, w, out, M, N, K, stream)
     lib.int8_gemm_bf16.argtypes = [ptr] * 3 + [c_int] * 3 + [ptr]
-    # gemv_bf16(x, w, y, part, K, N, splits, rows_per_split, vec, stream)
-    lib.gemv_bf16.argtypes = [ptr] * 4 + [c_int] * 5 + [ptr]
+    # gemv_bf16(x, w, y, K, N, cols, cluster, rows, tile_rows, box_rows, tma, pdl, stream)
+    lib.gemv_bf16.argtypes = [ptr] * 3 + [c_int] * 9 + [ptr]
     strides = ctypes.POINTER(c_ll)
     # flash_fwd_lse(dtype, head_dim, q, k, v, out, lse, valid_len, B, Sq, Skv,
     #               H, kv_groups, causal, 4 x strides, scale, scale_log2, stream,

@@ -303,30 +303,48 @@ def _column_for_sum(target: int, k: int) -> np.ndarray:
     return col
 
 
-def test_int8_ceiling_matches_kernel_body():
+@pytest.mark.parametrize("n", [72, 33, 1])
+def test_int8_ceiling_matches_kernel_body(n):
     """Random codes at K = 1152, and sums past 2^24 on bf16 rounding ties of
     the fp32 value: there XLA rounds twice (int32 -> fp32 -> bf16), as the
-    plain version does, and not as one rounding of the exact sum would."""
+    plain version does, and not as one rounding of the exact sum would. N
+    even, odd (33) and a single column: the s8 wgmma core masks the ragged
+    edge."""
     rng = np.random.default_rng(32)
     k = 1152
     x = rng.integers(-127, 128, (40, k)).astype(np.int8)
-    w = rng.integers(-127, 128, (k, 72)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
     x[0] = 127
     x[0, k - 1] = 1
     # in [2^24, 2^25), one past a bf16 tie; the fp32 rounding lands on the
     # tie, which rounds down when the multiple of 2^17 below is even
-    targets = [(128 + i) * 131072 + 65537 for i in range(8)]
+    targets = [(128 + i) * 131072 + 65537 for i in range(min(8, n))]
     for j, target in enumerate(targets):
         w[:, j] = _column_for_sum(target, k)
     want = np.asarray(_ws_kernel_body(jnp.asarray(x), jnp.asarray(w)), np.float32)
     got = int8_ceiling.int8_gemm_bf16(_t(x), quant.column_major(_t(w)))
-    assert got.shape == (40, 72) and got.dtype == torch.bfloat16
+    assert got.shape == (40, n) and got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want)
-    exact = (x.astype(np.int64) @ w.astype(np.int64))[0, :8]
+    exact = (x.astype(np.int64) @ w.astype(np.int64))[0, :len(targets)]
     np.testing.assert_array_equal(exact, targets)
     q, r = np.divmod(exact, 131072)  # one rounding to the bf16 spacing of [2^24, 2^25)
     single = np.where(r > 65536, q + 1, q) * 131072
-    assert (single != want[0, :8]).sum() == 4, "the even ties round twice"
+    even_ties = (len(targets) + 1) // 2
+    assert (single != want[0, :len(targets)]).sum() == even_ties, "the even ties round twice"
+
+
+def test_no_mma_sync_gemm_is_left():
+    """Every int8 product runs on the s8 wgmma core: no mma.sync
+    instruction, no int8k::gemm_kernel and none of its helpers (the s8
+    m16n8k32 mma, the cp.async copies, 32-bit fragment loads) is left in
+    the kernel sources."""
+    from memory_augmented_vlm_torch.ops import cuda_lib
+
+    for path in sorted(cuda_lib.CSRC_DIR.iterdir()):
+        text = path.read_text()
+        for gone in ("mma.sync.aligned", "gemm_kernel(", "launch_gemm(", "mma_s8_16832",
+                     "cp_async16", "cp.async.commit_group", "cp_async_wait", "lds32"):
+            assert gone not in text, (path.name, gone)
 
 
 # ---------------------------------------------------------- decode GEMV (#14)
@@ -384,21 +402,58 @@ def test_chip_smoke_gemv_check_fails_neighbouring_functions(control):
 
 def test_chip_smoke_gemv_check_holds_the_function_itself():
     """The same check passes the plain version against itself, and the
-    kernel's own arithmetic: fp32 partial sums over its K split, added in
-    split order, rounded once to bf16."""
+    kernel's own arithmetic: fp32 sums over each cluster rank's slice of K
+    (`gemv.plan` on a 132-SM H100), added in rank order, rounded once to
+    bf16."""
     import chip_smoke
 
     x, w, ref = _gemv_up_case()
     assert chip_smoke._bit_close("self", tgemv.gemv_reference(x, w), ref)["held"]
-    splits, rows = tgemv.split_plan(tgemv.H, tgemv.I, 8, sms=132)
-    acc = torch.zeros((1, tgemv.I))
-    for i in range(splits):
-        acc = acc + x[:, i * rows:(i + 1) * rows].float() @ w[i * rows:(i + 1) * rows].float()
-    row = chip_smoke._bit_close("split sums", acc.to(torch.bfloat16), ref)
+    acc = None
+    for a, b in tgemv.plan(tgemv.H, tgemv.I, sms=132).slices(tgemv.H):
+        part = x[:, a:b].float() @ w[a:b].float()
+        acc = part if acc is None else acc + part
+    row = chip_smoke._bit_close("rank sums", acc.to(torch.bfloat16), ref)
     assert row["held"], row
 
 
+@pytest.mark.parametrize("k,n,cols", [(896, 4864, 128), (4864, 896, 64), (896, 200, 32),
+                                      (896, 4100, 128), (1000, 777, 64), (5, 3, 32),
+                                      (30000, 24, 32)])
+def test_gemv_in_kernel_order_sums_by_rank(k, n, cols):
+    """The kernel's summation emulated on the CPU (`gemv_in_kernel_order`:
+    per thread over every RG-th row, the warp's row groups pairwise, the
+    warps in order, the ranks in order; chip_smoke holds the kernel to it
+    bit for bit) passes chip_smoke's check against the plain version and
+    against the fp32 rank sums added in rank order, rounded once, at each
+    strip width the plan picks (`cols`). At K = 30000 a rank's slice is
+    larger than a tile and is read in passes."""
+    import chip_smoke
+
+    rng = np.random.default_rng(35)
+    x = _t(rng.standard_normal((1, k)) * 0.1).float().to(torch.bfloat16)
+    w = _t(rng.standard_normal((k, n)) * 0.02).float().to(torch.bfloat16)
+    pl = tgemv.plan(k, n, sms=132)
+    assert pl.cols == cols
+    got = tgemv.gemv_in_kernel_order(x, w, pl)
+    assert got.shape == (1, n) and got.dtype == torch.bfloat16
+    row = chip_smoke._bit_close("kernel order", got, tgemv.gemv_reference(x, w))
+    assert row["held"], row
+    ranks = [x[:, a:b].float() @ w[a:b].float() for a, b in pl.slices(k)]
+    total = ranks[0]
+    for part in ranks[1:]:
+        total = total + part
+    row = chip_smoke._bit_close("rank order", got, total.to(torch.bfloat16))
+    assert row["held"], row
+    assert (pl.rows > pl.tile_rows) == (k == 30000)
+
+
 def test_gemv_chain_and_split_plan():
+    """The chain, and the kernel's partition (`gemv.plan`): every row of K
+    in exactly one rank's slice, no rank without rows, at most 16 ranks (a
+    cluster), passes and TMA boxes that tile each slice, a tile within
+    TILE_BYTES, every strip width taken by some shape, and at least one
+    block per SM at both tool shapes."""
     x, w1, w2 = (torch.randn(*shape).to(torch.bfloat16)
                  for shape in ((1, 64), (2, 64, 96), (2, 96, 64)))
     y = tgemv.chain(tgemv.gemv, x, w1, w2)
@@ -407,10 +462,80 @@ def test_gemv_chain_and_split_plan():
         want = tgemv.gemv_reference(tgemv.gemv_reference(want, w1[l]), w2[l])
     torch.testing.assert_close(y, want, rtol=0, atol=0)
     assert tgemv.chain_bytes(x, w1, w2) == 2 * (2 * 64 * 96 + 2 * (64 + 96)) * 2
-    for k, n, vec in ((896, 4864, 8), (4864, 896, 8), (1000, 777, 1), (5, 3, 1)):
-        splits, rows = tgemv.split_plan(k, n, vec, sms=132)
-        assert rows % 8 == 0 and splits * rows >= k > (splits - 1) * rows
-        assert 1 <= splits <= 65535
+    shapes = ((896, 4864), (4864, 896), (1000, 777), (5, 3), (4864, 900), (33, 4104),
+              (896, 200), (896, 4100), (38, 128), (100000, 64), (1, 1))
+    for k, n in shapes:
+        pl = tgemv.plan(k, n, sms=132)
+        covered = [r for a, b in pl.slices(k) for r in range(a, b)]
+        assert covered == list(range(k)), (k, n, pl)
+        assert all(b > a for a, b in pl.slices(k)) and 1 <= pl.cluster <= 16
+        assert pl.rows % pl.tile_rows == 0 and pl.tile_rows % pl.box_rows == 0
+        assert pl.box_rows % 8 == 0 and pl.box_rows <= tgemv.MAX_BOX_ROWS
+        assert pl.tile_rows * pl.cols * 2 <= tgemv.TILE_BYTES
+    assert {tgemv.plan(k, n, sms=132).cols for k, n in shapes} == set(tgemv.STRIP_COLS)
+    for k, n in ((tgemv.H, tgemv.I), (tgemv.I, tgemv.H)):
+        pl = tgemv.plan(k, n, sms=132)
+        assert pl.strips(n) * pl.cluster >= 132
+    # the widest strip that fills the SMs: 256-byte rows up, 128-byte down
+    assert tgemv.plan(tgemv.H, tgemv.I, sms=132) == (128, 4, 224, 224, 224)
+    assert tgemv.plan(tgemv.I, tgemv.H, sms=132) == (64, 10, 496, 496, 248)
+
+
+def test_micro_ab_calls_only_entry_points_every_tree_has():
+    """microbench/micro_ab.py also runs against older trees of the port:
+    of the kernels' modules it calls only entry points that trees have had
+    since #13 and #14 were ported, and its ptxas report (`mlp_ab`'s, with
+    micro_ab's pattern) keeps #13's GEMM and #14's kernels, the mma.sync
+    and split-K ones of older trees alike."""
+    import ast
+    import inspect
+
+    from memory_augmented_vlm_torch.microbench import micro_ab, mlp_ab
+
+    modules = {"gemv", "int8_ceiling", "cuda_lib"}
+    used = {(n.value.id, n.attr) for n in ast.walk(ast.parse(inspect.getsource(micro_ab)))
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id in modules}
+    assert used == {("gemv", "gemv"), ("gemv", "chain"), ("gemv", "operands"),
+                    ("gemv", "gemv_reference"), ("int8_ceiling", "int8_gemm_bf16"),
+                    ("int8_ceiling", "operands"), ("cuda_lib", "load"),
+                    ("cuda_lib", "BUILD_LOG")}
+    log = """ptxas info    : Compiling entry function '_ZN5int8h16gemm_sm90_kernelILi1ELi128ELi2EN14Int32ToBf16OutEEEv' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 2 barriers
+ptxas info    : Compiling entry function '_ZN5int8k11gemm_kernelI14Int32ToBf16EpiEEvPKa' for 'sm_90a'
+ptxas info    : Used 128 registers
+ptxas info    : Compiling entry function '_Z19gemv_partial_kernelILi8EEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Used 40 registers
+ptxas info    : Compiling entry function '_ZN5int8h16gemm_sm90_kernelILi1ELi128ELi2EN6QkvOutEEEv' for 'sm_90a'
+ptxas info    : Used 90 registers, used 2 barriers"""
+    report = mlp_ab.ptxas_report(log, micro_ab.KERNELS)
+    assert list(report) == ["_ZN5int8h16gemm_sm90_kernelILi1ELi128ELi2EN14Int32ToBf16OutEEEv",
+                            "_ZN5int8k11gemm_kernelI14Int32ToBf16EpiEEvPKa",
+                            "_Z19gemv_partial_kernelILi8EEvPK13__nv_bfloat16"]
+    assert "0 bytes spill stores" in report[
+        "_ZN5int8h16gemm_sm90_kernelILi1ELi128ELi2EN14Int32ToBf16OutEEEv"]
+
+
+def test_gemv_chain_overlaps_each_product_after_the_first(monkeypatch):
+    """`chain` launches the kernel as a programmatic dependent (`overlap`)
+    only where the grid before is its own previous product, which writes no
+    weight: never its first product, whose grid before is the caller's.
+    Other functions are chained as they are."""
+    calls = []
+    real = tgemv.gemv
+
+    def spy(x, w, *, overlap=False):
+        calls.append(overlap)
+        return real(x, w, overlap=overlap)
+
+    monkeypatch.setattr(tgemv, "gemv", spy)
+    x, w1, w2 = (torch.randn(*shape).to(torch.bfloat16)
+                 for shape in ((1, 16), (3, 16, 24), (3, 24, 16)))
+    y = tgemv.chain(tgemv.gemv, x, w1, w2)
+    assert calls == [False] + [True] * 5
+    torch.testing.assert_close(y, tgemv.chain(tgemv.gemv_reference, x, w1, w2), rtol=0, atol=0)
+    assert calls == [False] + [True] * 5  # the plain version is chained as it is
 
 
 # ----------------------------------------------------------------- wrappers

@@ -485,21 +485,24 @@ def _wrapper_args():
 def test_w8a8_and_out_projection_products_run_on_the_s8_wgmma_core():
     """#8 (`int8_matmul`) and #5's out-projection launch their products on
     the TMA-fed s8 wgmma core (`int8h::`, int8_gemm_sm90.cuh) with its
-    bias/residual epilogue, #8 with the ragged-N one; the mma.sync GEMM's
-    epilogue for them is gone, and that GEMM serves #13 alone."""
+    bias/residual epilogue, #8 with the ragged-N one, and so does #13
+    (`int8_gemm_bf16`) with its int32 -> bf16 epilogue; the mma.sync GEMM
+    and its epilogues are gone."""
     from memory_augmented_vlm_torch.ops import cuda_lib
 
     csrc = cuda_lib.CSRC_DIR
     merge = (csrc / "flash_merge.cu").read_text()
     matmul = (csrc / "int8_matmul.cu").read_text()
     out_proj = merge[merge.index("int out_proj("):merge.index("}  // namespace")]
-    run = matmul[matmul.index("int run("):matmul.index("// acc -> fp32 -> bf16")]
+    run = matmul[matmul.index("int run("):matmul.index("struct Int32ToBf16Out")]
+    ceiling = matmul[matmul.index('extern "C" int int8_gemm_bf16('):]
     assert "int8h::RowScaleOut<T>" in out_proj and "int8h::launch_gemm_sm90" in out_proj
     assert "int8h::RowScaleOut<T, true>" in run and "int8h::launch_gemm_sm90" in run
-    for body in (out_proj, run):
+    assert "Int32ToBf16Out" in ceiling and "int8h::launch_gemm_sm90" in ceiling
+    for body in (merge, matmul):
         assert "launch_gemm(" not in body
-    assert "launch_gemm(" not in merge and matmul.count("launch_gemm(") == 1  # int8_gemm_bf16
-    assert not [p.name for p in csrc.iterdir() if "RowScaleEpi" in p.read_text()]
+    assert not [p.name for p in csrc.iterdir()
+                if "RowScaleEpi" in p.read_text() or "Int32ToBf16Epi" in p.read_text()]
 
 
 def test_gemm_ab_calls_only_entry_points_every_tree_has():
