@@ -13,7 +13,13 @@ each of which raises on failure:
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths and at edge cases, with the
                 kernel's, the plain version's and a library call's times
-                (CUDA events, median of 5) and the card's bound: the three
+                (CUDA events, median of 5) and the card's bound: flash_fwd
+                at the tower's, the memory's and both LMs' prefill shapes
+                (the 7B's 28 heads of 128 over 4 KV heads among them), and
+                flash_fwd_d448 (the wide kernel, head dim 448) at the 7B
+                memory's fuse and evolve shapes, SDPA's kernels named, and
+                at edge cases (valid length 0 and 1, 65 rows, two batches of
+                unequal valid length, causal GQA); the three
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2; dQ and dK/dV also run twice for the same bits and
                 beside three neighbouring functions that must fail their
@@ -59,11 +65,15 @@ each of which raises on failure:
                 per product, and how many consecutive products overlap);
   5. requests — the full-width 0.5B int8 serving model (random weights from
                 a seed, prequantized on the card) answers 64-, 16- and
-                128-frame clips with 32 greedy tokens; the bf16 model answers
+                128-frame clips with 32 greedy tokens, and a 64-frame clip
+                without the memory (--no_memory); the bf16 model answers
                 a 64-frame clip. Each checks the token accounting and that
                 every kernel's launch count rose by what the config implies;
                 then one 64-frame request of each model with its stages
-                synchronised and timed. The fused configuration runs beside
+                synchronised and timed, and its decode replayed from its
+                CUDA graph against the eager loop: tokens and logits equal
+                bit for bit (int8 greedy and sampled with seeded noise,
+                bf16), decode ms/token of each. The fused configuration runs beside
                 it on the same weights: the 64-frame tower with
                 fused_oproj=True (launches 26/26/26 and no merge launch)
                 against the unfused tower, and the 64-frame request with
@@ -73,7 +83,15 @@ each of which raises on failure:
                 and the 64-frame tower through vlm.encode_frames with the
                 merge swapped for its int8_scores mode (26 int8_scores
                 launches, no exact merge), its drift from the exact tower
-                printed beside the same run's tie-flip floor, and timed;
+                printed beside the same run's tie-flip floor, and timed.
+                Then, the 0.5B weights freed, the 7B int8 serving model
+                (bench.py --model 7b, built by the port's bench functions)
+                answers a 64-frame clip: launches (5 of flash_fwd_d448, 28
+                of flash_fwd, 26 of each int8 tower kernel), stages, graph
+                decode against the eager loop; and `python -m
+                memory_augmented_vlm_torch.bench` runs as a subprocess with
+                no flags and with --model 7b, its JSON line held to
+                bench.py's keys and metric names;
   6. train    — four full-width bf16 train steps of bench_train.py's
                 configuration (64 frames, 9557 tokens, AdamW with its LR
                 groups) on distinct seeded batches: finite losses, 120
@@ -92,8 +110,9 @@ each of which raises on failure:
                 2 segments), whose loss, grad_norm and every gradient leaf
                 are compared.
 
-The line before the last is a JSON object describing each of the 15
-kernels, with its launches on each path; the last
+The line before the last is a JSON object describing each of the 16
+kernels (#1's head dim 448 as its own row), with its launches on each
+path; the last
 line is {"ok": true, "device": {...}}. Nothing is printed as a result when
 there is no card: the run raises first.
 """
@@ -106,13 +125,16 @@ import functools
 import json
 import math
 import subprocess
+import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from memory_augmented_vlm_torch import bench as port_bench
 from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
@@ -296,12 +318,13 @@ def _nbytes(*tensors) -> int:
 
 
 def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.bfloat16,
-                timed=False, controls=False):
+                timed=False, controls=False, name_library=False):
     """flash_fwd on one input against its plain version: bf16 held bit-close
     (`_hold_bitwise`) to the online softmax over the kernel's key tile
     (`flash.forward_tiles`), fp32 to every element within F32_ATOL +
     F32_RTOL of the one-tile plain version. `controls` runs `_flash_controls`
-    through the same check, each of which must fail it."""
+    through the same check, each of which must fail it; `name_library`
+    records the device kernels of the timed library call (its backend)."""
     q, k, v = (x.to(dtype) for x in (q, k, v))
     out = flash.flash_attention(q, k, v, valid, causal=causal, kv_groups=kv_groups)
     torch.cuda.synchronize()
@@ -329,7 +352,10 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
         row["ms"] = _time_ms(lambda: flash.flash_attention(q, k, v, valid, causal=causal,
                                                            kv_groups=kv_groups))
         row["plain_ms"] = _time_ms(plain)
-        row["library_ms"] = _time_ms(_sdpa_call(q, k, v, valid, causal, kv_groups))
+        sdpa = _sdpa_call(q, k, v, valid, causal, kv_groups)
+        row["library_ms"] = _time_ms(sdpa)
+        if name_library:
+            row["library_kernels"] = _device_kernels(sdpa)
         row["bound_ms"], row["bound_by"] = _flash_bound(q, k, v, valid, causal, kv_groups)
         log(json.dumps(row))
     return row
@@ -429,6 +455,10 @@ def phase_flash_kernel():
         _check_case("lm_prefill", randn(1, 9472, 14, 64), randn(1, 9472, 2, 64),
                     randn(1, 9472, 2, 64), lens(9444), causal=True, kv_groups=7,
                     timed=True, controls=True),
+        # the 7B LM's prefill: 28 heads of 128 over 4 KV heads
+        _check_case("lm_prefill_7b", randn(1, 9472, 28, 128), randn(1, 9472, 4, 128),
+                    randn(1, 9472, 4, 128), lens(9444), causal=True, kv_groups=7,
+                    timed=True, controls=True),
     ]
     errs = [r["max_abs_err"] for r in path_rows]
     for d in flash.KERNEL_HEAD_DIMS:
@@ -440,8 +470,57 @@ def phase_flash_kernel():
                                         kv_groups=2, dtype=dtype)["max_abs_err"])
         errs.append(_check_case(f"cross_d{d}", randn(2, 100, 2, d), randn(2, 333, 2, d),
                                 randn(2, 333, 2, d), lens(333, 65))["max_abs_err"])
+    return [_flash_row("flash_fwd", "flash_fwd_sm90.cu", path_rows, errs),
+            _flash_row("flash_fwd_d448", "flash_fwd_wide_sm90.cu", *_wide_cases(randn, lens))]
+
+
+def _wide_cases(randn, lens):
+    """#1 at head dim 448 (csrc/flash_fwd_wide_sm90.cu, the 7B memory): the
+    fuse and evolve shapes of a 64-frame 7B request, timed, with the
+    library call's backend named; edge cases of valid length 0 (zeros) and
+    1, 65 query rows, B = 2 with unequal valid lengths, causal GQA. Each
+    held bit-close to the online softmax at the kernel's 32-key tile;
+    controls where the case can tell them apart (not where most rows see
+    a single tile). Returns (path rows, errors)."""
+    d = flash.WIDE_HEAD_DIM
+    path_rows = [
+        _check_case("memory_fuse_7b", randn(1, 1568, 8, d), randn(1, 6272, 8, d),
+                    randn(1, 6272, 8, d), lens(3136), timed=True, controls=True,
+                    name_library=True),
+        _check_case("memory_evolve_7b", randn(1, 1568, 8, d), randn(1, 15680, 8, d),
+                    randn(1, 15680, 8, d), lens(1568), timed=True, controls=True,
+                    name_library=True),
+    ]
+    errs = [r["max_abs_err"] for r in path_rows]
+    for name, sq, skv, h, hkv, valid, causal, controls in [
+            ("valid_0_and_77_causal_gqa", 150, 150, 4, 2, (0, 77), True, False),
+            ("valid_0_and_77", 150, 150, 4, 2, (0, 77), False, False),
+            ("valid_1", 65, 100, 2, 2, (1,), False, False),
+            ("sq_65", 65, 333, 8, 8, (333,), False, True),
+            ("b2_unequal", 100, 333, 2, 2, (333, 65), False, True)]:
+        b = len(valid)
+        errs.append(_check_case(f"d448_{name}", randn(b, sq, h, d), randn(b, skv, hkv, d),
+                                randn(b, skv, hkv, d), lens(*valid), causal=causal,
+                                kv_groups=h // hkv, controls=controls)["max_abs_err"])
+    return path_rows, errs
+
+
+def _device_kernels(fn) -> list:
+    """The device kernels of one call of `fn` (for a library call: which
+    backend ran), by torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:80] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def _flash_row(name, source, path_rows, errs):
     return {
-        "name": "flash_fwd", "route": "cuda", "source": CSRC + "flash_fwd_sm90.cu",
+        "name": name, "route": "cuda", "source": CSRC + source,
         "replaces": "memory_augmented_vlm_tpu/ops/pallas_flash.py:567",
         "max_abs_err": max(errs),
         **{key: sum(r[key] for r in path_rows)
@@ -449,7 +528,8 @@ def phase_flash_kernel():
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in path_rows)
         else "bytes",
         "per_shape": [{key: r[key] for key in ("case", "max_abs_err", "ms", "plain_ms",
-                                                "library_ms", "bound_ms", "bound_by")}
+                                                "library_ms", "library_kernels", "bound_ms",
+                                                "bound_by") if key in r}
                       for r in path_rows],
     }
 
@@ -1910,6 +1990,7 @@ def phase_train_kernels():
 
 WRAPPERS = {
     "flash_fwd": flash.flash_attention,
+    "flash_fwd_d448": flash.flash_forward_wide,
     "fused_qkv_int8": qkv_int8.fused_qkv_int8,
     "flash_attention_merge_heads": flash.flash_attention_merge_heads,
     "fused_mlp_block_int8": mlp_int8.fused_mlp_block_int8,
@@ -1954,17 +2035,22 @@ def _expected_tower_launches(cfg: VLMConfig, fused_oproj: bool) -> dict:
 
 
 def _expected_launches(cfg: VLMConfig, num_frames: int, fused_oproj: bool = False,
-                       fused_swiglu: bool = False) -> dict:
+                       fused_swiglu: bool = False, no_memory: bool = False) -> dict:
     """One request. `fused_swiglu` adds one launch per LM layer, in prefill
-    only: a decode step's single row stays below the kernel's gate."""
+    only: a decode step's single row stays below the kernel's gate. The
+    memory's cross-attentions take the wide kernel at head dim 448 (7B);
+    `no_memory` runs none."""
     lm = cfg.lm.num_hidden_layers
     if cfg.pipeline.tower_int8:
         want = _expected_tower_launches(cfg, fused_oproj)
-        want["flash_fwd"] = _memory_calls(cfg, num_frames) + lm
         want["fused_swiglu_block_int8"] = lm if fused_swiglu else 0
-        return want
-    return {**dict.fromkeys(WRAPPERS, 0),
-            "flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, num_frames) + lm}
+    else:
+        want = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd": cfg.vision.num_used_layers}
+    memory = 0 if no_memory else _memory_calls(cfg, num_frames)
+    wide = cfg.memory.hidden_size // cfg.memory.num_attention_heads == flash.WIDE_HEAD_DIM
+    want["flash_fwd_d448" if wide else "flash_fwd"] += memory
+    want["flash_fwd"] += lm
+    return want
 
 
 def _expected_train_launches(cfg: VLMConfig, num_frames: int) -> dict:
@@ -1977,19 +2063,22 @@ def _expected_train_launches(cfg: VLMConfig, num_frames: int) -> dict:
             "flash_fwd_lse": 2 * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm}
 
 
-def _visual_tokens(cfg: VLMConfig, num_frames: int, nseg: int) -> int:
+def _visual_tokens(cfg: VLMConfig, num_frames: int, nseg: int, no_memory: bool = False) -> int:
     m = cfg.memory
+    if no_memory:  # each frame's pooled tokens and a newline
+        return num_frames * (m.patch_size + 1)
     return (10 + nseg * m.num_memory_tokens * m.patch_size + 1 + 9
             + min(m.num_fine_frames, num_frames) * m.patch_size + 1)
 
 
-def _serve(label, cfg, params, frame_counts, gen, kv_int8):
+def _serve(label, cfg, params, frame_counts, gen, kv_int8, no_memory=False):
     dev = "cuda"
     tb = torch.tensor(TEXT_BEFORE, device=dev)
     ta = torch.tensor(TEXT_AFTER, device=dev)
     launches_64 = None
     for num_frames in frame_counts:
-        fn, nseg = pipeline.build_pipeline(cfg, num_frames, return_logits=True, kv_int8=kv_int8)
+        fn, nseg = pipeline.build_pipeline(cfg, num_frames, return_logits=True, kv_int8=kv_int8,
+                                           no_memory=no_memory)
         pixels = torch.randn((num_frames, 384, 384, 3), generator=gen,
                              device=dev).to(torch.bfloat16)
         latencies = []
@@ -2002,13 +2091,13 @@ def _serve(label, cfg, params, frame_counts, gen, kv_int8):
             torch.cuda.synchronize()
             latencies.append(time.perf_counter() - t0)
             launches = _launches()
-        want = _expected_launches(cfg, num_frames)
+        want = _expected_launches(cfg, num_frames, no_memory=no_memory)
         if launches != want:
             raise RuntimeError(f"{label} {num_frames} frames: launches {launches}, want {want}")
         visual = s - len(TEXT_BEFORE) - len(TEXT_AFTER)
-        if visual != _visual_tokens(cfg, num_frames, nseg):
+        if visual != _visual_tokens(cfg, num_frames, nseg, no_memory):
             raise RuntimeError(f"{label} {num_frames} frames: {visual} visual tokens")
-        if num_frames == 64 and visual != 9429:
+        if num_frames == 64 and visual != (12608 if no_memory else 9429):
             raise RuntimeError(f"{label} 64 frames: {visual} visual tokens, want 9429")
         if tokens.shape != (32, 1) or not bool(((tokens >= 0)
                                                  & (tokens < cfg.lm.vocab_size)).all()):
@@ -2026,11 +2115,13 @@ def _serve(label, cfg, params, frame_counts, gen, kv_int8):
     return launches_64
 
 
+# with decode replayed from its CUDA graph, `unembed` is the prefill's one
+# call and `decode` the replay (32 steps and 32 unembeds)
 REQUEST_STAGES = [
     (siglip, "forward", "tower"), (vlm, "encode_frames", "tower+projector+pool"),
     (vlm, "build_video_embeds", "memory+assembly"), (qwen2, "forward", "lm_prefill"),
     (qwen2, "unembed", "unembed"), (qwen2, "quantize_cache", "quantize_cache"),
-    (qwen2, "decode_step", "decode_steps")]
+    (pipeline.DecodeGraph, "replay", "decode")]
 TRAIN_STAGES = [
     (vlm, "encode_frames", "tower"), (vlm, "build_video_embeds", "memory"),
     (qwen2, "forward", "lm_forward"), (trainer, "cross_entropy", "loss"),
@@ -2064,11 +2155,13 @@ def _stage_clock(totals: dict, stages=REQUEST_STAGES):
 
 def _stage_times(label, cfg, params, num_frames, gen, kv_int8):
     """One more request with each stage synchronised and timed (three
-    repetitions); the tower's time is inside tower+projector+pool."""
+    repetitions, after a warm-up that captures the decode graph outside the
+    clock); the tower's time is inside tower+projector+pool."""
     dev = "cuda"
     fn, _ = pipeline.build_pipeline(cfg, num_frames, kv_int8=kv_int8)
     pixels = torch.randn((num_frames, 384, 384, 3), generator=gen, device=dev).to(torch.bfloat16)
     tb, ta = torch.tensor(TEXT_BEFORE, device=dev), torch.tensor(TEXT_AFTER, device=dev)
+    fn(params, pixels, tb, ta)
     reps = []
     for _ in range(3):
         totals = {}
@@ -2256,12 +2349,51 @@ def _fused_request(cfg, params, gen):
     return launches
 
 
+def _graph_vs_eager(label, cfg, params, gen, kv_int8, temperature=0.0):
+    """A 64-frame request (its decode replayed from the CUDA graph the
+    first request captured; sampled with the pipeline's seeded noise) against
+    the eager decode loop, `pipeline.decode`, run on the card on the
+    graph's own inputs after it (the prefill's logits and cache, the noise;
+    the loop rewrites each cache position a replay wrote before it reads
+    it): tokens and logits equal bit for bit, both after the capture and
+    after a second replay. Then decode ms/token of each, CUDA events,
+    median."""
+    dev = "cuda"
+    tb, ta = torch.tensor(TEXT_BEFORE, device=dev), torch.tensor(TEXT_AFTER, device=dev)
+    pixels = torch.randn((64, 384, 384, 3), generator=gen, device=dev).to(torch.bfloat16)
+    fn, _ = pipeline.build_pipeline(cfg, 64, kv_int8=kv_int8, return_logits=True,
+                                    sample_temperature=temperature)
+    lm = params["language_model"]
+    equal = []
+    for _ in range(2):
+        tokens, _, logits = fn(params, pixels, tb, ta)
+        (graph,) = fn.graphs.values()
+        eager = functools.partial(pipeline.decode, lm, cfg, graph.logits, graph.cache,
+                                  torch.bfloat16, pipeline.MAX_NEW_TOKENS, graph.noise,
+                                  temperature)
+        want_tokens, want_logits = eager(keep_logits=True)
+        equal.append(bool(torch.equal(tokens, want_tokens) and torch.equal(logits, want_logits)))
+    graph_ms = _time_ms(graph.replay)
+    eager_ms = _time_ms(eager, reps=3)
+    row = {"decode_graph_vs_eager": label, "temperature": temperature,
+           "tokens_and_logits_bit_equal": equal, "tokens": tokens.flatten().tolist()[:8],
+           "decode_ms_per_token_graph": graph_ms / pipeline.MAX_NEW_TOKENS,
+           "decode_ms_per_token_eager": eager_ms / pipeline.MAX_NEW_TOKENS,
+           "decode_steps": pipeline.MAX_NEW_TOKENS, "unembeds_in_decode": pipeline.MAX_NEW_TOKENS}
+    log(json.dumps(row))
+    if not all(equal):
+        raise RuntimeError(f"{label}: graph decode differs from the eager loop ({row})")
+    return row
+
+
 def phase_requests():
-    """The int8 serving model at 64, 16 and 128 frames, then its fused
-    configuration (the fused tower and the fused request, each beside the
-    unfused one), then the bf16 model at 64 frames only (the bf16 path's 16-
-    and 128-frame requests are left out to keep the run short). Returns each
-    path's 64-frame launch counts, keyed by kernel."""
+    """The int8 serving model at 64, 16 and 128 frames and without the
+    memory, then its fused configuration (the fused tower and the fused
+    request, each beside the unfused one), then the bf16 model at 64 frames
+    only (the bf16 path's 16- and 128-frame requests are left out to keep
+    the run short); graph decode against the eager loop for the int8
+    (greedy and sampled) and bf16 models. Returns each path's 64-frame
+    launch counts, keyed by kernel."""
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -2274,10 +2406,13 @@ def phase_requests():
     int8_params = pipeline.int8_serving_params(params)
     torch.cuda.synchronize()
     log(f"prequantize to int8 on the card: {time.perf_counter() - t0:.2f} s")
-    int8_cfg = dataclasses.replace(
-        full, pipeline=dataclasses.replace(full.pipeline, tower_int8=True))
+    int8_cfg = port_bench.serving_config("0.5b")
     int8_launches = _serve("int8", int8_cfg, int8_params, (64, 16, 128), gen, kv_int8=True)
+    no_memory_launches = _serve("int8, no_memory", int8_cfg, int8_params, (64,), gen,
+                                kv_int8=True, no_memory=True)
     _stage_times("int8", int8_cfg, int8_params, 64, gen, kv_int8=True)
+    _graph_vs_eager("int8", int8_cfg, int8_params, gen, kv_int8=True)
+    _graph_vs_eager("int8, sampled", int8_cfg, int8_params, gen, kv_int8=True, temperature=1.0)
     fused_tower_launches = _fused_tower(int8_cfg, int8_params, gen)
     int8_scores_launches = _int8_scores_tower(int8_cfg, int8_params, gen)
     fused_request_launches = _fused_request(int8_cfg, int8_params, gen)
@@ -2290,12 +2425,71 @@ def phase_requests():
     torch.cuda.empty_cache()
     bf16_launches = _serve("bf16", full, params, (64,), gen, kv_int8=False)
     _stage_times("bf16", full, params, 64, gen, kv_int8=False)
+    _graph_vs_eager("bf16", full, params, gen, kv_int8=False)
     del params
     torch.cuda.empty_cache()
     return {"int8_serving_64_frames": int8_launches, "bf16_64_frames": bf16_launches,
+            "int8_serving_64_frames_no_memory": no_memory_launches,
             "int8_fused_oproj_tower_64_frames": fused_tower_launches,
             "int8_fused_swiglu_64_frames": fused_request_launches,
             "int8_scores_tower_64_frames": int8_scores_launches}
+
+
+def phase_requests_7b():
+    """`bench.py --model 7b` built by the port's bench functions (the int8
+    tower, the 7B LM in int8 from `init_lm_7b_int8`, a bf16 untied lm_head
+    and KV cache; the memory at head dim 448): a 64-frame request with its
+    token accounting and launch counts (5 of flash_fwd_d448, 28 of
+    flash_fwd, 26 of each int8 tower kernel), its stages timed, and graph
+    decode against the eager loop. The 0.5B weights are freed before it
+    loads. Returns the request's launch counts."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cfg = port_bench.serving_config("7b")
+    t0 = time.perf_counter()
+    params = port_bench.init_serving_params(cfg, "7b", False, "cuda")
+    torch.cuda.synchronize()
+    log(f"init 7B int8 serving params: {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GB")
+    kv_int8 = port_bench.kv_int8("7b", False)
+    launches = _serve("7b int8", cfg, params, (64,), gen, kv_int8=kv_int8)
+    want = {"flash_fwd_d448": 5, "flash_fwd": 28, "fused_qkv_int8": 26,
+            "flash_attention_merge_heads": 26, "fused_mlp_block_int8": 26}
+    if any(launches[k] != n for k, n in want.items()):
+        raise RuntimeError(f"7b request: launches {launches}, want {want}")
+    _stage_times("7b int8", cfg, params, 64, gen, kv_int8=kv_int8)
+    _graph_vs_eager("7b int8", cfg, params, gen, kv_int8=kv_int8)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {"latency_s", "visual_tokens", "frames", "segments", "decode_tokens",
+                     "backend"}
+
+
+def phase_entry_point():
+    """`python -m memory_augmented_vlm_torch.bench` in a subprocess, with no
+    flags and with `--model 7b`: its last line parses as bench.py's JSON
+    (less the relay fields), with bench.py's metric name, three listed
+    repetitions, backend cuda and the card."""
+    for args, model in (([], "0.5b"), (["--model", "7b"], "7b")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "memory_augmented_vlm_torch.bench", *args],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=Path(__file__).resolve().parent)
+        if proc.returncode != 0:
+            raise RuntimeError(f"bench {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        out = json.loads(line)
+        detail = out.get("detail", {})
+        if (set(out) != BENCH_KEYS or not BENCH_DETAIL_KEYS <= set(detail)
+                or out["metric"] != port_bench.metric_name(64, model)
+                or detail["backend"] != "cuda" or len(detail["latency_s_reps"]) != 3
+                or not (math.isfinite(out["value"]) and out["value"] > 0)):
+            raise RuntimeError(f"bench {args}: unexpected line {line}")
+        log(f"bench {' '.join(args) or '(default)'} ({time.perf_counter() - t0:.1f} s): {line}")
 
 
 # -------------------------------------------------------------- parity
@@ -2696,13 +2890,15 @@ def main():
     phase_card()
     phase_build()
     train_kernels, flash_backward = phase_train_kernels()
-    kernels = [phase_flash_kernel(), *phase_int8_kernels(), *phase_fused_kernels(),
+    kernels = [*phase_flash_kernel(), *phase_int8_kernels(), *phase_fused_kernels(),
                *train_kernels, *phase_int8_attn_kernels()]
     kernels[0]["backward"] = flash_backward
     chain_launches = phase_chain()
     attn_block_launches = phase_attn_block()
     microbench_launches = phase_microbench()
     launches = phase_requests()
+    launches["7b_int8_64_frames"] = phase_requests_7b()
+    phase_entry_point()
     launches["int8_mlp_chain"] = chain_launches
     launches["attn_block"] = attn_block_launches
     launches.update(microbench_launches)

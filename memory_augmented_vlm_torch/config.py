@@ -4,7 +4,7 @@ Counterpart of `memory_augmented_vlm_tpu/config.py`, cut to what the port
 runs: the bf16 and int8-serving video paths with the SigLIP tower, the
 `mlp2x_gelu` projector, bilinear pooling, the `one_token` merge with an
 image newline, the ReLU recurrent memory with the sinusoidal temporal PE,
-and a dense SwiGLU Qwen2 LM with RoPE, biased q/k/v and a tied
+and a dense SwiGLU Qwen2 LM with RoPE, biased q/k/v and a tied or untied
 unembedding. The fields here are the ones the port reads; the JAX config's
 other fields select modes the port does not have, and
 `convert.config_from_fields` raises `NotImplementedError` when one of them
@@ -32,6 +32,8 @@ class LMConfig:
     head_dim: int = 64
     rope_theta: float = 1000000.0
     rms_norm_eps: float = 1e-6
+    # untied: a separate (H, V) `lm_head` (Qwen2-7B); tied: the embedding table
+    tie_word_embeddings: bool = True
 
     @property
     def kv_groups(self) -> int:
@@ -40,6 +42,18 @@ class LMConfig:
     @staticmethod
     def qwen2_0_5b() -> "LMConfig":
         return LMConfig()
+
+    @staticmethod
+    def qwen2_7b() -> "LMConfig":
+        return LMConfig(
+            hidden_size=3584,
+            intermediate_size=18944,
+            num_hidden_layers=28,
+            num_attention_heads=28,
+            num_key_value_heads=4,
+            head_dim=128,
+            tie_word_embeddings=False,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +136,9 @@ class VLMConfig:
     @staticmethod
     def onevision_0_5b() -> "VLMConfig":
         return VLMConfig(lm=LMConfig.qwen2_0_5b())
+
+    @staticmethod
+    def onevision_7b() -> "VLMConfig":
+        """The memory follows the LM's hidden size: 3584 over 8 heads, a head
+        dim of 448."""
+        return VLMConfig(lm=LMConfig.qwen2_7b())

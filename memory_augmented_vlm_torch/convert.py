@@ -44,9 +44,12 @@ def under_stacked_layers(path) -> bool:
 
 def _tensor(x, device, dtype) -> torch.Tensor:
     arr = np.asarray(x)
-    if arr.dtype.kind == "f" and arr.dtype not in (np.float16, np.float32, np.float64):
-        arr = arr.astype(np.float32)  # ml_dtypes bfloat16 and friends
-    t = torch.tensor(arr)  # a copy: the caller's arrays may be read-only
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch.tensor refuses
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        if arr.dtype.kind == "f" and arr.dtype not in (np.float16, np.float32, np.float64):
+            arr = arr.astype(np.float32)  # ml_dtypes' other float types
+        t = torch.tensor(arr)  # a copy: the caller's arrays may be read-only
     return t.to(device=device, dtype=dtype if t.is_floating_point() and dtype else t.dtype)
 
 

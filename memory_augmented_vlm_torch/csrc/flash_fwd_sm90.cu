@@ -477,6 +477,7 @@ int run(const Args& a, int head_dim, void* stream) {
     case 72: return launch_rows<72>(a, s);
     case 112: return launch_rows<112>(a, s);
     case 128: return launch_rows<128>(a, s);
+    case fwd_wide::kHeadDim: return fwd_wide::run(a, stream);
     default: return -1;
   }
 }
@@ -488,6 +489,11 @@ int run(const Args& a, int head_dim, void* stream) {
 // running max of each tile of key_tile keys; a block takes 64 query rows or
 // max_block_rows.
 extern "C" int flash_fwd_tiles(int head_dim, int* key_tile, int* max_block_rows) {
+  if (head_dim == mavlm::fwd_wide::kHeadDim) {
+    *key_tile = mavlm::fwd_wide::kKeyTile;
+    *max_block_rows = mavlm::fwd_wide::kBlockRows;
+    return 0;
+  }
   if (head_dim != 64 && head_dim != 72 && head_dim != 112 && head_dim != 128) return -1;
   *key_tile = mavlm::fwd_sm90::kBN;
   *max_block_rows = mavlm::fwd_sm90::max_wgs(head_dim) * mavlm::fwd_sm90::kWgRows;

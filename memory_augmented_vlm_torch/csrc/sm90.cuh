@@ -227,6 +227,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       : "memory");
 }
 
+// D(64 x 32, fp32) = A(64 x 16) B(16 x 32) (+ D when `accumulate`); A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate)
+      : "memory");
+}
+
 // D(64 x 64, fp32) (+)= A(64 x 16, bf16 in registers) B(16 x 64); B from shared
 // memory, K-major (TB = 0) or MN-major (TB = 1); `accumulate` 0 overwrites D.
 template <int TB>
@@ -426,6 +443,15 @@ __device__ __forceinline__ void wgmma_ss_s8_n64(int (&d)[32], uint64_t desc_a,
 __device__ __forceinline__ void acc_to_a(const float (&c)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+  }
+}
+
+// The same for the accumulator of a 64 x 32 product: two k-steps.
+__device__ __forceinline__ void acc_to_a(const float (&c)[16], uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
   }

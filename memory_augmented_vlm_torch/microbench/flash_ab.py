@@ -8,7 +8,10 @@ With no argument it times this checkout: `flash.flash_attention` at its four
 path shapes (the tower, 64 frames x 729 x 16 heads of 72; the memory's fuse
 and evolve attentions, 1568 queries of 8 heads of 112 over 6272 and 15680
 keys, 3136 valid; the 9,472-token causal LM prefill, 14 heads of 64 over 2
-KV heads, 9444 valid) and `flash_bwd.forward_with_lse` at the train shape
+KV heads, 9444 valid), and where the tree has the wide kernel, the 7B
+memory's (8 heads of 448 over 6272 keys, 3136 valid, and over 15680, 1568
+valid) with its output's share of elements bit-equal to the plain version
+at the kernel's key tile; `flash_bwd.forward_with_lse` at the train shape
 (9557 causal tokens), each as the median of 5 single calls and as ten calls
 back to back (CUDA events); the 64-frame bf16 tower through `siglip.forward`
 and the 9,472-token bf16 prefill through `qwen2.forward` (median of 5), on
@@ -23,6 +26,7 @@ port has are called.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -36,7 +40,7 @@ from memory_augmented_vlm_torch.microbench.timing import require_card, time_ms
 from memory_augmented_vlm_torch.models import qwen2, siglip
 from memory_augmented_vlm_torch.ops import cuda_lib, flash, flash_bwd
 
-KERNELS = re.compile(r"fwd_sm90|fwd_kernel|flash_fwd_bf16|fwd_lse_bf16")
+KERNELS = re.compile(r"fwd_sm90|fwd_kernel|flash_fwd_bf16|fwd_lse_bf16|fwd_wide")
 PREFILL_TOKENS, PREFILL_VALID = 9472, 9444  # the 64-frame request's padded and spliced lengths
 TRAIN_TOKENS = 9557
 
@@ -84,6 +88,16 @@ def measure() -> dict:
         groups = qs[2] // kvs[2]
         kernels[f"flash_fwd {name}"] = _timed(lambda: flash.flash_attention(
             q, k, v, valid, causal=causal, kv_groups=groups))
+    if hasattr(flash, "WIDE_HEAD_DIM"):  # the 7B memory, trees from PR 13 on
+        d = flash.WIDE_HEAD_DIM
+        for name, skv, valid in (("memory_fuse_7b", 6272, 3136), ("memory_evolve_7b", 15680, 1568)):
+            q, k, v = randn(1, 1568, 8, d), randn(1, skv, 8, d), randn(1, skv, 8, d)
+            fn = functools.partial(flash.flash_attention, q, k, v, lens(valid))
+            ref = flash.flash_attention_reference(q, k, v, lens(valid),
+                                                  block_k=flash.forward_tiles(d)[0])
+            kernels[f"flash_fwd {name}"] = {**_timed(fn),
+                                            "bit_equal_share": float((fn() == ref).float().mean())}
+        del q, k, v, ref
     q, k, v = (randn(1, TRAIN_TOKENS, h, 64) for h in (14, 2, 2))
     kernels["flash_fwd_lse lm_train"] = _timed(lambda: flash_bwd.forward_with_lse(
         q, k, v, lens(TRAIN_TOKENS), causal=True, scale=64 ** -0.5, kv_groups=7))

@@ -20,7 +20,13 @@ the activation dtype before `decode_attention`. With the module flag
 
 Parameters: dense kernels are (in, out), int8 kernels (in, out) column-major
 (`ops/quant.py`), q/k/v carry biases, `layers` is a list of per-layer
-dicts, and the unembedding is tied to `embed_tokens`.
+dicts, and the unembedding is tied to `embed_tokens` or, for an untied LM
+(`tie_word_embeddings=False`, Qwen2-7B), a dense (H, V) `lm_head`.
+
+Decode is safe to capture in a CUDA graph: `decode_step` reads its position
+from `cache.length` on the card, writes the cache in place and reads nothing
+back to the host, and `forward(cache=...)` / `quantize_cache(out=...)` fill
+a persistent cache whose addresses a captured decode loop keeps.
 """
 
 from __future__ import annotations
@@ -78,14 +84,20 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def quantize_cache(cache: KVCache) -> KVCache:
+def quantize_cache(cache: KVCache, out: Optional[KVCache] = None) -> KVCache:
     """A prefill cache in the int8 form `decode_step` reads (serving
-    `kv_int8`); an int8 cache is returned as it is."""
+    `kv_int8`); an int8 cache is returned as it is. With `out`, an int8
+    cache of the same shape, the codes, scales and lengths are written into
+    its tensors in place and `out` is returned."""
     if cache.k.dtype == torch.int8:
         return cache
     kq, ks = quantize_kv_rows(cache.k)
     vq, vs = quantize_kv_rows(cache.v)
-    return KVCache(kq, vq, cache.length, ks, vs)
+    if out is None:
+        return KVCache(kq, vq, cache.length, ks, vs)
+    for dst, src in zip(out, (kq, vq, cache.length, ks, vs)):
+        dst.copy_(src)
+    return out
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device, dtype=torch.float32):
@@ -116,6 +128,7 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device, dtype=torch.float32
             for _ in range(cfg.num_hidden_layers)
         ],
         "norm": ones(),
+        **({} if cfg.tie_word_embeddings else {"lm_head": dense(h, cfg.vocab_size)}),
     }
 
 
@@ -125,24 +138,40 @@ def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
 
 def unembed(params, hidden: torch.Tensor) -> torch.Tensor:
     """Final norm already applied; fp32 logits against the tied (V, H)
-    embedding table, or against its int8 copy when `prequantize_int8`
-    installed one: row-quantized activations times the int8 table, scaled
-    by the row and vocab scales."""
+    embedding table or the untied (H, V) `lm_head`, or against the int8
+    copy of either when `prequantize_int8` installed one: row-quantized
+    activations times the int8 table, scaled by the row and vocab scales."""
     if "unembed_int8" in params:
         xq, sx = quantize_rows(hidden)
         acc = int_mm(xq.reshape(-1, xq.shape[-1]), params["unembed_int8"].t())
         acc = acc.reshape(*xq.shape[:-1], acc.shape[-1])
         return acc.float() * sx * params["unembed_scale"]
-    return F.linear(hidden.float(), params["embed_tokens"].float())
+    weight = params["lm_head"] if "lm_head" in params else params["embed_tokens"].t()
+    return _fp32_product(hidden, weight)
+
+
+def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with fp32 products and an fp32 result from
+    operands in their own dtype (JAX's `preferred_element_type=float32`).
+    On the card a bf16 pair takes cuBLAS's bf16 product with an fp32
+    output, so the (V, H) table is never cast: a cast would write and read
+    an fp32 copy of it at every call (1.09 GB of bf16 at 7B)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.device.type == "cuda" and x2.dtype == w.dtype != torch.float32:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()  # no copy of an fp32 operand
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def prequantize_int8(params, *, include_unembed: bool = False):
     """Static-scale int8 LM weights (JAX `qwen2.prequantize_int8`, bits=8):
     the seven dense kernels of every layer become per-output-channel int8
     (`kernel_int8`, column-major) with an fp32 `scale`, biases kept. With
-    `include_unembed`, also a per-vocab-row int8 copy of the tied table
-    (`unembed_int8` (V, H), `unembed_scale` (V,)) that `unembed` prefers;
-    `embed_tokens` stays for token lookups."""
+    `include_unembed`, also a per-vocab-row int8 copy of the unembedding
+    (`unembed_int8` (V, H), `unembed_scale` (V,)) that `unembed` prefers:
+    of the tied table, whose `embed_tokens` stays for token lookups, or of
+    `lm_head.T`, whose dense `lm_head` is dropped."""
     layers = []
     for lp in params["layers"]:
         lp = dict(lp)
@@ -155,11 +184,13 @@ def prequantize_int8(params, *, include_unembed: bool = False):
         layers.append(lp)
     out = {**params, "layers": layers}
     if include_unembed:
-        table = params["embed_tokens"].float()
+        table = (params["lm_head"].t() if "lm_head" in params
+                 else params["embed_tokens"]).float()
         scale = table.abs().amax(dim=1).clamp_min(QUANT_FLOOR) / 127.0
         out["unembed_int8"] = torch.round(table / scale[:, None]).clamp_(-127, 127).to(
-            torch.int8)
+            torch.int8).contiguous()  # (V, H) rows, whichever table it came from
         out["unembed_scale"] = scale
+        out.pop("lm_head", None)
     return out
 
 
@@ -228,14 +259,18 @@ def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch
             valid_len: Optional[torch.Tensor] = None, *,
             cache_max_len: Optional[int] = None, remat: bool = False,
             differentiable_attention: bool = False,
-            need_cache: bool = True) -> Tuple[torch.Tensor, Optional[KVCache]]:
+            need_cache: bool = True,
+            cache: Optional[KVCache] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Prefill or training forward. inputs_embeds (B, S, H) right-padded;
     positions (B, S); valid_len (B,) int32 (None = all valid).
 
     With `need_cache` the returned cache holds `cache_max_len` (default S)
     positions so decode continues in place; without it no cache is made and
     the cache slot is None (the loss-only training path: writing K/V into a
-    cache would tie it into the autograd graph). `remat` recomputes each
+    cache would tie it into the autograd graph). A `cache` passed in (of
+    the activations' dtype and at least S positions) is filled in place,
+    its lengths included, and returned: the persistent buffers of a
+    captured decode loop. `remat` recomputes each
     layer in the backward (`torch.utils.checkpoint`, JAX's
     `jax.checkpoint`), so the forward keeps only the layers' inputs.
     `differentiable_attention` takes the training attention kernels.
@@ -244,8 +279,12 @@ def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch
     dev = inputs_embeds.device
     if valid_len is None:
         valid_len = torch.full((b,), s, dtype=torch.int32, device=dev)
-    cache = None
-    if need_cache:
+    if cache is not None:
+        if (cache.k.dtype != inputs_embeds.dtype or cache.k.shape[1] != b
+                or cache.k.shape[2] < s):
+            raise ValueError(f"cache {cache.k.dtype}{tuple(cache.k.shape)} cannot take "
+                             f"{b} rows of {s} {inputs_embeds.dtype} positions")
+    elif need_cache:
         max_len = cache_max_len or s
         if max_len < s:
             raise ValueError(f"cache_max_len {max_len} < sequence length {s}")
@@ -264,7 +303,8 @@ def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch
     hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
     if cache is None:
         return hidden, None
-    return hidden, cache._replace(length=valid_len.to(torch.int32))
+    cache.length.copy_(valid_len)
+    return hidden, cache
 
 
 def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,

@@ -5,7 +5,8 @@ SigLIP tower -> mlp2x_gelu projector -> 2x2 bilinear pool -> temporal PE ->
 recurrent memory -> memory fuser -> token-type embeds -> `one_token` merge
 with the image newline -> prompt splice. Token accounting matches the
 reference: 10 memory-prompt + nseg*8*196 memory + 1 newline + 9 frame-prompt
-+ nfine*196 fine + 1 newline visual tokens.
++ nfine*196 fine + 1 newline visual tokens; without the memory
+(`add_token_per_frame`), 197 per frame.
 """
 
 from __future__ import annotations
@@ -122,6 +123,15 @@ def build_video_embeds(params, cfg: VLMConfig, feats: torch.Tensor,
     fine = feats[fine_idx.to(dev)] + tte[1]
     frame_prompt = _embed_ids(lm, constants.FRAME_PROMPT_IDS, dev).to(mem_tokens.dtype)
     return torch.cat([*mem_stream, frame_prompt, _merge_frames(fine, newline)], dim=0)
+
+
+def add_token_per_frame(feature: torch.Tensor, newline: torch.Tensor) -> torch.Tensor:
+    """The plain video branch without the memory (`bench.py --no_memory`;
+    `mm_newline_position="frame"`): the image newline after every frame's
+    pooled tokens. (N, P, H) -> (N*(P+1), H)."""
+    n, _, h = feature.shape
+    nl = newline.reshape(1, 1, h).to(feature.dtype).expand(n, 1, h)
+    return torch.cat([feature, nl], dim=1).reshape(-1, h)
 
 
 def splice_image_embeds(params, text_ids_before: torch.Tensor, visual: torch.Tensor,

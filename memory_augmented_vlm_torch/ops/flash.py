@@ -1,6 +1,6 @@
-"""Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu` (bf16) and
-`csrc/flash_fwd.cu` (fp32), `csrc/flash_merge.cu` and their plain PyTorch
-versions.
+"""Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu` (bf16),
+`csrc/flash_fwd_wide_sm90.cu` (bf16 at head dim 448) and `csrc/flash_fwd.cu`
+(fp32), `csrc/flash_merge.cu` and their plain PyTorch versions.
 
 Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash.py::
 pallas_flash_attention` (bshd layout). Both versions compute the TPU
@@ -43,6 +43,9 @@ from memory_augmented_vlm_torch.ops.quant import QUANT_FLOOR, int_mm, quantize_r
 LOG2E = 1.4426950408889634
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # pallas_flash.MASK_VALUE
 KERNEL_HEAD_DIMS = (64, 72, 112, 128)
+# the 7B memory's head dim (3584 / 8): bf16 only, through the kernel of
+# csrc/flash_fwd_wide_sm90.cu (`flash_forward_wide`)
+WIDE_HEAD_DIM = 448
 MERGE_HEAD_DIMS = (64, 72, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -181,8 +184,12 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {d}")
+    if d == WIDE_HEAD_DIM and q.dtype != torch.bfloat16:
+        raise ValueError(f"the flash kernel takes head dim {d} in bf16 only; its fp32 "
+                         f"kernel takes {KERNEL_HEAD_DIMS}")
+    if d not in KERNEL_HEAD_DIMS + (WIDE_HEAD_DIM,):
+        raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS} or "
+                         f"{WIDE_HEAD_DIM}, got {d}")
     # 16-byte vector loads: rows start on 16 bytes, the head dim is contiguous
     align = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -204,7 +211,8 @@ def forward_tiles(head_dim: int) -> Tuple[int, int]:
     """(keys per K/V tile, most query rows per block) of the bf16 forward
     kernel at a head dim, as the built library reports them: its online
     softmax rounds P against the running max of each key tile, so the plain
-    version that holds it takes the same `block_k`."""
+    version that holds it takes the same `block_k`. At `WIDE_HEAD_DIM` the
+    tiles are the wide kernel's (32 keys, 64 rows)."""
     key_tile, rows = ctypes.c_int(), ctypes.c_int()
     lib = cuda_lib.load()
     cuda_lib.check(lib, lib.flash_fwd_tiles(head_dim, ctypes.byref(key_tile),
@@ -255,6 +263,31 @@ def forward_plan(b, sq, skv, h, d, causal, device) -> Tuple[int, torch.Tensor]:
 
 
 def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
+    if q.shape[-1] == WIDE_HEAD_DIM:
+        return flash_forward_wide(q, k, v, kv_valid_len, causal=causal, scale=scale,
+                                  kv_groups=kv_groups)
+    return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, flash_attention)
+
+
+def flash_forward_wide(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
+    """#1 at `WIDE_HEAD_DIM` (the 7B memory's cross-attentions), which
+    `flash_attention` reaches at that head dim: CPU tensors take the plain
+    version; bf16 CUDA tensors launch `csrc/flash_fwd_wide_sm90.cu` (key
+    tiles of 32, `forward_tiles`), counted in `flash_forward_wide.launches`;
+    fp32 CUDA tensors raise."""
+    if q.shape[-1] != WIDE_HEAD_DIM:
+        raise ValueError(f"flash_forward_wide takes head dim {WIDE_HEAD_DIM}, got "
+                         f"{q.shape[-1]}")
+    return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
+                           flash_forward_wide)
+
+
+flash_forward_wide.launches = 0
+
+
+def _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, counter):
+    """The plain version on CPU tensors; on CUDA ones the forward kernel,
+    counted in `counter.launches`."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_valid_len, causal=causal,
@@ -276,7 +309,7 @@ def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
         *out.stride()[:3], scale * LOG2E, stream, None if items is None else items.data_ptr(),
         0 if items is None else items.shape[0], rows)
     cuda_lib.check(lib, rc, "flash_fwd")
-    flash_attention.launches += 1
+    counter.launches += 1
     return out
 
 
@@ -341,8 +374,9 @@ def flash_attention(
     the arguments. CPU tensors take the plain version; CUDA tensors launch
     `csrc/flash_fwd_sm90.cu` (bf16; one block per item of `forward_plan`)
     or `csrc/flash_fwd.cu` (fp32), head dims 64/72/112/128, and count the
-    launch in `flash_attention.launches`. Differentiable: the backward is
-    `_FlashAttention`'s plain recompute."""
+    launch in `flash_attention.launches`; head dim 448 goes to
+    `flash_forward_wide`, which counts its own. Differentiable: the backward
+    is `_FlashAttention`'s plain recompute."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     scale = d ** -0.5 if scale is None else scale
     if kv_valid_len is None:

@@ -173,7 +173,8 @@ def test_wrapper_rejects_bad_arguments():
 def test_build_command_targets_sm90a_and_sources_exist():
     srcs = cuda_lib.sources()
     assert [p.name for p in srcs] == ["attn_block.cu", "flash_bwd_sm90.cu", "flash_fwd.cu",
-                                      "flash_fwd_sm90.cu", "flash_merge.cu",
+                                      "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
+                                      "flash_merge.cu",
                                       "flash_merge_int8.cu", "flash_train.cu", "gemv.cu",
                                       "int8_matmul.cu", "mlp_int8.cu", "qkv_int8.cu",
                                       "swiglu_int8.cu"]
@@ -343,21 +344,34 @@ def test_chip_smoke_flash_check_holds_the_tpu_kernel(causal):
 def test_flash_ab_calls_only_entry_points_every_tree_has():
     """microbench/flash_ab.py also runs against older trees of the port: of
     the port's modules it calls only entry points that every tree has had
-    since the train step was ported, and of nvcc's ptxas report it keeps
-    the bf16 flash forward kernels, the mma.sync ones and the wgmma one
-    alike."""
+    since the train step was ported, except under its check that the tree
+    has the wide kernel (head dim 448, which came with `forward_tiles`), and
+    of nvcc's ptxas report it keeps the bf16 flash forward kernels, the
+    mma.sync ones and the wgmma ones alike."""
     import ast
     import inspect
 
     from memory_augmented_vlm_torch.microbench import flash_ab
 
     modules = {"flash", "flash_bwd", "siglip", "qwen2", "cuda_lib"}
-    used = {(n.value.id, n.attr) for n in ast.walk(ast.parse(inspect.getsource(flash_ab)))
-            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
-            and n.value.id in modules}
-    assert used == {("flash", "flash_attention"), ("flash_bwd", "forward_with_lse"),
-                    ("siglip", "init_params"), ("siglip", "forward"), ("qwen2", "init_params"),
-                    ("qwen2", "forward"), ("cuda_lib", "load"), ("cuda_lib", "BUILD_LOG")}
+    tree = ast.parse(inspect.getsource(flash_ab))
+
+    def used_in(node):
+        return {(n.value.id, n.attr) for n in ast.walk(node)
+                if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+                and n.value.id in modules}
+
+    (guard,) = [n for n in ast.walk(tree) if isinstance(n, ast.If)
+                and ast.unparse(n.test) == "hasattr(flash, 'WIDE_HEAD_DIM')"]
+    wide = {("flash", "WIDE_HEAD_DIM"), ("flash", "flash_attention_reference"),
+            ("flash", "forward_tiles"), ("flash", "flash_attention")}
+    assert used_in(guard) == wide
+    everywhere = {("flash", "flash_attention"), ("flash_bwd", "forward_with_lse"),
+                  ("siglip", "init_params"), ("siglip", "forward"), ("qwen2", "init_params"),
+                  ("qwen2", "forward"), ("cuda_lib", "load"), ("cuda_lib", "BUILD_LOG")}
+    assert used_in(tree) == everywhere | wide
+    guard.body = []
+    assert used_in(tree) == everywhere
     assert callable(flash_ab.main) and callable(flash_ab.measure)
     log = """ptxas info    : Compiling entry function '_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv' for 'sm_90a'
 ptxas info    : Function properties for x
@@ -366,8 +380,11 @@ ptxas info    : Used 114 registers, used 2 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119fwd_lse_bf16_kernelILi64EEEv' for 'sm_90a'
 ptxas info    : Used 96 registers, used 1 barriers
 ptxas info    : Compiling entry function '_Z13gemv_kernelPKv' for 'sm_90a'
-ptxas info    : Used 40 registers"""
+ptxas info    : Used 40 registers
+ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelEv' for 'sm_90a'
+ptxas info    : Used 168 registers"""
     report = flash_ab.ptxas_report(log)
     assert list(report) == ["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv",
-                            "_ZN12_GLOBAL__N_119fwd_lse_bf16_kernelILi64EEEv"]
+                            "_ZN12_GLOBAL__N_119fwd_lse_bf16_kernelILi64EEEv",
+                            "_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelEv"]
     assert "Used 114 registers" in report["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv"]
