@@ -19,7 +19,9 @@ each of which raises on failure:
                 flash_fwd_d448 (the wide kernel, head dim 448) at the 7B
                 memory's fuse and evolve shapes, SDPA's kernels named, and
                 at edge cases (valid length 0 and 1, 65 rows, two batches of
-                unequal valid length, causal GQA); the three
+                unequal valid length, causal GQA), and at generate_batched's
+                prefill (three rows of 15744, valid 5524, 9444 and 15716,
+                causal GQA 14/2); the three
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2; dQ and dK/dV also run twice for the same bits and
                 beside three neighbouring functions that must fail their
@@ -84,6 +86,29 @@ each of which raises on failure:
                 merge swapped for its int8_scores mode (26 int8_scores
                 launches, no exact merge), its drift from the exact tower
                 printed beside the same run's tie-flip floor, and timed.
+                Then the generation surface on the same int8 weights with
+                every LM matrix times 5, so that greedy tokens vary (a
+                bf16 cache, as JAX's generate): vlm.video_qa_embeds of a
+                20-, a 64- and a 200-frame clip; generate greedy and
+                sampled, its captured decode chunk against the eager loop
+                (tokens and every step's logits bit-equal), sampled with an
+                eos and a stop sequence from its own tokens firing at the
+                known step; generate_batched over the three clips (B = 3),
+                each row held to its own generate wherever the top-2
+                margin exceeds the logit difference seen, and that
+                difference to a bound; generate_stream
+                (its chunks are generate's tokens); generate_speculative
+                (greedy's tokens, or a departure at a margin inside the
+                measured forward_chunk-vs-decode_step difference; then
+                with its own tokens as drafts: the same tokens in fewer
+                iterations);
+                score_continuation of the greedy continuation (greedy, and
+                its total against the log-softmax of the graph's logits);
+                beam_search K = 1 (greedy) and K = 4; each call's launches
+                held (flash_fwd 24 per prefill and the memory's per clip,
+                the tower's 26 each per clip, none from forward_chunk), each
+                entry's ms/token beside the pipeline's decode; then a bf16
+                greedy generate, graph against eager.
                 Then, the 0.5B weights freed, the 7B int8 serving model
                 (bench.py --model 7b, built by the port's bench functions)
                 answers a 64-frame clip: launches (5 of flash_fwd_d448, 28
@@ -102,6 +127,12 @@ each of which raises on failure:
                 and gradient leaves bit for bit; then one more step with
                 its stages synchronised, one under torch.profiler (kernel
                 time by kind, device idle share), and the peak memory;
+                then `python -m memory_augmented_vlm_torch.bench_train` as
+                a subprocess, --iters 2 and --frames 300 --iters 1 (10
+                segments, the ring cache's cap, ~22k tokens), each JSON line
+                held to bench_train.py's keys (less impl, staged, backend,
+                vs_baseline_iso_peak; with peak_memory_gb and card) and to
+                finite losses;
   7. parity   — full widths cut to 2 tower and 2 LM layers, fp32: the card
                 (through the kernels) against the CPU (plain versions) on the
                 same weights, for the bf16-path model (8 frames), the int8
@@ -135,9 +166,10 @@ import torch
 import torch.nn.functional as F
 
 from memory_augmented_vlm_torch import bench as port_bench
+from memory_augmented_vlm_torch import bench_train as port_bench_train
 from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch.config import VLMConfig
-from memory_augmented_vlm_torch.models import qwen2, siglip, vlm
+from memory_augmented_vlm_torch.models import beam_search, qwen2, siglip, vlm
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
 from memory_augmented_vlm_torch.microbench.timing import graph_ms, replay_trace, require_card
 from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
@@ -318,13 +350,17 @@ def _nbytes(*tensors) -> int:
 
 
 def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.bfloat16,
-                timed=False, controls=False, name_library=False):
+                timed=False, controls=False, name_library=False, control_rows=None):
     """flash_fwd on one input against its plain version: bf16 held bit-close
     (`_hold_bitwise`) to the online softmax over the kernel's key tile
     (`flash.forward_tiles`), fp32 to every element within F32_ATOL +
     F32_RTOL of the one-tile plain version. `controls` runs `_flash_controls`
-    through the same check, each of which must fail it; `name_library`
-    records the device kernels of the timed library call (its backend)."""
+    through the same check, each of which must fail it, over every query
+    row or, causal with `control_rows`, over the first that many queries
+    and keys of each batch (where the one-tile control's whole score matrix
+    would not fit the card);
+    `name_library` records the device kernels of the timed library call
+    (its backend)."""
     q, k, v = (x.to(dtype) for x in (q, k, v))
     out = flash.flash_attention(q, k, v, valid, causal=causal, kv_groups=kv_groups)
     torch.cuda.synchronize()
@@ -345,8 +381,14 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
     else:
         row = _hold_f32(name, out, ref, **info)
     if controls:
-        for label, fn in _flash_controls(q, k, v, valid, causal, kv_groups, block_k):
-            _must_fail(f"{name} control: {label}", fn()[0], ref)
+        cq, ck, cv, cref = q, k, v, ref
+        if control_rows is not None:  # causal: the first rows see only the first keys
+            if not causal:
+                raise ValueError("control_rows cuts a causal case only")
+            cq, ck, cv, cref = (x[:, :control_rows] for x in (q, k, v, ref))
+        for label, fn in _flash_controls(cq, ck, cv, valid.clamp_max(cq.shape[1]), causal,
+                                         kv_groups, block_k):
+            _must_fail(f"{name} control: {label}", fn()[0], cref)
     del ref
     if timed:
         row["ms"] = _time_ms(lambda: flash.flash_attention(q, k, v, valid, causal=causal,
@@ -444,6 +486,8 @@ def phase_flash_kernel():
     def lens(*v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
+    b3_lens = [_spliced_len(VLMConfig.onevision_0_5b(), f) for f in GENERATE_CLIPS]
+    b3_rows = -(-max(b3_lens) // 128) * 128
     path_rows = [
         _check_case("tower", randn(64, 729, 16, 72), randn(64, 729, 16, 72),
                     randn(64, 729, 16, 72), lens(*[729] * 64), timed=True, controls=True),
@@ -459,6 +503,11 @@ def phase_flash_kernel():
         _check_case("lm_prefill_7b", randn(1, 9472, 28, 128), randn(1, 9472, 4, 128),
                     randn(1, 9472, 4, 128), lens(9444), causal=True, kv_groups=7,
                     timed=True, controls=True),
+        # generate_batched's prefill: the generation phase's three clips as
+        # B = 3 right-padded rows of unequal valid length
+        _check_case("lm_prefill_b3", randn(3, b3_rows, 14, 64), randn(3, b3_rows, 2, 64),
+                    randn(3, b3_rows, 2, 64), lens(*b3_lens), causal=True, kv_groups=7,
+                    timed=True, controls=True, control_rows=B3_CONTROL_ROWS),
     ]
     errs = [r["max_abs_err"] for r in path_rows]
     for d in flash.KERNEL_HEAD_DIMS:
@@ -2115,13 +2164,13 @@ def _serve(label, cfg, params, frame_counts, gen, kv_int8, no_memory=False):
     return launches_64
 
 
-# with decode replayed from its CUDA graph, `unembed` is the prefill's one
-# call and `decode` the replay (32 steps and 32 unembeds)
+# with decode replayed from its captured chunks, `unembed` is the prefill's
+# one call and `decode` the replays (32 steps and 32 unembeds)
 REQUEST_STAGES = [
     (siglip, "forward", "tower"), (vlm, "encode_frames", "tower+projector+pool"),
     (vlm, "build_video_embeds", "memory+assembly"), (qwen2, "forward", "lm_prefill"),
     (qwen2, "unembed", "unembed"), (qwen2, "quantize_cache", "quantize_cache"),
-    (pipeline.DecodeGraph, "replay", "decode")]
+    (vlm._Decoder, "run_chunk", "decode")]
 TRAIN_STAGES = [
     (vlm, "encode_frames", "tower"), (vlm, "build_video_embeds", "memory"),
     (qwen2, "forward", "lm_forward"), (trainer, "cross_entropy", "loss"),
@@ -2349,37 +2398,59 @@ def _fused_request(cfg, params, gen):
     return launches
 
 
+@contextlib.contextmanager
+def _decoders_started():
+    """Records each decoder a call starts, with the prefill's logits, the
+    cache lengths and the settings, so that its decode alone can run again
+    (`_decode_again`)."""
+    seen, real = [], vlm._Decoder.reset
+
+    def spy(dec, logits, st):
+        seen.append((dec, logits.clone(), dec.cache.length.clone(), st))
+        return real(dec, logits, st)
+
+    vlm._Decoder.reset = spy
+    try:
+        yield seen
+    finally:
+        vlm._Decoder.reset = real
+
+
+def _decode_again(dec, logits, length, st):
+    """A started decoder's decode once more from its prefill: the cache
+    lengths and the state reset, then every chunk of the budget (each
+    rewrites the cache positions the last run wrote before reading them;
+    sampled, the noise buffer as the last chunk left it)."""
+    dec.cache.length.copy_(length)
+    dec.reset(logits, st)
+    for _ in range(-(-st.max_new_tokens // dec.chunk)):
+        dec.run_chunk(dec.noise)
+
+
 def _graph_vs_eager(label, cfg, params, gen, kv_int8, temperature=0.0):
-    """A 64-frame request (its decode replayed from the CUDA graph the
-    first request captured; sampled with the pipeline's seeded noise) against
-    the eager decode loop, `pipeline.decode`, run on the card on the
-    graph's own inputs after it (the prefill's logits and cache, the noise;
-    the loop rewrites each cache position a replay wrote before it reads
-    it): tokens and logits equal bit for bit, both after the capture and
-    after a second replay. Then decode ms/token of each, CUDA events,
-    median."""
+    """A 64-frame request (sampled with the default seeded noise) decoded
+    twice by replaying its captured chunks, against the same request decoded
+    eagerly on the card (`cuda_graph=False`: the same transitions op by op):
+    tokens and logits equal bit for bit, after the capture and after a
+    replay. Then decode ms/token of each, the decoder alone
+    (`_decode_again`), CUDA events, median."""
     dev = "cuda"
     tb, ta = torch.tensor(TEXT_BEFORE, device=dev), torch.tensor(TEXT_AFTER, device=dev)
     pixels = torch.randn((64, 384, 384, 3), generator=gen, device=dev).to(torch.bfloat16)
     fn, _ = pipeline.build_pipeline(cfg, 64, kv_int8=kv_int8, return_logits=True,
                                     sample_temperature=temperature)
-    lm = params["language_model"]
-    equal = []
-    for _ in range(2):
-        tokens, _, logits = fn(params, pixels, tb, ta)
-        (graph,) = fn.graphs.values()
-        eager = functools.partial(pipeline.decode, lm, cfg, graph.logits, graph.cache,
-                                  torch.bfloat16, pipeline.MAX_NEW_TOKENS, graph.noise,
-                                  temperature)
-        want_tokens, want_logits = eager(keep_logits=True)
-        equal.append(bool(torch.equal(tokens, want_tokens) and torch.equal(logits, want_logits)))
-    graph_ms = _time_ms(graph.replay)
-    eager_ms = _time_ms(eager, reps=3)
+    with _decoders_started() as started:
+        runs = [fn(params, pixels, tb, ta, cuda_graph=g) for g in (True, True, False)]
+    want_tokens, _, want_logits = runs[2]
+    equal = [bool(torch.equal(tokens, want_tokens) and torch.equal(logits, want_logits))
+             for tokens, _, logits in runs[:2]]
+    graph_ms = _time_ms(lambda: _decode_again(*started[1]))
+    eager_ms = _time_ms(lambda: _decode_again(*started[2]), reps=3)
+    n = pipeline.MAX_NEW_TOKENS
     row = {"decode_graph_vs_eager": label, "temperature": temperature,
-           "tokens_and_logits_bit_equal": equal, "tokens": tokens.flatten().tolist()[:8],
-           "decode_ms_per_token_graph": graph_ms / pipeline.MAX_NEW_TOKENS,
-           "decode_ms_per_token_eager": eager_ms / pipeline.MAX_NEW_TOKENS,
-           "decode_steps": pipeline.MAX_NEW_TOKENS, "unembeds_in_decode": pipeline.MAX_NEW_TOKENS}
+           "tokens_and_logits_bit_equal": equal, "tokens": want_tokens.flatten().tolist()[:8],
+           "decode_ms_per_token_graph": graph_ms / n, "decode_ms_per_token_eager": eager_ms / n,
+           "decode_steps": n, "unembeds_in_decode": n}
     log(json.dumps(row))
     if not all(equal):
         raise RuntimeError(f"{label}: graph decode differs from the eager loop ({row})")
@@ -2411,8 +2482,9 @@ def phase_requests():
     no_memory_launches = _serve("int8, no_memory", int8_cfg, int8_params, (64,), gen,
                                 kv_int8=True, no_memory=True)
     _stage_times("int8", int8_cfg, int8_params, 64, gen, kv_int8=True)
-    _graph_vs_eager("int8", int8_cfg, int8_params, gen, kv_int8=True)
-    _graph_vs_eager("int8, sampled", int8_cfg, int8_params, gen, kv_int8=True, temperature=1.0)
+    decode_rows = [_graph_vs_eager("int8", int8_cfg, int8_params, gen, kv_int8=True),
+                   _graph_vs_eager("int8, sampled", int8_cfg, int8_params, gen, kv_int8=True,
+                                   temperature=1.0)]
     fused_tower_launches = _fused_tower(int8_cfg, int8_params, gen)
     int8_scores_launches = _int8_scores_tower(int8_cfg, int8_params, gen)
     fused_request_launches = _fused_request(int8_cfg, int8_params, gen)
@@ -2421,14 +2493,19 @@ def phase_requests():
     with _fused_flags(oproj=True, swiglu=True):
         _stage_times("int8, fused_oproj and fused_swiglu", int8_cfg, int8_params, 64, gen,
                      kv_int8=True)
-    del int8_params
-    torch.cuda.empty_cache()
     bf16_launches = _serve("bf16", full, params, (64,), gen, kv_int8=False)
     _stage_times("bf16", full, params, 64, gen, kv_int8=False)
-    _graph_vs_eager("bf16", full, params, gen, kv_int8=False)
+    decode_rows.append(_graph_vs_eager("bf16", full, params, gen, kv_int8=False))
+    vlm.clear_decoders()
+    del int8_params
+    lively = _lively(params)
     del params
+    generate_launches = phase_generate(int8_cfg, pipeline.int8_serving_params(lively), full,
+                                       lively, gen, decode_rows)
+    del lively
     torch.cuda.empty_cache()
     return {"int8_serving_64_frames": int8_launches, "bf16_64_frames": bf16_launches,
+            "generate": generate_launches,
             "int8_serving_64_frames_no_memory": no_memory_launches,
             "int8_fused_oproj_tower_64_frames": fused_tower_launches,
             "int8_fused_swiglu_64_frames": fused_request_launches,
@@ -2459,9 +2536,366 @@ def phase_requests_7b():
         raise RuntimeError(f"7b request: launches {launches}, want {want}")
     _stage_times("7b int8", cfg, params, 64, gen, kv_int8=kv_int8)
     _graph_vs_eager("7b int8", cfg, params, gen, kv_int8=kv_int8)
+    vlm.clear_decoders()
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ generation
+
+# the generation phase's clips: unequal spliced lengths (5524, 9444 and
+# 15716 tokens: one, two and six segments)
+GENERATE_CLIPS = (20, 64, 200)
+# flash_fwd's B = 3 case runs its controls over the first this many queries
+# and keys of each row (the one-tile control's score matrix at full length
+# would take 41 GB; here 6.3 GB): row 0's valid length, 5524, falls inside
+# it, so the controls meet a ragged batch and its padded rows
+B3_CONTROL_ROWS = 6144
+# every LM matrix of the generation phase's weights is scaled by this, as
+# the CPU tests' "lively" LM: at init scale greedy repeats one token
+LIVELY_SCALE = 5.0
+# fewer distinct greedy tokens in 32 than this, and the checks that compare
+# two runs' tokens would compare a near-constant sequence: the phase fails
+MIN_DISTINCT_TOKENS = 8
+GENERATE_NEW = 32
+# below this top-2 margin a log-softmax's rounding can turn an argmax
+GREEDY_TIE = 1e-4
+# the most a row's logits may differ between generate_batched (B = 3, padded
+# to the longest clip) and that row's own generate while their tokens agree.
+# On the card (NVIDIA H100 80GB HBM3, 700 W) the lively weights' logits have
+# a std of 3.0; most steps differ by exactly 0, a few by 0.1-2.27, and rows
+# whose tokens have parted differ by 18-22, as mixed-up rows would
+BATCHED_LOGIT_TOL = 6.0
+
+
+def _spliced_len(cfg: VLMConfig, num_frames: int) -> int:
+    """The spliced length `video_qa_embeds` gives a clip of num_frames."""
+    f1 = len(vlm.sample_video_frames(num_frames))
+    fmax = vlm.pad_frames_to_segment_multiple(f1, cfg.memory.segment_frames)
+    nseg = min(fmax // cfg.memory.segment_frames, cfg.memory.cache_cap)
+    return len(TEXT_BEFORE) + len(TEXT_AFTER) + _visual_tokens(cfg, f1, nseg)
+
+
+def _qa_ids() -> np.ndarray:
+    return np.array(TEXT_BEFORE + [constants.IMAGE_TOKEN_INDEX] + TEXT_AFTER, np.int64)
+
+
+def _first_new(seq, start: int, width: int = 1) -> int:
+    """The first step >= start whose last `width` tokens occur nowhere
+    before it (a stop there fires at that step and no earlier), else the
+    first such step from the start."""
+    grams = [tuple(seq[i - width + 1:i + 1]) for i in range(len(seq))]
+    for lo in (start, width - 1):
+        for i in range(max(lo, width - 1), len(seq)):
+            if grams[i] not in grams[width - 1:i]:
+                return i
+    raise RuntimeError(f"no step to stop at in {seq}")
+
+
+def _margin(row: torch.Tensor) -> float:
+    top2 = torch.topk(row.float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+class _Counted:
+    """Runs a path's calls with the launch counts reset around each, holds
+    each call's counts to what it must launch, and sums them."""
+
+    def __init__(self, label):
+        self.label, self.total = label, dict.fromkeys(WRAPPERS, 0)
+
+    def __call__(self, what, fn, want):
+        _reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _launches()
+        want = {**dict.fromkeys(WRAPPERS, 0), **want}
+        if got != want:
+            raise RuntimeError(f"{self.label}, {what}: launches {got}, want {want}")
+        for name, n in got.items():
+            self.total[name] += n
+        return out
+
+
+def _qa_launches(cfg: VLMConfig, num_frames: int) -> dict:
+    """video_qa_embeds of one clip: the tower's and the memory's launches of
+    a request, without the LM prefill."""
+    want = _expected_launches(cfg, len(vlm.sample_video_frames(num_frames)))
+    want["flash_fwd"] -= cfg.lm.num_hidden_layers
+    return want
+
+
+def _clip_embeds(counted, cfg, params, gen, frame_counts):
+    out = []
+    for f0 in frame_counts:
+        pixels = torch.randn((f0, 384, 384, 3), generator=gen, device="cuda").to(torch.bfloat16)
+        emb = counted(f"video_qa_embeds, {f0} frames",
+                      lambda: vlm.video_qa_embeds(params, cfg, pixels, _qa_ids()),
+                      _qa_launches(cfg, f0))
+        if emb.shape != (_spliced_len(cfg, f0), cfg.lm.hidden_size) or \
+                not bool(torch.isfinite(emb).all()):
+            raise RuntimeError(f"video_qa_embeds, {f0} frames: {tuple(emb.shape)} or non-finite")
+        out.append(emb)
+    return out
+
+
+def _entry_ms(fn, prefill_ms: float, tokens: int, reps: int = 3) -> dict:
+    """A whole call (CUDA events, median) and its decode ms/token, the
+    prefill's time taken off."""
+    ms = _time_ms(fn, reps=reps)
+    return {"call_ms": ms, "decode_ms_per_token": (ms - prefill_ms) / tokens}
+
+
+def _graph_and_eager(label, run) -> tuple:
+    """`run(cuda_graph)` -> (GenerateResult, logits rows) twice through the
+    captured chunk (the capture, then a replay of it) and once eagerly on
+    the card: tokens, counts and the logits of every step bit-equal."""
+    (a, rows_a), (b, rows_b), (c, rows_c) = run(True), run(True), run(False)
+    equal = [bool(torch.equal(x.tokens, c.tokens) and torch.equal(x.num_tokens, c.num_tokens)
+                  and torch.equal(r, rows_c)) for x, r in ((a, rows_a), (b, rows_b))]
+    if not all(equal):
+        raise RuntimeError(f"{label}: graph decode differs from the eager loop {equal}")
+    return a, rows_a
+
+
+def _greedy_agreement(label, tokens_a, rows_a, tokens_b, rows_b, bound: float) -> dict:
+    """Two greedy runs of one prompt whose logits differ by rounding: their
+    logits must differ by at most `bound` at every step while their tokens
+    agree, and their tokens must agree at every step whose top-2 margin
+    (run a's) exceeds the largest logit difference seen so far; from the
+    first near-tie on either may take either token and the runs part.
+    Returns the share of steps held."""
+    diff, held = 0.0, 0
+    n = len(tokens_a)
+    for t in range(n):
+        diff = max(diff, float((rows_a[t] - rows_b[t]).abs().max()))
+        if not diff <= bound:
+            raise RuntimeError(f"{label}: logits differ by {diff} > {bound} at step {t}")
+        if _margin(rows_a[t]) <= diff:
+            break
+        if int(tokens_a[t]) != int(tokens_b[t]):
+            raise RuntimeError(f"{label}: token {t} differs ({tokens_a.tolist()} vs "
+                               f"{tokens_b.tolist()}) at margin {_margin(rows_a[t])} > {diff}")
+        held += 1
+    return {"steps_held": held, "share_held": held / n, "max_logit_diff": diff, "bound": bound}
+
+
+def _lively(params):
+    """`params` with every LM matrix (ndim >= 2) times LIVELY_SCALE."""
+    def scale(x):
+        if isinstance(x, dict):
+            return {k: scale(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(scale(v) for v in x)
+        return x * LIVELY_SCALE if x.ndim >= 2 else x
+    return dict(params, language_model=scale(params["language_model"]))
+
+
+def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
+    """The generation surface at full width: `video_qa_embeds` of a 20-, a
+    64- and a 200-frame clip on the 0.5B int8 serving weights (int8 tower
+    and LM, bf16 cache, as JAX's generate), then `generate` (greedy and
+    sampled, graph against eager bit for bit; sampled with an eos and a
+    stop sequence taken from its own tokens, which vary where greedy ones
+    may repeat), `generate_batched` over the three clips,
+    `generate_stream`, `generate_speculative`, `score_continuation` and
+    `beam_search` (K = 1 against greedy, K = 4), each call's launches held
+    (#1 24 per prefill, the tower's three int8 kernels 26 each and the
+    memory's #1 per clip, none from forward_chunk); then a bf16 greedy run.
+    Times each entry beside the pipeline's decode ms/token (`decode_rows`,
+    the same decoder with an int8 cache). The weights' LM matrices are
+    `_lively`. Returns the path's launch counts."""
+    counted = _Counted("generate")
+    n = GENERATE_NEW
+    lm = params["language_model"]
+    prefill = {"flash_fwd": cfg.lm.num_hidden_layers}
+    clips = _clip_embeds(counted, cfg, params, gen, GENERATE_CLIPS)
+    emb = clips[1]
+
+    def greedy(embeds, cuda_graph=True, **kw):
+        return vlm.generate(params, cfg, embeds, max_new_tokens=n, eos_token_ids=(),
+                            return_logits=True, cuda_graph=cuda_graph, **kw)
+
+    free, free_rows = _graph_and_eager("generate, greedy", lambda g: counted(
+        "generate", lambda: greedy(emb, g), prefill))
+    toks = free.tokens.tolist()
+    if len(set(toks)) < MIN_DISTINCT_TOKENS:
+        raise RuntimeError(f"generate, greedy: {len(set(toks))} distinct tokens {toks}")
+    # sampled (the default seeded generator, so every call draws the same
+    # noise), and with an eos and a stop sequence taken from those tokens,
+    # which vary where random weights' greedy tokens may repeat one
+    sampling = dict(temperature=0.8, top_k=50, top_p=0.9, repetition_penalty=1.1)
+    sampled, _ = _graph_and_eager("generate, sampled", lambda g: counted(
+        "generate, sampled", lambda: greedy(emb, g, **sampling), prefill))
+    drawn = sampled.tokens.tolist()
+    i_eos, j_stop = _first_new(drawn, 12), _first_new(drawn, 6, width=2)
+    stops = dict(sampling, eos_token_ids=(drawn[i_eos],),
+                 stop_sequences=((drawn[j_stop - 1], drawn[j_stop]),
+                                 (cfg.lm.vocab_size, cfg.lm.vocab_size + 1)))
+    stopped = counted("generate, sampled, eos and stop", lambda: vlm.generate(
+        params, cfg, emb, max_new_tokens=n, **stops), prefill)
+    num = min(i_eos, j_stop) + 1
+    if int(stopped.num_tokens) != num or stopped.tokens.tolist() != drawn[:num] + [0] * (n - num):
+        raise RuntimeError(f"generate with eos at {i_eos} and a stop at {j_stop}: "
+                           f"{stopped.tokens.tolist()}, num {int(stopped.num_tokens)}")
+
+    # the prefill alone, to take off each entry's time
+    padded = F.pad(emb, (0, 0, 0, -(-emb.shape[0] // 128) * 128 - emb.shape[0]))[None]
+    valid = torch.tensor([emb.shape[0]], dtype=torch.int32, device="cuda")
+    prefill_ms = _time_ms(lambda: vlm._prefill(lm, cfg, padded, valid,
+                                               cache_max_len=padded.shape[1] + n), reps=3)
+    def plain(embeds, model=params, model_cfg=cfg, cuda_graph=True):
+        return vlm.generate(model, model_cfg, embeds, max_new_tokens=n, eos_token_ids=(),
+                            cuda_graph=cuda_graph)
+
+    times = {"prefill_ms": prefill_ms,
+             "pipeline_decode_ms_per_token": {
+                 r["decode_graph_vs_eager"]: r["decode_ms_per_token_graph"] for r in decode_rows},
+             "generate_graph": _entry_ms(lambda: plain(emb), prefill_ms, n),
+             "generate_eager": _entry_ms(lambda: plain(emb, cuda_graph=False), prefill_ms, n,
+                                         reps=2)}
+
+    # generate_batched: the three clips right-padded to one length, B = 3
+    smax = -(-max(e.shape[0] for e in clips) // 128) * 128
+    batch = torch.stack([F.pad(e, (0, 0, 0, smax - e.shape[0])) for e in clips])
+    lens = torch.tensor([e.shape[0] for e in clips], dtype=torch.int32, device="cuda")
+
+    def batched():
+        return vlm.generate_batched(params, cfg, batch, lens, max_new_tokens=n,
+                                    eos_token_ids=(), return_logits=True)
+
+    out_b, rows_b = counted("generate_batched", batched, prefill)
+    agreement = {}
+    for r, e in enumerate(clips):
+        single, rows_s = (free, free_rows) if r == 1 else counted(
+            f"generate, clip {r}", lambda e=e: greedy(e), prefill)
+        agreement[GENERATE_CLIPS[r]] = _greedy_agreement(
+            f"generate_batched row {r}", single.tokens, rows_s, out_b.tokens[r], rows_b[:, r],
+            BATCHED_LOGIT_TOL)
+    times["generate_batched_b3_ms"] = _time_ms(batched, reps=3)
+
+    # generate_stream: the chunks put together are generate's tokens
+    chunks = counted("generate_stream", lambda: list(vlm.generate_stream(
+        params, cfg, emb, max_new_tokens=n, **stops)), prefill)
+    if np.concatenate(chunks).tolist() != drawn[:num]:
+        raise RuntimeError(f"generate_stream: {[c.tolist() for c in chunks]} vs {drawn[:num]}")
+
+    # speculative: greedy's tokens, or a departure at a margin inside the
+    # measured forward_chunk-vs-decode_step difference (the corpus, the
+    # prompt's text ids, proposes no accepted draft). Then again with its
+    # own tokens added to the corpus: their drafts are accepted, in fewer
+    # iterations, and accepting them changes no token (a verified row sees
+    # the same prefix in the same arithmetic)
+    def speculative(corpus=()):
+        return vlm.generate_speculative(params, cfg, emb,
+                                        draft_ids=TEXT_BEFORE + TEXT_AFTER + list(corpus),
+                                        max_new_tokens=n, eos_token_ids=(), spec_k=4)
+
+    spec, info = counted("generate_speculative", speculative, prefill)
+    _, cache = counted("prefill for forward_chunk", lambda: vlm._prefill(
+        lm, cfg, padded, valid, cache_max_len=padded.shape[1] + n), prefill)
+    chunk_emb = qwen2.embed_tokens(lm, free.tokens[None].long()).to(emb.dtype)
+    hidden, _ = counted("forward_chunk", lambda: qwen2.forward_chunk(
+        lm, cfg.lm, chunk_emb, cache, emb.shape[0]), {})
+    chunk_diff = float((qwen2.unembed(lm, hidden)[0, :-1] - free_rows[1:]).abs().max())
+    spec_toks = spec.tokens.tolist()
+    first_diff = next((t for t in range(n) if spec_toks[t] != toks[t]), None)
+    again, info_again = counted("generate_speculative, its own tokens in the corpus",
+                                lambda: speculative(spec_toks), prefill)
+    row = {"speculative": "spec_k 4, corpus the prompt's text ids", "tokens_equal_greedy":
+           first_diff is None, "iterations": info["iterations"],
+           "mean_accepted": int(spec.num_tokens) / info["iterations"],
+           "forward_chunk_vs_decode_step_max_logit_diff": chunk_diff,
+           "own_tokens_in_corpus": {
+               "tokens_equal": again.tokens.tolist() == spec_toks,
+               "iterations": info_again["iterations"],
+               "mean_accepted": int(again.num_tokens) / info_again["iterations"]}}
+    if first_diff is not None:
+        row.update(first_differing_step=first_diff, margin=_margin(free_rows[first_diff]))
+        if not row["margin"] <= chunk_diff:
+            log(json.dumps(row))
+            raise RuntimeError(f"generate_speculative departs from greedy off a near-tie: {row}")
+    log(json.dumps(row))
+    if again.tokens.tolist() != spec_toks or not info_again["iterations"] < info["iterations"]:
+        raise RuntimeError(f"generate_speculative with its own tokens as drafts: {row}")
+    times["speculative"] = _entry_ms(speculative, prefill_ms, n, reps=2)
+    times["speculative_own_tokens_in_corpus"] = _entry_ms(lambda: speculative(spec_toks),
+                                                          prefill_ms, n, reps=2)
+
+    # score_continuation of the greedy continuation
+    full = torch.cat([emb, qwen2.embed_tokens(lm, free.tokens.long()).to(emb.dtype)])
+    total, is_greedy = counted("score_continuation", lambda: vlm.score_continuation(
+        params, cfg, full, free.tokens.cpu().numpy()), prefill)
+    fpad = F.pad(full, (0, 0, 0, -(-full.shape[0] // 128) * 128 - full.shape[0]))[None]
+    hidden, _ = counted("prefill of the continuation", lambda: qwen2.forward(
+        lm, cfg.lm, fpad, torch.arange(fpad.shape[1], device="cuda")[None],
+        valid_len=torch.tensor([full.shape[0]], dtype=torch.int32, device="cuda"),
+        need_cache=False), prefill)
+    logits_p = qwen2.unembed(lm, hidden[0, emb.shape[0] - 1:full.shape[0] - 1])
+    idx = free.tokens.long()[:, None]
+    total_p = float(torch.log_softmax(logits_p, -1).gather(1, idx).sum())
+    total_g = float(torch.log_softmax(free_rows, -1).gather(1, idx).sum())
+    score_diff = float((logits_p - free_rows).abs().max())
+    flips = [t for t in range(n) if int(logits_p[t].argmax()) != toks[t]]
+    row = {"score_continuation": total, "greedy": is_greedy, "from_its_prefill": total_p,
+           "from_the_graphs_logits": total_g, "prefill_vs_decode_max_logit_diff": score_diff,
+           "steps_whose_prefill_argmax_differs": flips}
+    log(json.dumps(row))
+    if not abs(total - total_p) <= 1e-5 * abs(total_p):
+        raise RuntimeError(f"score_continuation is not its prefill's log-softmax: {row}")
+    if not abs(total - total_g) <= 2 * n * score_diff:
+        raise RuntimeError(f"score_continuation and the graph's logits disagree: {row}")
+    if is_greedy != (not flips) or any(_margin(free_rows[t]) > score_diff for t in flips):
+        raise RuntimeError(f"score_continuation's greedy flag is off a near-tie: {row}")
+
+    # beam search: one beam is greedy, four run
+    beam1 = counted("beam_search K=1", lambda: beam_search.beam_search(
+        params, cfg, emb, num_beams=1, max_new_tokens=n, eos_token_ids=()), prefill)
+    ties = [t for t in range(n) if _margin(free_rows[t]) <= GREEDY_TIE]
+    held = ties[0] if ties else n
+    if beam1.tolist()[:held] != toks[:held]:
+        raise RuntimeError(f"beam_search K=1 {beam1.tolist()} is not greedy {toks}")
+
+    def beam4():
+        return beam_search.beam_search(params, cfg, emb, num_beams=4, max_new_tokens=n,
+                                       eos_token_ids=())
+
+    beam = counted("beam_search K=4", beam4, prefill)
+    if len(beam) != n or not ((beam >= 0) & (beam < cfg.lm.vocab_size)).all():
+        raise RuntimeError(f"beam_search K=4: {beam.tolist()}")
+    times["beam_k1"] = _entry_ms(lambda: beam_search.beam_search(
+        params, cfg, emb, num_beams=1, max_new_tokens=n, eos_token_ids=()), prefill_ms, n, 2)
+    times["beam_k4"] = _entry_ms(beam4, prefill_ms, n, reps=2)
+
+    # the bf16 model, greedy: graph against eager
+    (emb16,) = _clip_embeds(counted, bf16_cfg, bf16_params, gen, (64,))
+
+    def greedy16(cuda_graph=True):
+        return vlm.generate(bf16_params, bf16_cfg, emb16, max_new_tokens=n, eos_token_ids=(),
+                            return_logits=True, cuda_graph=cuda_graph)
+
+    free16, _ = _graph_and_eager("generate, bf16", lambda g: counted(
+        "generate, bf16", lambda: greedy16(g), prefill))
+    pad16 = F.pad(emb16, (0, 0, 0, -(-emb16.shape[0] // 128) * 128 - emb16.shape[0]))[None]
+    valid16 = torch.tensor([emb16.shape[0]], dtype=torch.int32, device="cuda")
+    prefill16 = _time_ms(lambda: vlm._prefill(bf16_params["language_model"], bf16_cfg, pad16,
+                                              valid16, cache_max_len=pad16.shape[1] + n), reps=3)
+    times["generate_bf16_graph"] = _entry_ms(
+        lambda: plain(emb16, bf16_params, bf16_cfg), prefill16, n)
+    times["generate_bf16_eager"] = _entry_ms(
+        lambda: plain(emb16, bf16_params, bf16_cfg, cuda_graph=False), prefill16, n, reps=2)
+    log(json.dumps({"generate": "0.5B int8 weights, bf16 cache; 64-frame clip unless named",
+                    "spliced": [e.shape[0] for e in clips], "tokens": toks[:12],
+                    "sampled_tokens": drawn[:12], "eos_step": i_eos, "stop_step": j_stop,
+                    "num_with_stops": num,
+                    "stream_chunks": [len(c) for c in chunks],
+                    "batched_agreement_by_clip_frames": agreement,
+                    "beam_k4_tokens": beam.tolist()[:12],
+                    "bf16_tokens": free16.tokens.tolist()[:12],
+                    "times": times, "launches": counted.total}))
+    vlm.clear_decoders()
+    return counted.total
 
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
@@ -2490,6 +2924,38 @@ def phase_entry_point():
                 or not (math.isfinite(out["value"]) and out["value"] > 0)):
             raise RuntimeError(f"bench {args}: unexpected line {line}")
         log(f"bench {' '.join(args) or '(default)'} ({time.perf_counter() - t0:.1f} s): {line}")
+
+
+BENCH_TRAIN_DETAIL_KEYS = {"frames", "segments", "all_times", "compile_s", "loss_first",
+                           "loss_last", "baseline_modeled_s", "peak_memory_gb", "card"}
+
+
+def phase_bench_train():
+    """`python -m memory_augmented_vlm_torch.bench_train` in a subprocess, as
+    `--iters 2` (64 frames) and `--frames 300 --iters 1` (10 segments, the
+    ring cache's cap): its last line parses as bench_train.py's JSON less
+    `impl`, `staged`, `backend` and `vs_baseline_iso_peak`, with its metric
+    name, one time per iteration and finite losses."""
+    for args, frames, iters in ((["--iters", "2"], 64, 2),
+                                (["--frames", "300", "--iters", "1"], 300, 1)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "memory_augmented_vlm_torch.bench_train",
+                               *args], capture_output=True, text=True, timeout=600,
+                              cwd=Path(__file__).resolve().parent)
+        if proc.returncode != 0:
+            raise RuntimeError(f"bench_train {args} exited {proc.returncode}:\n"
+                               f"{proc.stderr[-4000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        out = json.loads(line)
+        detail = out.get("detail", {})
+        if (set(out) != BENCH_KEYS or set(detail) != BENCH_TRAIN_DETAIL_KEYS
+                or out["metric"] != port_bench_train.metric_name(frames)
+                or detail["frames"] != frames or len(detail["all_times"]) != iters
+                or not all(math.isfinite(detail[k]) for k in ("loss_first", "loss_last"))
+                or not (math.isfinite(out["value"]) and out["value"] > 0)):
+            raise RuntimeError(f"bench_train {args}: unexpected line {line}")
+        log(f"bench_train {' '.join(args)} ({time.perf_counter() - t0:.1f} s): step "
+            f"{detail['all_times']} s, peak {detail['peak_memory_gb']:.3f} GB: {line}")
 
 
 # -------------------------------------------------------------- parity
@@ -2558,6 +3024,7 @@ def _parity_run(label, cfg, params_cpu, atol, kv_int8, rms_bound, noise_floor, f
                     "tokens_compared": compared,
                     "tokens_card": tok_g[:, 0].tolist(), "tokens_cpu": tok_c[:, 0].tolist(),
                     "cpu_run_s": cpu_s}))
+    vlm.clear_decoders()
 
 
 def phase_parity():
@@ -2582,14 +3049,6 @@ def phase_parity():
 
 
 # ---------------------------------------------------------------- train
-
-def _bench_opt() -> optimizer.OptimizerConfig:
-    """bench_train.py's optimizer: at warmup_ratio 0.03 of 100 steps, step
-    0 runs at lr 0 and the trainable leaves first move at step 1."""
-    return optimizer.OptimizerConfig(
-        learning_rate=1e-5, memory_transformer_lr=5e-5, memory_key_value_lr=5e-5,
-        mm_vision_tower_lr=None, total_steps=100, warmup_ratio=0.03)
-
 
 def _train_batch(rng, cfg: VLMConfig, num_frames, num_fine, dev, dtype):
     """bench_train.make_batch's batch (B=1, image at text position 3), with
@@ -2761,7 +3220,7 @@ def phase_train():
     one under the profiler. Returns the per-step launch counts."""
     dev = "cuda"
     cfg = VLMConfig.onevision_0_5b()
-    opt = _bench_opt()
+    opt = port_bench_train.optimizer_config()  # step 0 runs at lr 0
     t0 = time.perf_counter()
     params = vlm.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     state = trainer.init_train_state(params, opt)
@@ -2843,7 +3302,7 @@ def phase_train_parity():
         full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
         lm=dataclasses.replace(full.lm, num_hidden_layers=2))
     params = vlm.init_params(cfg, seed=6, device="cpu", dtype=torch.float32)
-    opt = _bench_opt()
+    opt = port_bench_train.optimizer_config()  # step 0 runs at lr 0
     step = trainer.make_train_step(cfg, opt, nseg=2)
     results = {}
     for dev in ("cuda", "cpu"):
@@ -2903,6 +3362,7 @@ def main():
     launches["attn_block"] = attn_block_launches
     launches.update(microbench_launches)
     launches["train_step"] = phase_train()
+    phase_bench_train()
     phase_parity()
     phase_train_parity()
     for row in kernels:

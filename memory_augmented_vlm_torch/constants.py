@@ -12,3 +12,7 @@ MEMORY_PROMPT_TEXT = "This is a high-level summary of the video:"
 MEMORY_PROMPT_IDS = (1986, 374, 264, 1550, 11591, 12126, 315, 279, 2766, 25)
 FRAME_PROMPT_TEXT = "These are sampled visual frames from the video:"
 FRAME_PROMPT_IDS = (9485, 525, 48876, 9124, 14087, 504, 279, 2766, 25)
+
+# the single <image> sentinel in a prompt's token ids, which the visual
+# stream replaces
+IMAGE_TOKEN_INDEX = -200

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from memory_augmented_vlm_torch.config import LMConfig
-from memory_augmented_vlm_torch.ops.attention import decode_attention, flash_attention
+from memory_augmented_vlm_torch.ops.attention import (decode_attention, flash_attention,
+                                                      mha_attention, repeat_kv)
 from memory_augmented_vlm_torch.ops.norms import rms_norm
 from memory_augmented_vlm_torch.ops.quant import (QUANT_FLOOR, int8_linear, int_mm,
                                                   prequantize_kernel, quantize_rows)
@@ -304,6 +305,134 @@ def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch
     if cache is None:
         return hidden, None
     cache.length.copy_(valid_len)
+    return hidden, cache
+
+
+def _write_kv(cache: KVCache, li: int, rows, pos, k, v, act_dtype, drop=None):
+    """Write a layer's new K/V (B', C, Hkv, D) at cache[li, rows (B',), pos
+    (B', C)] in place (an int8
+    cache quantizes them on the way in, a cache of another float dtype takes
+    them rounded to it) and return that layer's whole K and V for `rows`,
+    dequantized or cast to the activation dtype. `drop(new, layer)` maps
+    each stored tensor's new values before the write (decode_chunk_batched's
+    dropped positions)."""
+    quant = cache.k.dtype == torch.int8
+    if quant:
+        (k, k_s), (v, v_s) = quantize_kv_rows(k), quantize_kv_rows(v)
+        pairs = [(cache.k, k), (cache.v, v), (cache.k_scale, k_s), (cache.v_scale, v_s)]
+    else:
+        pairs = [(cache.k, k.to(cache.k.dtype)), (cache.v, v.to(cache.v.dtype))]
+    for dst, new in pairs:
+        dst[li, rows[:, None], pos] = new if drop is None else drop(new, dst[li])
+    layer_k, layer_v = cache.k[li, rows], cache.v[li, rows]
+    if quant:
+        layer_k = (layer_k.float() * cache.k_scale[li, rows][..., None]).to(act_dtype)
+        layer_v = (layer_v.float() * cache.v_scale[li, rows][..., None]).to(act_dtype)
+    # a bf16 cache under fp32 activations: the exact widening that JAX's
+    # einsum promotion makes
+    return layer_k.to(act_dtype), layer_v.to(act_dtype)
+
+
+def _chunk_layers(params, cfg: LMConfig, hidden, cache: KVCache, rows, write_pos, qpos, mask,
+                  drop=None):
+    """The decoder layers of a chunk step: RoPE at `qpos` (B', C), K/V
+    written at cache[:, rows, write_pos] (through `drop`, see `_write_kv`),
+    plain attention under `mask` against the rows' whole cache. Returns
+    hidden after the final norm."""
+    b, c, _ = hidden.shape
+    cos, sin = _rope_tables(cfg, qpos)
+    for li, lp in enumerate(params["layers"]):
+        x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, cfg, x)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        layer_k, layer_v = _write_kv(cache, li, rows, write_pos, k, v, hidden.dtype, drop)
+        attn = mha_attention(q, repeat_kv(layer_k, cfg.kv_groups),
+                             repeat_kv(layer_v, cfg.kv_groups), mask=mask)
+        hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, c, -1))
+        hidden = _mlp_half(lp, hidden, cfg)
+    return rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+
+
+def forward_chunk(params, cfg: LMConfig, token_embeds: torch.Tensor, cache: KVCache,
+                  start, *, row: int = 0,
+                  rope_seq_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    """C-token step against a cache prefix (JAX `qwen2.forward_chunk`):
+    positions [0, start) of cache row `row` are the valid context; the chunk
+    token_embeds (1, C, H) attends to that prefix plus its own causal
+    triangle, and its K/V are written at positions [start, start + C) of
+    that row, in place (an int8 cache quantizes on write). `start` is an int
+    or a 0-d integer tensor on the cache's device; nothing is read back to
+    the host. As JAX's `dynamic_update_slice`, the write window is clamped
+    into the cache while the positions and the mask are not.
+
+    The verification step of speculative decoding. Returns (hidden (1, C, H)
+    after the final norm, the cache with length[row] = start + C in a new
+    length tensor): callers roll `length` back on partial acceptance;
+    positions past the accepted point are garbage that the next write
+    overwrites.
+
+    `rope_seq_len` is accepted and has no effect: JAX pins its dynamic-NTK
+    frequency basis with it, and the port's LMConfig has no RoPE scaling
+    (`convert.config_from_fields` refuses configs that use it). Attention
+    is the plain `mha_attention` with JAX's mask, as JAX uses XLA here."""
+    del rope_seq_len
+    b, c, _ = token_embeds.shape
+    smax = cache.k.shape[2]
+    dev = token_embeds.device
+    start = torch.as_tensor(start, dtype=torch.long, device=dev)
+    steps = torch.arange(c, device=dev)
+    qpos = start + steps                                        # (C,)
+    write_pos = start.clamp(0, smax - c) + steps
+    mask = (torch.arange(smax, device=dev)[None, :] <= qpos[:, None])[None, None]
+    rows = torch.full((b,), row, dtype=torch.long, device=dev)
+    hidden = _chunk_layers(params, cfg, token_embeds, cache, rows, write_pos[None, :],
+                           qpos[None, :].expand(b, c), mask)
+    length = torch.where(torch.arange(cache.length.shape[0], device=dev) == row,
+                         (start + c).to(torch.int32), cache.length)
+    return hidden, cache._replace(length=length)
+
+
+def decode_chunk_batched(params, cfg: LMConfig, token_embeds: torch.Tensor, cache: KVCache,
+                         starts: torch.Tensor, *,
+                         rope_seq_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    """Batched K-token step with per-row start offsets (JAX
+    `qwen2.decode_chunk_batched`): token_embeds (B, K, H), starts (B,) int;
+    row b's chunk occupies cache positions [starts[b], starts[b] + K) and
+    attends to that row's prefix plus its own causal triangle.
+
+    Positions outside [0, Smax) write nothing, as JAX's scatter with
+    `mode="drop"` (a row parked at the cache bound writes nothing). The
+    write goes through an index mask, never a scatter that wraps or a read
+    back to the host: each dropped position is redirected to the row's
+    nearest position in range and writes that position's own new value
+    (in a row with no position in range, position 0's old value), so
+    duplicate indices carry equal values. Returns (hidden (B, K, H) after
+    the final norm, the cache); `length` is not updated: callers own
+    per-row acceptance. `rope_seq_len` has no effect (see `forward_chunk`)."""
+    del rope_seq_len
+    b, kk, _ = token_embeds.shape
+    smax = cache.k.shape[2]
+    dev = token_embeds.device
+    starts = starts.to(device=dev, dtype=torch.long)
+    qpos = starts[:, None] + torch.arange(kk, device=dev)[None, :]      # (B, K)
+    lo = starts.clamp_min(0)[:, None]
+    hi = (starts + kk - 1).clamp_max(smax - 1)[:, None]
+    any_in = lo <= hi                                                   # (B, 1)
+    nearest = torch.minimum(torch.maximum(qpos, lo), hi)
+    write_pos = torch.where(any_in, nearest, 0)
+    src = torch.where(any_in, nearest - starts[:, None], 0)             # chunk index
+
+    def drop(new, layer):
+        tail = (1,) * (new.dim() - 2)
+        moved = torch.gather(new, 1, src.reshape(src.shape + tail).expand_as(new))
+        return torch.where(any_in.reshape(any_in.shape + tail), moved,
+                           layer[:, :1].expand_as(new))
+
+    mask = (torch.arange(smax, device=dev)[None, None, None, :]
+            <= qpos[:, None, :, None])                                  # (B, 1, K, Smax)
+    rows = torch.arange(b, device=dev)
+    hidden = _chunk_layers(params, cfg, token_embeds, cache, rows, write_pos, qpos, mask, drop)
     return hidden, cache
 
 

@@ -40,6 +40,7 @@ from memory_augmented_vlm_torch import config as tconfig
 from memory_augmented_vlm_torch import convert, pipeline
 from memory_augmented_vlm_torch.models import memory as tmem
 from memory_augmented_vlm_torch.models import qwen2 as tqwen2
+from memory_augmented_vlm_torch.models import vlm as tvlm
 from memory_augmented_vlm_torch.ops import flash
 from test_vlm import TINY
 
@@ -182,8 +183,10 @@ def test_sampled_pipeline_matches_bench_with_its_draws(weights, temperature):
 
 
 def test_gumbel_noise_is_seeded_and_standard():
-    a = pipeline.gumbel_noise(4, 1, 20000, "cpu")
-    b = pipeline.gumbel_noise(4, 1, 20000, "cpu")
+    """The sampled pipeline's noise when none is passed: `vlm.generate`'s
+    default generator, seeded the same on every call."""
+    a = tvlm.gumbel((4, 1, 20000), tvlm._generator(None, "cpu"))
+    b = tvlm.gumbel((4, 1, 20000), tvlm._generator(None, "cpu"))
     assert a.shape == (4, 1, 20000) and a.dtype == torch.float32
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     # standard Gumbel: mean = Euler's gamma, variance = pi^2 / 6
@@ -461,12 +464,12 @@ def test_pipeline_does_jax_decode_work(weights, monkeypatch):
             counts[_name] += 1
             return _real(*a, **kw)
         monkeypatch.setattr(tqwen2, name, counted)
-    real_decode = pipeline.decode
+    real_reset = tvlm._Decoder.reset
 
-    def spy(lm, cfg_, logits, cache, *a, **kw):
-        seen["args"] = (logits.clone(), tqwen2.KVCache(*(x.clone() for x in cache[:3])))
-        return real_decode(lm, cfg_, logits, cache, *a, **kw)
-    monkeypatch.setattr(pipeline, "decode", spy)
+    def spy(dec, logits, st):
+        seen["args"] = (logits.clone(), tqwen2.KVCache(*(x.clone() for x in dec.cache[:3])))
+        return real_reset(dec, logits, st)
+    monkeypatch.setattr(tvlm._Decoder, "reset", spy)
     pix = _t(_pixels(12, 5))
     fn, _ = pipeline.build_pipeline(cfg, 12, return_logits=True, max_new_tokens=32)
     tokens, _, logits = fn(tparams, pix, _t(TEXT_BEFORE), _t(TEXT_AFTER))
@@ -507,9 +510,9 @@ def test_prefill_fills_a_persistent_cache_in_place():
 
 
 def test_decode_graph_is_only_built_on_the_card(weights, monkeypatch):
-    """On the CPU the pipeline runs `decode` eagerly and never makes a
-    DecodeGraph."""
-    monkeypatch.setattr(pipeline, "DecodeGraph", lambda *a, **kw: pytest.fail("graph on cpu"))
+    """On the CPU the pipeline decodes eagerly and never captures a graph."""
+    monkeypatch.setattr(tvlm._Decoder, "_capture", lambda *a: pytest.fail("graph on cpu"))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda *a: pytest.fail("graph on cpu"))
     fn, _ = pipeline.build_pipeline(convert.config_from_fields(TINY), 12, max_new_tokens=2)
     tokens, _ = fn(weights[1], _t(_pixels(12, 6)), _t(TEXT_BEFORE), _t(TEXT_AFTER))
     assert tokens.shape == (2, 1)

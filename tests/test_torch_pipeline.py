@@ -75,7 +75,7 @@ def test_port_imports_no_jax():
     assert "memory_augmented_vlm_torch.constants" in modules
     for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
               "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common",
-              "bench"):
+              "bench", "bench_train", "models.sampling", "models.beam_search"):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
