@@ -113,7 +113,17 @@ each of which raises on failure:
                 (bench.py --model 7b, built by the port's bench functions)
                 answers a 64-frame clip: launches (5 of flash_fwd_d448, 28
                 of flash_fwd, 26 of each int8 tower kernel), stages, graph
-                decode against the eager loop; and `python -m
+                decode against the eager loop. Then loading (`phase_load`):
+                the 0.5B model's seeded bf16 weights (LM matrices times 5)
+                exported with `export_hf_safetensors` under build/ and
+                loaded back by `load_pretrained_model`, in bf16 and with
+                load_8bit: every leaf bit-equal to the source (or to its
+                prequantization), and `model.generate` of a 64-frame
+                480x640 uint8 clip read back from a y4m file through
+                `load_video` giving the in-memory request's 32 tokens
+                (flash_fwd 55; the tower's int8 kernels 26 each and
+                flash_fwd 29), with export and load times, GB/s, the peak
+                host RSS and each generate's ms. And `python -m
                 memory_augmented_vlm_torch.bench` runs as a subprocess with
                 no flags and with --model 7b, its JSON line held to
                 bench.py's keys and metric names;
@@ -155,8 +165,11 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -168,6 +181,11 @@ import torch.nn.functional as F
 from memory_augmented_vlm_torch import bench as port_bench
 from memory_augmented_vlm_torch import bench_train as port_bench_train
 from memory_augmented_vlm_torch import constants, pipeline
+from memory_augmented_vlm_torch.checkpoint.checkpoint_io import export_hf_safetensors
+from memory_augmented_vlm_torch.data import native_loader
+from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor
+from memory_augmented_vlm_torch.data.video import load_video, write_y4m
+from memory_augmented_vlm_torch.eval.builder import load_pretrained_model
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import beam_search, qwen2, siglip, vlm
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
@@ -3345,6 +3363,174 @@ def phase_train_parity():
                     "card_step_s": tg, "cpu_step_s": tc}))
 
 
+# ---------------------------------------------------------------- loading
+
+LOAD_FRAMES = 64
+LOAD_FRAME_HW = (480, 640)  # a camera frame, resized by the host processor
+LOAD_SEED = 3
+
+
+class _PeakRss:
+    """The process's peak resident set while the block runs, sampled every
+    5 ms, in GB: VmRSS (/proc/self/status), and resident less shared pages
+    (/proc/self/statm), which leaves out the pages of a mapped file where
+    the kernel counts them as shared."""
+
+    def __enter__(self):
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self._read()
+        self.peak = dict(self.before)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _read(self) -> dict:
+        with open("/proc/self/statm") as f:
+            _, resident, shared = (int(v) for v in f.read().split()[:3])
+        with open("/proc/self/status") as f:
+            vmrss = next(int(line.split()[1]) * 1024 for line in f
+                         if line.startswith("VmRSS:"))
+        return {"rss": vmrss, "unshared": (resident - shared) * self.page}
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            now = self._read()
+            for k in self.peak:
+                self.peak[k] = max(self.peak[k], now[k])
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def report(self) -> dict:
+        return {"peak_rss_gb": self.peak["rss"] / 1e9, "rss_gb_before": self.before["rss"] / 1e9,
+                "peak_unshared_gb": self.peak["unshared"] / 1e9,
+                "unshared_gb_before": self.before["unshared"] / 1e9}
+
+
+def _loaded_leaves_equal(label, got, want):
+    """Every leaf of the loaded params bit-equal to the source's, same paths
+    and dtypes."""
+    a, b = dict(leaves_with_path(got)), dict(leaves_with_path(want))
+    if a.keys() != b.keys():
+        raise RuntimeError(f"{label}: leaves differ: {sorted(map(path_str, set(a) ^ set(b)))}")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            raise RuntimeError(f"{label}: {path_str(k)} differs from the source "
+                               f"({a[k].dtype} vs {b[k].dtype})")
+    return len(a)
+
+
+def _load_case(label, ckpt, nbytes, cfg, source, ids, frames, processor, load_8bit, want):
+    """`load_pretrained_model(ckpt)` (bf16, or `load_8bit`): its leaves held
+    to `source` bit for bit, its `generate` on the clip's uint8 frames to
+    the same request from `source` (the host processor, `video_qa_embeds`,
+    `vlm.generate`) token for token, its launches counted; both timed."""
+    counted = _Counted(label)
+    torch.cuda.synchronize()
+    with _PeakRss() as rss:
+        t0 = time.perf_counter()
+        tokenizer, model, image_processor, context_len = load_pretrained_model(
+            ckpt, load_8bit=load_8bit)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    side = cfg.vision.image_size
+    if tokenizer is not None or image_processor.size != (side, side) or \
+            context_len != cfg.lm.max_position_embeddings or model.cfg != cfg:
+        raise RuntimeError(f"{label}: tokenizer {tokenizer}, processor {image_processor.size}, "
+                           f"context {context_len}, config {model.cfg}")
+    leaves = _loaded_leaves_equal(label, model.params, source)
+
+    def loaded():
+        return model.generate(ids, images=[frames], modalities=["video"],
+                              max_new_tokens=GENERATE_NEW)
+
+    def in_memory():
+        pixels = processor.preprocess(frames)
+        emb = vlm.video_qa_embeds(source, cfg, pixels, ids[0])
+        out = vlm.generate(source, cfg, emb, max_new_tokens=GENERATE_NEW)
+        return out.tokens[:int(out.num_tokens)].cpu().numpy()
+
+    got = counted("generate", loaded, want)[0]
+    ref = in_memory()
+    if got.tolist() != ref.tolist():
+        raise RuntimeError(f"{label}: loaded tokens {got.tolist()} != in-memory {ref.tolist()}")
+    if len(set(got.tolist())) < MIN_DISTINCT_TOKENS:
+        raise RuntimeError(f"{label}: {len(set(got.tolist()))} distinct tokens in {got.tolist()}")
+    t0 = time.perf_counter()
+    processor.preprocess(frames)
+    processor_ms = 1e3 * (time.perf_counter() - t0)
+    row = {"load": label, "load_s": load_s, "gb_read_per_s": nbytes / 1e9 / load_s,
+           **rss.report(), "leaves_bit_equal": leaves, "launches": counted.total,
+           "tokens": got.tolist(), "generate_ms": _time_ms(loaded, reps=3),
+           "in_memory_ms": _time_ms(in_memory, reps=3), "host_processor_ms": processor_ms}
+    log(json.dumps(row))
+    del model
+    vlm.clear_decoders()
+    return counted.total
+
+
+def phase_load():
+    """Loading at full width: the 0.5B model's seeded bf16 params (LM
+    matrices times 5, `_lively`) exported with the port's
+    `export_hf_safetensors` under build/ (fp32, ~3.6 GB), then
+    `load_pretrained_model` of it in bf16 and with `load_8bit`. The loaded
+    leaves equal the source's bit for bit (bf16 -> fp32 -> bf16 is exact;
+    with `load_8bit`, `siglip.prequantize_int8` and `qwen2.prequantize_int8`
+    of the source on the card); `model.generate` of a 64-frame 480x640
+    uint8 clip, written as y4m and read back through `data/video.load_video`
+    (the native frame loader, built first, decodes it), gives the same 32
+    tokens as the in-memory request, with flash_fwd 55 launches in bf16 and
+    fused_qkv_int8 / flash_attention_merge_heads / fused_mlp_block_int8 26
+    each and flash_fwd 29 with load_8bit. Prints the export and load times,
+    GB read per s, the peak host RSS during each load and each generate's ms
+    beside the in-memory request's. Deletes the checkpoint. Returns each
+    load's launch counts."""
+    log(f"load phase on {require_card()}")
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    log(f"native frame loader: {lib.name}, {time.perf_counter() - t0:.2f} s")
+    cfg = VLMConfig.onevision_0_5b()
+    source = _lively(vlm.init_params(cfg, seed=LOAD_SEED, device="cuda", dtype=torch.bfloat16))
+    ckpt = Path(__file__).resolve().parent / "build" / f"load_phase_{LOAD_SEED}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = export_hf_safetensors(source, cfg, str(ckpt))
+    export_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    rng = np.random.default_rng(LOAD_SEED)
+    clip = rng.integers(0, 256, (LOAD_FRAMES, *LOAD_FRAME_HW, 3), dtype=np.uint8)
+    write_y4m(str(ckpt / "clip.y4m"), clip, fps=30)
+    frames, _, _, num = load_video(str(ckpt / "clip.y4m"), frames_upbound=LOAD_FRAMES,
+                                   force_sample=True)
+    if frames.shape != (LOAD_FRAMES, *LOAD_FRAME_HW, 3) or num != LOAD_FRAMES:
+        raise RuntimeError(f"load_video: {frames.shape}, {num} frames")
+    log(json.dumps({"export_s": export_s, "checkpoint_gb": nbytes / 1e9,
+                    "export_gb_per_s": nbytes / 1e9 / export_s,
+                    "parameters": sum(x.numel() for _, x in leaves_with_path(source))}))
+    ids = _qa_ids()[None]
+    processor = SigLipImageProcessor(size=(cfg.vision.image_size, cfg.vision.image_size))
+    tower, lm = cfg.vision.num_used_layers, cfg.lm.num_hidden_layers
+    memory = _memory_calls(cfg, LOAD_FRAMES)
+    launches = {"load_bf16": _load_case(
+        "bf16", str(ckpt), nbytes, cfg, source, ids, frames, processor, False,
+        {"flash_fwd": tower + memory + lm})}
+    int8_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
+                                                                     tower_int8=True))
+    int8_source = {**source, "vision_tower": siglip.prequantize_int8(source["vision_tower"]),
+                   "language_model": qwen2.prequantize_int8(source["language_model"])}
+    launches["load_int8"] = _load_case(
+        "int8", str(ckpt), nbytes, int8_cfg, int8_source, ids, frames, processor, True,
+        {"fused_qkv_int8": tower, "flash_attention_merge_heads": tower,
+         "fused_mlp_block_int8": tower, "flash_fwd": memory + lm})
+    shutil.rmtree(ckpt)
+    del source, int8_source
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     phase_card()
     phase_build()
@@ -3357,6 +3543,7 @@ def main():
     microbench_launches = phase_microbench()
     launches = phase_requests()
     launches["7b_int8_64_frames"] = phase_requests_7b()
+    launches.update(phase_load())
     phase_entry_point()
     launches["int8_mlp_chain"] = chain_launches
     launches["attn_block"] = attn_block_launches

@@ -17,6 +17,7 @@ from the SigLIP geometry alone, so importing this module pulls in no tower.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +31,9 @@ class LMConfig:
     num_attention_heads: int = 14
     num_key_value_heads: int = 2
     head_dim: int = 64
+    # read from and written to a checkpoint's config.json (the context length
+    # `load_pretrained_model` reports); the port's RoPE does not read it
+    max_position_embeddings: int = 32768
     rope_theta: float = 1000000.0
     rms_norm_eps: float = 1e-6
     # untied: a separate (H, V) `lm_head` (Qwen2-7B); tied: the embedding table
@@ -108,10 +112,22 @@ class MemoryConfig:
 class PipelineConfig:
     """Multimodal assembly: the pooling stride over the tower's patch grid,
     and whether the tower runs int8 (its weights prequantized by
-    `siglip.prequantize_int8`, the serving configuration)."""
+    `siglip.prequantize_int8`, the serving configuration).
+
+    A checkpoint's `config.json` also carries the image path's fields
+    (`mm_patch_merge_type`, `image_aspect_ratio`, `image_grid_pinpoints`)
+    and the tokenizer's; the port keeps them, so that an export writes them
+    back, but its video path reads none of them."""
 
     mm_spatial_pool_stride: int = 2
     tower_int8: bool = False
+    mm_patch_merge_type: str = "spatial_unpad"
+    image_aspect_ratio: str = "anyres_max_9"
+    # a spec string or a tuple of (w, h) resolutions (hashable, as the JAX
+    # config's)
+    image_grid_pinpoints: Union[str, Tuple[Tuple[int, int], ...]] = "(1x1),...,(6x6)"
+    tokenizer_model_max_length: int = 32768
+    tokenizer_padding_side: str = "right"
 
 
 @dataclasses.dataclass(frozen=True)

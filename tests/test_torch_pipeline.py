@@ -75,11 +75,31 @@ def test_port_imports_no_jax():
     assert "memory_augmented_vlm_torch.constants" in modules
     for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
               "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common",
-              "bench", "bench_train", "models.sampling", "models.beam_search"):
+              "bench", "bench_train", "models.sampling", "models.beam_search",
+              *LOADING_MODULES):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=pkg.parent, timeout=120)
+
+
+# the modules of checkpoint loading, which the card's machine may run
+# without the packages below: they import them only where they are used
+LOADING_MODULES = ("models.registry", "checkpoint.safetensors_io", "checkpoint.hf_import",
+                   "checkpoint.checkpoint_io", "checkpoint.delta", "models.tokenizer_init",
+                   "config", "data.preprocessing", "data.tokenizer", "data.conversation",
+                   "data.video", "data.native_loader", "eval.model", "eval.builder")
+OPTIONAL_PACKAGES = ("safetensors", "transformers", "tokenizers", "PIL")
+
+
+@pytest.mark.parametrize("module", LOADING_MODULES)
+def test_loading_modules_import_no_optional_package(module):
+    root = Path(__file__).resolve().parent.parent
+    code = ("import importlib, sys\n"
+            f"importlib.import_module('memory_augmented_vlm_torch.{module}')\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {OPTIONAL_PACKAGES!r})\n"
+            "assert not bad, bad\n" + _NO_JAX)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=120)
 
 
 def test_chip_smoke_imports_no_jax():
