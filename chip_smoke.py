@@ -21,7 +21,8 @@ each of which raises on failure:
                 at edge cases (valid length 0 and 1, 65 rows, two batches of
                 unequal valid length, causal GQA), and at generate_batched's
                 prefill (three rows of 15744, valid 5524, 9444 and 15716,
-                causal GQA 14/2); the three
+                causal GQA 14/2), and at the anyres image path's tower
+                (16 tiles of 729) and prefill (7296 rows, valid 7284); the three
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2; dQ and dK/dV also run twice for the same bits and
                 beside three neighbouring functions that must fail their
@@ -30,7 +31,9 @@ each of which raises on failure:
                 three int8 kernels of the default tower, the four of the
                 fused configuration and the w8a8 layer (int8_matmul,
                 fused_mlp_int8, fused_swiglu_block_int8,
-                flash_attention_out_proj_int8), and the four of the
+                flash_attention_out_proj_int8; the default tower's three
+                also at the image path's 16 and 5 tiles, 11664 and 3645
+                rows, the 16 timed with their controls), and the four of the
                 approximate attention and the micro-benchmarks (the
                 int8_scores merge, whose prep pass's codes and scales must
                 equal their plain version bit for bit, and
@@ -123,7 +126,26 @@ each of which raises on failure:
                 `load_video` giving the in-memory request's 32 tokens
                 (flash_fwd 55; the tower's int8 kernels 26 each and
                 flash_fwd 29), with export and load times, GB/s, the peak
-                host RSS and each generate's ms. And `python -m
+                host RSS and each generate's ms. Then evaluation and the
+                image path (`phase_eval`) on that checkpoint: the device
+                preprocess (ops/preprocess.py) on the card against the same
+                function on the CPU (fp32, PREPROCESS_TOL; its
+                antialias=False control must fail) and within the host
+                processor's quantization envelope, for the 64-frame clip, 8
+                frames of 1080x1920, one of 2160x3840 and the anyres tiles
+                of a 1920x1080 image, each timed beside the host processor;
+                the clip through load_pretrained_model(device_preprocess=
+                True) in bf16 and with load_8bit (the tokens of the same
+                call fed the card-preprocessed frames, phase_load's
+                launches); the image with modalities=["image"] through the
+                host anyres processor and through the device preprocess in
+                both (7269 visual tokens, launches, 32 tokens, finite
+                logits, the two paths' embeds within EMBED_FLOOR_FACTOR of
+                the uint8 requantization floor); model_vqa over a clip, a
+                PNG and a text question with and without
+                --device_preprocess, the lmms-eval adapter's generate_until
+                and loglikelihood through the vendored harness, and
+                Predictor on the clip, each with its launches and ms. And `python -m
                 memory_augmented_vlm_torch.bench` runs as a subprocess with
                 no flags and with --model 7b, its JSON line held to
                 bench.py's keys and metric names;
@@ -166,6 +188,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -181,19 +204,25 @@ import torch.nn.functional as F
 from memory_augmented_vlm_torch import bench as port_bench
 from memory_augmented_vlm_torch import bench_train as port_bench_train
 from memory_augmented_vlm_torch import constants, pipeline
+from memory_augmented_vlm_torch import predict as port_predict
 from memory_augmented_vlm_torch.checkpoint.checkpoint_io import export_hf_safetensors
 from memory_augmented_vlm_torch.data import native_loader
-from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor
+from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor, \
+    process_anyres_image
+from memory_augmented_vlm_torch.data.tokenizer import load_qwen_tokenizer
 from memory_augmented_vlm_torch.data.video import load_video, write_y4m
+from memory_augmented_vlm_torch.eval import lmms_adapter, model_vqa
 from memory_augmented_vlm_torch.eval.builder import load_pretrained_model
 from memory_augmented_vlm_torch.config import VLMConfig
-from memory_augmented_vlm_torch.models import beam_search, qwen2, siglip, vlm
+from memory_augmented_vlm_torch.models import beam_search, image_path, qwen2, siglip, vlm
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
 from memory_augmented_vlm_torch.microbench.timing import graph_ms, replay_trace, require_card
 from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
 from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_bwd, mlp_int8,
                                             norms, pallas_int8, qkv_int8, quant,
                                             swiglu_int8)
+from memory_augmented_vlm_torch.ops.preprocess import preprocess_anyres_image, \
+    preprocess_frames
 from memory_augmented_vlm_torch.train import optimizer, trainer
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str
 
@@ -504,8 +533,11 @@ def phase_flash_kernel():
     def lens(*v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
-    b3_lens = [_spliced_len(VLMConfig.onevision_0_5b(), f) for f in GENERATE_CLIPS]
+    cfg = VLMConfig.onevision_0_5b()
+    b3_lens = [_spliced_len(cfg, f) for f in GENERATE_CLIPS]
     b3_rows = -(-max(b3_lens) // 128) * 128
+    image_len = _image_spliced_len(cfg, EVAL_IMAGE_HW[::-1])
+    image_rows = -(-image_len // 128) * 128
     path_rows = [
         _check_case("tower", randn(64, 729, 16, 72), randn(64, 729, 16, 72),
                     randn(64, 729, 16, 72), lens(*[729] * 64), timed=True, controls=True),
@@ -526,6 +558,14 @@ def phase_flash_kernel():
         _check_case("lm_prefill_b3", randn(3, b3_rows, 14, 64), randn(3, b3_rows, 2, 64),
                     randn(3, b3_rows, 2, 64), lens(*b3_lens), causal=True, kv_groups=7,
                     timed=True, controls=True, control_rows=B3_CONTROL_ROWS),
+        # the anyres image path: the tower over the 1920x1080 image's 16
+        # tiles, and the LM prefill of its spliced sequence
+        _check_case("image_tower", randn(IMAGE_TILES[0], 729, 16, 72),
+                    randn(IMAGE_TILES[0], 729, 16, 72), randn(IMAGE_TILES[0], 729, 16, 72),
+                    lens(*[729] * IMAGE_TILES[0]), timed=True, controls=True),
+        _check_case("image_prefill", randn(1, image_rows, 14, 64), randn(1, image_rows, 2, 64),
+                    randn(1, image_rows, 2, 64), lens(image_len), causal=True, kv_groups=7,
+                    timed=True, controls=True),
     ]
     errs = [r["max_abs_err"] for r in path_rows]
     for d in flash.KERNEL_HEAD_DIMS:
@@ -730,9 +770,111 @@ def _mlp_args(gen, m, k, i, dtype, dev):
     return (hidden, ln_w, ln_b, *_int8_weight(gen, k, i, dev), *_int8_weight(gen, i, k, dev))
 
 
+# the anyres image path's tower batches: the card phase's 1920x1080 image
+# (a 5 x 3 grid and the base view, 11664 rows = 91 * 128 + 16) and a 2 x 2
+# grid and the base (3645 rows, 28 * 128 + 61)
+IMAGE_TILES = (16, 5)
+
+
+def _qkv_case(gen, b, s, h, nh, label, timed):
+    """fused_qkv_int8 at (b, s, h) bf16 held bit-close to its plain version;
+    `timed` also runs the controls, which must fail, and returns the
+    kernel's, the plain version's and `_int_mm`'s ms beside the bound."""
+    args = _qkv_args(gen, b, s, h, torch.bfloat16, "cuda")
+    out = qkv_int8.fused_qkv_int8(*args, nh=nh)
+    torch.cuda.synchronize()
+    ref = qkv_int8.fused_qkv_int8_reference(*args, nh=nh)
+    row = {"max_abs_err": max(_hold_bitwise(f"qkv{label}_{n}", o, r,
+                                            hidden=list(args[0].shape))["max_abs_err"]
+                              for n, o, r in zip("qkv", out, ref))}
+    if not timed:
+        return row
+    for control, fn in _qkv_controls(args, nh):
+        for n, o, r in zip("qkv", fn(), ref):
+            _must_fail(f"qkv{label}_{n} control: {control}", o, r)
+    del ref
+    xq, _ = quant.quantize_rows(args[0].reshape(-1, h))
+    w_qkv = quant.column_major(torch.cat([args[3], args[6], args[9]], dim=1))
+    bound, by = _bound(2.0 * b * s * h * 3 * h, PEAK_INT8,
+                       _nbytes(args[0], *out, args[3], args[6], args[9]))
+    return {**row,
+            "ms": _time_ms(lambda: qkv_int8.fused_qkv_int8(*args, nh=nh)),
+            "plain_ms": _time_ms(lambda: qkv_int8.fused_qkv_int8_reference(*args, nh=nh)),
+            "library_ms": _time_ms(lambda: torch._int_mm(xq, w_qkv)),
+            "library_call": f"torch._int_mm ({b * s}x{h} @ {h}x{3 * h}): the matmul share only",
+            "bound_ms": bound, "bound_by": by}
+
+
+def _merge_case(gen, b, s, nh, label, timed):
+    """flash_attention_merge_heads at (b, nh, s, 72) bf16, all keys valid,
+    as `_qkv_case`; its controls and SDPA as the library call."""
+    q, k, v = (torch.randn((b, nh, s, 72), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    valid = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    out = flash.flash_attention_merge_heads(q, k, v, valid)
+    torch.cuda.synchronize()
+    ref = flash.flash_attention_merge_heads_reference(q, k, v, valid)
+    row = {"max_abs_err": _hold_bitwise(f"merge{label}", out, ref, q=list(q.shape))["max_abs_err"]}
+    if not timed:
+        return row
+    for control, fn in _merge_controls(q, k, v, valid):
+        _must_fail(f"merge{label} control: {control}", fn(), ref)
+    del ref
+    bound, by = _bound(4.0 * b * nh * s * s * 72, PEAK_BF16, _nbytes(q, k, v, out))
+    return {**row,
+            "ms": _time_ms(lambda: flash.flash_attention_merge_heads(q, k, v, valid)),
+            "plain_ms": _time_ms(lambda: flash.flash_attention_merge_heads_reference(
+                q, k, v, valid)),
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            "library_call": f"scaled_dot_product_attention ({b}, {nh}, {s}, 72) bf16",
+            "bound_ms": bound, "bound_by": by}
+
+
+def _mlp_case(gen, m, h, inter, label, timed):
+    """fused_mlp_block_int8 at (m, h) x (h, inter) bf16, as `_qkv_case`;
+    its controls are the erf GELU and h rounded to bf16 before the
+    requant."""
+    args = _mlp_args(gen, m, h, inter, torch.bfloat16, "cuda")
+    out = mlp_int8.fused_mlp_block_int8(*args)
+    torch.cuda.synchronize()
+    ref = mlp_int8.fused_mlp_block_int8_reference(*args)
+    row = {"max_abs_err": _hold_bitwise(f"mlp{label}", out, ref, args[0],
+                                        hidden=list(args[0].shape))["max_abs_err"]}
+    if not timed:
+        return row
+    with _erf_gelu():
+        _must_fail(f"mlp{label} control: erf GELU",
+                   mlp_int8.fused_mlp_block_int8_reference(*args), ref, args[0])
+    with _h_in_bf16():
+        _must_fail(f"mlp{label} control: h rounded to bf16 before the requant",
+                   mlp_int8.fused_mlp_block_int8_reference(*args), ref, args[0])
+    del ref
+    xq, _ = quant.quantize_rows(args[0])
+    hq = torch.randint(-127, 128, (m, inter), generator=gen, device="cuda", dtype=torch.int8)
+    bound, by = _bound(2.0 * m * h * inter * 2, PEAK_INT8,
+                       2 * _nbytes(args[0]) + _nbytes(args[3], args[6]))
+    return {**row,
+            "ms": _time_ms(lambda: mlp_int8.fused_mlp_block_int8(*args)),
+            "plain_ms": _time_ms(lambda: mlp_int8.fused_mlp_block_int8_reference(*args)),
+            "library_ms": _time_ms(lambda: (torch._int_mm(xq, args[3]),
+                                            torch._int_mm(hq, args[6]))),
+            "library_call": f"torch._int_mm x2 ({m}x{h} @ {h}x{inter}, {m}x{inter} @ "
+                            f"{inter}x{h}): the matmul share only",
+            "bound_ms": bound, "bound_by": by}
+
+
+def _image_cases(case, shape) -> tuple:
+    """`case` at the image path's two tower batches (IMAGE_TILES), the
+    first timed with its controls: (per-shape rows by tile count, errs)."""
+    rows = {f"{t}_tiles": case(*shape(t), f"_image_{t}", t == IMAGE_TILES[0])
+            for t in IMAGE_TILES}
+    return rows, [r["max_abs_err"] for r in rows.values()]
+
+
 def phase_int8_kernels():
     """fused_qkv_int8, flash_attention_merge_heads and fused_mlp_block_int8
-    at the 64-frame tower's shapes, and at edge cases."""
+    at the 64-frame tower's shapes, at the anyres image's tower batches
+    (IMAGE_TILES, the larger timed) and at edge cases."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     dev = "cuda"
@@ -740,27 +882,12 @@ def phase_int8_kernels():
     rows = {}
 
     # --- fused_qkv_int8
-    args = _qkv_args(gen, b, s, h, torch.bfloat16, dev)
-    out = qkv_int8.fused_qkv_int8(*args, nh=nh)
-    torch.cuda.synchronize()
-    ref = qkv_int8.fused_qkv_int8_reference(*args, nh=nh)
-    errs = [_hold_bitwise(f"qkv_{n}", o, r, hidden=list(args[0].shape))["max_abs_err"]
-            for n, o, r in zip("qkv", out, ref)]
-    for control, fn in _qkv_controls(args, nh):
-        for n, o, r in zip("qkv", fn(), ref):
-            _must_fail(f"qkv_{n} control: {control}", o, r)
-    del ref
-    xq, _ = quant.quantize_rows(args[0].reshape(-1, h))
-    w_qkv = quant.column_major(torch.cat([args[3], args[6], args[9]], dim=1))
-    ops = 2.0 * b * s * h * 3 * h
-    bound, by = _bound(ops, PEAK_INT8, _nbytes(args[0], *out, args[3], args[6], args[9]))
-    rows["qkv"] = {
-        "ms": _time_ms(lambda: qkv_int8.fused_qkv_int8(*args, nh=nh)),
-        "plain_ms": _time_ms(lambda: qkv_int8.fused_qkv_int8_reference(*args, nh=nh)),
-        "library_ms": _time_ms(lambda: torch._int_mm(xq, w_qkv)),
-        "library_call": "torch._int_mm (46656x1152 @ 1152x3456): the matmul share only",
-        "bound_ms": bound, "bound_by": by}
-    del args, out, xq, w_qkv
+    rows["qkv"] = _qkv_case(gen, b, s, h, nh, "", True)
+    errs = [rows["qkv"]["max_abs_err"]]
+    rows["qkv"]["image_shapes"], more = _image_cases(
+        lambda bb, ss, label, timed: _qkv_case(gen, bb, ss, h, nh, label, timed),
+        lambda t: (t, s))
+    errs += more
     # ragged rows against the 128-row tiles; H 144 (K and N ragged against
     # the 128-byte step and the tiles) with head dim 72, and with head dim 18
     # (four columns of a store may open the next head)
@@ -780,24 +907,12 @@ def phase_int8_kernels():
     rows["qkv"]["max_abs_err"] = max(errs)
 
     # --- flash_attention_merge_heads
-    q, k, v = (torch.randn((b, nh, s, 72), generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    valid = torch.full((b,), s, dtype=torch.int32, device=dev)
-    out = flash.flash_attention_merge_heads(q, k, v, valid)
-    torch.cuda.synchronize()
-    ref = flash.flash_attention_merge_heads_reference(q, k, v, valid)
-    errs = [_hold_bitwise("merge", out, ref, q=list(q.shape))["max_abs_err"]]
-    for control, fn in _merge_controls(q, k, v, valid):
-        _must_fail(f"merge control: {control}", fn(), ref)
-    del ref
-    bound, by = _bound(4.0 * b * nh * s * s * 72, PEAK_BF16, _nbytes(q, k, v, out))
-    rows["merge"] = {
-        "ms": _time_ms(lambda: flash.flash_attention_merge_heads(q, k, v, valid)),
-        "plain_ms": _time_ms(lambda: flash.flash_attention_merge_heads_reference(q, k, v, valid)),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-        "library_call": "scaled_dot_product_attention (64, 16, 729, 72) bf16",
-        "bound_ms": bound, "bound_by": by}
-    del q, k, v, out
+    rows["merge"] = _merge_case(gen, b, s, nh, "", True)
+    errs = [rows["merge"]["max_abs_err"]]
+    rows["merge"]["image_shapes"], more = _image_cases(
+        lambda bb, ss, label, timed: _merge_case(gen, bb, ss, nh, label, timed),
+        lambda t: (t, s))
+    errs += more
     # ragged valid lengths, a batch with no valid key, head dims 64 and 128,
     # S off the tiles
     for lens, dd, ss in (((77, 150), 72, 150), ((0, 150), 72, 150), ((150, 33), 64, 150),
@@ -817,31 +932,11 @@ def phase_int8_kernels():
     rows["merge"]["max_abs_err"] = max(errs)
 
     # --- fused_mlp_block_int8
-    m = b * s
-    args = _mlp_args(gen, m, h, inter, torch.bfloat16, dev)
-    out = mlp_int8.fused_mlp_block_int8(*args)
-    torch.cuda.synchronize()
-    ref = mlp_int8.fused_mlp_block_int8_reference(*args)
-    errs = [_hold_bitwise("mlp", out, ref, args[0], hidden=list(args[0].shape))["max_abs_err"]]
-    with _erf_gelu():
-        _must_fail("mlp control: erf GELU", mlp_int8.fused_mlp_block_int8_reference(*args), ref,
-                   args[0])
-    with _h_in_bf16():
-        _must_fail("mlp control: h rounded to bf16 before the requant",
-                   mlp_int8.fused_mlp_block_int8_reference(*args), ref, args[0])
-    del ref
-    xq, _ = quant.quantize_rows(args[0])
-    hq = torch.randint(-127, 128, (m, inter), generator=gen, device=dev, dtype=torch.int8)
-    bound, by = _bound(2.0 * m * h * inter * 2, PEAK_INT8,
-                       2 * _nbytes(args[0]) + _nbytes(args[3], args[6]))
-    rows["mlp"] = {
-        "ms": _time_ms(lambda: mlp_int8.fused_mlp_block_int8(*args)),
-        "plain_ms": _time_ms(lambda: mlp_int8.fused_mlp_block_int8_reference(*args)),
-        "library_ms": _time_ms(lambda: (torch._int_mm(xq, args[3]), torch._int_mm(hq, args[6]))),
-        "library_call": "torch._int_mm x2 (46656x1152 @ 1152x4304, 46656x4304 @ 4304x1152): "
-                        "the matmul share only",
-        "bound_ms": bound, "bound_by": by}
-    del args, out, xq, hq
+    rows["mlp"] = _mlp_case(gen, b * s, h, inter, "", True)
+    errs = [rows["mlp"]["max_abs_err"]]
+    rows["mlp"]["image_shapes"], more = _image_cases(
+        lambda m, label, timed: _mlp_case(gen, m, h, inter, label, timed), lambda t: (t * s,))
+    errs += more
     for mm, k, i, dtype in _mlp_edges(h, inter, 5):
         args = _mlp_args(gen, mm, k, i, dtype, dev)
         out = mlp_int8.fused_mlp_block_int8(*args)
@@ -2595,6 +2690,27 @@ def _spliced_len(cfg: VLMConfig, num_frames: int) -> int:
     return len(TEXT_BEFORE) + len(TEXT_AFTER) + _visual_tokens(cfg, f1, nseg)
 
 
+def _image_visual_tokens(cfg: VLMConfig, size) -> int:
+    """The visual tokens `image_path.build_image_embeds` gives an anyres
+    image of `size` (W, H) under `cfg` (spatial_unpad, anyres_max_N): the
+    base view's patches, then the unpadded grid, downscaled to the patch
+    budget where it exceeds it by more than 1.1, with a newline column."""
+    side = cfg.vision.num_patches_per_side
+    pipe = cfg.pipeline
+    npw, nph = image_path.get_anyres_image_grid_shape(size, pipe.image_grid_pinpoints,
+                                                      cfg.vision.image_size)
+    _, gh, gw = image_path.unpad_image_map(torch.empty(0, nph * side, npw * side), size).shape
+    budget = int(re.match(r"anyres_max_(\d+)", pipe.image_aspect_ratio).group(1)) * side ** 2
+    times = math.sqrt(gh * gw / budget)
+    if times > 1.1:
+        gh, gw = int(gh // times), int(gw // times)
+    return side * side + gh * (gw + 1)
+
+
+def _image_spliced_len(cfg: VLMConfig, size) -> int:
+    return len(TEXT_BEFORE) + len(TEXT_AFTER) + _image_visual_tokens(cfg, size)
+
+
 def _qa_ids() -> np.ndarray:
     return np.array(TEXT_BEFORE + [constants.IMAGE_TOKEN_INDEX] + TEXT_AFTER, np.int64)
 
@@ -3471,42 +3587,57 @@ def _load_case(label, ckpt, nbytes, cfg, source, ids, frames, processor, load_8b
     return counted.total
 
 
-def phase_load():
-    """Loading at full width: the 0.5B model's seeded bf16 params (LM
-    matrices times 5, `_lively`) exported with the port's
-    `export_hf_safetensors` under build/ (fp32, ~3.6 GB), then
+LOAD_DIR = Path(__file__).resolve().parent / "build" / f"load_phase_{LOAD_SEED}"
+
+
+def _export_checkpoint(cfg: VLMConfig):
+    """The 0.5B model's seeded bf16 params (LM matrices times 5, `_lively`)
+    exported with the port's `export_hf_safetensors` into LOAD_DIR (fp32,
+    ~3.7 GB), and the LOAD_FRAMES-frame 480x640 uint8 clip written beside
+    it as clip.y4m. Returns (params, bytes written, export s)."""
+    source = _lively(vlm.init_params(cfg, seed=LOAD_SEED, device="cuda", dtype=torch.bfloat16))
+    shutil.rmtree(LOAD_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = export_hf_safetensors(source, cfg, str(LOAD_DIR))
+    export_s = time.perf_counter() - t0
+    clip = np.random.default_rng(LOAD_SEED).integers(0, 256, (LOAD_FRAMES, *LOAD_FRAME_HW, 3),
+                                                     dtype=np.uint8)
+    write_y4m(str(LOAD_DIR / "clip.y4m"), clip, fps=30)
+    return source, os.path.getsize(path), export_s
+
+
+def _load_clip() -> np.ndarray:
+    """The exported clip read back through `load_video` (the native frame
+    loader decodes the y4m): LOAD_FRAMES uint8 frames of LOAD_FRAME_HW."""
+    frames, _, _, num = load_video(str(LOAD_DIR / "clip.y4m"), frames_upbound=LOAD_FRAMES,
+                                   force_sample=True)
+    if frames.shape != (LOAD_FRAMES, *LOAD_FRAME_HW, 3) or num != LOAD_FRAMES:
+        raise RuntimeError(f"load_video: {frames.shape}, {num} frames")
+    return frames
+
+
+def phase_load(keep: bool = False):
+    """Loading at full width: the checkpoint of `_export_checkpoint`, then
     `load_pretrained_model` of it in bf16 and with `load_8bit`. The loaded
     leaves equal the source's bit for bit (bf16 -> fp32 -> bf16 is exact;
     with `load_8bit`, `siglip.prequantize_int8` and `qwen2.prequantize_int8`
-    of the source on the card); `model.generate` of a 64-frame 480x640
-    uint8 clip, written as y4m and read back through `data/video.load_video`
-    (the native frame loader, built first, decodes it), gives the same 32
-    tokens as the in-memory request, with flash_fwd 55 launches in bf16 and
+    of the source on the card); `model.generate` of the 64-frame 480x640
+    uint8 clip, read back through `data/video.load_video` (the native frame
+    loader, built first, decodes it), gives the same 32 tokens as the
+    in-memory request, with flash_fwd 55 launches in bf16 and
     fused_qkv_int8 / flash_attention_merge_heads / fused_mlp_block_int8 26
     each and flash_fwd 29 with load_8bit. Prints the export and load times,
     GB read per s, the peak host RSS during each load and each generate's ms
-    beside the in-memory request's. Deletes the checkpoint. Returns each
-    load's launch counts."""
+    beside the in-memory request's. Deletes the checkpoint unless `keep`
+    (for `phase_eval`). Returns each load's launch counts."""
     log(f"load phase on {require_card()}")
     t0 = time.perf_counter()
     lib = native_loader.build()
     log(f"native frame loader: {lib.name}, {time.perf_counter() - t0:.2f} s")
     cfg = VLMConfig.onevision_0_5b()
-    source = _lively(vlm.init_params(cfg, seed=LOAD_SEED, device="cuda", dtype=torch.bfloat16))
-    ckpt = Path(__file__).resolve().parent / "build" / f"load_phase_{LOAD_SEED}"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    path = export_hf_safetensors(source, cfg, str(ckpt))
-    export_s = time.perf_counter() - t0
-    nbytes = os.path.getsize(path)
-    rng = np.random.default_rng(LOAD_SEED)
-    clip = rng.integers(0, 256, (LOAD_FRAMES, *LOAD_FRAME_HW, 3), dtype=np.uint8)
-    write_y4m(str(ckpt / "clip.y4m"), clip, fps=30)
-    frames, _, _, num = load_video(str(ckpt / "clip.y4m"), frames_upbound=LOAD_FRAMES,
-                                   force_sample=True)
-    if frames.shape != (LOAD_FRAMES, *LOAD_FRAME_HW, 3) or num != LOAD_FRAMES:
-        raise RuntimeError(f"load_video: {frames.shape}, {num} frames")
+    source, nbytes, export_s = _export_checkpoint(cfg)
+    frames = _load_clip()
     log(json.dumps({"export_s": export_s, "checkpoint_gb": nbytes / 1e9,
                     "export_gb_per_s": nbytes / 1e9 / export_s,
                     "parameters": sum(x.numel() for _, x in leaves_with_path(source))}))
@@ -3515,19 +3646,388 @@ def phase_load():
     tower, lm = cfg.vision.num_used_layers, cfg.lm.num_hidden_layers
     memory = _memory_calls(cfg, LOAD_FRAMES)
     launches = {"load_bf16": _load_case(
-        "bf16", str(ckpt), nbytes, cfg, source, ids, frames, processor, False,
+        "bf16", str(LOAD_DIR), nbytes, cfg, source, ids, frames, processor, False,
         {"flash_fwd": tower + memory + lm})}
     int8_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
                                                                      tower_int8=True))
     int8_source = {**source, "vision_tower": siglip.prequantize_int8(source["vision_tower"]),
                    "language_model": qwen2.prequantize_int8(source["language_model"])}
     launches["load_int8"] = _load_case(
-        "int8", str(ckpt), nbytes, int8_cfg, int8_source, ids, frames, processor, True,
+        "int8", str(LOAD_DIR), nbytes, int8_cfg, int8_source, ids, frames, processor, True,
         {"fused_qkv_int8": tower, "flash_attention_merge_heads": tower,
          "fused_mlp_block_int8": tower, "flash_fwd": memory + lm})
-    shutil.rmtree(ckpt)
+    if not keep:
+        shutil.rmtree(LOAD_DIR)
     del source, int8_source
     torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------- evaluation
+
+EVAL_IMAGE_HW = (1080, 1920)   # a 1920x1080 image: the anyres 5 x 3 grid and the base view
+EVAL_BIG_FRAMES = 8            # 1080x1920 frames through the device preprocess
+EVAL_LARGEST_HW = (2160, 3840)  # the largest downscale a path takes here: 10x to 384
+EVAL_SEED = 5
+# card against CPU, fp32, normalized units: the same float32 weights, the
+# products summed in another order (each output sums a few dozen nonzero
+# terms); the control (antialias=False, JAX's unwidened support) moves a
+# downscale by ~1
+PREPROCESS_TOL = 1e-5
+# tests/test_device_preprocess.py's envelope against the host processor
+# (PIL requantizes to uint8 after its resize): (mean, 99th percentile)
+FRAMES_ENVELOPE = (0.01, 0.05)
+ANYRES_ENVELOPE = (0.015, 0.08)
+# host- and device-processed image embeds: their RMS difference within this
+# many times the floor that PIL's uint8 requantization alone causes
+EMBED_FLOOR_FACTOR = 3.0
+ADAPTER_FRAMES = 16
+
+
+def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).pow(2).mean().sqrt() / b.float().pow(2).mean().sqrt())
+
+
+def _envelope(label, got: torch.Tensor, host: np.ndarray, envelope) -> dict:
+    diff = np.abs(got.float().cpu().numpy() - host)
+    mean, q99 = float(diff.mean()), float(np.quantile(diff, 0.99))
+    if not (mean < envelope[0] and q99 < envelope[1]):
+        raise RuntimeError(f"{label}: against the host processor mean {mean}, q99 {q99}, "
+                           f"want < {envelope}")
+    return {"mean": mean, "q99": q99}
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _preprocess_case(label, frames: np.ndarray, size, processor, control: bool):
+    """preprocess_frames of uint8 `frames` on the card against the same
+    function on the CPU (fp32, within PREPROCESS_TOL), both within the host
+    processor's quantization envelope; `control` also runs antialias=False
+    on the card, which must exceed the tolerance. ms: on the card from
+    uint8 already there (bf16 out, as the paths take it), from host uint8
+    (the copy to the card included), the CPU run, the host processor."""
+    u8 = torch.from_numpy(frames).cuda()
+    card = preprocess_frames(u8, size=size, dtype=torch.float32)
+    cpu, cpu_ms = _host_ms(lambda: preprocess_frames(frames, size=size, dtype=torch.float32))
+    err = float((card.cpu() - cpu).abs().max())
+    row = {"case": label, "frames": list(frames.shape), "out": list(card.shape),
+           "max_abs_err": err, "tol": PREPROCESS_TOL,
+           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
+    if not err <= PREPROCESS_TOL:
+        raise RuntimeError(f"{label}: card and CPU differ by {err} > {PREPROCESS_TOL}")
+    if control:
+        wrong = preprocess_frames(u8, size=size, dtype=torch.float32, antialias=False)
+        row["control_antialias_false_err"] = float((wrong.cpu() - cpu).abs().max())
+        if not row["control_antialias_false_err"] > PREPROCESS_TOL:
+            raise RuntimeError(f"{label}: the antialias=False control passed ({row})")
+    if processor is not None:
+        host, row["host_processor_ms"] = _host_ms(lambda: processor.preprocess(frames))
+        row["card_vs_host"] = _envelope(label, card, host, FRAMES_ENVELOPE)
+        row["cpu_vs_host"] = _envelope(label, cpu, host, FRAMES_ENVELOPE)
+    del card, cpu
+    row["card_ms"] = _time_ms(lambda: preprocess_frames(u8, size=size))
+    row["card_ms_from_host_uint8"] = _time_ms(
+        lambda: preprocess_frames(torch.from_numpy(frames).cuda(), size=size))
+    row["cpu_ms"] = cpu_ms
+    log(json.dumps(row))
+    return row
+
+
+def _anyres_case(cfg, image: np.ndarray):
+    """The anyres tiles of `image` on the card against the CPU and the host
+    processor (`process_anyres_image`), as `_preprocess_case`."""
+    s, pinpoints = cfg.vision.image_size, cfg.pipeline.image_grid_pinpoints
+    u8 = torch.from_numpy(image).cuda()
+    card, size = preprocess_anyres_image(u8, pinpoints, size=(s, s), dtype=torch.float32)
+    (cpu, cpu_size), cpu_ms = _host_ms(lambda: preprocess_anyres_image(
+        image, pinpoints, size=(s, s), dtype=torch.float32))
+    from PIL import Image
+
+    processor = SigLipImageProcessor(size=(s, s))
+    (host, host_size), host_ms = _host_ms(lambda: process_anyres_image(
+        Image.fromarray(image), processor, pinpoints))
+    err = float((card.cpu() - cpu).abs().max())
+    if size != cpu_size or size != tuple(host_size) or card.shape != host.shape or \
+            not err <= PREPROCESS_TOL:
+        raise RuntimeError(f"anyres tiles: {tuple(card.shape)} {size}, CPU {cpu_size}, host "
+                           f"{host.shape} {host_size}, card vs CPU {err}")
+    row = {"case": "anyres_tiles", "image": list(image.shape), "tiles": list(card.shape),
+           "max_abs_err": err, "tol": PREPROCESS_TOL,
+           "card_vs_host": _envelope("anyres card", card, host, ANYRES_ENVELOPE),
+           "cpu_vs_host": _envelope("anyres cpu", cpu, host, ANYRES_ENVELOPE),
+           "card_ms": _time_ms(lambda: preprocess_anyres_image(u8, pinpoints, size=(s, s))),
+           "card_ms_from_host_uint8": _time_ms(lambda: preprocess_anyres_image(
+               torch.from_numpy(image).cuda(), pinpoints, size=(s, s))),
+           "cpu_ms": cpu_ms, "host_processor_ms": host_ms}
+    log(json.dumps(row))
+    return row
+
+
+def _eval_video(cfg, label, load_8bit, frames, ids, want):
+    """`load_pretrained_model(device_preprocess=True)` and `model.generate`
+    of the uint8 clip: its launches, 32 tokens (>= 8 distinct) equal to the
+    same call fed the card-preprocessed frames as float, and its ms
+    (median of 3 after a warm-up). Returns (model, launches, row)."""
+    _, model, _, _ = load_pretrained_model(str(LOAD_DIR), load_8bit=load_8bit,
+                                           device_preprocess=True)
+    counted = _Counted(f"eval video {label}")
+
+    def call():
+        return model.generate(ids, images=[frames], modalities=["video"],
+                              max_new_tokens=GENERATE_NEW)
+
+    got = counted("generate, uint8 frames on the card", call, want)[0]
+    s = cfg.vision.image_size
+    pixels = preprocess_frames(torch.from_numpy(frames).cuda(), size=(s, s), dtype=model.dtype)
+    ref = model.generate(ids, images=[pixels], modalities=["video"],
+                         max_new_tokens=GENERATE_NEW)[0]
+    if got.tolist() != ref.tolist() or len(got) != GENERATE_NEW or \
+            len(set(got.tolist())) < MIN_DISTINCT_TOKENS:
+        raise RuntimeError(f"eval video {label}: tokens {got.tolist()}, from float frames "
+                           f"{ref.tolist()}")
+    row = {"eval": f"video_{label}_device_preprocess", "frames": list(frames.shape),
+           "tokens": got.tolist(), "launches": counted.total,
+           "generate_ms": _time_ms(call, reps=3)}
+    log(json.dumps(row))
+    return model, counted.total, row
+
+
+def _eval_image(model, cfg, label, image, ids, want):
+    """`model.generate` of the uint8 image with modalities=["image"], through
+    the host anyres processor and through the device preprocess: each with
+    its launches, the visual tokens `_image_visual_tokens` gives, 32 tokens
+    (>= 8 distinct) equal to `vlm.generate` of its spliced sequence, whose
+    logits are finite, and its ms. The two paths' sequences differ by
+    PIL's uint8 requantization: their RMS difference is held within
+    EMBED_FLOOR_FACTOR times that of the device tiles against the same
+    tiles requantized to uint8 codes. Returns each path's launches."""
+    size = image.shape[1::-1]
+    launches, embeds, rows = {}, {}, []
+    for path, on_card in (("host", False), ("device", True)):
+        model.device_preprocess = on_card
+        counted = _Counted(f"eval image {label} {path}")
+
+        def call():
+            return model.generate(ids, images=[image[None]], modalities=["image"],
+                                  max_new_tokens=GENERATE_NEW)
+
+        got = counted("generate", call, want)[0]
+        emb = model._row_embeds(ids[0], [image[None]], "image")
+        if emb.shape[0] != _image_spliced_len(cfg, size):
+            raise RuntimeError(f"eval image {label} {path}: {emb.shape[0]} spliced tokens, want "
+                               f"{_image_spliced_len(cfg, size)}")
+        out, logits = vlm.generate(model.params, model.cfg, emb, max_new_tokens=GENERATE_NEW,
+                                   return_logits=True)
+        tokens = out.tokens[:int(out.num_tokens)].tolist()
+        if tokens != got.tolist() or len(tokens) != GENERATE_NEW or \
+                len(set(tokens)) < MIN_DISTINCT_TOKENS or not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"eval image {label} {path}: tokens {got.tolist()}, vlm.generate "
+                               f"{tokens}, finite logits {bool(torch.isfinite(logits).all())}")
+        embeds[path] = emb
+        launches[f"eval_image_{label}_{path}"] = counted.total
+        rows.append({"path": path, "tokens": tokens, "launches": counted.total,
+                     "generate_ms": _time_ms(call, reps=3)})
+    s = cfg.vision.image_size
+    tiles, size = preprocess_anyres_image(torch.from_numpy(image).cuda(),
+                                          cfg.pipeline.image_grid_pinpoints, size=(s, s),
+                                          dtype=torch.float32)
+    requantized = (torch.round((tiles * 0.5 + 0.5) * 255.0) / 255.0 - 0.5) / 0.5
+    floor_emb = image_path.splice(model.params, ids[0], image_path.build_image_embeds(
+        model.params, model.cfg, requantized, size))
+    floor, diff = _rel_rms(floor_emb, embeds["device"]), _rel_rms(embeds["host"], embeds["device"])
+    row = {"eval": f"image_{label}", "image": list(image.shape),
+           "visual_tokens": _image_visual_tokens(cfg, size), "paths": rows,
+           "embeds_rel_rms_host_vs_device": diff, "requantization_floor": floor,
+           "bound": f"{EMBED_FLOOR_FACTOR} x floor"}
+    log(json.dumps(row))
+    if not diff <= EMBED_FLOOR_FACTOR * floor:
+        raise RuntimeError(f"eval image {label}: host and device embeds differ by {diff}, "
+                           f"above {EMBED_FLOOR_FACTOR} x the requantization floor {floor}")
+    model.device_preprocess = True
+    return launches
+
+
+def _write_tokenizer(directory: Path):
+    """A small byte-level BPE tokenizer with Qwen2's chat specials, trained
+    here (no Qwen2 tokenizer can be fetched), saved beside the exported
+    weights so that the entries, which tokenize a prompt, load it. Its
+    2000 ids lie inside the model's vocabulary; decoding the model's other
+    ids gives "", so the checks read `output_ids`."""
+    from tokenizers import Tokenizer, models as tok_models, pre_tokenizers, trainers
+
+    tok = Tokenizer(tok_models.BPE(unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    # every byte in the alphabet: a character the corpus lacks still encodes
+    trainer = trainers.BpeTrainer(vocab_size=2000, show_progress=False,
+                                  initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+                                  special_tokens=["<|endoftext|>", "<|im_start|>", "<|im_end|>"])
+    tok.train_from_iterator(["What happens in the video?", "Describe the image.",
+                             "What does a memory token hold?", "a cat sits on a mat"] * 50,
+                            trainer)
+    tok.save(str(directory / "tokenizer.json"))
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "<|im_end|>",
+         "pad_token": "<|endoftext|>"}))
+
+
+def _eval_entries(cfg, frames, image):
+    """The entries over the exported checkpoint, bf16 on the card:
+    `model_vqa.main` over three questions (the y4m clip, a PNG image, text
+    only), without and with --device_preprocess; the lmms-eval adapter's
+    `generate_until` and `loglikelihood` through the vendored harness on a
+    video doc and an image doc; `Predictor.setup` and `.predict` on the
+    clip, the checkpoint given a tokenizer first (`_write_tokenizer`). Each
+    holds its launches; returns them by path."""
+    tower, lm = cfg.vision.num_used_layers, cfg.lm.num_hidden_layers
+    clip = str(LOAD_DIR / "clip.y4m")
+    n_video = len(load_video(clip)[0])  # what model_vqa and Predictor sample (1 fps)
+
+    def video(f):
+        return {k: v + (lm if k == "flash_fwd" else 0) for k, v in _qa_launches(cfg, f).items()}
+
+    def total(*wants):
+        out = dict.fromkeys(WRAPPERS, 0)
+        for w in wants:
+            for k, v in w.items():
+                out[k] += v
+        return out
+
+    view, text = {"flash_fwd": tower + lm}, {"flash_fwd": lm}
+    _write_tokenizer(LOAD_DIR)
+    load_qwen_tokenizer(str(LOAD_DIR))  # imports transformers before the timed entries
+    from PIL import Image
+
+    Image.fromarray(image).save(LOAD_DIR / "image.png")
+    questions = [{"question_id": 1, "video": "clip.y4m", "text": "What happens in the video?"},
+                 {"question_id": 2, "image": "image.png", "text": "Describe the image."},
+                 {"question_id": 3, "text": "What does a memory token hold?"}]
+    (LOAD_DIR / "questions.jsonl").write_text("\n".join(json.dumps(q) for q in questions))
+    launches, rows = {}, {}
+    for extra in ([], ["--device_preprocess"]):
+        name = "eval_model_vqa" + ("_device_preprocess" if extra else "")
+        answers = LOAD_DIR / f"{name}.jsonl"
+        counted = _Counted(name)
+        _, wall_ms = _host_ms(lambda: counted("main", lambda: model_vqa.main([
+            "--model-path", str(LOAD_DIR), "--question-file", str(LOAD_DIR / "questions.jsonl"),
+            "--video-folder", str(LOAD_DIR), "--image-folder", str(LOAD_DIR),
+            "--answers-file", str(answers), "--max_new_tokens", str(GENERATE_NEW), *extra]),
+            total(video(n_video), view, text)))
+        got = [json.loads(line) for line in answers.read_text().splitlines()]
+        if [r["question_id"] for r in got] != [1, 2, 3] or any("error" in r for r in got) or \
+                not all(0 < len(r["output_ids"]) <= GENERATE_NEW and all(
+                    0 <= t < cfg.lm.vocab_size for t in r["output_ids"]) for r in got):
+            raise RuntimeError(f"{name}: answers {got}")
+        launches[name] = counted.total
+        rows[name] = {"wall_ms_with_load": wall_ms, "ms_per_question_with_load": wall_ms / 3,
+                      "output_ids": [r["output_ids"][:8] for r in got]}
+        vlm.clear_decoders()
+
+    from lmms_eval import evaluate_task
+
+    adapter = lmms_adapter.MavlmTorch(pretrained=str(LOAD_DIR), max_frames_num=ADAPTER_FRAMES)
+    docs = [{"doc_id": 0, "question": "What happens?", "answer": "A", "visual": [frames]},
+            {"doc_id": 1, "question": "What is shown?", "answer": "B",
+             "visual": [Image.fromarray(image)]}]
+    task = dict(doc_to_text=lambda d: d["question"], doc_to_visual=lambda d: d["visual"],
+                doc_to_target=lambda d: d["answer"])
+    counted = _Counted("eval_lmms_adapter")
+    gen_out, gen_ms = _host_ms(lambda: counted(
+        "generate_until", lambda: evaluate_task(
+            adapter, "eval_phase", docs, request_type="generate_until",
+            gen_kwargs={"max_new_tokens": GENERATE_NEW, "temperature": 0, "until": ["\n\n"]},
+            **task),
+        total(video(ADAPTER_FRAMES), view)))
+    ll_out, ll_ms = _host_ms(lambda: counted(
+        "loglikelihood", lambda: evaluate_task(adapter, "eval_phase", docs,
+                                               request_type="loglikelihood",
+                                               choices=lambda d: ["A", "B"], **task),
+        total(video(ADAPTER_FRAMES), video(ADAPTER_FRAMES), view, view)))
+    scores = [adapter.score("What happens?", " A", visuals=frames, modality="video")]
+    if len(gen_out["responses"]) != 2 or not all(isinstance(r, str) for r in
+                                                  gen_out["responses"]) or \
+            not all(r in ("A", "B") for r in ll_out["responses"]) or \
+            not all(math.isfinite(sc[0]) for sc in scores):
+        raise RuntimeError(f"eval lmms adapter: {gen_out}, {ll_out}, {scores}")
+    launches["eval_lmms_adapter"] = counted.total
+    rows["lmms_adapter"] = {"generate_until_ms_per_request": gen_ms / 2,
+                            "loglikelihood_ms_per_request": ll_ms / 4,
+                            "responses": gen_out["responses"], "picks": ll_out["responses"]}
+    del adapter
+    vlm.clear_decoders()
+
+    predictor = port_predict.Predictor()
+    predictor.setup(str(LOAD_DIR))
+    counted = _Counted("eval_predictor")
+    answer, ms = _host_ms(lambda: counted(
+        "predict", lambda: predictor.predict("What happens in the video?", video=clip,
+                                             max_new_tokens=GENERATE_NEW), video(n_video)))
+    if not isinstance(answer, str):
+        raise RuntimeError(f"Predictor.predict: {answer!r}")
+    launches["eval_predictor"] = counted.total
+    rows["predictor"] = {"predict_ms": ms, "video_frames": n_video}
+    del predictor
+    vlm.clear_decoders()
+    log(json.dumps({"eval_entries": rows}))
+    return launches
+
+
+def phase_eval():
+    """Evaluation and the image path at full width, over `phase_load`'s
+    checkpoint (exported here when it is not there), which it deletes:
+    the device preprocess against its plain version (the same function on
+    the CPU) and the host processor: the 64-frame 480x640 clip, 8 frames of
+    1080x1920, one frame of 2160x3840 (10x down) and the anyres tiles of a
+    1920x1080 image; the clip through `device_preprocess` in bf16 and with
+    load_8bit (launches as `phase_load`'s: flash_fwd 55; 26 / 26 / 26 and
+    flash_fwd 29); the image through the host anyres processor and through
+    the device preprocess in both (flash_fwd 50: tower 26 + prefill 24;
+    26 / 26 / 26 and flash_fwd 24); then the entries (`_eval_entries`).
+    Returns each path's launch counts."""
+    log(f"eval phase on {require_card()}")
+    t_phase = time.perf_counter()
+    cfg = VLMConfig.onevision_0_5b()
+    if not (LOAD_DIR / "config.json").exists():
+        _export_checkpoint(cfg)
+    frames = _load_clip()
+    rng = np.random.default_rng(EVAL_SEED)
+    big = rng.integers(0, 256, (EVAL_BIG_FRAMES, *EVAL_IMAGE_HW, 3), dtype=np.uint8)
+    largest = rng.integers(0, 256, (1, *EVAL_LARGEST_HW, 3), dtype=np.uint8)
+    image = rng.integers(0, 256, (*EVAL_IMAGE_HW, 3), dtype=np.uint8)
+    s = cfg.vision.image_size
+    processor = SigLipImageProcessor(size=(s, s))
+    _preprocess_case("frames_64x480x640", frames, (s, s), processor, control=True)
+    _preprocess_case("frames_8x1080x1920", big, (s, s), processor, control=True)
+    _preprocess_case("frame_2160x3840", largest, (s, s), None, control=False)
+    _anyres_case(cfg, image)
+    del big, largest
+
+    ids = _qa_ids()[None]
+    tower, lm = cfg.vision.num_used_layers, cfg.lm.num_hidden_layers
+    memory = _memory_calls(cfg, LOAD_FRAMES)
+    int8_tower = {"fused_qkv_int8": tower, "flash_attention_merge_heads": tower,
+                  "fused_mlp_block_int8": tower}
+    launches = {}
+    int8_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
+                                                                     tower_int8=True))
+    for label, load_8bit, run_cfg, video_want, image_want in (
+            ("bf16", False, cfg, {"flash_fwd": tower + memory + lm}, {"flash_fwd": tower + lm}),
+            ("int8", True, int8_cfg, {**int8_tower, "flash_fwd": memory + lm},
+             {**int8_tower, "flash_fwd": lm})):
+        model, launches[f"eval_video_{label}"], _ = _eval_video(
+            run_cfg, label, load_8bit, frames, ids, video_want)
+        launches.update(_eval_image(model, run_cfg, label, image, ids, image_want))
+        del model
+        vlm.clear_decoders()
+        torch.cuda.empty_cache()
+    launches.update(_eval_entries(cfg, frames, image))
+    shutil.rmtree(LOAD_DIR)
+    torch.cuda.empty_cache()
+    log(json.dumps({"eval_phase_s": time.perf_counter() - t_phase}))
     return launches
 
 
@@ -3543,7 +4043,8 @@ def main():
     microbench_launches = phase_microbench()
     launches = phase_requests()
     launches["7b_int8_64_frames"] = phase_requests_7b()
-    launches.update(phase_load())
+    launches.update(phase_load(keep=True))
+    launches.update(phase_eval())
     phase_entry_point()
     launches["int8_mlp_chain"] = chain_launches
     launches["attn_block"] = attn_block_launches

@@ -114,10 +114,10 @@ class PipelineConfig:
     and whether the tower runs int8 (its weights prequantized by
     `siglip.prequantize_int8`, the serving configuration).
 
-    A checkpoint's `config.json` also carries the image path's fields
-    (`mm_patch_merge_type`, `image_aspect_ratio`, `image_grid_pinpoints`)
-    and the tokenizer's; the port keeps them, so that an export writes them
-    back, but its video path reads none of them."""
+    The image path's fields (`mm_patch_merge_type`, `image_aspect_ratio`,
+    `image_grid_pinpoints`) drive `models/image_path.py` and the anyres
+    processors; the video path reads none of them. The tokenizer's are
+    kept so that an export writes them back."""
 
     mm_spatial_pool_stride: int = 2
     tower_int8: bool = False

@@ -10,9 +10,8 @@ with the port's own safetensors reader, tensor by tensor onto the device.
 
 What the port does not run raises `NotImplementedError` naming its ROADMAP
 §1 item: `load_4bit`, the LM families other than Qwen2, the towers other
-than SigLIP and the projectors other than `mlp2x_gelu` (item 8);
-`device_preprocess` (item 5); and the `config.json` values that
-`config_from_json` refuses (item 8).
+than SigLIP and the projectors other than `mlp2x_gelu`, and the
+`config.json` values that `config_from_json` refuses (item 8).
 """
 
 from __future__ import annotations
@@ -135,7 +134,8 @@ def config_from_json(raw: dict) -> VLMConfig:
     `NotImplementedError`: an `mm_spatial_pool_mode` other than bilinear,
     an `mm_newline_position` other than one_token, an `mm_projector_type`
     other than mlp2x_gelu, a non-SigLIP `mm_vision_tower`, `s2`, a
-    learnable temporal PE. The image path's fields are kept, unread."""
+    learnable temporal PE. The image path's fields are kept for
+    `models/image_path.py`."""
     lm = lm_config_for(raw.get("model_type", "llava_qwen"), raw)
     for field, ported in _ONE_VALUE.items():
         value = raw.get(field, ported)
@@ -277,13 +277,13 @@ def load_pretrained_model(
     unembedding stays float); the tokenizer loads where the directory holds
     tokenizer files (its errors raise), else it is None; context_len is
     max_sequence_length, max_position_embeddings,
-    tokenizer_model_max_length or 2048, the first one config.json has."""
+    tokenizer_model_max_length or 2048, the first one config.json has.
+    `device_preprocess` has the model resize and normalize raw uint8 frames
+    and images on the card (`ops/preprocess.py`) instead of the host
+    processor. `model_base` is accepted and not read, as JAX's builder
+    takes it (`model_vqa --model-base` passes it through)."""
     if load_4bit:
         raise NotImplementedError("load_4bit is not ported (ROADMAP §1 item 8)")
-    if device_preprocess:
-        raise NotImplementedError("device_preprocess is not ported (ROADMAP §1 item 5)")
-    if model_base is not None:
-        raise NotImplementedError("loading over a model_base is not ported")
     device = _device(device_map)
     with open(os.path.join(model_path, "config.json")) as f:
         raw = json.load(f)
@@ -305,7 +305,8 @@ def load_pretrained_model(
 
         tokenizer = load_qwen_tokenizer(model_path)
     image_processor = SigLipImageProcessor(size=(cfg.vision.image_size, cfg.vision.image_size))
-    model = MavlmForCausalLM(params, cfg, raw_config=raw, dtype=dtype)
+    model = MavlmForCausalLM(params, cfg, raw_config=raw, dtype=dtype,
+                             device_preprocess=device_preprocess)
     context_len = (raw.get("max_sequence_length") or raw.get("max_position_embeddings")
                    or raw.get("tokenizer_model_max_length") or 2048)
     return tokenizer, model, image_processor, context_len

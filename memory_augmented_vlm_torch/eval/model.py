@@ -7,10 +7,13 @@ reference exposes as `LlavaQwenForCausalLM`
 The shell holds (params, VLMConfig) and routes `.generate()` through the
 port's generation entries (`models/vlm.py`, `models/beam_search.py`) on the
 device the params lie on. It takes numpy or torch ids and images (lmms-eval
-passes torch CPU tensors): raw uint8 video frames go through the host
-processor (`data/preprocessing.SigLipImageProcessor`, which needs Pillow),
-float frames must be tower-sized tiles, already normalized. The image path
-(anyres tiles, `modalities` other than "video") is ROADMAP §1 item 5.
+passes torch CPU tensors). Raw uint8 video frames and images go through the
+host processor (`data/preprocessing`, which needs Pillow; anyres tiles for
+an image under an `anyres*` aspect ratio) or, with `device_preprocess`,
+cross to the card as uint8 and are resized and normalized there
+(`ops/preprocess.py`); float inputs must be tower-sized tiles, already
+normalized. A video goes through `vlm.video_qa_embeds`, any other modality
+through `models/image_path.build_image_embeds` and the splice.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ import torch.nn.functional as F
 
 from memory_augmented_vlm_torch import constants
 from memory_augmented_vlm_torch.config import VLMConfig
-from memory_augmented_vlm_torch.models import beam_search, qwen2, vlm
+from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor, \
+    process_anyres_image
+from memory_augmented_vlm_torch.models import beam_search, image_path, qwen2, vlm
+from memory_augmented_vlm_torch.ops.preprocess import preprocess_anyres_image
 
 DEFAULT_EOS = 151645  # <|im_end|>
 
@@ -78,12 +84,16 @@ class MavlmForCausalLM:
     """Flagship VLM with the reference's `.generate` signature."""
 
     def __init__(self, params, cfg: VLMConfig, raw_config: Optional[dict] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, device_preprocess: bool = False):
         self.params = params
         self.cfg = cfg
         self.config = MavlmConfig(cfg, raw_config)
         self.dtype = dtype
         self.device = params["language_model"]["embed_tokens"].device
+        # raw uint8 videos, and anyres images, resized and normalized on the
+        # params' device instead of by the host processor (JAX's opt-in: the
+        # host path is the reference's bit-exact processor)
+        self.device_preprocess = device_preprocess
 
     # HF-style no-ops: the params stay where the loader put them
     def eval(self):
@@ -149,12 +159,14 @@ class MavlmForCausalLM:
             if attention_mask is not None:
                 row = row[_ids(attention_mask)[b].astype(bool)]
             rows.append(row)
+        has_sizes = image_sizes is not None and len(image_sizes) > 0
         embeds_rows = [
             self._row_embeds(
                 rows[b],
                 None if images is None else (
                     images[b] if isinstance(images, (list, tuple)) else images),
-                modalities[b] if b < len(modalities) else modalities[-1])
+                modalities[b] if b < len(modalities) else modalities[-1],
+                list(image_sizes[b:b + 1]) if has_sizes else None)
             for b in range(batch)
         ]
         sampled = bool(do_sample)
@@ -240,7 +252,8 @@ class MavlmForCausalLM:
         if isinstance(modalities, str):
             modalities = [modalities]
         embeds = self._row_embeds(
-            ids, images[0] if isinstance(images, (list, tuple)) else images, modalities[0])
+            ids, images[0] if isinstance(images, (list, tuple)) else images, modalities[0],
+            image_sizes)
         sampled = bool(do_sample)
         yield from vlm.generate_stream(
             self.params, self.cfg, embeds,
@@ -256,28 +269,52 @@ class MavlmForCausalLM:
             noise=kwargs.get("noise"),
         )
 
-    def _row_embeds(self, ids: np.ndarray, images, modality: str) -> torch.Tensor:
+    def _row_embeds(self, ids: np.ndarray, images, modality: str,
+                    image_sizes=None) -> torch.Tensor:
         """Splice one sample's text ids with its visual stream -> (S, H).
-        (`image_sizes`, which `generate` takes, belongs to the image path.)"""
+        JAX's branches, in its order: uint8 video frames with
+        `device_preprocess` go to `video_qa_embeds` as uint8; a uint8 image
+        with `device_preprocess` under an anyres aspect ratio is tiled on
+        the card, which fills `image_sizes` when it is absent; other uint8
+        input goes through the host processor (anyres tiles for an image,
+        which also fill `image_sizes`); pre-normalized input of the wrong
+        size raises. An image's size defaults to its tiles' (W, H)."""
         if images is None or constants.IMAGE_TOKEN_INDEX not in ids:
             tokens = torch.as_tensor(ids, dtype=torch.long, device=self.device)
             return qwen2.embed_tokens(self.params["language_model"], tokens).to(self.dtype)
-        if modality != "video":
-            raise NotImplementedError(
-                f"modality {modality!r}: the image path (anyres tiles) is not ported "
-                "(ROADMAP §1 item 5); the port runs modalities=['video']")
         img = images[0] if isinstance(images, (list, tuple)) else images
         pixels = _frames(img)
         s = self.cfg.vision.image_size
+        pipe = self.cfg.pipeline
+        video = modality == "video"
+        anyres = pipe.image_aspect_ratio.startswith("anyres")
         if pixels.dtype in (np.uint8, torch.uint8):
-            from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor
+            if self.device_preprocess and video:
+                pass  # raw bytes to the card; video_qa_embeds resizes and normalizes there
+            elif self.device_preprocess and anyres:
+                pixels, auto_size = preprocess_anyres_image(
+                    torch.as_tensor(pixels[0]).to(self.device), pipe.image_grid_pinpoints,
+                    size=(s, s), dtype=self.dtype)
+                image_sizes = image_sizes or [auto_size]
+            else:
+                if isinstance(pixels, torch.Tensor):
+                    pixels = pixels.cpu().numpy()
+                proc = SigLipImageProcessor(size=(s, s))
+                if not video and anyres:
+                    from PIL import Image
 
-            if isinstance(pixels, torch.Tensor):
-                pixels = pixels.cpu().numpy()
-            pixels = SigLipImageProcessor(size=(s, s)).preprocess(pixels)
+                    pixels, auto_size = process_anyres_image(Image.fromarray(pixels[0]), proc,
+                                                             pipe.image_grid_pinpoints)
+                    image_sizes = image_sizes or [auto_size]
+                else:
+                    pixels = proc.preprocess(pixels)
         elif pixels.shape[1] != s or pixels.shape[2] != s:
             raise ValueError(
                 f"pre-normalized inputs must be {s}x{s} tower tiles, got "
-                f"{tuple(pixels.shape)}; pass raw uint8 frames to let generate() run "
-                "the processor (resize and normalize)")
-        return vlm.video_qa_embeds(self.params, self.cfg, pixels, ids)
+                f"{tuple(pixels.shape)}; pass raw uint8 images or frames to let generate() "
+                "run the processor (resize and normalize, anyres tiles)")
+        if video:
+            return vlm.video_qa_embeds(self.params, self.cfg, pixels, ids)
+        size = tuple(image_sizes[0]) if image_sizes else (pixels.shape[2], pixels.shape[1])
+        visual = image_path.build_image_embeds(self.params, self.cfg, pixels, size)
+        return image_path.splice(self.params, ids, visual)

@@ -16,17 +16,24 @@ chain reads 209.2 MB of weights, four times the H100's 50 MB L2, so each
 replay streams them from device memory; a single product repeated would
 read its 8.7 MB from L2 and show more than the memory's rate. It prints
 GB/s and the share of 3.35 TB/s. It runs on the card only.
+
+    python -m memory_augmented_vlm_torch.microbench.gemv --replays 300
+
+also replays the chain's graph 300 times (`replays`): each replay's device
+kernels, and its output against the eager chain's, bit for bit.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import functools
 import json
 from typing import NamedTuple
 
 import torch
 
-from memory_augmented_vlm_torch.microbench.timing import graph_ms, require_card
+from memory_augmented_vlm_torch.microbench.timing import capture, graph_ms, require_card
 from memory_augmented_vlm_torch.ops import cuda_lib
 
 H, I, L = 896, 4864, 12  # tools_gemv_bench.py's shapes
@@ -216,10 +223,53 @@ def measure(x, w1, w2) -> dict:
             "timing": "one chain replayed from a CUDA graph, weights 4x the L2", **rows}
 
 
-def main():
+def replays(x, w1, w2, n: int, seed: int = 1) -> dict:
+    """`n` replays of one CUDA graph of the kernel chain, each on a new x
+    (seeded N(0, 0.1^2), copied into the graph's input): per replay, the
+    device kernels named gemv that torch.profiler records, and whether the
+    chain's output equals the eager chain's on that x bit for bit. A launch
+    lost from a replay leaves its output, or a later product's input, as
+    the previous replay wrote it, so the output differs; a record the
+    profiler dropped leaves the output equal."""
+    static_x = x.clone()
+    held = {}
+
+    def run():
+        held["out"] = chain(gemv, static_x, w1, w2)
+
+    graph = capture(run)  # the graph's output is the capture's `out`
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counts, differing = collections.Counter(), []
+    for i in range(n):
+        xi = (torch.randn(x.shape, generator=gen, device=x.device) * 0.1).to(x.dtype)
+        want = chain(gemv, xi, w1, w2)
+        static_x.copy_(xi)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        counts[sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "gemv" in e.name)] += 1
+        if not torch.equal(held["out"], want):
+            differing.append(i)
+    return {"replays": n, "device_kernels_per_replay": dict(sorted(counts.items())),
+            "want": 2 * w1.shape[0], "replays_whose_output_differs": differing}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--replays", type=int, default=0,
+                   help="also replay the chain's graph this many times, counting each "
+                        "replay's device kernels and holding its output to the eager chain's")
+    args = p.parse_args(argv)
     card = require_card()
     print(card)
-    print(json.dumps({"gemv": measure(*operands())}))
+    operands_ = operands()
+    print(json.dumps({"gemv": measure(*operands_)}))
+    if args.replays:
+        print(json.dumps({"gemv_chain_replays": replays(*operands_, args.replays)}))
 
 
 if __name__ == "__main__":

@@ -41,10 +41,10 @@ def graph_ms(fn: Callable[[], object], reps: int = 5) -> float:
     """Median ms of one replay of a CUDA graph that captured `fn`: the
     device's time for a chain of small launches, without the host's time to
     enqueue them."""
-    return time_ms(_capture(fn).replay, reps)
+    return time_ms(capture(fn).replay, reps)
 
 
-def _capture(fn: Callable[[], object]) -> torch.cuda.CUDAGraph:
+def capture(fn: Callable[[], object]) -> torch.cuda.CUDAGraph:
     """A CUDA graph that captured `fn`, after a warm-up call off the capture
     (as torch.cuda.graph asks)."""
     side = torch.cuda.Stream()
@@ -64,7 +64,7 @@ def replay_trace(fn, name: str) -> dict:
     consecutive pairs overlap (the next one started before this one ended,
     as a programmatic dependent launch lets it), the gaps between
     consecutive kernels and the replay's span, in us."""
-    graph = _capture(fn)
+    graph = capture(fn)
     graph.replay()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

@@ -120,13 +120,15 @@ def _int8_layer(lp, cfg: VisionConfig, hidden: torch.Tensor,
 
 
 def embed_patches(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) pixels -> (B, 729, hidden)."""
+    """(B, H, W, C) pixels -> (B, 729, hidden), contiguous whatever the
+    pixels' strides: the conv's output takes its input's memory layout, and
+    the int8 layers' kernels take contiguous rows only."""
     pe = params["patch_embedding"]
     x = pixel_values.permute(0, 3, 1, 2)
     out = F.conv2d(x, pe["weight"].to(x.dtype), pe["bias"].to(x.dtype),
                    stride=cfg.patch_size)
     out = out.flatten(2).transpose(1, 2)  # (B, side*side, hidden), row-major
-    return out + params["position_embedding"].to(out.dtype)
+    return (out + params["position_embedding"].to(out.dtype)).contiguous()
 
 
 def forward(params, cfg: VisionConfig, pixel_values: torch.Tensor, *,

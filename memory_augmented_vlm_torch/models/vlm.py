@@ -34,6 +34,7 @@ from memory_augmented_vlm_torch.models import position_encoding
 from memory_augmented_vlm_torch.models import projector as projector_mod
 from memory_augmented_vlm_torch.models import qwen2, sampling, siglip
 from memory_augmented_vlm_torch.ops.pooling import spatial_pool_2x2
+from memory_augmented_vlm_torch.ops.preprocess import preprocess_frames
 
 
 def sample_video_frames(num_frames: int) -> np.ndarray:
@@ -759,19 +760,22 @@ def video_qa_embeds(params, cfg: VLMConfig, pixels, input_ids, *,
     original indices for the temporal PE and the splice around the single
     IMAGE_TOKEN_INDEX of `input_ids` (S,).
 
-    pixels (F0, H, W, 3) preprocessed float frames, numpy or a tensor. Runs
-    on the weights' device in their dtype. uint8 frames, which JAX
-    preprocesses on the device, raise."""
-    if pixels.dtype in (np.uint8, torch.uint8):
-        raise NotImplementedError(
-            "uint8 frames take JAX's device preprocess (ops/preprocess.py), which the port "
-            "does not have yet (ROADMAP §1 item 5, image path); pass preprocessed float frames")
+    pixels (F0, H, W, 3), numpy or a tensor: preprocessed float frames, or
+    raw uint8 frames (JAX's device preprocess): the sampled frames cross to
+    the weights' device as uint8 and `ops/preprocess.preprocess_frames`
+    resizes and normalizes them there at `cfg.vision.image_size`. Runs on
+    the weights' device in their dtype. (JAX pads the uint8 frames before
+    its preprocess; the port pads the features after the tower, and the
+    memory reads no padded frame, so the two agree.)"""
     emb = params["language_model"]["embed_tokens"]
     sample_idx = sample_video_frames(pixels.shape[0])
     if isinstance(pixels, torch.Tensor):
         frames = pixels[torch.from_numpy(sample_idx).to(pixels.device)]
     else:
         frames = torch.from_numpy(np.ascontiguousarray(pixels[sample_idx]))
+    if frames.dtype == torch.uint8:
+        s = cfg.vision.image_size
+        frames = preprocess_frames(frames.to(emb.device), size=(s, s), dtype=emb.dtype)
     f1 = len(sample_idx)
     fmax = pad_frames_to_segment_multiple(f1, cfg.memory.segment_frames)
     frame_indices = torch.from_numpy(np.concatenate([sample_idx, np.zeros(fmax - f1, np.int64)]))

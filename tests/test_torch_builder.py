@@ -143,7 +143,6 @@ def test_load_8bit_leaves_follow_the_int8_rule(ckpt_dir):  # noqa: F811
     (dict(overwrite_config={"learnable_pe": True}), "item 8"),
     (dict(overwrite_config={"model_type": "llava_mixtral"}), "item 8"),
     (dict(overwrite_config={"mm_vision_tower": "openai/clip-vit-large-patch14-336"}), "item 8"),
-    (dict(device_preprocess=True), "item 5"),
 ])
 def test_unported_modes_raise(ckpt_dir, kwargs, item):  # noqa: F811
     with pytest.raises(NotImplementedError, match=item):
@@ -345,9 +344,12 @@ def test_generate_stream_matches_jax(loaded):
 
 
 def test_image_modality_and_wrong_tiles_raise(loaded):
+    """An image now runs (the anyres path, JAX's tokens); pre-normalized
+    tiles of the wrong size still raise."""
+    want, got = _generate_both(loaded, VIDEO_IDS, images=[_frames()[0]], modalities=["image"],
+                               max_new_tokens=NEW)
+    np.testing.assert_array_equal(got, want)
     tm = loaded[1][1]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.generate(VIDEO_IDS, images=[_frames()[0]], modalities=["image"], max_new_tokens=2)
     with pytest.raises(ValueError, match="56x56"):
         tm.generate(VIDEO_IDS, images=[np.zeros((4, 48, 48, 3), np.float32)],
                     modalities=["video"], max_new_tokens=2)

@@ -12,8 +12,8 @@ split from test_torch_generate.py keeps each file short).
 - scoring: the total log-probability within 1e-5 relative and the greedy
   flag equal, for 1 and 5 continuation tokens, greedy and random;
 - frame sampling equal for every clip length 1..400; the spliced
-  embeddings of 12-, 33- and 70-frame clips within 1e-5; uint8 frames
-  raise.
+  embeddings of 12-, 33- and 70-frame clips within 1e-5, and of a 13-frame
+  uint8 clip through the device preprocess.
 """
 
 import numpy as np
@@ -135,9 +135,16 @@ def test_video_qa_embeds_matches_jax(models, f0):
 
 
 def test_video_qa_embeds_refuses_uint8_frames(models):
-    pixels = np.zeros((4, 56, 56, 3), np.uint8)
+    """uint8 frames now take the device preprocess: 13 frames of 60 x 80
+    (not a multiple of the segment; JAX pads the frames, the port the
+    features) within 1e-5 of JAX's spliced sequence, as numpy or a tensor;
+    uint8 frames that are not (F, H, W, 3) RGB are refused."""
+    jp, tp = models["flat"]
+    pixels = np.random.default_rng(9).integers(0, 256, (13, 60, 80, 3), dtype=np.uint8)
     ids = np.array([1, constants.IMAGE_TOKEN_INDEX, 2])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tvlm.video_qa_embeds(models["flat"][1], PCFG, pixels, ids)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tvlm.video_qa_embeds(models["flat"][1], PCFG, torch.from_numpy(pixels), ids)
+    want = np.asarray(jvlm.video_qa_embeds(jp, TINY, pixels, ids))
+    got = tvlm.video_qa_embeds(tp, PCFG, pixels, ids)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert torch.equal(tvlm.video_qa_embeds(tp, PCFG, torch.from_numpy(pixels), ids), got)
+    with pytest.raises(ValueError, match="frames"):
+        tvlm.video_qa_embeds(tp, PCFG, np.zeros((4, 56, 56, 4), np.uint8), ids)

@@ -76,7 +76,7 @@ def test_port_imports_no_jax():
     for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
               "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common",
               "bench", "bench_train", "models.sampling", "models.beam_search",
-              *LOADING_MODULES):
+              *LOADING_MODULES, *EVAL_MODULES):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
@@ -90,6 +90,9 @@ LOADING_MODULES = ("models.registry", "checkpoint.safetensors_io", "checkpoint.h
                    "config", "data.preprocessing", "data.tokenizer", "data.conversation",
                    "data.video", "data.native_loader", "eval.model", "eval.builder")
 OPTIONAL_PACKAGES = ("safetensors", "transformers", "tokenizers", "PIL")
+# the evaluation entries and the image path
+EVAL_MODULES = ("ops.preprocess", "models.image_path", "eval.model_vqa", "eval.lmms_adapter",
+                "eval.eval_bridge", "eval.gpt_eval", "eval.evaluate_interleave", "predict")
 
 
 @pytest.mark.parametrize("module", LOADING_MODULES)
