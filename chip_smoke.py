@@ -145,7 +145,18 @@ each of which raises on failure:
                 PNG and a text question with and without
                 --device_preprocess, the lmms-eval adapter's generate_until
                 and loglikelihood through the vendored harness, and
-                Predictor on the clip, each with its launches and ms. And `python -m
+                Predictor on the clip, each with its launches and ms. Then
+                the training entry (`phase_train_cli`) on that checkpoint:
+                `train.cli.main` at full width over four 65-frame videos
+                and two text samples, k = 2, --dropout_frames (a leaf
+                moves on every 2nd micro-step only, the dropout decisions
+                synced_frame_dropout's, exact launches, the export loaded
+                back equal to the final state), stopped after micro-step 5
+                and resumed from that mid-accumulation checkpoint to 6,
+                --tower_int8 under torch.profiler (the int8 tower
+                bit-identical, its three kernels 26 each, the data, step
+                and checkpoint spans in the trace); the optimizer update
+                alone; one SFT, LoRA and DPO step with their launches. And `python -m
                 memory_augmented_vlm_torch.bench` runs as a subprocess with
                 no flags and with --model 7b, its JSON line held to
                 bench.py's keys and metric names;
@@ -171,7 +182,8 @@ each of which raises on failure:
                 model with an int8 KV cache, the same with both fusions on,
                 and one train step (40 frames,
                 2 segments), whose loss, grad_norm and every gradient leaf
-                are compared.
+                are compared, then one update accumulated over two
+                micro-steps (k = 2), whose parameters are compared.
 
 The line before the last is a JSON object describing each of the 16
 kernels (#1's head dim 448 as its own row), with its launches on each
@@ -223,8 +235,10 @@ from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_b
                                             swiglu_int8)
 from memory_augmented_vlm_torch.ops.preprocess import preprocess_anyres_image, \
     preprocess_frames
-from memory_augmented_vlm_torch.train import optimizer, trainer
-from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str
+from memory_augmented_vlm_torch.train import cli as train_cli
+from memory_augmented_vlm_torch.train import dpo, lora, optimizer, sft, trainer
+from memory_augmented_vlm_torch.utils.logging import start_profiler, stop_profiler
+from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str, tree_map
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16 = 989e12
@@ -3209,9 +3223,9 @@ def _leaves(tree):
     return [(path_str(p), x) for p, x in leaves_with_path(tree)]
 
 
-def _step_grads(step, state, batch):
+def _step_state_grads(step, state, batch):
     """One train step from `state`, keeping the gradients it computes:
-    (metrics, [(path, gradient)])."""
+    (new state, metrics, [(path, gradient)])."""
     captured = []
     inner = trainer.value_and_grad_params
 
@@ -3222,10 +3236,15 @@ def _step_grads(step, state, batch):
 
     trainer.value_and_grad_params = capture
     try:
-        _, metrics = step(state, batch)
+        state, metrics = step(state, batch)
     finally:
         trainer.value_and_grad_params = inner
-    return metrics, _leaves(captured[-1])
+    return state, metrics, _leaves(captured[-1])
+
+
+def _step_grads(step, state, batch):
+    """(metrics, [(path, gradient)]) of one train step from `state`."""
+    return _step_state_grads(step, state, batch)[1:]
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -3477,6 +3496,102 @@ def phase_train_parity():
                     "tol": f"{TRAIN_PARITY_RTOL} of each leaf's max |grad| + "
                            f"{TRAIN_PARITY_MODEL_RTOL} of the model's",
                     "card_step_s": tg, "cpu_step_s": tc}))
+    _accumulated_update_parity(cfg, params)
+
+
+ACCUM_PARITY_FRAMES = 16  # one segment of 32 padded frames, 2 fine: the CPU half stays short
+
+
+def _adam_step_bound(g, tol_g, lr, clip, eps):
+    """Elementwise bound on how far Adam's first step, u = -lr * h / (|h| +
+    eps) with h = clip * g (the bias corrections cancel), moves when g moves
+    by up to tol_g: lr * clip * tol_g * eps / (clip * (|g| - tol_g) + eps)^2
+    (the slope's largest value over the interval), at most 2 lr (a sign
+    flip)."""
+    low = (g.abs() - tol_g).clamp_min(0) * clip
+    return torch.clamp(lr * clip * tol_g * eps / (low + eps) ** 2, max=2 * lr)
+
+
+def _accumulated_update_parity(cfg: VLMConfig, params):
+    """One accumulated update (grad_accum_steps 2, two batches, no warmup),
+    card against CPU: the losses and grad norms of both micro-steps to
+    TRAIN_PARITY_LOSS_RTOL, no parameter moved by the first micro-step, the
+    frozen leaves unmoved, and each trainable element's move by the second
+    held to the gradient rule carried through Adam's first step: the
+    accumulated gradient within TRAIN_PARITY_RTOL of its leaf's largest +
+    TRAIN_PARITY_MODEL_RTOL of the model's, `_adam_step_bound` of that
+    (where the gradient is far from 0 the step is lr * sign(g) and barely
+    moves; near Adam's eps it follows g), + TRAIN_PARITY_MODEL_RTOL of the
+    largest move for the update's own rounding, + the rounding of p + u
+    on each side (a move is read as p1 - p0: an fp32 ulp of p each)."""
+    opt = dataclasses.replace(port_bench_train.optimizer_config(), warmup_ratio=0.0,
+                              grad_accum_steps=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(8)
+        state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
+        step = trainer.make_train_step(cfg, opt, nseg=1)
+        first = _leaves(state.params)
+        metrics, grads, t0 = [], [], time.perf_counter()
+        for i in range(2):
+            batch = _train_batch(rng, cfg, ACCUM_PARITY_FRAMES, 2, dev, torch.float32)
+            state, m, g = _step_state_grads(step, state, batch)
+            metrics.append(m)
+            grads.append(g)
+            if i == 0 and any(not torch.equal(a, b) for (_, a), (_, b) in
+                              zip(first, _leaves(state.params))):
+                raise RuntimeError(f"accumulated update on {dev}: the first micro-step moved "
+                                   "parameters")
+        mean = [(n, (a + (b - a) / 2).cpu()) for (n, a), (_, b) in zip(*grads)]
+        moves = [(n, (b - a).cpu()) for (n, a), (_, b) in zip(first, _leaves(state.params))]
+        runs[dev] = (metrics, mean, moves, time.perf_counter() - t0)
+    (mg, gg, dg, tg), (mc, gc, dc, tc) = runs["cuda"], runs["cpu"]
+    for i in range(2):
+        for key in ("loss", "grad_norm"):
+            a, b = float(mg[i][key]), float(mc[i][key])
+            if not abs(a - b) <= TRAIN_PARITY_LOSS_RTOL * abs(b):
+                raise RuntimeError(f"accumulated update, micro-step {i + 1}: {key} {a} on the "
+                                   f"card, {b} on the CPU")
+    trainable = dict(_leaves(optimizer.trainable_mask(params, opt.mm_tunable_parts)))
+    start = dict(_leaves(params))
+    labels = dict(_leaves(optimizer.lr_group_labels(params, opt)))
+    lrs = {"default": opt.learning_rate, "memory_transformer": opt.memory_transformer_lr,
+           "memory_kv": opt.memory_key_value_lr}
+    norm = math.sqrt(sum(float(g.double().pow(2).sum()) for n, g in gc if trainable[n]))
+    clip = min(1.0, opt.max_grad_norm / norm)
+    grad_max = max(float(g.abs().max()) for _, g in gc)
+    move_max = max(float(d.abs().max()) for _, d in dc)
+    worst, moved = [], 0
+    for (name, a), (_, b), (_, g), (_, g_card) in zip(dg, dc, gc, gg):
+        if not trainable[name]:
+            if a.any() or b.any():
+                raise RuntimeError(f"accumulated update: frozen {name} moved")
+            continue
+        tol_g = TRAIN_PARITY_RTOL * float(g.abs().max()) + TRAIN_PARITY_MODEL_RTOL * grad_max
+        bound = (_adam_step_bound(g, tol_g, lrs[labels[name]], clip, opt.eps)
+                 + TRAIN_PARITY_MODEL_RTOL * move_max
+                 + 2 * torch.finfo(torch.float32).eps * start[name].abs())
+        ratios = (a - b).abs() / bound
+        ratio = float(ratios.max())
+        if not ratio <= 1.0:
+            i = int(ratios.argmax())
+            at = {k: float(x.reshape(-1)[i]) for k, x in (
+                ("grad_cpu", g), ("grad_card", g_card), ("move_cpu", b), ("move_card", a),
+                ("bound", bound))}
+            raise RuntimeError(f"accumulated update: {name} moved {float((a - b).abs().max())} "
+                               f"apart, {ratio} of its bound; worst element {at}, gradient "
+                               f"tolerance {tol_g}, clip {clip}")
+        moved += int((b != 0).sum())
+        worst.append((ratio, name))
+    if not moved:
+        raise RuntimeError("accumulated update: no parameter moved")
+    log(json.dumps({"train_parity_accumulated": "fp32, k = 2, two batches of "
+                    f"{ACCUM_PARITY_FRAMES} frames, card vs cpu",
+                    "loss_card": [float(m["loss"]) for m in mg],
+                    "loss_cpu": [float(m["loss"]) for m in mc],
+                    "elements_moved_cpu": moved, "clip": clip, "largest_move": move_max,
+                    "worst_leaves_err_over_bound": sorted(worst)[-3:],
+                    "card_s": tg, "cpu_s": tc}))
 
 
 # ---------------------------------------------------------------- loading
@@ -3976,9 +4091,10 @@ def _eval_entries(cfg, frames, image):
     return launches
 
 
-def phase_eval():
+def phase_eval(keep: bool = False):
     """Evaluation and the image path at full width, over `phase_load`'s
-    checkpoint (exported here when it is not there), which it deletes:
+    checkpoint (exported here when it is not there), which it deletes
+    unless `keep` (for `phase_train_cli`):
     the device preprocess against its plain version (the same function on
     the CPU) and the host processor: the 64-frame 480x640 clip, 8 frames of
     1080x1920, one frame of 2160x3840 (10x down) and the anyres tiles of a
@@ -4025,9 +4141,381 @@ def phase_eval():
         vlm.clear_decoders()
         torch.cuda.empty_cache()
     launches.update(_eval_entries(cfg, frames, image))
-    shutil.rmtree(LOAD_DIR)
+    if not keep:
+        shutil.rmtree(LOAD_DIR)
     torch.cuda.empty_cache()
     log(json.dumps({"eval_phase_s": time.perf_counter() - t_phase}))
+    return launches
+
+
+# ------------------------------------------------------- training entry
+
+TRAIN_CLI_DIR = Path(__file__).resolve().parent / "build" / "train_cli_phase"
+# stored at 1 fps (.npy): the reference's sampling rule takes 64 of 65 s
+# (two segments of 32); a 64-frame file would give one segment
+TRAIN_CLI_FRAMES = 65
+TRAIN_CLI_SEED = 9
+TRAIN_CLI_LR = 1e-4  # large enough that a bf16 LM leaf moves on each update
+DPO_TEXT = 64
+
+
+class _Stop(Exception):
+    """Raised by a save hook to stop a CLI run after a given checkpoint."""
+
+
+def _train_cli_data():
+    """Four 65-frame 384x384 uint8 videos (.npy, 1 fps) and two text-only
+    samples under TRAIN_CLI_DIR: the mixed manifest, and one of the videos
+    alone. Returns (mixed manifest, videos manifest, video folder)."""
+    rng = np.random.default_rng(TRAIN_CLI_SEED)
+    vids = TRAIN_CLI_DIR / "videos"
+    vids.mkdir(parents=True, exist_ok=True)
+    items = []
+    for i in range(4):
+        np.save(vids / f"v{i}.npy", rng.integers(0, 256, (TRAIN_CLI_FRAMES, 384, 384, 3),
+                                                 dtype=np.uint8))
+        items.append({"id": i, "video": f"v{i}.npy", "conversations": [
+            {"from": "human", "value": "<image>\nWhat happens in the video?"},
+            {"from": "gpt", "value": "a cat sits on a mat " * (i + 1)}]})
+    texts = [{"id": 10 + i, "conversations": [
+        {"from": "human", "value": "What does a memory token hold?"},
+        {"from": "gpt", "value": "Describe the image. " * (3 + i)}]} for i in range(2)]
+    mixed, videos = TRAIN_CLI_DIR / "mixed.json", TRAIN_CLI_DIR / "videos.json"
+    mixed.write_text(json.dumps(items + texts))
+    videos.write_text(json.dumps(items))
+    return str(mixed), str(videos), str(vids)
+
+
+def _cli_argv(data, vids, out, *extra):
+    return ["--model_name_or_path", str(LOAD_DIR), "--data_path", data, "--video_folder", vids,
+            "--output_dir", out, "--per_device_train_batch_size", "1",
+            "--learning_rate", str(TRAIN_CLI_LR), "--warmup_ratio", "0", "--seed", "3", *extra]
+
+
+@contextlib.contextmanager
+def _watched_cli(record: dict):
+    """The CLI's step functions, wrapped: after each micro-step, whether the
+    watched trainable leaf (the first LM layer's q_proj) moved; the state
+    before the first micro-step and after the last. Its exports, timed."""
+    makers = {name: getattr(trainer, name) for name in ("make_train_step",
+                                                        "make_text_train_step")}
+    export = train_cli.checkpoint_io.export_hf_safetensors
+
+    def leaf(state):
+        return state.params["language_model"]["layers"][0]["q_proj"]["kernel"]
+
+    def wrap(make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def watched(state, batch):
+                record.setdefault("first", state)
+                before = leaf(state)
+                state, metrics = step(state, batch)
+                record["moved"].append(not torch.equal(before, leaf(state)))
+                record["state"] = state
+                return state, metrics
+            return watched
+        return made
+
+    def timed_export(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = export(*args, **kwargs)
+        record["export_s"].append(time.perf_counter() - t0)
+        return out
+
+    record.update(moved=[], export_s=[])
+    for name, make in makers.items():
+        setattr(trainer, name, wrap(make))
+    train_cli.checkpoint_io.export_hf_safetensors = timed_export
+    try:
+        yield record
+    finally:
+        for name, make in makers.items():
+            setattr(trainer, name, make)
+        train_cli.checkpoint_io.export_hf_safetensors = export
+
+
+def _cli_records(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _cli_launches(cfg: VLMConfig, records: list, int8_tower: bool = False) -> dict:
+    """Launches of the CLI's micro-steps: a video step is one bench_train
+    step (64 frames), a text step the LM's training kernels alone."""
+    video = sum("dropped_frames" in r for r in records)
+    lm = cfg.lm.num_hidden_layers
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd_lse": 2 * lm * len(records),
+            "flash_bwd_dq": lm * len(records), "flash_bwd_dkv": lm * len(records)}
+    want["flash_fwd"] = video * _memory_calls(cfg, 64)
+    tower = {k: v * video for k, v in _expected_tower_launches(cfg, False).items() if v}
+    if int8_tower:
+        want.update(tower)
+    else:
+        want["flash_fwd"] += video * cfg.vision.num_used_layers
+    return want
+
+
+def _check_cli_run(label, records, record, moved_on, cfg, launches, int8_tower=False):
+    losses = [r["loss"] for r in records]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{label}: losses {losses}")
+    steps = [r["step"] for r in records]
+    if record["moved"] != [s in moved_on for s in steps]:
+        raise RuntimeError(f"{label}: the watched leaf moved at {record['moved']} over micro-"
+                           f"steps {steps}, want only at {moved_on}")
+    for r in records:
+        if "dropped_frames" in r and r["dropped_frames"] != trainer.synced_frame_dropout(
+                r["step"] - 1):
+            raise RuntimeError(f"{label}: micro-step {r['step']} dropped_frames "
+                               f"{r['dropped_frames']}, synced_frame_dropout disagrees")
+    want = _cli_launches(cfg, records, int8_tower)
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, want {want}")
+
+
+def _held_equal_leaves(label, got, want):
+    for (name, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"{label}: {name} differs")
+
+
+def _timed(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    float(out[1]["loss"])  # waits for the step
+    return out, time.perf_counter() - t0
+
+
+def _optimizer_update_s(params, opt) -> dict:
+    """Seconds of one optimizer update alone at full width (zero gradients),
+    host clock synchronised, the best of three after a warm-up: plain AdamW
+    (`k1`), and with grad_accum_steps 2 the micro-step that only folds the
+    mean (`k2_fold`) and the one that runs the chain on it (`k2_apply`)."""
+    grads = tree_map(lambda x: torch.zeros(
+        x.shape, dtype=x.dtype if x.is_floating_point() else torch.float32, device=x.device),
+        params)
+
+    def best(tx, state):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tx.update(grads, state, params)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times[1:])
+
+    tx = optimizer.build_optimizer(params, dataclasses.replace(opt, grad_accum_steps=1))
+    out = {"k1": best(tx, tx.init(params))}
+    tx = optimizer.build_optimizer(params, dataclasses.replace(opt, grad_accum_steps=2))
+    state = tx.init(params)
+    out["k2_fold"] = best(tx, state)
+    out["k2_apply"] = best(tx, tx.update(grads, state, params)[1])
+    return out
+
+
+def _sft_lora_dpo(cfg: VLMConfig, params, opt) -> dict:
+    """One SFT step on two packed 2048-token rows, one LoRA step (r 8 over
+    every LM projection of the bf16 base: the base bit-identical, every B
+    factor moved) and one DPO step on a 64-frame pair, at full width on the
+    card, each with its launches and seconds."""
+    rng = np.random.default_rng(TRAIN_CLI_SEED)
+    lm = cfg.lm.num_hidden_layers
+    text = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd_lse": 2 * lm, "flash_bwd_dq": lm,
+            "flash_bwd_dkv": lm}
+    launches, seconds = {}, {}
+    packed = sft.pack_constant_length(
+        [rng.integers(5, 2000, int(n)).tolist() for n in rng.integers(100, 900, 12)], 2048, 2)
+    ids = torch.from_numpy(np.stack(packed[:2])).to("cuda")
+    valid = torch.tensor([2048, 2048], device="cuda")
+
+    _reset_launches()
+    (state, m), seconds["sft"] = _timed(sft.make_sft_train_step(cfg, opt),
+                                        trainer.init_train_state(params, opt), ids, ids, valid)
+    launches["sft"] = _launches()
+    if launches["sft"] != text or not math.isfinite(float(m["loss"])):
+        raise RuntimeError(f"sft: launches {launches['sft']}, loss {float(m['loss'])}")
+    del state
+
+    lora_cfg = lora.LoraConfig(r=8, alpha=16)
+    factors = lora.init_lora(params, lora_cfg, torch.Generator("cuda").manual_seed(0))
+    base = [x.clone() for _, x in _leaves(params)]
+    _reset_launches()
+    (state, m), seconds["lora"] = _timed(
+        lora.make_lora_train_step(cfg, opt, lora_cfg), trainer.init_train_state(factors, opt),
+        params, trainer.TextBatch(ids, ids, valid))
+    launches["lora"] = _launches()
+    if launches["lora"] != text or not math.isfinite(float(m["loss"])):
+        raise RuntimeError(f"lora: launches {launches['lora']}, loss {float(m['loss'])}")
+    if any(not torch.equal(a, b) for a, (_, b) in zip(base, _leaves(params))):
+        raise RuntimeError("lora: the base moved")
+    frozen_b = [n for n, x in _leaves(state.params) if n.endswith(".b") and not x.any()]
+    if frozen_b:
+        raise RuntimeError(f"lora: B factors that did not move: {frozen_b[:4]}")
+    n_factors = len(_leaves(factors))
+    del state, factors, base
+
+    def t(x, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+
+    chosen, rejected = (rng.integers(5, 2000, (1, DPO_TEXT)) for _ in range(2))
+    batch = dpo.DPOBatch(
+        pixels=torch.from_numpy(rng.standard_normal(
+            (1, 64, cfg.vision.image_size, cfg.vision.image_size, 3), np.float32)).to(
+            "cuda", torch.bfloat16),
+        frame_indices=t(np.arange(64)[None]), frame_valid=t(np.ones((1, 64)), torch.bool),
+        fine_idx=t(vlm.fine_frame_indices(64, cfg.memory.num_fine_frames)[None]),
+        chosen_ids=t(chosen), chosen_labels=t(chosen), rejected_ids=t(rejected),
+        rejected_labels=t(rejected), image_pos=t([3]), chosen_len=t([DPO_TEXT]),
+        rejected_len=t([DPO_TEXT]))
+    _reset_launches()
+    (state, m), seconds["dpo"] = _timed(
+        dpo.make_dpo_train_step(cfg, opt, dpo.DPOConfig(), nseg=2),
+        trainer.init_train_state(params, opt), params, batch)
+    launches["dpo"] = _launches()
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            "flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, 64),
+            "flash_fwd_lse": 6 * lm, "flash_bwd_dq": 2 * lm, "flash_bwd_dkv": 2 * lm}
+    metrics = {k: float(v) for k, v in m.items()}
+    if launches["dpo"] != want or not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"dpo: launches {launches['dpo']} (want {want}), metrics {metrics}")
+    # the policy starts as the reference: the DPO term is log 2
+    if not abs(metrics["dpo_loss"] - math.log(2.0)) <= 1e-2:
+        raise RuntimeError(f"dpo: dpo_loss {metrics['dpo_loss']} at the reference, not log 2")
+    del state
+    log(json.dumps({"sft_lora_dpo_seconds": seconds, "sft_tokens": 2 * 2048,
+                    "lora_factors": n_factors, "dpo_metrics": metrics}))
+    return launches, seconds
+
+
+def phase_train_cli():
+    """`python -m memory_augmented_vlm_torch.train.cli`'s `main` at full width
+    over `phase_load`'s checkpoint and `_write_tokenizer`'s tokenizer (made
+    here when absent), then SFT, LoRA and DPO steps; deletes LOAD_DIR and
+    TRAIN_CLI_DIR at the end. Runs: (A) the mixed manifest, k = 2, B = 1,
+    --max_steps 2 --save_steps 2 --dropout_frames: 4 micro-steps whose
+    watched leaf moves on 2 and 4 only, finite losses, dropout decisions
+    equal to synced_frame_dropout, exact launches, checkpoint-2 and -4 and
+    an export that loads back through load_pretrained_model equal to the
+    final state; (B) the same directory with --max_steps 3 --save_steps 1,
+    stopped after checkpoint-5 (the middle of an accumulation); (C) the
+    same again, which resumes from checkpoint-5 and ends at micro-step 6,
+    the update applied there; (D) --tower_int8 on the videos alone, one
+    micro-step under torch.profiler: the tower's int8 leaves and scales
+    bit-identical, fused_qkv_int8 / merge / fused_mlp_block_int8 26 each,
+    and the trace holds the data, step and checkpoint spans. Returns the
+    launches by path and the timings."""
+    log(f"train CLI phase on {require_card()}")
+    t_phase = time.perf_counter()
+    cfg = VLMConfig.onevision_0_5b()
+    if not (LOAD_DIR / "config.json").exists():
+        _export_checkpoint(cfg)
+    if not (LOAD_DIR / "tokenizer.json").exists():
+        _write_tokenizer(LOAD_DIR)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    mixed, videos, vids = _train_cli_data()
+    out = str(TRAIN_CLI_DIR / "run")
+    accumulate = ("--gradient_accumulation_steps", "2", "--dropout_frames")
+    launches, timings = {}, {}
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _watched_cli({}) as rec:
+        train_cli.main(_cli_argv(mixed, vids, out, *accumulate, "--max_steps", "2",
+                                 "--save_steps", "2"))
+    launches["train_cli"] = _launches()
+    records = _cli_records(out)
+    if [r["step"] for r in records] != [1, 2, 3, 4]:
+        raise RuntimeError(f"train CLI: micro-steps {[r['step'] for r in records]}")
+    _check_cli_run("train CLI", records, rec, {2, 4}, cfg, launches["train_cli"])
+    for name in ("checkpoint-2", "checkpoint-4", "hf_export/model.safetensors"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise RuntimeError(f"train CLI: no {name}")
+    timings.update(micro_step_s=[r["last_step_s"] for r in records],
+                   accumulated_step_s=records[2]["last_step_s"] + records[3]["last_step_s"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                   export_s=rec["export_s"][0],
+                   checkpoint_snapshot_s=records[2]["last_checkpoint_s"])  # the save at 2
+    _, model, _, _ = load_pretrained_model(os.path.join(out, "hf_export"))
+    _held_equal_leaves("train CLI export, loaded back", model.params, rec["state"].params)
+    rec_a = rec["moved"]
+    del model, rec
+    torch.cuda.empty_cache()
+
+    resume = ("--max_steps", "3", "--save_steps", "1")
+    save = train_cli.checkpoint_io.save_checkpoint
+
+    def save_then_stop(ckpt_dir, state, step, **kw):
+        path = save(ckpt_dir, state, step, **kw)
+        if step == 5:
+            train_cli.checkpoint_io.wait_for_checkpoints()
+            raise _Stop
+        return path
+
+    train_cli.checkpoint_io.save_checkpoint = save_then_stop
+    try:
+        with _watched_cli({}) as rec_b:
+            train_cli.main(_cli_argv(mixed, vids, out, *accumulate, *resume))
+        raise RuntimeError("train CLI: the run meant to stop at micro-step 5 did not")
+    except _Stop:
+        pass
+    finally:
+        train_cli.checkpoint_io.save_checkpoint = save
+    with _watched_cli({}) as rec_c:
+        train_cli.main(_cli_argv(mixed, vids, out, *accumulate, *resume))
+    launches["train_cli"] = _launches()
+    records = _cli_records(out)
+    if [r["step"] for r in records] != [1, 2, 3, 4, 5, 6]:
+        raise RuntimeError(f"train CLI resumed: micro-steps {[r['step'] for r in records]}")
+    moves = {"moved": rec_a + rec_b["moved"] + rec_c["moved"]}
+    _check_cli_run("train CLI resumed", records, moves, {2, 4, 6}, cfg, launches["train_cli"])
+    del rec_b, rec_c
+    torch.cuda.empty_cache()
+
+    out_d = str(TRAIN_CLI_DIR / "run_int8")
+    _reset_launches()
+    start_profiler(str(TRAIN_CLI_DIR / "trace"))
+    try:
+        with _watched_cli({}) as rec:
+            train_cli.main(_cli_argv(videos, vids, out_d, "--tower_int8", "--max_steps", "1",
+                                     "--gradient_accumulation_steps", "1", "--save_steps", "1"))
+    finally:
+        trace = stop_profiler()
+    launches["train_cli_tower_int8"] = _launches()
+    records = _cli_records(out_d)
+    int8_cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
+                                                                     tower_int8=True))
+    _check_cli_run("train CLI --tower_int8", records, rec, {1}, int8_cfg,
+                   launches["train_cli_tower_int8"], int8_tower=True)
+    tower0, tower1 = rec["first"].params["vision_tower"], rec["state"].params["vision_tower"]
+    if not any(x.dtype == torch.int8 for _, x in _leaves(tower0)):
+        raise RuntimeError("train CLI --tower_int8: the tower holds no int8 leaf")
+    _held_equal_leaves("train CLI --tower_int8 tower", tower1, tower0)
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    if not {"data", "step", "checkpoint"} <= names:
+        raise RuntimeError("train CLI profile: the trace lacks a data, step or checkpoint "
+                           "span")
+    timings["int8_tower_micro_step_s"] = records[0]["last_step_s"]
+    del rec, tower0, tower1
+    torch.cuda.empty_cache()
+
+    _, model, _, _ = load_pretrained_model(str(LOAD_DIR))
+    opt = optimizer.OptimizerConfig(learning_rate=TRAIN_CLI_LR, warmup_ratio=0.0, total_steps=10)
+    timings["optimizer_update_s"] = _optimizer_update_s(model.params, opt)
+    more, seconds = _sft_lora_dpo(model.cfg, model.params, opt)
+    launches.update(more)
+    timings.update({f"{k}_step_s": v for k, v in seconds.items()})
+    del model
+    shutil.rmtree(LOAD_DIR)
+    shutil.rmtree(TRAIN_CLI_DIR)
+    torch.cuda.empty_cache()
+    log(json.dumps({"train_cli": timings, "launches": launches,
+                    "train_cli_phase_s": time.perf_counter() - t_phase}))
     return launches
 
 
@@ -4044,7 +4532,8 @@ def main():
     launches = phase_requests()
     launches["7b_int8_64_frames"] = phase_requests_7b()
     launches.update(phase_load(keep=True))
-    launches.update(phase_eval())
+    launches.update(phase_eval(keep=True))
+    launches.update(phase_train_cli())
     phase_entry_point()
     launches["int8_mlp_chain"] = chain_launches
     launches["attn_block"] = attn_block_launches

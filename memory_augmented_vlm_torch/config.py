@@ -117,7 +117,12 @@ class PipelineConfig:
     The image path's fields (`mm_patch_merge_type`, `image_aspect_ratio`,
     `image_grid_pinpoints`) drive `models/image_path.py` and the anyres
     processors; the video path reads none of them. The tokenizer's are
-    kept so that an export writes them back."""
+    kept so that an export writes them back. The training and data fields
+    (`dropout_frames` through `force_sample`) hold JAX's defaults (the
+    active video recipe, finetune_short.sh): `train/cli.py` reads
+    `dropout_frames`, `train/trainer.multimodal_loss` reads
+    `use_pos_skipping` (the skip range is `draw_pos_skipping`'s argument),
+    and `data/dataset.py` reads the rest."""
 
     mm_spatial_pool_stride: int = 2
     tower_int8: bool = False
@@ -128,6 +133,12 @@ class PipelineConfig:
     image_grid_pinpoints: Union[str, Tuple[Tuple[int, int], ...]] = "(1x1),...,(6x6)"
     tokenizer_model_max_length: int = 32768
     tokenizer_padding_side: str = "right"
+    dropout_frames: bool = False
+    add_time_instruction: bool = False
+    use_pos_skipping: bool = False
+    frames_upbound: int = 300
+    video_fps: int = 1
+    force_sample: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -125,8 +125,9 @@ def from_jax_params(tree: Mapping[str, Any], cfg: port_config.VLMConfig,
     return _tree(out, device, dtype)
 
 
-# the port takes its dtype from its parameters, not from the config
-_IGNORED_FIELDS = {"dtype"}
+# the port takes its dtype from its parameters, and position skipping's
+# range as an argument of `train/trainer.draw_pos_skipping`, not from the config
+_IGNORED_FIELDS = {"dtype", "pos_skipping_range"}
 
 
 def config_from_fields(cfg) -> port_config.VLMConfig:
@@ -152,6 +153,24 @@ def config_from_fields(cfg) -> port_config.VLMConfig:
         memory=sub(port_config.MemoryConfig, cfg.memory),
         pipeline=sub(port_config.PipelineConfig, cfg.pipeline),
     )
+
+
+def lora_from_jax(tree: Mapping[str, Any], cfg: port_config.VLMConfig, device="cuda",
+                  dtype: Optional[torch.dtype] = None):
+    """JAX `lora.init_lora`'s factor tree (numpy leaves, None off the
+    targets; each factor stacked over the LM's layers) -> the port's: only
+    the targets, per layer (`train/lora.py`)."""
+    layers = tree["language_model"]["layers"]
+    out = []
+    for i in range(cfg.lm.num_hidden_layers):
+        layer = {}
+        for name, entry in layers.items():
+            for key, fac in (entry.items() if isinstance(entry, Mapping) else ()):
+                if fac is not None:
+                    layer.setdefault(name, {})[key] = {
+                        k: _tensor(np.asarray(v)[i], device, dtype) for k, v in fac.items()}
+        out.append(layer)
+    return {"language_model": {"layers": out}}
 
 
 def to_jax_layout(tree):

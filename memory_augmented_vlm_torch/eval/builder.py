@@ -153,6 +153,9 @@ def config_from_json(raw: dict) -> VLMConfig:
         image_grid_pinpoints=_hashable_pinpoints(
             raw.get("image_grid_pinpoints", "(1x1),...,(6x6)")),
         tokenizer_model_max_length=raw.get("tokenizer_model_max_length", 32768),
+        dropout_frames=raw.get("dropout_frames", False),
+        add_time_instruction=raw.get("add_time_instruction", False),
+        frames_upbound=raw.get("frames_upbound", 300),
     )
     return VLMConfig(lm=lm, pipeline=pipeline, vision=VisionConfig(),
                      memory=MemoryConfig(hidden_size=lm.hidden_size))

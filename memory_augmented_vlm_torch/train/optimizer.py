@@ -25,8 +25,19 @@ caller adds `updates` to the params. The update follows optax's chain:
   4. frozen leaves' updates are zero, so they stay bit-identical.
 
 Frozen leaves hold no moments here (optax keeps zeros for them, which
-never change). Global norms are summed in fp32, where optax sums a bf16
-tree's leaves in bf16.
+never change). Global norms add the leaves' sums as optax does, in JAX's
+leaf order and in the tree's dtype (`global_norm`), so a bf16 clip is
+optax's to the bit.
+
+With `grad_accum_steps` k > 1 the chain is wrapped as JAX wraps it in
+`optax.MultiSteps(tx, every_k_schedule=k)` (`MultiStepsState`): each
+micro-step folds its grads into a Welford mean `acc + (g - acc) / (n + 1)`
+kept in the param dtype; the k-th runs the chain above on that mean,
+returns its updates, keeps its state (so the LR schedule counts
+accumulated steps) and resets the mean to 0. The other k - 1 return None
+for the updates: optax runs the chain there too and keeps nothing of it
+(its state stays, its updates are multiplied by 0), so the port skips it.
+Frozen leaves hold no mean (the chain zeroes their grads first).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from memory_augmented_vlm_torch.convert import under_stacked_layers
+from memory_augmented_vlm_torch.convert import STACKED_LAYERS, under_stacked_layers
 from memory_augmented_vlm_torch.utils.tree import (leaves_with_path, map_with_path, path_str,
                                                    tree_map)
 
@@ -143,21 +154,62 @@ class OptState(NamedTuple):
     nu: Any
 
 
+class MultiStepsState(NamedTuple):
+    """optax's `MultiStepsState` less its (empty) skip state."""
+    mini_step: int        # micro-steps folded into acc_grads, 0..k-1
+    gradient_step: int    # accumulated updates applied
+    inner_opt_state: OptState
+    acc_grads: Any        # tree: the mean so far, param dtype; None on frozen leaves
+
+
 class Optimizer(NamedTuple):
     init: Callable[[Any], OptState]
     update: Callable[[Any, OptState, Any], Any]
 
 
+def _jax_leaf_groups(tree, path=()):
+    """The port's leaves grouped as the JAX layout's leaves, in JAX's
+    flatten order (dict keys sorted; a `STACKED_LAYERS` list is one leaf
+    per key, stacked over the layers)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_leaf_groups(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)) and path in STACKED_LAYERS:
+        yield from _stacked_groups(tree)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _jax_leaf_groups(v, path + (i,))
+    else:
+        yield [tree]
+
+
+def _stacked_groups(layers):
+    if isinstance(layers[0], dict):
+        for k in sorted(layers[0]):
+            yield from _stacked_groups([layer[k] for layer in layers])
+    else:
+        yield list(layers)
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed in fp32."""
-    sums = [leaf.float().pow(2).sum() for _, leaf in leaves_with_path(tree)]
-    return torch.stack(sums).sum().sqrt()
+    """`optax.global_norm`: per JAX leaf, the fp32 sum of its squares (each
+    square in the leaf's dtype) rounded to that dtype; those sums added one
+    by one in JAX's leaf order, in the promoted dtype (bf16 for a bf16
+    tree), and the square root of the total."""
+    total = None
+    for group in _jax_leaf_groups(tree):
+        s = None
+        for x in group:
+            sq = torch.sum(x * x, dtype=torch.float32)
+            s = sq if s is None else s + sq
+        s = s.to(group[0].dtype)
+        total = s if total is None else total + s
+    return total.sqrt()
 
 
 def build_optimizer(params: Any, cfg: OptimizerConfig) -> Optimizer:
-    """AdamW with LR groups, trainability masking and global-norm clipping."""
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError("grad_accum_steps > 1 is not ported")
+    """AdamW with LR groups, trainability masking and global-norm clipping,
+    accumulated over `cfg.grad_accum_steps` micro-steps when above 1."""
     group_lrs = {
         "default": cfg.learning_rate,
         "projector": cfg.mm_projector_lr or cfg.learning_rate,
@@ -205,6 +257,39 @@ def build_optimizer(params: Any, cfg: OptimizerConfig) -> Optimizer:
         out = map_with_path(adamw, grads, params, state.mu, state.nu, labels, trainable, decay)
         updates, mu, nu = (_pick(out, i) for i in range(3))
         return updates, OptState({name: c + 1 for name, c in state.count.items()}, mu, nu)
+
+    if cfg.grad_accum_steps > 1:
+        return _multi_steps(Optimizer(init, update), trainable, cfg.grad_accum_steps)
+    return Optimizer(init, update)
+
+
+def _multi_steps(inner: Optimizer, trainable, k: int) -> Optimizer:
+    """`optax.MultiSteps(inner, every_k_schedule=k)` with the grad mean;
+    `update` returns None for the updates on the micro-steps that apply
+    nothing."""
+    def init(params) -> MultiStepsState:
+        acc = tree_map(lambda p, train: torch.zeros_like(p) if train else None,
+                       params, trainable)
+        return MultiStepsState(0, 0, inner.init(params), acc)
+
+    def update(grads, state: MultiStepsState, params):
+        n = state.mini_step
+
+        def fold(g, acc):
+            if acc is None:  # frozen: the chain zeroes it
+                return None
+            # divided by a tensor: CUDA turns a division by a Python scalar
+            # into a product with its reciprocal, which optax's is not
+            return acc + (g - acc) / torch.full((), n + 1, dtype=acc.dtype, device=acc.device)
+
+        acc = tree_map(fold, grads, state.acc_grads)
+        if n < k - 1:
+            return None, MultiStepsState(n + 1, state.gradient_step, state.inner_opt_state, acc)
+        mean = tree_map(lambda g, a: g if a is None else a, grads, acc)
+        updates, inner_state = inner.update(mean, state.inner_opt_state, params)
+        # optax's reset, (1 - emit) * acc: a NaN in the mean stays
+        return updates, MultiStepsState(0, state.gradient_step + 1, inner_state,
+                                        tree_map(lambda a: None if a is None else a * 0, acc))
 
     return Optimizer(init, update)
 

@@ -19,14 +19,18 @@ What differs from JAX, and why:
     the CPU, as JAX dispatches on its backend; each 512-row chunk of the
     chunked loss runs under `torch.utils.checkpoint`, so the (S, vocab)
     fp32 logits and their gradient are never whole;
-  - position skipping and synced frame dropout draw from `jax.random` and
-    are not ported; gradient accumulation neither (`build_optimizer`).
+  - JAX draws position skipping's offsets inside the loss from a key; the
+    port's `multimodal_loss` takes the three draws (`pos_skip_draws`,
+    from `draw_pos_skipping` and a `torch.Generator`), so a test can hand
+    it JAX's. `synced_frame_dropout` is JAX's draw to the bit, computed in
+    numpy: a hash of (seed, step), the same on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -34,8 +38,8 @@ from torch.utils.checkpoint import checkpoint
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.constants import IGNORE_INDEX
 from memory_augmented_vlm_torch.models import qwen2, vlm
-from memory_augmented_vlm_torch.train.optimizer import (OptimizerConfig, OptState,
-                                                        build_optimizer, global_norm)
+from memory_augmented_vlm_torch.train.optimizer import (OptimizerConfig, build_optimizer,
+                                                        global_norm)
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, tree_map
 
 
@@ -60,8 +64,65 @@ class TextBatch(NamedTuple):
 
 class TrainState(NamedTuple):
     params: Any
-    opt_state: OptState
-    step: int
+    opt_state: Any  # OptState, or MultiStepsState when accumulating
+    step: int       # micro-steps taken
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(key, counter):
+    """Threefry-2x32 (20 rounds) of one block, as `jax.random` computes it."""
+    k0, k1 = (np.uint32(k) for k in key)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0, x1 = np.uint32(counter[0]) + ks[0], np.uint32(counter[1]) + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def step_uniform(step: int, seed: int = 17) -> np.float32:
+    """JAX's `uniform(fold_in(key(seed), step))`, bit for bit: a pure
+    function of (seed, step)."""
+    with np.errstate(over="ignore"):  # uint32 arithmetic wraps by design
+        folded = _threefry2x32((0, seed), (0, step))  # fold_in
+        b0, b1 = _threefry2x32(folded, (0, 0))        # random_bits of shape ()
+    bits = np.array([(b0 ^ b1) >> np.uint32(9) | np.uint32(0x3F800000)], np.uint32)
+    return bits.view(np.float32)[0] - np.float32(1)
+
+
+def synced_frame_dropout(step: int, prob: float = 0.5, seed: int = 17) -> bool:
+    """JAX's shared dropout decision: every rank draws the same
+    `step_uniform(step, seed)`, so no collective is needed (the reference
+    broadcasts rank 0's draw)."""
+    return bool(step_uniform(step, seed) < prob)
+
+
+def draw_pos_skipping(seq_len: int, skip_range: int,
+                      generator: torch.Generator) -> Tuple[int, int, int]:
+    """(split, left, right) in JAX's ranges: split in [0, seq_len], left in
+    [0, skip_range], right = left + an offset in [0, max(skip_range + 1 -
+    left, 1)). The draws are torch's, not JAX's."""
+    def randint(high):
+        return int(torch.randint(high, (), generator=generator))
+
+    split = randint(seq_len + 1)
+    left = randint(skip_range + 1)
+    return split, left, left + randint(max(skip_range + 1 - left, 1))
+
+
+def pos_skipping_positions(seq_len: int, batch: int, split: int, left: int, right: int,
+                           device=None) -> torch.Tensor:
+    """Length-generalisation position skipping (llava_arch.py:869-875): the
+    positions before `split` shift by `left`, the rest by `right`. (batch,
+    seq_len) int64."""
+    pos = torch.arange(seq_len, device=device)
+    pos = pos + torch.where(pos < split, left, right)
+    return pos[None].expand(batch, seq_len)
 
 
 def _splice_batched(text_embeds, visual, image_pos, labels, ignore):
@@ -132,9 +193,10 @@ def cross_entropy(params, cfg: VLMConfig, hidden, labels, valid_len, chunk: int 
     return dense_cross_entropy(params, cfg, hidden, labels, valid_len)
 
 
-def _lm_loss(params, cfg: VLMConfig, embeds, labels, valid_len):
+def _lm_loss(params, cfg: VLMConfig, embeds, labels, valid_len, positions=None):
     b, s, _ = embeds.shape
-    positions = torch.arange(s, device=embeds.device)[None, :].expand(b, s)
+    if positions is None:
+        positions = torch.arange(s, device=embeds.device)[None, :].expand(b, s)
     hidden, _ = qwen2.forward(params["language_model"], cfg.lm, embeds, positions,
                               valid_len=valid_len, remat=True,
                               differentiable_attention=True, need_cache=False)
@@ -143,10 +205,11 @@ def _lm_loss(params, cfg: VLMConfig, embeds, labels, valid_len):
 
 
 def multimodal_loss(params, cfg: VLMConfig, batch: TrainBatch, *, nseg: int,
-                    drop_frames: bool = False, pos_skip_key=None):
-    """Fusion + LM loss for one bucketed batch: (loss, metrics)."""
-    if pos_skip_key is not None:
-        raise NotImplementedError("position skipping draws from jax.random and is not ported")
+                    drop_frames: bool = False,
+                    pos_skip_draws: Optional[Tuple[int, int, int]] = None):
+    """Fusion + LM loss for one bucketed batch: (loss, metrics). Under
+    `cfg.pipeline.use_pos_skipping`, `pos_skip_draws` (split, left, right)
+    shifts the LM's positions (`pos_skipping_positions`)."""
     b, fmax = batch.pixels.shape[:2]
     feats = vlm.encode_frames(params, cfg, batch.pixels.reshape(
         (b * fmax,) + tuple(batch.pixels.shape[2:])))
@@ -161,7 +224,11 @@ def multimodal_loss(params, cfg: VLMConfig, batch: TrainBatch, *, nseg: int,
     embeds, labels = _splice_batched(text_embeds, visual, batch.image_pos, batch.labels,
                                      IGNORE_INDEX)
     valid_len = (batch.text_len.to(embeds.device) + visual.shape[1]).to(torch.int32)
-    return _lm_loss(params, cfg, embeds, labels, valid_len)
+    positions = None
+    if cfg.pipeline.use_pos_skipping and pos_skip_draws is not None:
+        positions = pos_skipping_positions(embeds.shape[1], b, *pos_skip_draws,
+                                           device=embeds.device)
+    return _lm_loss(params, cfg, embeds, labels, valid_len, positions)
 
 
 def text_loss(params, cfg: VLMConfig, batch: TextBatch):
@@ -195,7 +262,8 @@ def _step(loss_fn, state: TrainState, opt_cfg: OptimizerConfig):
     (_, metrics), grads = value_and_grad_params(loss_fn, state.params)
     optimizer = build_optimizer(state.params, opt_cfg)
     updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-    params = tree_map(lambda p, u: p + u.to(p.dtype), state.params, updates)
+    params = (state.params if updates is None  # an accumulating micro-step
+              else tree_map(lambda p, u: p + u.to(p.dtype), state.params, updates))
     metrics = dict(metrics, grad_norm=global_norm(grads))
     return TrainState(params, opt_state, state.step + 1), metrics
 

@@ -76,7 +76,7 @@ def test_port_imports_no_jax():
     for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
               "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common",
               "bench", "bench_train", "models.sampling", "models.beam_search",
-              *LOADING_MODULES, *EVAL_MODULES):
+              *LOADING_MODULES, *EVAL_MODULES, *TRAIN_MODULES):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
@@ -93,6 +93,10 @@ OPTIONAL_PACKAGES = ("safetensors", "transformers", "tokenizers", "PIL")
 # the evaluation entries and the image path
 EVAL_MODULES = ("ops.preprocess", "models.image_path", "eval.model_vqa", "eval.lmms_adapter",
                 "eval.eval_bridge", "eval.gpt_eval", "eval.evaluate_interleave", "predict")
+# the training entry, its data layer and the SFT, LoRA and DPO trainers
+TRAIN_MODULES = ("train.cli", "train.sft", "train.lora", "train.dpo", "train.dataset_formatting",
+                 "data.sampler", "data.collator", "data.dataset", "data.dpo_dataset",
+                 "utils.logging")
 
 
 @pytest.mark.parametrize("module", LOADING_MODULES)

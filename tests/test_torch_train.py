@@ -28,6 +28,7 @@ from memory_augmented_vlm_tpu.train import optimizer as jopt
 from memory_augmented_vlm_tpu.train import trainer as jtrainer
 from memory_augmented_vlm_tpu.utils.tree import path_str as jpath_str
 from memory_augmented_vlm_torch import constants, convert
+from memory_augmented_vlm_torch.models import vlm as tvlm
 from memory_augmented_vlm_torch.train import optimizer as topt
 from memory_augmented_vlm_torch.train import trainer as ttrainer
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str, tree_map
@@ -152,9 +153,8 @@ def test_optimizer_updates_match_optax_with_clip_and_frozen_leaves(weights):
 def test_bf16_first_update_matches_optax_bit_for_bit(weights):
     """bf16 params and grads: the first AdamW update (the clip acting) is
     optax's to the bit, because every constant is rounded to bf16 as JAX
-    rounds it (b2 = 0.999 becomes 1.0). Later updates differ where optax's
-    bf16 global norm (summed leaf by leaf in bf16) differs from the port's
-    fp32 one."""
+    rounds it (b2 = 0.999 becomes 1.0) and the global norm adds its
+    leaves' sums in bf16 in JAX's leaf order, as optax does."""
     jp, _ = weights
     rng = np.random.default_rng(12)
     g = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * 0.01).astype(np.float32), jp)
@@ -170,9 +170,69 @@ def test_bf16_first_update_matches_optax_bit_for_bit(weights):
     _assert_tree_close(tup, jup, rtol=0, atol=0)
 
 
-def test_grad_accumulation_is_not_ported(weights):
-    with pytest.raises(NotImplementedError):
-        topt.build_optimizer(weights[1], topt.OptimizerConfig(grad_accum_steps=2))
+def _accumulate(jp, tp, cfg, dtype, grads):
+    """Each package's accumulating optimizer over the same micro-step grads;
+    yields (port updates, JAX updates, port state, JAX state) per step; the
+    port's updates are None on a micro-step that applies nothing."""
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jparams = jax.tree.map(lambda x: jnp.asarray(x, jdt), jp)
+    tparams = convert.from_jax_params(jp, PCFG, device="cpu", dtype=tdt)
+    jtx = jopt.build_optimizer(jparams, cfg)
+    ttx = topt.build_optimizer(tparams, _port_opt(cfg))
+    jstate, tstate = jtx.init(jparams), ttx.init(tparams)
+    jupdate = jax.jit(jtx.update)
+    for g in grads:
+        jup, jstate = jupdate(jax.tree.map(lambda x: jnp.asarray(x, jdt), g), jstate, jparams)
+        tup, tstate = ttx.update(convert.from_jax_params(g, PCFG, device="cpu", dtype=tdt),
+                                 tstate, tparams)
+        yield tup, jup, tstate, jstate
+        jparams = optax.apply_updates(jparams, jup)
+        if tup is not None:
+            tparams = tree_map(lambda p, u: p + u.to(p.dtype), tparams, tup)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [2, 3])
+def test_grad_accumulation_matches_optax_multisteps(weights, k, dtype):
+    """`grad_accum_steps` k against `optax.MultiSteps(every_k_schedule=k)`
+    over 2k micro-steps of given grads (the clip acting, frozen leaves with
+    nonzero grads): zero updates (None in the port, which skips the chain
+    there) but on every k-th micro-step, the Welford
+    mean in the param dtype, the inner counts (so the LR schedule) moving
+    only on emission. bf16 is optax's to the bit."""
+    jp, _ = weights
+    rng = np.random.default_rng(13 + k)
+    scale = 0.01 if dtype == "bf16" else 1.0
+    grads = [jax.tree.map(lambda x: (rng.standard_normal(x.shape) * scale).astype(np.float32),
+                          jp) for _ in range(2 * k)]
+    cfg = dataclasses.replace(OPT, grad_accum_steps=k, warmup_ratio=0.0)
+    tol = dict(rtol=0, atol=0) if dtype == "bf16" else dict(rtol=1e-5, atol=1e-9)
+    mask = convert.to_jax_layout(topt.trainable_mask(weights[1], cfg.mm_tunable_parts))
+    for i, (tup, jup, tstate, jstate) in enumerate(_accumulate(jp, weights[1], cfg, dtype,
+                                                               grads)):
+        emit = (i + 1) % k == 0
+        assert (tup is not None) == emit
+        if emit:
+            _assert_tree_close(tup, jup, **tol)
+        assert any(np.any(np.asarray(u) != 0) for u in jax.tree.leaves(jup)) == emit
+        assert tstate.mini_step == int(jstate.mini_step) == (i + 1) % k
+        assert tstate.gradient_step == int(jstate.gradient_step) == (i + 1) // k
+        assert tstate.inner_opt_state.count["default"] == (i + 1) // k
+        # the running mean, in the param dtype, on the trainable leaves
+        acc = convert.to_jax_layout(tree_map(
+            lambda a, p: torch.zeros_like(p) if a is None else a, tstate.acc_grads,
+            weights[1]))
+        for path, want in jax.tree_util.tree_leaves_with_path(jstate.acc_grads):
+            have, train = acc, mask
+            for p in path:
+                have, train = (have[p.key], train[p.key]) if hasattr(p, "key") else \
+                    (have[p.idx], train[p.idx])
+            if np.all(train):
+                np.testing.assert_allclose(np.asarray(have, np.float64),
+                                           np.asarray(want, np.float64),
+                                           err_msg=jpath_str(path), **tol)
+        leaf = tstate.acc_grads["language_model"]["embed_tokens"]
+        assert leaf.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
 
 
 # ------------------------------------------------------------ loss pieces
@@ -283,7 +343,48 @@ def test_text_train_step_matches_jax(weights):
     _assert_tree_close(tstate.params, jstate.params, rtol=0, atol=PARAM_ATOL)
 
 
-def test_position_skipping_is_not_ported(weights):
-    _, tb, nseg = _batch(0, 8)
-    with pytest.raises(NotImplementedError):
-        ttrainer.multimodal_loss(weights[1], PCFG, tb, nseg=nseg, pos_skip_key=0)
+def _jax_pos_skip_draws(key, seq_len, skip_range):
+    """JAX's three draws inside `pos_skipping_positions`, as (split, left,
+    right)."""
+    k1, k2, k3 = jax.random.split(key, 3)
+    split = int(jax.random.randint(k1, (), 0, seq_len + 1))
+    left = int(jax.random.randint(k2, (), 0, skip_range + 1))
+    return split, left, left + int(jax.random.randint(k3, (), 0, max(skip_range + 1 - left, 1)))
+
+
+@pytest.mark.parametrize("seed,skip_range", [(0, 64), (1, 4096), (5, 3)])
+def test_pos_skipping_positions_match_jax(seed, skip_range):
+    key = jax.random.key(seed)
+    want = jtrainer.pos_skipping_positions(40, 2, key, skip_range)
+    got = ttrainer.pos_skipping_positions(40, 2, *_jax_pos_skip_draws(key, 40, skip_range))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(50):  # the port's own draws stay in JAX's ranges
+        split, left, right = ttrainer.draw_pos_skipping(40, skip_range, gen)
+        assert 0 <= split <= 40 and 0 <= left <= skip_range
+        assert left <= right <= max(skip_range, left)
+
+
+@pytest.mark.parametrize("use", [True, False])
+def test_position_skipping_loss_and_every_grad_match_jax(weights, use):
+    """`multimodal_loss` with JAX's draws: the loss and every gradient leaf
+    equal JAX's under `use_pos_skipping`, and the draws change nothing
+    without it (JAX ignores its key then)."""
+    jp, tp = weights
+    jcfg = dataclasses.replace(TINY, pipeline=dataclasses.replace(
+        TINY.pipeline, use_pos_skipping=use, pos_skipping_range=64))
+    pcfg = convert.config_from_fields(jcfg)
+    jb, tb, nseg = _batch(31, 16)
+    key = jax.random.key(3)
+    feats = tvlm.encode_frames(tp, PCFG, tb.pixels[0])
+    lvis = tvlm.build_video_embeds(tp, PCFG, feats, tb.frame_indices[0], tb.frame_valid[0],
+                                   tb.fine_idx[0], nseg).shape[0]
+    draws = _jax_pos_skip_draws(key, ST + lvis, 64)  # the spliced sequence's length
+    (jloss, _), jgrads = jax.jit(lambda p: jtrainer.value_and_grad_params(
+        lambda q: jtrainer.multimodal_loss(q, jcfg, jb, nseg=nseg, pos_skip_key=key), p))(jp)
+    (tloss, _), tgrads = ttrainer.value_and_grad_params(
+        lambda q: ttrainer.multimodal_loss(q, pcfg, tb, nseg=nseg, pos_skip_draws=draws), tp)
+    np.testing.assert_allclose(float(tloss), float(jloss), **LOSS_TOL)
+    _assert_tree_close(tgrads, jgrads, **GRAD_TOL)
+    plain = float(ttrainer.multimodal_loss(tp, PCFG, tb, nseg=nseg)[0])
+    assert (plain != float(tloss)) == use
