@@ -22,7 +22,8 @@ each of which raises on failure:
                 unequal valid length, causal GQA), and at generate_batched's
                 prefill (three rows of 15744, valid 5524, 9444 and 15716,
                 causal GQA 14/2), and at the anyres image path's tower
-                (16 tiles of 729) and prefill (7296 rows, valid 7284); the three
+                (16 tiles of 729) and prefill (7296 rows, valid 7284), and at
+                the serving engine's prefill (1536 rows, valid 1500); the three
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2; dQ and dK/dV also run twice for the same bits and
                 beside three neighbouring functions that must fail their
@@ -116,7 +117,21 @@ each of which raises on failure:
                 (bench.py --model 7b, built by the port's bench functions)
                 answers a 64-frame clip: launches (5 of flash_fwd_d448, 28
                 of flash_fwd, 26 of each int8 tower kernel), stages, graph
-                decode against the eager loop. Then loading (`phase_load`):
+                decode against the eager loop. Then serving
+                (`phase_serving`): the continuous-batching engine at
+                bench_serving.py's configuration (the 0.5B LM in bf16,
+                matrices times 5; 4 slots of 2048 positions; six
+                1500-token prompts sharing a 512-token prefix; 64 new
+                tokens), one engine a run: plain, kv_int8,
+                chunk_prefill=512, speculative=4 (accepted drafts),
+                decode_ticks=4, the prefix through set_prefix (contiguous
+                and paged), the paged pool full and oversubscribed
+                (preemptions), the int8 LM with kv_int8, and idle slots
+                whose lengths pass max_len; every request's tokens held to
+                vlm.generate by the margin rule, no engine record at ERROR,
+                flash_fwd 24 a one-shot prefill and none from chunks,
+                decode or verification; each run's decode tokens/s, first
+                tokens, ms a tick, stats and peak memory. Then loading (`phase_load`):
                 the 0.5B model's seeded bf16 weights (LM matrices times 5)
                 exported with `export_hf_safetensors` under build/ and
                 loaded back by `load_pretrained_model`, in bf16 and with
@@ -159,7 +174,10 @@ each of which raises on failure:
                 alone; one SFT, LoRA and DPO step with their launches. And `python -m
                 memory_augmented_vlm_torch.bench` runs as a subprocess with
                 no flags and with --model 7b, its JSON line held to
-                bench.py's keys and metric names;
+                bench.py's keys and metric names, then `... .bench_serving`
+                (defaults) and `... .bench_throughput --synthetic-producer`,
+                their lines held to the root scripts' keys (less the relay
+                fields) and a finite positive value;
   6. train    — four full-width bf16 train steps of bench_train.py's
                 configuration (64 frames, 9557 tokens, AdamW with its LR
                 groups) on distinct seeded batches: finite losses, 120
@@ -198,6 +216,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import math
 import os
 import re
@@ -214,6 +233,7 @@ import torch
 import torch.nn.functional as F
 
 from memory_augmented_vlm_torch import bench as port_bench
+from memory_augmented_vlm_torch import bench_serving as port_bench_serving
 from memory_augmented_vlm_torch import bench_train as port_bench_train
 from memory_augmented_vlm_torch import constants, pipeline
 from memory_augmented_vlm_torch import predict as port_predict
@@ -227,6 +247,7 @@ from memory_augmented_vlm_torch.eval import lmms_adapter, model_vqa
 from memory_augmented_vlm_torch.eval.builder import load_pretrained_model
 from memory_augmented_vlm_torch.config import VLMConfig
 from memory_augmented_vlm_torch.models import beam_search, image_path, qwen2, siglip, vlm
+from memory_augmented_vlm_torch.models import paged as paged_kv
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
 from memory_augmented_vlm_torch.microbench.timing import graph_ms, replay_trace, require_card
 from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
@@ -235,6 +256,7 @@ from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_b
                                             swiglu_int8)
 from memory_augmented_vlm_torch.ops.preprocess import preprocess_anyres_image, \
     preprocess_frames
+from memory_augmented_vlm_torch.serve import batch_engine
 from memory_augmented_vlm_torch.train import cli as train_cli
 from memory_augmented_vlm_torch.train import dpo, lora, optimizer, sft, trainer
 from memory_augmented_vlm_torch.utils.logging import start_profiler, stop_profiler
@@ -579,6 +601,11 @@ def phase_flash_kernel():
                     lens(*[729] * IMAGE_TILES[0]), timed=True, controls=True),
         _check_case("image_prefill", randn(1, image_rows, 14, 64), randn(1, image_rows, 2, 64),
                     randn(1, image_rows, 2, 64), lens(image_len), causal=True, kv_groups=7,
+                    timed=True, controls=True),
+        # the serving engine's one-shot prefill: a 1500-token prompt padded
+        # to the 128-row bucket
+        _check_case("serve_prefill", randn(1, 1536, 14, 64), randn(1, 1536, 2, 64),
+                    randn(1, 1536, 2, 64), lens(SERVE_PROMPT), causal=True, kv_groups=7,
                     timed=True, controls=True),
     ]
     errs = [r["max_abs_err"] for r in path_rows]
@@ -3046,32 +3073,403 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
     return counted.total
 
 
+# ---------------------------------------------------------------- serving
+
+# bench_serving.py's configuration: the 0.5B LM, 4 slots of 2048 positions,
+# prompts of 1500 tokens, 64 new tokens; 6 requests, so that slots recycle
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 1500, 64, 6
+# every prompt opens with this shared prefix (the prefix-caching runs'),
+# and its rest is a text of SERVE_PROMPT - SERVE_PREFIX tokens made of one
+# repeated piece (prompt lookups hit in the speculative run)
+SERVE_PREFIX, SERVE_PIECE = 512, 247
+SERVE_PAGE, SERVE_CHUNK = 128, 512
+# the oversubscribed pool: 48 pages of 128 hold the four 12-page prompts
+# and no decode page, below the 4 x 16 of a full pool, so decode preempts
+SERVE_OVERSUBSCRIBED_PAGES = 48
+# the idle-slot run: requests one at a time through 4 slots of 256
+# positions, 5 x 64 ticks, so an idle slot's length passes 256
+IDLE_MAX_LEN, IDLE_PROMPT, IDLE_REQUESTS = 256, 64, 5
+
+
+class _EngineLogits:
+    """The logits each request's tokens were picked from, recorded by
+    wrapping the engine's device functions (module globals it looks up at
+    call time): at each one-token step (`_decode_step`, which
+    `_decode_multi_step` calls, and `paged.decode_step_paged`) every active
+    slot's row; at each verification (`_spec_verify_step`) the row its
+    chunk's first token came from and the verified rows of its accepted
+    drafts (the step's `qwen2.unembed` output, its accepted count read
+    after the run). Kept under each request's output queue, the object
+    itself (an id could be reused once a queue is freed); the copies stay
+    on the card, with no read back during the run."""
+
+    def __init__(self):
+        self.engine, self.rows = None, {}
+
+    def _active(self):
+        eng = self.engine
+        pending = eng._pending[0] if eng._pending else None
+        return [(s, req) for s, req in enumerate(eng._slots)
+                if req is not None and req is not pending]
+
+    def _step(self, fn):
+        def recorded(params, cfg, logits, *args, **kw):
+            for s, req in self._active():
+                self.rows.setdefault(req.out, []).append(logits[s].clone())
+            return fn(params, cfg, logits, *args, **kw)
+        return recorded
+
+    def _verify(self, fn):
+        def recorded(params, cfg, logits, *args, **kw):
+            slots, unembeds, unembed = self._active(), [], qwen2.unembed
+
+            def kept(lm, hidden):
+                unembeds.append(unembed(lm, hidden))
+                return unembeds[-1]
+
+            qwen2.unembed = kept
+            try:
+                out = fn(params, cfg, logits, *args, **kw)
+            finally:
+                qwen2.unembed = unembed
+            for s, req in slots:
+                self.rows.setdefault(req.out, []).extend(
+                    [logits[s].clone(), (unembeds[-1], out[0], s)])
+            return out
+        return recorded
+
+    def of(self, out, n: int) -> torch.Tensor:
+        """The first n rows of the request whose output queue is `out`."""
+        rows = []
+        for item in self.rows[out]:
+            if isinstance(item, tuple):
+                verified, packed, s = item
+                rows.extend(verified[s, :int(packed[s, 0])])
+            else:
+                rows.append(item)
+        return torch.stack(rows[:n])
+
+    def accepted(self) -> int:
+        """The drafts accepted over the run's verifications."""
+        return sum(int(item[1][item[2], 0]) for items in self.rows.values()
+                   for item in items if isinstance(item, tuple))
+
+    @contextlib.contextmanager
+    def installed(self):
+        names = ((batch_engine, "_decode_step", self._step),
+                 (paged_kv, "decode_step_paged", self._step),
+                 (batch_engine, "_spec_verify_step", self._verify))
+        saved = [getattr(mod, name) for mod, name, _ in names]
+        for (mod, name, wrap), fn in zip(names, saved):
+            setattr(mod, name, wrap(fn))
+        try:
+            yield self
+        finally:
+            for (mod, name, _), fn in zip(names, saved):
+                setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _no_engine_errors(label):
+    """Raises after the block if the engine logged at ERROR or above (it
+    drops a failed request and serves on, which on the card would look like
+    a short answer)."""
+    records = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = records.append
+    engine_log = logging.getLogger("batch_engine")
+    engine_log.addHandler(handler)
+    try:
+        yield
+    finally:
+        engine_log.removeHandler(handler)
+    if records:
+        raise RuntimeError(f"{label}: the engine logged {[r.getMessage() for r in records]}")
+
+
+def _serve_prompts(rng, vocab) -> list:
+    prefix = rng.integers(0, vocab, SERVE_PREFIX)
+    rest = SERVE_PROMPT - SERVE_PREFIX
+    return [np.concatenate([prefix, np.resize(rng.integers(0, vocab, SERVE_PIECE), rest)])
+            for _ in range(SERVE_REQUESTS)]
+
+
+def _serve_references(lm_params, cfg, embeds, kv_int8=False) -> list:
+    """`vlm.generate(..., return_logits=True)` of each prompt on the card,
+    with the engine's cache (`kv_int8`: the prefill's quantized, as the
+    engine's): (tokens, logits rows)."""
+    out = []
+    for emb in embeds:
+        res, rows = vlm.generate(lm_params, cfg, emb, max_new_tokens=SERVE_NEW, eos_token_ids=(),
+                                 return_logits=True, kv_int8=kv_int8)
+        out.append((res.tokens.cpu(), rows))
+    return out
+
+
+def _serving_run(label, lm_params, cfg, embeds, refs, engine_kw, *, prefix=None,
+                 draft_ids=None, want_flash=None):
+    """One engine over `embeds` (the suffixes after `prefix` when it is
+    given): every request submitted at once, bench_serving's figures
+    (decode tokens/s over the steady phase after each slot's first token,
+    time to those first tokens, ms per tick), its stats and peak memory,
+    flash_fwd's launches against `want_flash`, and each request's 64 tokens
+    held to its reference by the margin rule (`_greedy_agreement` on the
+    logits `_EngineLogits` recorded)."""
+    rec = _EngineLogits()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = batch_engine.BatchEngine(lm_params, cfg, num_slots=SERVE_SLOTS,
+                                      max_len=SERVE_MAX_LEN, **engine_kw)
+    rec.engine = engine
+    _reset_launches()
+    with _no_engine_errors(label), rec.installed():
+        engine.start()
+        try:
+            if prefix is not None:
+                engine.set_prefix(prefix)
+            t0 = time.perf_counter()
+            outs = [engine.submit(e, max_new_tokens=SERVE_NEW, eos_token_ids=(),
+                                  use_prefix=prefix is not None,
+                                  draft_ids=() if draft_ids is None else draft_ids[i])
+                    for i, e in enumerate(embeds)]
+            got = [[] for _ in outs]
+            for i, o in enumerate(outs[:engine.num_slots]):
+                first = o.get(timeout=600)
+                if first is None:
+                    raise RuntimeError(f"{label}: request {i} returned no token")
+                got[i].append(first)
+            t_first = time.perf_counter() - t0
+            rounds0 = engine.stats["decode_rounds"]
+            t1 = time.perf_counter()
+            for i, o in enumerate(outs):
+                while (item := o.get(timeout=600)) is not None:
+                    got[i].append(item)
+            steady = time.perf_counter() - t1
+        finally:
+            engine.shutdown()
+    torch.cuda.synchronize()
+    launches = _launches()
+    if engine._thread.is_alive():
+        raise RuntimeError(f"{label}: the engine thread did not stop")
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd": want_flash(engine)}
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, want {want}")
+    tokens = [np.concatenate(g) for g in got]
+    held, diff = [], 0.0
+    for i, (toks, (ref_tokens, ref_rows)) in enumerate(zip(tokens, refs)):
+        if toks.shape != (SERVE_NEW,):
+            raise RuntimeError(f"{label}: request {i} returned {toks.shape[0]} tokens")
+        agree = _greedy_agreement(f"{label} request {i}", ref_tokens, ref_rows,
+                                  torch.from_numpy(toks), rec.of(outs[i], SERVE_NEW),
+                                  BATCHED_LOGIT_TOL)
+        diff = max(diff, agree["max_logit_diff"])
+        held.append(agree["share_held"])
+    steady_tokens = sum(len(t) for t in tokens) - engine.num_slots
+    rounds = engine.stats["decode_rounds"] - rounds0
+    row = {"serving": label, "decode_tokens_per_s": steady_tokens / steady,
+           "time_to_first_tokens_s": t_first, "steady_s": steady, "decode_rounds": rounds,
+           "ms_per_tick": 1e3 * steady / max(rounds, 1), "stats": dict(engine.stats),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           "share_held": held, "max_logit_diff": diff, "accepted_drafts": rec.accepted(),
+           "tokens": tokens[0][:8].tolist()}
+    log(json.dumps(row))
+    return row, engine
+
+
+def _idle_slot_run(cfg, lm_params):
+    """Step 0's case at full width: a 4-slot engine of 256 positions serves
+    five 64-token requests one at a time (more than 256 ticks); slot 0
+    takes every request, slots 1-3 stay idle while their lengths pass 256
+    (their writes drop), and every request keeps its reference's tokens."""
+    rng = np.random.default_rng(6)
+    lm = lm_params["language_model"]
+    ids = [rng.integers(0, cfg.lm.vocab_size, IDLE_PROMPT) for _ in range(IDLE_REQUESTS)]
+    embeds = [lm["embed_tokens"][torch.as_tensor(i, device="cuda")] for i in ids]
+    refs = _serve_references(lm_params, cfg, embeds)
+    rec = _EngineLogits()
+    engine = batch_engine.BatchEngine(lm_params, cfg, num_slots=SERVE_SLOTS,
+                                      max_len=IDLE_MAX_LEN)
+    rec.engine = engine
+    shares = []
+    _reset_launches()
+    with _no_engine_errors("serving, idle slots"), rec.installed():
+        engine.start()
+        try:
+            for i, emb in enumerate(embeds):
+                out = engine.submit(emb.float().cpu().numpy(), max_new_tokens=SERVE_NEW,
+                                    eos_token_ids=())
+                toks = []
+                while (item := out.get(timeout=600)) is not None:
+                    toks.append(item)
+                    if any(r is not None for r in engine._slots[1:]):
+                        raise RuntimeError("serving, idle slots: a request left slot 0")
+                toks = np.concatenate(toks)
+                if toks.shape != (SERVE_NEW,):
+                    raise RuntimeError(f"serving, idle slots: request {i} returned "
+                                       f"{toks.shape[0]} tokens")
+                rows = rec.of(out, SERVE_NEW)
+                shares.append(_greedy_agreement(
+                    f"serving, idle slots, request {i}", refs[i][0], refs[i][1],
+                    torch.from_numpy(toks), rows, BATCHED_LOGIT_TOL)["share_held"])
+        finally:
+            engine.shutdown()
+    torch.cuda.synchronize()
+    lengths = engine._cache.length.tolist()
+    if engine._len[1:] != [0] * (SERVE_SLOTS - 1) or min(lengths[1:]) <= IDLE_MAX_LEN:
+        raise RuntimeError(f"serving, idle slots: host lengths {engine._len}, device {lengths}")
+    launches = _launches()
+    if launches["flash_fwd"] != cfg.lm.num_hidden_layers * IDLE_REQUESTS:
+        raise RuntimeError(f"serving, idle slots: launches {launches}")
+    log(json.dumps({"serving": "idle slots", "device_lengths": lengths,
+                    "decode_rounds": engine.stats["decode_rounds"], "share_held": shares}))
+    return launches
+
+
+def phase_serving():
+    """The continuous-batching engine (`serve/batch_engine.py`, the paged
+    cache of `models/paged.py`) at bench_serving.py's configuration: the
+    0.5B LM in bf16 with every matrix times 5 (`_lively`), 4 slots of 2048
+    positions, six 1500-token prompts sharing a 512-token prefix, 64 new
+    tokens each, greedy, one engine per run: plain; kv_int8;
+    chunk_prefill=512 (every prompt in 3 chunks); speculative=4 (the draft corpus is each prompt's ids
+    and its reference's tokens, as when an answer quotes its context:
+    verify forwards and accepted drafts); decode_ticks=4; the prefix
+    through set_prefix, contiguous and paged; paged_page_size=128 with a
+    full pool, and oversubscribed (48 pages: preemptions); the int8 LM
+    (prequantize_int8 with the unembedding) with kv_int8; then the idle-slot
+    run (`_idle_slot_run`). Each request's tokens are held to
+    `vlm.generate` of the same prompt on the card (with the run's cache:
+    the prefill's quantized for kv_int8) by the margin rule; no
+    engine record at ERROR; flash_fwd 24 per one-shot prefill and per
+    set_prefix, 0 from chunks, decode and verify. Returns the phase's
+    launches."""
+    t_phase = time.perf_counter()
+    cfg = VLMConfig.onevision_0_5b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    lm_params = _lively({"language_model": qwen2.init_params(cfg.lm, gen, "cuda",
+                                                             dtype=torch.bfloat16)})
+    lm = lm_params["language_model"]
+    ids = _serve_prompts(np.random.default_rng(5), cfg.lm.vocab_size)
+    embeds = [lm["embed_tokens"][torch.as_tensor(i, device="cuda")] for i in ids]
+    host = [e.float().cpu().numpy() for e in embeds]
+    suffixes = [h[SERVE_PREFIX:] for h in host]
+    prefix = host[0][:SERVE_PREFIX]
+    refs = _serve_references(lm_params, cfg, embeds)
+    distinct = len(set(refs[0][0].tolist()))
+    if distinct < MIN_DISTINCT_TOKENS:
+        raise RuntimeError(f"serving: the reference's 64 tokens hold {distinct} distinct ones")
+    total = dict.fromkeys(WRAPPERS, 0)
+    layers = cfg.lm.num_hidden_layers  # flash_fwd's launches a prefill
+    prefills = lambda eng: layers * (SERVE_REQUESTS + eng.stats["preemptions"])  # noqa: E731
+    rows = {}
+
+    def run(label, kw, inputs=host, refs=refs, **extra):
+        row, engine = _serving_run(f"serving, {label}", lm_params, cfg, inputs, refs, kw,
+                                   want_flash=extra.pop("want_flash", prefills), **extra)
+        for name, n in row["launches"].items():
+            total[name] += n
+        rows[label] = row
+        return row, engine
+
+    run("plain", {})
+    int8_kv_refs = _serve_references(lm_params, cfg, embeds, kv_int8=True)
+    run("kv_int8", {"kv_int8": True}, refs=int8_kv_refs)
+    del int8_kv_refs
+    run(f"chunk_prefill={SERVE_CHUNK}", {"chunk_prefill": SERVE_CHUNK},
+        want_flash=lambda eng: 0)
+    drafts = [tuple(int(t) for t in np.concatenate([i, r[0].numpy()])) for i, r in zip(ids, refs)]
+    spec, _ = run("speculative=4", {"speculative": 4}, draft_ids=drafts)
+    if not (spec["stats"]["spec_forwards"] > 0 and spec["accepted_drafts"] > 0):
+        raise RuntimeError(f"serving, speculative: no accepted draft {spec}")
+    run("decode_ticks=4", {"decode_ticks": 4})
+    one_prefix = lambda eng: layers  # noqa: E731 (set_prefix; suffixes prefill in chunks)
+    run("prefix", {}, suffixes, prefix=prefix, want_flash=one_prefix)
+    run("prefix, paged", {"paged_page_size": SERVE_PAGE}, suffixes, prefix=prefix,
+        want_flash=one_prefix)
+    _, paged = run("paged", {"paged_page_size": SERVE_PAGE})
+    if len(paged._free) != paged.num_pages:
+        raise RuntimeError(f"serving, paged: {len(paged._free)} of {paged.num_pages} pages free")
+    over, _ = run("paged, oversubscribed", {"paged_page_size": SERVE_PAGE,
+                                            "paged_pages": SERVE_OVERSUBSCRIBED_PAGES})
+    if not over["stats"]["preemptions"] > 0:
+        raise RuntimeError(f"serving, oversubscribed: no preemption {over['stats']}")
+    int8_params = {"language_model": qwen2.prequantize_int8(lm, include_unembed=True)}
+    int8_refs = _serve_references(int8_params, cfg, embeds, kv_int8=True)
+    row, _ = _serving_run("serving, int8 LM, kv_int8", int8_params, cfg, host, int8_refs,
+                          {"kv_int8": True}, want_flash=prefills)
+    rows["int8 LM, kv_int8"] = row
+    for name, n in row["launches"].items():
+        total[name] += n
+    del int8_params, int8_refs
+    for name, n in _idle_slot_run(cfg, lm_params).items():
+        total[name] += n
+    vlm.clear_decoders()
+    del lm_params, refs
+    torch.cuda.empty_cache()
+    log(json.dumps({"serving_summary": {k: {m: r[m] for m in (
+        "decode_tokens_per_s", "time_to_first_tokens_s", "ms_per_tick", "peak_mem_gb")}
+        for k, r in rows.items()}, "phase_s": time.perf_counter() - t_phase}))
+    return total
+
+
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 BENCH_DETAIL_KEYS = {"latency_s", "visual_tokens", "frames", "segments", "decode_tokens",
                      "backend"}
+
+
+def _entry_line(module: str, args) -> dict:
+    """`python -m memory_augmented_vlm_torch.<module> args` in a subprocess:
+    its last line, parsed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"memory_augmented_vlm_torch.{module}", *args],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"{module} {' '.join(args) or '(default)'} ({time.perf_counter() - t0:.1f} s): {line}")
+    return json.loads(line)
+
+
+# bench_throughput.py's --synthetic-producer line
+THROUGHPUT_DETAIL_KEYS = {"device_bound_s_per_clip", "device_preprocess_clips_per_s",
+                          "device_preprocess_s_per_clip", "clips"}
 
 
 def phase_entry_point():
     """`python -m memory_augmented_vlm_torch.bench` in a subprocess, with no
     flags and with `--model 7b`: its last line parses as bench.py's JSON
     (less the relay fields), with bench.py's metric name, three listed
-    repetitions, backend cuda and the card."""
+    repetitions, backend cuda and the card. Then `... .bench_serving` with
+    its defaults and `... .bench_throughput --synthetic-producer`: their
+    lines in the root scripts' keys (less the relay fields), a finite
+    positive value, bench_serving's backend the card and every slot's first
+    token."""
     for args, model in (([], "0.5b"), (["--model", "7b"], "7b")):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "memory_augmented_vlm_torch.bench", *args],
-                              capture_output=True, text=True, timeout=600,
-                              cwd=Path(__file__).resolve().parent)
-        if proc.returncode != 0:
-            raise RuntimeError(f"bench {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        line = proc.stdout.strip().splitlines()[-1]
-        out = json.loads(line)
+        out = _entry_line("bench", args)
         detail = out.get("detail", {})
         if (set(out) != BENCH_KEYS or not BENCH_DETAIL_KEYS <= set(detail)
                 or out["metric"] != port_bench.metric_name(64, model)
                 or detail["backend"] != "cuda" or len(detail["latency_s_reps"]) != 3
                 or not (math.isfinite(out["value"]) and out["value"] > 0)):
-            raise RuntimeError(f"bench {args}: unexpected line {line}")
-        log(f"bench {' '.join(args) or '(default)'} ({time.perf_counter() - t0:.1f} s): {line}")
+            raise RuntimeError(f"bench {args}: unexpected line {out}")
+    serving_args = port_bench_serving.parse_args([])
+    want = port_bench_serving.result(serving_args, dict.fromkeys(
+        ("tokens", "rounds", "steady_s", "time_to_first_tokens_s", "first_tokens",
+         "engine_stats"), 1), "card")
+    out = _entry_line("bench_serving", [])
+    if (set(out) != set(want) or set(out["detail"]) != set(want["detail"])
+            or out["metric"] != want["metric"]
+            or torch.cuda.get_device_name(0) not in out["detail"]["backend"]
+            or out["detail"]["first_tokens"] != serving_args.num_slots
+            or not (math.isfinite(out["value"]) and out["value"] > 0)):
+        raise RuntimeError(f"bench_serving: unexpected line {out}")
+    out = _entry_line("bench_throughput", ["--synthetic-producer"])
+    if (set(out) != BENCH_KEYS or set(out["detail"]) != THROUGHPUT_DETAIL_KEYS
+            or out["metric"] != "sustained_clips_per_s_64frame_0.5b_synthetic_producer"
+            or not (math.isfinite(out["value"]) and out["value"] > 0)):
+        raise RuntimeError(f"bench_throughput: unexpected line {out}")
 
 
 BENCH_TRAIN_DETAIL_KEYS = {"frames", "segments", "all_times", "compile_s", "loss_first",
@@ -4531,6 +4929,7 @@ def main():
     microbench_launches = phase_microbench()
     launches = phase_requests()
     launches["7b_int8_64_frames"] = phase_requests_7b()
+    launches["serving"] = phase_serving()
     launches.update(phase_load(keep=True))
     launches.update(phase_eval(keep=True))
     launches.update(phase_train_cli())

@@ -333,12 +333,12 @@ def _write_kv(cache: KVCache, li: int, rows, pos, k, v, act_dtype, drop=None):
     return layer_k.to(act_dtype), layer_v.to(act_dtype)
 
 
-def _chunk_layers(params, cfg: LMConfig, hidden, cache: KVCache, rows, write_pos, qpos, mask,
-                  drop=None):
-    """The decoder layers of a chunk step: RoPE at `qpos` (B', C), K/V
-    written at cache[:, rows, write_pos] (through `drop`, see `_write_kv`),
-    plain attention under `mask` against the rows' whole cache. Returns
-    hidden after the final norm."""
+def _chunk_layers(params, cfg: LMConfig, hidden, qpos, mask, write):
+    """The decoder layers of a chunk step: RoPE at `qpos` (B', C), each
+    layer's new K/V (B', C, Hkv, D) handed to `write(li, k, v)`, which
+    stores them and returns that layer's K and V for the rows in the
+    activations' dtype (`_write_kv` for a contiguous cache), plain attention
+    under `mask`. Returns hidden after the final norm."""
     b, c, _ = hidden.shape
     cos, sin = _rope_tables(cfg, qpos)
     for li, lp in enumerate(params["layers"]):
@@ -346,7 +346,7 @@ def _chunk_layers(params, cfg: LMConfig, hidden, cache: KVCache, rows, write_pos
         q, k, v = _qkv(lp, cfg, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        layer_k, layer_v = _write_kv(cache, li, rows, write_pos, k, v, hidden.dtype, drop)
+        layer_k, layer_v = write(li, k, v)
         attn = mha_attention(q, repeat_kv(layer_k, cfg.kv_groups),
                              repeat_kv(layer_v, cfg.kv_groups), mask=mask)
         hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, c, -1))
@@ -386,8 +386,9 @@ def forward_chunk(params, cfg: LMConfig, token_embeds: torch.Tensor, cache: KVCa
     write_pos = start.clamp(0, smax - c) + steps
     mask = (torch.arange(smax, device=dev)[None, :] <= qpos[:, None])[None, None]
     rows = torch.full((b,), row, dtype=torch.long, device=dev)
-    hidden = _chunk_layers(params, cfg, token_embeds, cache, rows, write_pos[None, :],
-                           qpos[None, :].expand(b, c), mask)
+    hidden = _chunk_layers(
+        params, cfg, token_embeds, qpos[None, :].expand(b, c), mask,
+        lambda li, k, v: _write_kv(cache, li, rows, write_pos[None, :], k, v, token_embeds.dtype))
     length = torch.where(torch.arange(cache.length.shape[0], device=dev) == row,
                          (start + c).to(torch.int32), cache.length)
     return hidden, cache._replace(length=length)
@@ -432,41 +433,75 @@ def decode_chunk_batched(params, cfg: LMConfig, token_embeds: torch.Tensor, cach
     mask = (torch.arange(smax, device=dev)[None, None, None, :]
             <= qpos[:, None, :, None])                                  # (B, 1, K, Smax)
     rows = torch.arange(b, device=dev)
-    hidden = _chunk_layers(params, cfg, token_embeds, cache, rows, write_pos, qpos, mask, drop)
+    hidden = _chunk_layers(
+        params, cfg, token_embeds, qpos, mask,
+        lambda li, k, v: _write_kv(cache, li, rows, write_pos, k, v, token_embeds.dtype, drop))
     return hidden, cache
 
 
-def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,
-                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
-    """One token per row: token_embeds (B, 1, H). Writes the new K/V at
-    `cache.length` (in place; an int8 cache quantizes them on the way in)
-    and returns (hidden (B, 1, H), the cache with length + 1)."""
+def _decode_layers(params, cfg: LMConfig, token_embeds: torch.Tensor, pos: torch.Tensor,
+                   valid: torch.Tensor, write) -> torch.Tensor:
+    """The decoder layers of a one-token step: token_embeds (B, 1, H), RoPE
+    at `pos` (B,), each layer's new K/V (B, Hkv, D) handed to
+    `write(li, k, v)`, which stores them and returns that layer's K and V
+    (B, Smax, Hkv, D) in the activations' dtype, and decode attention over
+    the first `valid` (B,) positions. Returns hidden after the final norm."""
     b = token_embeds.shape[0]
-    quant = cache.k.dtype == torch.int8
-    act_dtype = token_embeds.dtype
-    pos = cache.length.long()  # (B,) — position of the new token
     cos, sin = _rope_tables(cfg, pos[:, None])
-    rows = torch.arange(b, device=token_embeds.device)
     hidden = token_embeds
     for li, lp in enumerate(params["layers"]):
         x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if quant:
-            k, k_s = quantize_kv_rows(k)  # (B, 1, Hkv, D), (B, 1, Hkv)
-            v, v_s = quantize_kv_rows(v)
-            cache.k_scale[li, rows, pos] = k_s[:, 0]
-            cache.v_scale[li, rows, pos] = v_s[:, 0]
-        cache.k[li, rows, pos] = k[:, 0]
-        cache.v[li, rows, pos] = v[:, 0]
-        layer_k, layer_v = cache.k[li], cache.v[li]
-        if quant:
-            layer_k = (layer_k.float() * cache.k_scale[li][..., None]).to(act_dtype)
-            layer_v = (layer_v.float() * cache.v_scale[li][..., None]).to(act_dtype)
-        attn = decode_attention(q, layer_k, layer_v, cache.length + 1,
-                                kv_groups=cfg.kv_groups)
+        layer_k, layer_v = write(li, k[:, 0], v[:, 0])
+        attn = decode_attention(q, layer_k, layer_v, valid, kv_groups=cfg.kv_groups)
         hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, 1, -1))
         hidden = _mlp_half(lp, hidden, cfg)
-    hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+    return rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+
+
+def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,
+                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """One token per row: token_embeds (B, 1, H). Writes the new K/V at
+    `cache.length` (in place; an int8 cache quantizes them on the way in)
+    and returns (hidden (B, 1, H), the cache with length + 1).
+
+    A row whose length has reached the cache's Smax positions writes as
+    JAX's `decode_step` does: nothing when B > 1 (its scatter drops the
+    write), and at B = 1 onto position Smax - 1 (its `dynamic_update_slice`
+    clamps); its length grows all the same and its attention reads all Smax
+    positions. Nothing is read back to the host: a dropped row is redirected
+    to position 0 and writes that position's own old value."""
+    b = token_embeds.shape[0]
+    smax = cache.k.shape[2]
+    quant = cache.k.dtype == torch.int8
+    act_dtype = token_embeds.dtype
+    pos = cache.length.long()  # (B,) — position of the new token
+    rows = torch.arange(b, device=token_embeds.device)
+    if b == 1:
+        keep, write_pos = None, pos.clamp_max(smax - 1)
+    else:
+        keep = pos < smax
+        write_pos = torch.where(keep, pos, 0)
+
+    def write(li, k, v):
+        if quant:
+            (k, k_s), (v, v_s) = quantize_kv_rows(k), quantize_kv_rows(v)
+            pairs = [(cache.k, k), (cache.v, v), (cache.k_scale, k_s), (cache.v_scale, v_s)]
+        else:
+            pairs = [(cache.k, k), (cache.v, v)]
+        for dst, new in pairs:
+            if keep is not None:
+                old = dst[li, rows, write_pos]
+                new = torch.where(keep.view(-1, *(1,) * (new.dim() - 1)), new.to(dst.dtype), old)
+            dst[li, rows, write_pos] = new
+        layer_k, layer_v = cache.k[li], cache.v[li]
+        if quant:
+            layer_k = layer_k.float() * cache.k_scale[li][..., None]
+            layer_v = layer_v.float() * cache.v_scale[li][..., None]
+        # a no-op where the cache holds the activations' dtype
+        return layer_k.to(act_dtype), layer_v.to(act_dtype)
+
+    hidden = _decode_layers(params, cfg, token_embeds, pos, cache.length + 1, write)
     return hidden, cache._replace(length=cache.length + 1)

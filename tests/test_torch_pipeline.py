@@ -76,7 +76,7 @@ def test_port_imports_no_jax():
     for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
               "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common",
               "bench", "bench_train", "models.sampling", "models.beam_search",
-              *LOADING_MODULES, *EVAL_MODULES, *TRAIN_MODULES):
+              *LOADING_MODULES, *EVAL_MODULES, *TRAIN_MODULES, *SERVING_MODULES):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
@@ -97,6 +97,8 @@ EVAL_MODULES = ("ops.preprocess", "models.image_path", "eval.model_vqa", "eval.l
 TRAIN_MODULES = ("train.cli", "train.sft", "train.lora", "train.dpo", "train.dataset_formatting",
                  "data.sampler", "data.collator", "data.dataset", "data.dpo_dataset",
                  "utils.logging")
+# the continuous-batching engine, the paged cache and the serving benchmarks
+SERVING_MODULES = ("serve.batch_engine", "models.paged", "bench_serving", "bench_throughput")
 
 
 @pytest.mark.parametrize("module", LOADING_MODULES)
