@@ -19,7 +19,11 @@ each of which raises on failure:
                 flash_fwd_d448 (the wide kernel, head dim 448) at the 7B
                 memory's fuse and evolve shapes, SDPA's kernels named, and
                 at edge cases (valid length 0 and 1, 65 rows, two batches of
-                unequal valid length, causal GQA), and at generate_batched's
+                unequal valid length, causal GQA), flash_fwd_d256 (the same
+                kernel at head dim 256: Gemma-2B's memory and LM prefill,
+                held in the Gemma phase below at the shapes its requests
+                gave it, and at edge cases of GQA 8 and 1, valid lengths off
+                the tile, 40 query rows, B = 2), and at generate_batched's
                 prefill (three rows of 15744, valid 5524, 9444 and 15716,
                 causal GQA 14/2), and at the anyres image path's tower
                 (16 tiles of 729) and prefill (7296 rows, valid 7284), and at
@@ -117,7 +121,25 @@ each of which raises on failure:
                 (bench.py --model 7b, built by the port's bench functions)
                 answers a 64-frame clip: launches (5 of flash_fwd_d448, 28
                 of flash_fwd, 26 of each int8 tower kernel), stages, graph
-                decode against the eager loop. Then serving
+                decode against the eager loop. Then Gemma-2B
+                (`phase_requests_gemma`): the repo's VLM with google/gemma-2b's
+                published LM widths (18 layers, 8 heads of 256 over one KV
+                head, vocabulary 256000, GELU, `1 + w` norms, scaled
+                embeddings; built by `eval.builder.config_from_json` from a
+                llava_gemma config, random weights, LM matrices times 5)
+                answers a 64-frame clip through `vlm.clip_embeds` and
+                `vlm.generate` in bf16 and in the load_8bit form (int8
+                tower, int8 LM and unembedding, int8 KV cache): 23 launches
+                of flash_fwd_d256 a request (5 in the memory, 18 in the
+                prefill), graph decode against the eager loop bit for bit,
+                stages timed; #1 at head dim 256 against its plain version
+                at the shapes recorded from those requests; the config cut
+                to 2 + 2 layers, bf16 on the card against fp32 on the CPU,
+                held to 3 times the CPU's own bf16 floor; small llava_llama,
+                llava_mistral and llava_gemma checkpoints written with HF key
+                names, loaded by `load_pretrained_model` (leaves bit-equal)
+                and answering a uint8 clip and a text prompt through
+                `MavlmForCausalLM.generate`. Then serving
                 (`phase_serving`): the continuous-batching engine at
                 bench_serving.py's configuration (the 0.5B LM in bf16,
                 matrices times 5; 4 slots of 2048 positions; six
@@ -203,9 +225,9 @@ each of which raises on failure:
                 are compared, then one update accumulated over two
                 micro-steps (k = 2), whose parameters are compared.
 
-The line before the last is a JSON object describing each of the 16
-kernels (#1's head dim 448 as its own row), with its launches on each
-path; the last
+The line before the last is a JSON object describing each of the 17
+kernels (#1's head dims 448 and 256 as rows of their own), with its
+launches on each path; the last
 line is {"ok": true, "device": {...}}. Nothing is printed as a result when
 there is no card: the run raises first.
 """
@@ -225,7 +247,6 @@ import subprocess
 import sys
 import threading
 import time
-import types
 from pathlib import Path
 
 import numpy as np
@@ -244,8 +265,8 @@ from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor, 
 from memory_augmented_vlm_torch.data.tokenizer import load_qwen_tokenizer
 from memory_augmented_vlm_torch.data.video import load_video, write_y4m
 from memory_augmented_vlm_torch.eval import lmms_adapter, model_vqa
-from memory_augmented_vlm_torch.eval.builder import load_pretrained_model
-from memory_augmented_vlm_torch.config import VLMConfig
+from memory_augmented_vlm_torch.eval.builder import config_from_json, load_pretrained_model
+from memory_augmented_vlm_torch.config import LMConfig, VisionConfig, VLMConfig
 from memory_augmented_vlm_torch.models import beam_search, image_path, qwen2, siglip, vlm
 from memory_augmented_vlm_torch.models import paged as paged_kv
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
@@ -622,14 +643,48 @@ def phase_flash_kernel():
             _flash_row("flash_fwd_d448", "flash_fwd_wide_sm90.cu", *_wide_cases(randn, lens))]
 
 
+# edge cases of the wide kernel: (name, Sq, Skv, H, H_kv, valid lengths,
+# causal, controls). Controls run where the case can tell them apart (not
+# where most rows see a single key tile).
+WIDE_EDGES = {
+    flash.WIDE_HEAD_DIM: [
+        ("valid_0_and_77_causal_gqa", 150, 150, 4, 2, (0, 77), True, False),
+        ("valid_0_and_77", 150, 150, 4, 2, (0, 77), False, False),
+        ("valid_1", 65, 100, 2, 2, (1,), False, False),
+        ("sq_65", 65, 333, 8, 8, (333,), False, True),
+        ("b2_unequal", 100, 333, 2, 2, (333, 65), False, True)],
+    # Gemma: GQA 8 (one KV head) and 1, valid lengths off the 64-key tile,
+    # fewer queries than one 64-row tile, B = 2
+    flash.D256: [
+        ("valid_0_and_77_causal_gqa8", 150, 150, 8, 1, (0, 77), True, False),
+        ("causal_gqa8_ragged", 200, 200, 8, 1, (200, 131), True, True),
+        ("causal_gqa1_ragged", 300, 300, 2, 2, (211, 300), True, True),
+        ("valid_1", 65, 100, 2, 2, (1,), False, False),
+        ("sq_40", 40, 333, 8, 8, (333,), False, True),
+        ("b2_unequal_gqa8", 100, 333, 8, 1, (333, 65), False, True)],
+}
+
+
+def _wide_edges(randn, lens, d) -> list:
+    """The wide kernel at head dim `d` on `WIDE_EDGES[d]`, each held
+    bit-close to the online softmax at the kernel's key tile. Returns the
+    errors."""
+    errs = []
+    for name, sq, skv, h, hkv, valid, causal, controls in WIDE_EDGES[d]:
+        b = len(valid)
+        errs.append(_check_case(f"d{d}_{name}", randn(b, sq, h, d), randn(b, skv, hkv, d),
+                                randn(b, skv, hkv, d), lens(*valid), causal=causal,
+                                kv_groups=h // hkv, controls=controls)["max_abs_err"])
+    return errs
+
+
 def _wide_cases(randn, lens):
     """#1 at head dim 448 (csrc/flash_fwd_wide_sm90.cu, the 7B memory): the
     fuse and evolve shapes of a 64-frame 7B request, timed, with the
     library call's backend named; edge cases of valid length 0 (zeros) and
-    1, 65 query rows, B = 2 with unequal valid lengths, causal GQA. Each
-    held bit-close to the online softmax at the kernel's 32-key tile;
-    controls where the case can tell them apart (not where most rows see
-    a single tile). Returns (path rows, errors)."""
+    1, 65 query rows, B = 2 with unequal valid lengths, causal GQA
+    (`WIDE_EDGES`). Each held bit-close to the online softmax at the
+    kernel's 32-key tile. Returns (path rows, errors)."""
     d = flash.WIDE_HEAD_DIM
     path_rows = [
         _check_case("memory_fuse_7b", randn(1, 1568, 8, d), randn(1, 6272, 8, d),
@@ -639,18 +694,31 @@ def _wide_cases(randn, lens):
                     randn(1, 15680, 8, d), lens(1568), timed=True, controls=True,
                     name_library=True),
     ]
-    errs = [r["max_abs_err"] for r in path_rows]
-    for name, sq, skv, h, hkv, valid, causal, controls in [
-            ("valid_0_and_77_causal_gqa", 150, 150, 4, 2, (0, 77), True, False),
-            ("valid_0_and_77", 150, 150, 4, 2, (0, 77), False, False),
-            ("valid_1", 65, 100, 2, 2, (1,), False, False),
-            ("sq_65", 65, 333, 8, 8, (333,), False, True),
-            ("b2_unequal", 100, 333, 2, 2, (333, 65), False, True)]:
-        b = len(valid)
-        errs.append(_check_case(f"d448_{name}", randn(b, sq, h, d), randn(b, skv, hkv, d),
-                                randn(b, skv, hkv, d), lens(*valid), causal=causal,
-                                kv_groups=h // hkv, controls=controls)["max_abs_err"])
-    return path_rows, errs
+    return path_rows, [r["max_abs_err"] for r in path_rows] + _wide_edges(randn, lens, d)
+
+
+def _d256_cases(shapes) -> dict:
+    """#1 at head dim 256 (csrc/flash_fwd_wide_sm90.cu at 256: the Gemma-2B
+    path) at the shapes its request gave it (`shapes`: one (case, q shape,
+    kv shape, valid lengths, causal) per distinct call), each timed with its
+    controls and the library call's backend named, then `WIDE_EDGES[256]`;
+    every case held bit-close to the online softmax at the kernel's 64-key
+    tile. Returns the kernels line's row."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def lens(*v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    path_rows = [
+        _check_case(case, randn(*q), randn(*kv), randn(*kv), lens(*valid), causal=causal,
+                    kv_groups=q[2] // kv[2], timed=True, controls=True, name_library=True)
+        for case, q, kv, valid, causal in shapes]
+    errs = [r["max_abs_err"] for r in path_rows] + _wide_edges(randn, lens, flash.D256)
+    return _flash_row("flash_fwd_d256", "flash_fwd_wide_sm90.cu", path_rows, errs)
 
 
 def _device_kernels(fn) -> list:
@@ -1030,8 +1098,7 @@ def _swiglu_controls(args):
 
     def unfused():
         with _fused_flags(swiglu=False):
-            return qwen2._mlp_half(layer, hidden[None],
-                                   types.SimpleNamespace(rms_norm_eps=1e-6))[0]
+            return qwen2._mlp_half(layer, hidden[None], LMConfig(rms_norm_eps=1e-6))[0]
 
     def gelu():
         silu = swiglu_int8.silu_f32
@@ -2194,6 +2261,7 @@ def phase_train_kernels():
 WRAPPERS = {
     "flash_fwd": flash.flash_attention,
     "flash_fwd_d448": flash.flash_forward_wide,
+    "flash_fwd_d256": flash.flash_forward_d256,
     "fused_qkv_int8": qkv_int8.fused_qkv_int8,
     "flash_attention_merge_heads": flash.flash_attention_merge_heads,
     "fused_mlp_block_int8": mlp_int8.fused_mlp_block_int8,
@@ -2696,6 +2764,316 @@ def phase_requests_7b():
     return launches
 
 
+# ------------------------------------------------------------ Gemma-2B
+
+# google/gemma-2b's published config.json (its LM widths; tied embeddings,
+# which GemmaConfig defaults to and JAX's registry does not), as a
+# llava_gemma checkpoint carries it, with the SigLIP-SO400M tower. Its
+# memory runs at the LM's width: 2048 over 8 heads, #1 at head dim 256.
+GEMMA_2B = {
+    "model_type": "llava_gemma", "vocab_size": 256000, "hidden_size": 2048,
+    "intermediate_size": 16384, "num_hidden_layers": 18, "num_attention_heads": 8,
+    "num_key_value_heads": 1, "head_dim": 256, "hidden_act": "gelu", "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 8192, "tie_word_embeddings": True,
+    "mm_vision_tower": "google/siglip-so400m-patch14-384"}
+GEMMA_FRAMES = 64  # two segments: the memory's fuse and evolve both run at D = 256
+GEMMA_NEW = 32
+# The 2-layer cut, bf16 on the card against fp32 on the CPU (the fp32
+# kernel has no head dim 256, ROADMAP §2): prefill logits held to
+# FUSED_FLOOR_FACTOR times the bf16 floor of the same run, the CPU in bf16
+# against the CPU in fp32, in RMS over the logits' spread and in the
+# largest element; a wrong kernel lands near 1 std.
+GEMMA_PARITY_FRAMES = 8
+
+
+def _gemma_config(**extra) -> VLMConfig:
+    """`config_from_json` of the Gemma-2B llava_gemma config (plus `extra`
+    fields), as `load_pretrained_model` builds it."""
+    return config_from_json({**GEMMA_2B, **extra})
+
+
+def _d256_calls(calls: list):
+    """Records the (q, kv, valid, causal) of every #1 call at head dim 256
+    into `calls`, around `flash._flash_forward` (the counts stay the
+    wrappers' own)."""
+    real = flash._flash_forward
+
+    def spy(q, k, v, kv_valid_len, causal, scale, kv_groups):
+        if q.shape[-1] == flash.D256:
+            calls.append((tuple(q.shape), tuple(k.shape), tuple(kv_valid_len.tolist()),
+                          bool(causal)))
+        return real(q, k, v, kv_valid_len, causal, scale, kv_groups)
+
+    return _patched(flash, "_flash_forward", spy)
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _gemma_launches(cfg: VLMConfig, num_frames: int) -> dict:
+    """One Gemma request: the tower's kernels (bf16: #1 at its head dim 72;
+    int8: its three int8 kernels), #1 at head dim 256 once per memory
+    cross-attention and once per LM layer in the prefill."""
+    want = (_expected_tower_launches(cfg, False) if cfg.pipeline.tower_int8
+            else {**dict.fromkeys(WRAPPERS, 0), "flash_fwd": cfg.vision.num_used_layers})
+    want["flash_fwd_d256"] = _memory_calls(cfg, num_frames) + cfg.lm.num_hidden_layers
+    return want
+
+
+def _gemma_request(label, cfg, params, gen, kv_int8, calls: list) -> dict:
+    """A GEMMA_FRAMES-frame request through the entry points a user calls,
+    `vlm.clip_embeds` then `vlm.generate` (greedy, GEMMA_NEW tokens, its
+    captured decoder; `kv_int8` quantizes the prefill's cache): launches
+    held, the decode's graph against the eager loop (tokens and every
+    step's logits bit-equal), tokens in the vocabulary, finite logits; then
+    three repetitions with the stages synchronised and timed. Returns the
+    request's launches."""
+    dev = "cuda"
+    frames = torch.randn((GEMMA_FRAMES, 384, 384, 3), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    tb, ta = torch.tensor(TEXT_BEFORE, device=dev), torch.tensor(TEXT_AFTER, device=dev)
+
+    def request(cuda_graph=True):
+        emb = vlm.clip_embeds(params, cfg, frames, tb, ta)
+        return vlm.generate(params, cfg, emb, max_new_tokens=GEMMA_NEW, eos_token_ids=(),
+                            return_logits=True, kv_int8=kv_int8, cuda_graph=cuda_graph)
+
+    counted = _Counted(label)
+    want = _gemma_launches(cfg, GEMMA_FRAMES)
+    with _d256_calls(calls):
+        result, rows = _graph_and_eager(label, lambda g: counted("request",
+                                                                 lambda: request(g), want))
+    tokens = result.tokens
+    if tokens.shape != (GEMMA_NEW,) or not bool(((tokens >= 0)
+                                                 & (tokens < cfg.lm.vocab_size)).all()):
+        raise RuntimeError(f"{label}: bad tokens {tokens.tolist()}")
+    if rows.shape != (GEMMA_NEW, cfg.lm.vocab_size) or not bool(torch.isfinite(rows).all()):
+        raise RuntimeError(f"{label}: non-finite or misshapen logits")
+    reps = []
+    for _ in range(3):
+        totals = {}
+        with _stage_clock(totals):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            totals["total"] = time.perf_counter() - t0
+        reps.append(totals)
+    log(json.dumps({"request": label, "frames": GEMMA_FRAMES,
+                    "spliced": _spliced_len(cfg, GEMMA_FRAMES), "launches": counted.total,
+                    "tokens": tokens.tolist(), "distinct_tokens": len(set(tokens.tolist())),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                    "stage_seconds": {k: [r.get(k, 0.0) for r in reps] for k in reps[0]}}))
+    vlm.clear_decoders()
+    return counted.total
+
+
+def _gemma_parity():
+    """The Gemma-2B config cut to 2 tower and 2 LM layers: a GEMMA_PARITY_FRAMES
+    clip through `pipeline.build_pipeline` (8 greedy tokens), bf16 weights on
+    the card against the same weights in fp32 on the CPU, held to
+    FUSED_FLOOR_FACTOR times the CPU's own bf16 floor (the CPU in bf16 against
+    the CPU in fp32); greedy tokens agree while the CPU's top-2 margin
+    exceeds the difference."""
+    full = _gemma_config()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
+        lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    bf16 = vlm.init_params(cfg, seed=7, device="cpu", dtype=torch.bfloat16)
+    f32 = tree_map(lambda x: x.float() if x.is_floating_point() else x, bf16)
+    gen = torch.Generator()
+    gen.manual_seed(8)
+    pixels = torch.randn((GEMMA_PARITY_FRAMES, 384, 384, 3), generator=gen)
+    tb, ta = torch.tensor(TEXT_BEFORE), torch.tensor(TEXT_AFTER)
+    fn, _ = pipeline.build_pipeline(cfg, GEMMA_PARITY_FRAMES, return_logits=True,
+                                    max_new_tokens=8)
+    _reset_launches()
+    tok_g, s_g, lg_g = fn(_to_cuda(bf16), pixels.cuda().to(torch.bfloat16), tb.cuda(),
+                          ta.cuda())
+    torch.cuda.synchronize()
+    want = _gemma_launches(cfg, GEMMA_PARITY_FRAMES)
+    if _launches() != want:
+        raise RuntimeError(f"gemma parity: launches {_launches()}, want {want}")
+    t0 = time.perf_counter()
+    tok_c, s_c, lg_c = fn(f32, pixels, tb, ta)
+    _, _, lg_b = fn(bf16, pixels.to(torch.bfloat16), tb, ta)
+    cpu_s = time.perf_counter() - t0
+    ref = lg_c[0]
+    err, floor_err = [float((x[0].float().cpu() - ref).abs().max()) for x in (lg_g, lg_b)]
+    rms, floor_rms = [float((x[0].float().cpu() - ref).pow(2).mean().sqrt() / ref.std())
+                      for x in (lg_g, lg_b)]
+    compared = 0
+    for step in range(tok_c.shape[0]):
+        if _margin(lg_c[step, 0]) <= err:
+            break
+        if int(tok_g[step, 0]) != int(tok_c[step, 0]):
+            raise RuntimeError(f"gemma parity: greedy token {step} differs: "
+                               f"{tok_g[:, 0].tolist()} vs {tok_c[:, 0].tolist()}")
+        compared += 1
+    row = {"parity": "gemma-2b cut to 2 + 2 layers, bf16 card vs fp32 cpu", "spliced": s_c,
+           "prefill_logits_max_abs_err": err, "prefill_logits_rms_err_over_std": rms,
+           "cpu_bf16_floor_max_abs": floor_err, "cpu_bf16_floor_rms_over_std": floor_rms,
+           "tol": f"{FUSED_FLOOR_FACTOR} x the floor, both", "tokens_compared": compared,
+           "tokens_card": tok_g[:, 0].tolist(), "tokens_cpu": tok_c[:, 0].tolist(),
+           "cpu_runs_s": cpu_s}
+    log(json.dumps(row))
+    if s_g != s_c or not (rms <= FUSED_FLOOR_FACTOR * floor_rms
+                          and err <= FUSED_FLOOR_FACTOR * floor_err):
+        raise RuntimeError(f"gemma parity: card and cpu disagree ({row})")
+    vlm.clear_decoders()
+
+
+# small checkpoints of the ported families, as `load_pretrained_model` reads
+# them: an LM of 2 layers whose head dims the card's #1 takes (64, and
+# Gemma's 256), the memory at 512 / 8 = 64, a SigLIP tower of 2 heads of 64
+# at 56 px (the loader infers hidden // 64 heads); the vocabulary holds the
+# memory's prompt ids (up to 48876)
+FAMILY_BASE = {"vocab_size": 50000, "num_hidden_layers": 2, "hidden_size": 512,
+               "intermediate_size": 1024, "max_position_embeddings": 8192,
+               "mm_vision_tower": "google/siglip-so400m-patch14-384"}
+FAMILY_LMS = {
+    "llava_llama": {"num_attention_heads": 8, "num_key_value_heads": 2, "head_dim": 64,
+                    "rope_theta": 500000.0, "rms_norm_eps": 1e-5},
+    "llava_mistral": {"num_attention_heads": 8, "num_key_value_heads": 2, "head_dim": 64,
+                      "rope_theta": 1000000.0, "rms_norm_eps": 1e-5, "sliding_window": 4096},
+    "llava_gemma": {"num_attention_heads": 2, "num_key_value_heads": 1, "head_dim": 256,
+                    "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+                    # one activation under both names: JAX's registry reads
+                    # hidden_activation first, HF's GemmaMLP (4.57) hidden_act
+                    "hidden_act": "gelu_pytorch_tanh", "hidden_activation": "gelu_pytorch_tanh",
+                    "tie_word_embeddings": True},
+}
+FAMILY_TOWER = VisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=3,
+                            num_attention_heads=2, image_size=56, patch_size=14)
+
+
+def family_checkpoint(directory, family: str, *, device="cpu", seed=11, **lm_fields):
+    """Writes a small `family` checkpoint (FAMILY_LMS, FAMILY_BASE, with
+    `lm_fields` over them) into `directory`: seeded fp32 params, every LM
+    norm weight 1 + 0.1 N(0, 1), written by `export_hf_safetensors` (HF key
+    names; no q/k/v biases outside Qwen2) and a config.json with the family's
+    HF fields. Returns (raw config, cfg, params)."""
+    raw = {**FAMILY_BASE, **FAMILY_LMS[family], **lm_fields, "model_type": family}
+    cfg = dataclasses.replace(config_from_json(raw), vision=FAMILY_TOWER)
+    params = vlm.init_params(cfg, seed=seed, device=device, dtype=torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    lm = params["language_model"]
+
+    def noisy(w):
+        return 1 + 0.1 * torch.randn(w.shape, generator=gen, device=device)
+
+    lm["norm"] = noisy(lm["norm"])
+    for layer in lm["layers"]:
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            layer[name] = noisy(layer[name])
+    export_hf_safetensors(params, cfg, str(directory))
+    with open(Path(directory) / "config.json") as f:
+        written = json.load(f)
+    with open(Path(directory) / "config.json", "w") as f:
+        json.dump({**written, **raw}, f, indent=2)
+    return raw, cfg, params
+
+
+FAMILY_FRAMES = 8
+
+
+def _family_loads() -> dict:
+    """Each FAMILY_LMS checkpoint written under build/, loaded on the card by
+    `load_pretrained_model` in bf16 (every leaf bit-equal to the source's
+    rounded to bf16), then `MavlmForCausalLM.generate` of an 8-frame uint8
+    clip and of a text prompt, 8 greedy tokens each: launches held (#1 at
+    the tower's and the memory's head dim 64, and the LM's prefill at its
+    own: 64, or 256 for Gemma), tokens in the vocabulary. Returns each
+    load's launches."""
+    launches = {}
+    clip = np.random.default_rng(12).integers(0, 256, (FAMILY_FRAMES, 480, 640, 3),
+                                              dtype=np.uint8)
+    video_ids = np.array([[3, 14, 15, constants.IMAGE_TOKEN_INDEX, 92, 65, 35, 89]])
+    text_ids = np.array([[5, 17, 301, 42]])
+    for family in FAMILY_LMS:
+        directory = Path(__file__).resolve().parent / "build" / f"family_{family}"
+        shutil.rmtree(directory, ignore_errors=True)
+        _, cfg, source = family_checkpoint(directory, family, device="cuda")
+        t0 = time.perf_counter()
+        _, model, _, _ = load_pretrained_model(str(directory))
+        load_s = time.perf_counter() - t0
+        _loaded_leaves_equal(f"{family} load", model.params,
+                             tree_map(lambda x: x.to(torch.bfloat16), source))
+        if model.cfg.lm != cfg.lm:
+            raise RuntimeError(f"{family}: loaded {model.cfg.lm}, want {cfg.lm}")
+        lm_kernel = "flash_fwd_d256" if cfg.lm.head_dim == flash.D256 else "flash_fwd"
+        text = {lm_kernel: cfg.lm.num_hidden_layers}
+        video = {"flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, FAMILY_FRAMES)}
+        video[lm_kernel] = video.get(lm_kernel, 0) + cfg.lm.num_hidden_layers
+        counted = _Counted(f"{family} load")
+        out = counted("generate, video", lambda: model.generate(
+            video_ids, images=[clip], modalities=["video"], max_new_tokens=8), video)
+        said = counted("generate, text", lambda: model.generate(text_ids, max_new_tokens=8),
+                       text)
+        for what, toks in (("video", out), ("text", said)):
+            if toks.shape[0] != 1 or not ((toks >= 0) & (toks < cfg.lm.vocab_size)).all():
+                raise RuntimeError(f"{family} {what}: bad tokens {toks.tolist()}")
+        log(json.dumps({"family_load": family, "lm": dataclasses.asdict(cfg.lm),
+                        "load_s": load_s, "tokens_video": out[0].tolist(),
+                        "tokens_text": said[0].tolist(), "launches": counted.total}))
+        launches[f"{family}_load"] = counted.total
+        vlm.clear_decoders()
+        del model, source
+        shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def phase_requests_gemma():
+    """The repo's VLM with Gemma-2B's LM (GEMMA_2B through
+    `eval.builder.config_from_json`, random weights from a seed, every LM
+    matrix times 5 (`_lively`) so that greedy tokens vary): a
+    64-frame request in bf16, then in the `load_8bit` form (the tower
+    prequantized, the LM with its int8 unembedding table of 256000 x 2048,
+    an int8 KV cache), each with its launches, graph decode against the
+    eager loop and stage times; then #1 at head dim 256 held to its plain
+    version at the shapes those requests gave it (`_d256_cases`); then the
+    2-layer cut, card against CPU (`_gemma_parity`); then the small
+    llava_llama, llava_mistral and llava_gemma checkpoints
+    (`_family_loads`). Returns (#1 at D = 256's kernels row, launches by
+    path)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    cfg = _gemma_config()
+    t0 = time.perf_counter()
+    params = _lively(vlm.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    log(f"init Gemma-2B VLM bf16 params: {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GB; lm {dataclasses.asdict(cfg.lm)}")
+    calls = []
+    launches = {"gemma_bf16_64_frames": _gemma_request("gemma-2b bf16", cfg, params, gen,
+                                                       False, calls)}
+    params = pipeline.int8_serving_params(params)
+    launches["gemma_int8_64_frames"] = _gemma_request(
+        "gemma-2b int8", _gemma_config(tower_int8=True), params, gen, True, calls)
+    del params
+    torch.cuda.empty_cache()
+    names = {(False, 15680): "memory_evolve_gemma", (False, 6272): "memory_fuse_gemma",
+             (True, None): "lm_prefill_gemma"}
+    shapes = {}
+    for q, kv, valid, causal in calls:
+        name = names[(True, None)] if causal else names.get((False, kv[1]), f"cross_{kv[1]}")
+        shapes.setdefault((q, kv, valid, causal), name)
+    log(json.dumps({"d256_shapes": [[n, *key] for key, n in shapes.items()]}))
+    row = _d256_cases([(n, q, kv, valid, causal) for (q, kv, valid, causal), n in shapes.items()])
+    _gemma_parity()
+    launches.update(_family_loads())
+    return row, launches
+
+
 # ------------------------------------------------------------ generation
 
 # the generation phase's clips: unequal spliced lengths (5524, 9444 and
@@ -2970,7 +3348,7 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
     spec, info = counted("generate_speculative", speculative, prefill)
     _, cache = counted("prefill for forward_chunk", lambda: vlm._prefill(
         lm, cfg, padded, valid, cache_max_len=padded.shape[1] + n), prefill)
-    chunk_emb = qwen2.embed_tokens(lm, free.tokens[None].long()).to(emb.dtype)
+    chunk_emb = qwen2.embed_tokens(lm, free.tokens[None].long(), cfg.lm).to(emb.dtype)
     hidden, _ = counted("forward_chunk", lambda: qwen2.forward_chunk(
         lm, cfg.lm, chunk_emb, cache, emb.shape[0]), {})
     chunk_diff = float((qwen2.unembed(lm, hidden)[0, :-1] - free_rows[1:]).abs().max())
@@ -2999,7 +3377,7 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
                                                           prefill_ms, n, reps=2)
 
     # score_continuation of the greedy continuation
-    full = torch.cat([emb, qwen2.embed_tokens(lm, free.tokens.long()).to(emb.dtype)])
+    full = torch.cat([emb, qwen2.embed_tokens(lm, free.tokens.long(), cfg.lm).to(emb.dtype)])
     total, is_greedy = counted("score_continuation", lambda: vlm.score_continuation(
         params, cfg, full, free.tokens.cpu().numpy()), prefill)
     fpad = F.pad(full, (0, 0, 0, -(-full.shape[0] // 128) * 128 - full.shape[0]))[None]
@@ -4351,7 +4729,7 @@ def _eval_image(model, cfg, label, image, ids, want):
                                           dtype=torch.float32)
     requantized = (torch.round((tiles * 0.5 + 0.5) * 255.0) / 255.0 - 0.5) / 0.5
     floor_emb = image_path.splice(model.params, ids[0], image_path.build_image_embeds(
-        model.params, model.cfg, requantized, size))
+        model.params, model.cfg, requantized, size), model.cfg.lm)
     floor, diff = _rel_rms(floor_emb, embeds["device"]), _rel_rms(embeds["host"], embeds["device"])
     row = {"eval": f"image_{label}", "image": list(image.shape),
            "visual_tokens": _image_visual_tokens(cfg, size), "paths": rows,
@@ -4929,6 +5307,9 @@ def main():
     microbench_launches = phase_microbench()
     launches = phase_requests()
     launches["7b_int8_64_frames"] = phase_requests_7b()
+    d256_row, gemma_launches = phase_requests_gemma()
+    kernels.insert(2, d256_row)
+    launches.update(gemma_launches)
     launches["serving"] = phase_serving()
     launches.update(phase_load(keep=True))
     launches.update(phase_eval(keep=True))

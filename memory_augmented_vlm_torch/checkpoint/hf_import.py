@@ -134,6 +134,14 @@ def convert_qwen2(sd: Tensors, cfg: LMConfig) -> dict:
     return params
 
 
+def convert_llama(sd: Tensors, cfg: LMConfig) -> dict:
+    """Llama, Mistral and Gemma weights -> the same decoder tree (JAX
+    `convert_llama`): Qwen2's key names without the q/k/v biases, which
+    `_proj` leaves out where the checkpoint has none. Gemma's norm weights
+    come across as they are (the model adds the 1)."""
+    return convert_qwen2(sd, cfg)
+
+
 SIGLIP_PREFIXES = ("model.vision_tower.vision_tower.vision_model.",
                    "vision_tower.vision_tower.vision_model.",
                    "vision_tower.vision_model.", "vision_model.")

@@ -4,11 +4,13 @@ Counterpart of `memory_augmented_vlm_tpu/config.py`, cut to what the port
 runs: the bf16 and int8-serving video paths with the SigLIP tower, the
 `mlp2x_gelu` projector, bilinear pooling, the `one_token` merge with an
 image newline, the ReLU recurrent memory with the sinusoidal temporal PE,
-and a dense SwiGLU Qwen2 LM with RoPE, biased q/k/v and a tied or untied
-unembedding. The fields here are the ones the port reads; the JAX config's
-other fields select modes the port does not have, and
-`convert.config_from_fields` raises `NotImplementedError` when one of them
-is set away from its default.
+and a dense gated LM with RoPE and a tied or untied unembedding: Qwen2
+(biased q/k/v, SwiGLU), Llama and Mistral (no biases) and Gemma (no
+biases, a GELU gate, `1 + w` norms, embeddings times sqrt(hidden)). The
+fields here are the ones the port reads; the JAX config's other fields
+(MPT's and the MoE families' among them) select modes the port does not
+have, and `convert.config_from_fields` raises `NotImplementedError` naming
+ROADMAP §1 item 8 when one of them is set away from its default.
 
 Unlike the JAX config, `VLMConfig.__post_init__` derives `memory.patch_size`
 from the SigLIP geometry alone, so importing this module pulls in no tower.
@@ -22,7 +24,8 @@ from typing import Tuple, Union
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """Qwen2 decoder (HF `Qwen2Config` semantics)."""
+    """Qwen2-family decoder (HF `Qwen2Config` semantics), with the flags of
+    the Llama, Mistral and Gemma families (JAX `LMConfig`'s defaults)."""
 
     vocab_size: int = 151936
     hidden_size: int = 896
@@ -38,6 +41,15 @@ class LMConfig:
     rms_norm_eps: float = 1e-6
     # untied: a separate (H, V) `lm_head` (Qwen2-7B); tied: the embedding table
     tie_word_embeddings: bool = True
+    # biases on q/k/v (Qwen2); Llama, Mistral and Gemma have none
+    attention_bias: bool = True
+    # the gated MLP's activation: "silu" (SwiGLU), "gelu" or
+    # "gelu_pytorch_tanh" (Gemma)
+    mlp_act: str = "silu"
+    # Gemma: RMSNorm scales by (1 + w), formed in the weight's dtype, and token
+    # embeddings are multiplied by sqrt(hidden_size) rounded to their dtype
+    norm_plus_one: bool = False
+    scale_embeddings: bool = False
 
     @property
     def kv_groups(self) -> int:

@@ -144,7 +144,7 @@ def config_from_fields(cfg) -> port_config.VLMConfig:
             if value != f.default:
                 raise NotImplementedError(
                     f"{type(obj).__name__}.{f.name}={value!r} is not ported "
-                    f"(the port runs {f.default!r})")
+                    f"(ROADMAP §1 item 8; the port runs {f.default!r})")
         return cls(**{name: getattr(obj, name) for name in kept})
 
     return port_config.VLMConfig(

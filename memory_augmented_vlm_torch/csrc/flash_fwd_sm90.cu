@@ -477,7 +477,8 @@ int run(const Args& a, int head_dim, void* stream) {
     case 72: return launch_rows<72>(a, s);
     case 112: return launch_rows<112>(a, s);
     case 128: return launch_rows<128>(a, s);
-    case fwd_wide::kHeadDim: return fwd_wide::run(a, stream);
+    case 256:
+    case 448: return fwd_wide::run(a, head_dim, stream);
     default: return -1;
   }
 }
@@ -489,8 +490,8 @@ int run(const Args& a, int head_dim, void* stream) {
 // running max of each tile of key_tile keys; a block takes 64 query rows or
 // max_block_rows.
 extern "C" int flash_fwd_tiles(int head_dim, int* key_tile, int* max_block_rows) {
-  if (head_dim == mavlm::fwd_wide::kHeadDim) {
-    *key_tile = mavlm::fwd_wide::kKeyTile;
+  if (mavlm::fwd_wide::is_head_dim(head_dim)) {
+    *key_tile = mavlm::fwd_wide::key_tile(head_dim);
     *max_block_rows = mavlm::fwd_wide::kBlockRows;
     return 0;
   }

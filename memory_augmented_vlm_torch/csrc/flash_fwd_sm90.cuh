@@ -1,5 +1,5 @@
 // The bf16 flash-attention forward of flash_fwd_sm90.cu (and of
-// flash_fwd_wide_sm90.cu at head dim 448), as the two entry points that take
+// flash_fwd_wide_sm90.cu at head dims 256 and 448), as the two entry points that take
 // it call it: flash_fwd (flash_fwd.cu) with lse null, and flash_fwd_lse
 // (flash_train.cu).
 
@@ -25,23 +25,24 @@ struct Args {
 
 // Launches one block per item; returns 0, a cudaError_t, -1 for a head dim
 // or -3 for block rows it was not built for, or -4 when a tensor map is
-// refused. Head dim 448 runs flash_fwd_wide_sm90.cu's kernel.
+// refused. Head dims 256 and 448 run flash_fwd_wide_sm90.cu's kernel.
 int run(const Args& a, int head_dim, void* stream);
 
 }  // namespace fwd_sm90
 
-// The wide-head kernel of flash_fwd_wide_sm90.cu: bf16, head dim 448 (the
-// 7B memory: hidden 3584 over 8 heads), no lse. Its online softmax takes
-// key tiles of kKeyTile keys; a block takes kBlockRows query rows.
+// The wide-head kernel of flash_fwd_wide_sm90.cu: bf16, head dims 256 (the
+// Gemma LM and the memory at its hidden size of 2048 over 8 heads) and 448
+// (the 7B memory: hidden 3584 over 8 heads), no lse. Its online softmax
+// takes key tiles of key_tile(D) keys; a block takes kBlockRows query rows.
 namespace fwd_wide {
 
-constexpr int kHeadDim = 448;
-constexpr int kKeyTile = 32;
+constexpr bool is_head_dim(int d) { return d == 256 || d == 448; }
+constexpr int key_tile(int d) { return d == 448 ? 32 : 64; }
 constexpr int kBlockRows = 64;
 
-// As fwd_sm90::run at head dim 448: -1 when an lse is asked for, -3 for
-// other block rows.
-int run(const fwd_sm90::Args& a, void* stream);
+// As fwd_sm90::run at a head dim of is_head_dim: -1 when an lse is asked
+// for, -3 for other block rows.
+int run(const fwd_sm90::Args& a, int head_dim, void* stream);
 
 }  // namespace fwd_wide
 }  // namespace mavlm

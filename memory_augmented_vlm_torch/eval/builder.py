@@ -8,10 +8,12 @@ consume. Reads an HF-format LlavaQwen checkpoint directory (`config.json`
 and `*.safetensors`, `model.`-prefixed LM keys beside the multimodal ones)
 with the port's own safetensors reader, tensor by tensor onto the device.
 
-What the port does not run raises `NotImplementedError` naming its ROADMAP
-§1 item: `load_4bit`, the LM families other than Qwen2, the towers other
-than SigLIP and the projectors other than `mlp2x_gelu`, and the
-`config.json` values that `config_from_json` refuses (item 8).
+The LM families are the registry's: `llava_qwen`, `llava_llama`,
+`llava_mistral` and `llava_gemma` (JAX's dispatch). What the port does not
+run raises `NotImplementedError` naming its ROADMAP §1 item: `load_4bit`,
+Mixtral, Qwen-MoE and MPT, the towers other than SigLIP and the projectors
+other than `mlp2x_gelu`, and the `config.json` values that
+`config_from_json` refuses (item 8).
 """
 
 from __future__ import annotations
@@ -129,8 +131,8 @@ def _hashable_pinpoints(pp):
 
 def config_from_json(raw: dict) -> VLMConfig:
     """A Llava-family HF config.json -> the port's config (JAX
-    `config_from_json`). `model_type` goes through the registry (the Qwen2
-    family only). A value the port does not run raises
+    `config_from_json`). `model_type` goes through the registry (Qwen2,
+    Llama, Mistral and Gemma). A value the port does not run raises
     `NotImplementedError`: an `mm_spatial_pool_mode` other than bilinear,
     an `mm_newline_position` other than one_token, an `mm_projector_type`
     other than mlp2x_gelu, a non-SigLIP `mm_vision_tower`, `s2`, a
@@ -247,7 +249,8 @@ def load_params(sd: hf_import.Tensors, cfg: VLMConfig, *, quantize_tower: bool =
     else:
         projector = projector_mod.init_params(cfg.vision.hidden_size, cfg.lm.hidden_size,
                                               _generator(1, device), device, dtype)
-    params = {"language_model": hf_import.convert_qwen2(sd.rename(_lm_key), cfg.lm),
+    convert_lm = hf_import.convert_qwen2 if cfg.lm.attention_bias else hf_import.convert_llama
+    params = {"language_model": convert_lm(sd.rename(_lm_key), cfg.lm),
               "vision_tower": tower, "mm_projector": projector,
               **_memory_and_pe(sd, cfg, device, dtype)}
     if quantize_tower:

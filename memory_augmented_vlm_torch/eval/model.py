@@ -281,7 +281,8 @@ class MavlmForCausalLM:
         size raises. An image's size defaults to its tiles' (W, H)."""
         if images is None or constants.IMAGE_TOKEN_INDEX not in ids:
             tokens = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-            return qwen2.embed_tokens(self.params["language_model"], tokens).to(self.dtype)
+            return qwen2.embed_tokens(self.params["language_model"], tokens,
+                                      self.cfg.lm).to(self.dtype)
         img = images[0] if isinstance(images, (list, tuple)) else images
         pixels = _frames(img)
         s = self.cfg.vision.image_size
@@ -317,4 +318,4 @@ class MavlmForCausalLM:
             return vlm.video_qa_embeds(self.params, self.cfg, pixels, ids)
         size = tuple(image_sizes[0]) if image_sizes else (pixels.shape[2], pixels.shape[1])
         visual = image_path.build_image_embeds(self.params, self.cfg, pixels, size)
-        return image_path.splice(self.params, ids, visual)
+        return image_path.splice(self.params, ids, visual, self.cfg.lm)

@@ -173,7 +173,7 @@ def beam_search(params, cfg: VLMConfig, inputs_embeds: torch.Tensor, *, num_beam
 
     step = 1
     while step < max_new_tokens and not finished():
-        emb = qwen2.embed_tokens(lm, tokens[:, step - 1][:, None].long()).to(act_dtype)
+        emb = qwen2.embed_tokens(lm, tokens[:, step - 1][:, None].long(), cfg.lm).to(act_dtype)
         hidden, stepped = qwen2.decode_step(lm, cfg.lm, emb, cur)
         cur = cur._replace(length=stepped.length)
         logp = torch.log_softmax(qwen2.unembed(lm, hidden)[:, 0], dim=-1)   # (K, V)

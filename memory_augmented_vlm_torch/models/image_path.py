@@ -127,14 +127,14 @@ def build_image_embeds(params, cfg: VLMConfig, pixels, image_size: Tuple[int, in
     return torch.cat([base, tile_tokens], dim=0)
 
 
-def splice(params, input_ids, visual: torch.Tensor) -> torch.Tensor:
+def splice(params, input_ids, visual: torch.Tensor, lm_cfg=None) -> torch.Tensor:
     """The visual sequence in place of the single IMAGE_TOKEN_INDEX of
     `input_ids` (S,): `vlm.splice_image_embeds` between the ids before and
-    after it."""
+    after it, embedded with the LM config `lm_cfg`."""
     ids = np.asarray(input_ids)
     pos = int(np.where(ids == constants.IMAGE_TOKEN_INDEX)[0][0])
     return splice_image_embeds(params, torch.as_tensor(ids[:pos], dtype=torch.long), visual,
-                               torch.as_tensor(ids[pos + 1:], dtype=torch.long))
+                               torch.as_tensor(ids[pos + 1:], dtype=torch.long), lm_cfg)
 
 
 def image_qa_embeds(params, cfg: VLMConfig, image, input_ids, image_processor=None
@@ -149,4 +149,5 @@ def image_qa_embeds(params, cfg: VLMConfig, image, input_ids, image_processor=No
         pixels, size = process_anyres_image(image, processor, cfg.pipeline.image_grid_pinpoints)
     else:
         pixels, size = processor.preprocess(image), image.size
-    return splice(params, input_ids, build_image_embeds(params, cfg, pixels, tuple(size)))
+    return splice(params, input_ids, build_image_embeds(params, cfg, pixels, tuple(size)),
+                  cfg.lm)

@@ -194,7 +194,7 @@ def decode_step_paged(params, cfg: VLMConfig, logits: torch.Tensor, pcache: Page
     lm = params["language_model"]
     tok = sample_tokens(logits, active, temps, top_ps, noise, nucleus)
     act_dtype = lm["embed_tokens"].dtype
-    emb = qwen2.embed_tokens(lm, tok[:, None].long()).to(act_dtype)
+    emb = qwen2.embed_tokens(lm, tok[:, None].long(), cfg.lm).to(act_dtype)
     ps = pcache.page_size
     pos = pcache.length.long()
     table = pcache.table.long()

@@ -1,6 +1,12 @@
-"""Qwen2 decoder LM (counterpart of `memory_augmented_vlm_tpu/models/qwen2.py`,
-its dense RoPE path with a bf16/fp32 or int8 KV cache and float or
-prequantized int8 weights).
+"""Qwen2-family decoder LM (counterpart of
+`memory_augmented_vlm_tpu/models/qwen2.py`, its dense gated RoPE path with
+a bf16/fp32 or int8 KV cache and float or prequantized int8 weights), with
+JAX's family flags: `attention_bias` (Qwen2; Llama, Mistral and Gemma have
+no q/k/v bias), `mlp_act` (SiLU, or Gemma's exact or tanh GELU),
+`norm_plus_one` (Gemma's `1 + w` RMSNorm, formed in the weight's dtype) and
+`scale_embeddings` (Gemma's token embeddings times sqrt(hidden), the factor
+rounded to the table's dtype first; only token ids are scaled, never the
+spliced visual rows, as in JAX).
 
 Prefill runs causal attention through the flash kernel with the 2 KV heads
 passed as they are (`kv_groups`), which is the same math as JAX's
@@ -15,13 +21,15 @@ through `quant.int8_linear`, the unembedding through a per-vocab-row int8
 copy of the table, and the cache holds per-(position, head) int8 rows with
 fp32 scales (`x / s`, floor 1e-8), quantized on write and dequantized to
 the activation dtype before `decode_attention`. With the module flag
-`fused_swiglu_enabled` set, an int8 layer's MLP half runs as one kernel
-(`swiglu_int8.fused_swiglu_block_int8`) at prefill sizes; see `_mlp_half`.
+`fused_swiglu_enabled` set, an int8 SwiGLU layer's MLP half runs as one
+kernel (`swiglu_int8.fused_swiglu_block_int8`) at prefill sizes; see
+`_mlp_half`.
 
 Parameters: dense kernels are (in, out), int8 kernels (in, out) column-major
-(`ops/quant.py`), q/k/v carry biases, `layers` is a list of per-layer
-dicts, and the unembedding is tied to `embed_tokens` or, for an untied LM
-(`tie_word_embeddings=False`, Qwen2-7B), a dense (H, V) `lm_head`.
+(`ops/quant.py`), q/k/v carry biases where `attention_bias`, `layers` is a
+list of per-layer dicts, and the unembedding is tied to `embed_tokens` or,
+for an untied LM (`tie_word_embeddings=False`, Qwen2-7B), a dense (H, V)
+`lm_head`.
 
 Decode is safe to capture in a CUDA graph: `decode_step` reads its position
 from `cache.length` on the card, writes the cache in place and reads nothing
@@ -31,6 +39,7 @@ a persistent cache whose addresses a captured decode loop keeps.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -102,7 +111,8 @@ def quantize_cache(cache: KVCache, out: Optional[KVCache] = None) -> KVCache:
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device, dtype=torch.float32):
-    """Random init with the JAX init's shapes and distributions."""
+    """Random init with the JAX init's shapes and distributions: q/k/v
+    biases only with `attention_bias` (JAX `_maybe_bias`)."""
     h, i = cfg.hidden_size, cfg.intermediate_size
     nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -120,9 +130,9 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device, dtype=torch.float32
         "embed_tokens": dense(cfg.vocab_size, h),
         "layers": [
             {"input_layernorm": ones(), "post_attention_layernorm": ones(),
-             "q_proj": proj(h, nh * d, True),
-             "k_proj": proj(h, nkv * d, True),
-             "v_proj": proj(h, nkv * d, True),
+             "q_proj": proj(h, nh * d, cfg.attention_bias),
+             "k_proj": proj(h, nkv * d, cfg.attention_bias),
+             "v_proj": proj(h, nkv * d, cfg.attention_bias),
              "o_proj": proj(nh * d, h, False),
              "gate_proj": proj(h, i, False), "up_proj": proj(h, i, False),
              "down_proj": proj(i, h, False)}
@@ -133,8 +143,21 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device, dtype=torch.float32
     }
 
 
-def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][input_ids]
+def embed_tokens(params, input_ids: torch.Tensor,
+                 cfg: Optional[LMConfig] = None) -> torch.Tensor:
+    """Token embeddings; with `cfg.scale_embeddings` (Gemma) times
+    sqrt(hidden_size) rounded to the table's dtype first, as JAX's. The
+    factor is a Python number, so a captured decode step holds it as a
+    constant of the graph."""
+    out = params["embed_tokens"][input_ids]
+    if cfg is not None and cfg.scale_embeddings:
+        out = out * _embed_scale(cfg.hidden_size, out.dtype)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(hidden: int, dtype: torch.dtype) -> float:
+    return torch.tensor(hidden ** 0.5, dtype=dtype).item()
 
 
 def unembed(params, hidden: torch.Tensor) -> torch.Tensor:
@@ -210,32 +233,52 @@ def _qkv(lp, cfg: LMConfig, x):
             _proj(lp["v_proj"], x).view(b, s, nkv, d))
 
 
-def _mlp(lp, x):
-    return _proj(lp["down_proj"], F.silu(_proj(lp["gate_proj"], x)) * _proj(lp["up_proj"], x))
+def _act(x, act: str):
+    if act == "silu":
+        return F.silu(x)
+    if act in ("gelu", "gelu_pytorch_tanh"):
+        return F.gelu(x, approximate="tanh" if act == "gelu_pytorch_tanh" else "none")
+    raise ValueError(f"unsupported mlp_act {act!r}")
+
+
+def _norm_weight(w, cfg: LMConfig):
+    """An RMSNorm's scale: Gemma's `1 + w`, formed in the weight's dtype
+    (JAX's `_norm`; HF's GemmaRMSNorm forms it in fp32, ROADMAP §3)."""
+    return (1 + w) if cfg.norm_plus_one else w
+
+
+def _norm(x, w, cfg: LMConfig):
+    return rms_norm(x, _norm_weight(w, cfg), cfg.rms_norm_eps)
+
+
+def _mlp(lp, x, cfg: LMConfig):
+    gate = _act(_proj(lp["gate_proj"], x), cfg.mlp_act)
+    return _proj(lp["down_proj"], gate * _proj(lp["up_proj"], x))
 
 
 def _mlp_half(lp, hidden, cfg: LMConfig):
     """Post-attention norm + MLP + residual of one layer.
 
-    With `fused_swiglu_enabled`, a layer whose `gate_proj` is int8 and has
-    no bias runs the whole half as one kernel when `b * s >= 1024` rows
-    (prefill; one decode row keeps the composed path). JAX's gate also asks
-    for a dense, gated, silu MLP behind an RMSNorm and a TPU backend: the
-    port's LM has no other kind and no `1 + w` norm convention to fold into
-    the weight, and the wrapper itself picks kernel or plain version by
-    device."""
+    With `fused_swiglu_enabled`, a SiLU layer whose `gate_proj` is int8 and
+    has no bias runs the whole half as one kernel when `b * s >= 1024` rows
+    (prefill; one decode row keeps the composed path), its norm weight
+    `1 + w` under `norm_plus_one`: JAX's gate less its TPU backend test (the
+    wrapper itself picks kernel or plain version by device), and less its
+    MoE, ungated and LayerNorm tests, modes the port's LM does not have
+    (`convert.config_from_fields` refuses them). Gemma's GELU MLP keeps the
+    composed path."""
     b, s, h = hidden.shape
     gate = lp["gate_proj"]
-    if (fused_swiglu_enabled and "kernel_int8" in gate and "bias" not in gate
-            and b * s >= FUSED_SWIGLU_MIN_ROWS):
+    w = lp["post_attention_layernorm"]
+    if (fused_swiglu_enabled and cfg.mlp_act == "silu" and "kernel_int8" in gate
+            and "bias" not in gate and b * s >= FUSED_SWIGLU_MIN_ROWS):
         return fused_swiglu_block_int8(
-            hidden.reshape(b * s, h), lp["post_attention_layernorm"],
+            hidden.reshape(b * s, h), _norm_weight(w, cfg),
             gate["kernel_int8"], gate["scale"],
             lp["up_proj"]["kernel_int8"], lp["up_proj"]["scale"],
             lp["down_proj"]["kernel_int8"], lp["down_proj"]["scale"],
             eps=cfg.rms_norm_eps).reshape(b, s, h)
-    x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return hidden + _mlp(lp, x)
+    return hidden + _mlp(lp, _norm(hidden, w, cfg), cfg)
 
 
 def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
@@ -246,7 +289,7 @@ def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
 def _layer(lp, cfg: LMConfig, hidden, cos, sin, valid_len, differentiable: bool):
     """One decoder layer over the whole sequence: (hidden, k, v)."""
     b, s, _ = hidden.shape
-    x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+    x = _norm(hidden, lp["input_layernorm"], cfg)
     q, k, v = _qkv(lp, cfg, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -301,7 +344,7 @@ def forward(params, cfg: LMConfig, inputs_embeds: torch.Tensor, positions: torch
         if cache is not None:
             cache.k[li, :, :s] = k
             cache.v[li, :, :s] = v
-    hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+    hidden = _norm(hidden, params["norm"], cfg)
     if cache is None:
         return hidden, None
     cache.length.copy_(valid_len)
@@ -342,7 +385,7 @@ def _chunk_layers(params, cfg: LMConfig, hidden, qpos, mask, write):
     b, c, _ = hidden.shape
     cos, sin = _rope_tables(cfg, qpos)
     for li, lp in enumerate(params["layers"]):
-        x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+        x = _norm(hidden, lp["input_layernorm"], cfg)
         q, k, v = _qkv(lp, cfg, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -351,7 +394,7 @@ def _chunk_layers(params, cfg: LMConfig, hidden, qpos, mask, write):
                              repeat_kv(layer_v, cfg.kv_groups), mask=mask)
         hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, c, -1))
         hidden = _mlp_half(lp, hidden, cfg)
-    return rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+    return _norm(hidden, params["norm"], cfg)
 
 
 def forward_chunk(params, cfg: LMConfig, token_embeds: torch.Tensor, cache: KVCache,
@@ -450,7 +493,7 @@ def _decode_layers(params, cfg: LMConfig, token_embeds: torch.Tensor, pos: torch
     cos, sin = _rope_tables(cfg, pos[:, None])
     hidden = token_embeds
     for li, lp in enumerate(params["layers"]):
-        x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+        x = _norm(hidden, lp["input_layernorm"], cfg)
         q, k, v = _qkv(lp, cfg, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -458,7 +501,7 @@ def _decode_layers(params, cfg: LMConfig, token_embeds: torch.Tensor, pos: torch
         attn = decode_attention(q, layer_k, layer_v, valid, kv_groups=cfg.kv_groups)
         hidden = hidden + _proj(lp["o_proj"], attn.reshape(b, 1, -1))
         hidden = _mlp_half(lp, hidden, cfg)
-    return rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+    return _norm(hidden, params["norm"], cfg)
 
 
 def decode_step(params, cfg: LMConfig, token_embeds: torch.Tensor,

@@ -112,8 +112,9 @@ def _merge_frames(feature: torch.Tensor, newline: torch.Tensor) -> torch.Tensor:
     return torch.cat([feature.reshape(-1, h), newline.reshape(1, h)], dim=0)
 
 
-def _embed_ids(lm_params, ids, device) -> torch.Tensor:
-    return qwen2.embed_tokens(lm_params, torch.as_tensor(ids, dtype=torch.long, device=device))
+def _embed_ids(lm_params, ids, device, lm_cfg) -> torch.Tensor:
+    return qwen2.embed_tokens(lm_params, torch.as_tensor(ids, dtype=torch.long, device=device),
+                              lm_cfg)
 
 
 def build_video_embeds(params, cfg: VLMConfig, feats: torch.Tensor,
@@ -140,12 +141,12 @@ def build_video_embeds(params, cfg: VLMConfig, feats: torch.Tensor,
     mem_tokens = mem_tokens + tte[0]
     newline = params["memory"]["image_newline"].to(mem_tokens.dtype)
     lm = params["language_model"]
-    mem_prompt = _embed_ids(lm, constants.MEMORY_PROMPT_IDS, dev).to(mem_tokens.dtype)
+    mem_prompt = _embed_ids(lm, constants.MEMORY_PROMPT_IDS, dev, cfg.lm).to(mem_tokens.dtype)
     mem_stream = [mem_prompt, _merge_frames(mem_tokens, newline)]
     if drop_fine_frames:
         return torch.cat(mem_stream, dim=0)
     fine = feats[fine_idx.to(dev)] + tte[1]
-    frame_prompt = _embed_ids(lm, constants.FRAME_PROMPT_IDS, dev).to(mem_tokens.dtype)
+    frame_prompt = _embed_ids(lm, constants.FRAME_PROMPT_IDS, dev, cfg.lm).to(mem_tokens.dtype)
     return torch.cat([*mem_stream, frame_prompt, _merge_frames(fine, newline)], dim=0)
 
 
@@ -159,11 +160,13 @@ def add_token_per_frame(feature: torch.Tensor, newline: torch.Tensor) -> torch.T
 
 
 def splice_image_embeds(params, text_ids_before: torch.Tensor, visual: torch.Tensor,
-                        text_ids_after: torch.Tensor) -> torch.Tensor:
-    """Replace the single <image> sentinel with the visual stream (batch 1)."""
+                        text_ids_after: torch.Tensor, lm_cfg=None) -> torch.Tensor:
+    """Replace the single <image> sentinel with the visual stream (batch 1).
+    The text ids are embedded as `qwen2.embed_tokens` with `lm_cfg` embeds
+    them (Gemma scales them; the visual rows stay as they are)."""
     lm = params["language_model"]
-    before = qwen2.embed_tokens(lm, text_ids_before.to(visual.device)).to(visual.dtype)
-    after = qwen2.embed_tokens(lm, text_ids_after.to(visual.device)).to(visual.dtype)
+    before = qwen2.embed_tokens(lm, text_ids_before.to(visual.device), lm_cfg).to(visual.dtype)
+    after = qwen2.embed_tokens(lm, text_ids_after.to(visual.device), lm_cfg).to(visual.dtype)
     return torch.cat([before, visual, after], dim=0)
 
 
@@ -192,7 +195,7 @@ def clip_embeds(params, cfg: VLMConfig, frames: torch.Tensor, text_ids_before: t
         visual = build_video_embeds(params, cfg, feats, positions.to(dev), torch.arange(fmax) < f,
                                     torch.from_numpy(fine_frame_indices(f, mcfg.num_fine_frames)),
                                     nseg, drop_fine_frames=drop_fine_frames)
-    return splice_image_embeds(params, text_ids_before, visual, text_ids_after)
+    return splice_image_embeds(params, text_ids_before, visual, text_ids_after, cfg.lm)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +379,7 @@ class _Decoder:
             seen = torch.gather(s["presence"], 1, tok[:, None].long()) | active
             s["presence"].scatter_(1, tok[:, None].long(), seen)
         done.copy_(done | newly_done)
-        emb = qwen2.embed_tokens(self.lm, tok[:, None].long()).to(self.lay.act_dtype)
+        emb = qwen2.embed_tokens(self.lm, tok[:, None].long(), self.cfg.lm).to(self.lay.act_dtype)
         hidden, cache = qwen2.decode_step(self.lm, self.cfg.lm, emb, self.cache)
         s["logits"].copy_(qwen2.unembed(self.lm, hidden)[:, 0])
         self.cache.length.copy_(cache.length)
@@ -700,7 +703,7 @@ def generate_speculative(params, cfg: VLMConfig, inputs_embeds: torch.Tensor, *,
         g0 = torch.argmax(logits).to(torch.int32)
         t_prev = torch.where(hist_n > 0, at(hist, (hist_n - 1).clamp_min(0)), -1)
         chunk = torch.cat([g0[None], lookup(t_prev, g0, hist_n)])            # (K,)
-        emb = qwen2.embed_tokens(lm, chunk[None].long()).to(act_dtype)
+        emb = qwen2.embed_tokens(lm, chunk[None].long(), cfg.lm).to(act_dtype)
         hidden, cache = qwen2.forward_chunk(lm, cfg.lm, emb, cache, cur_len)
         logits_all = qwen2.unembed(lm, hidden)[0]                           # (K, V)
         preds = torch.argmax(logits_all, dim=-1).to(torch.int32)

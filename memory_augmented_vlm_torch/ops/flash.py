@@ -1,6 +1,7 @@
 """Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu` (bf16),
-`csrc/flash_fwd_wide_sm90.cu` (bf16 at head dim 448) and `csrc/flash_fwd.cu`
-(fp32), `csrc/flash_merge.cu` and their plain PyTorch versions.
+`csrc/flash_fwd_wide_sm90.cu` (bf16 at head dims 256 and 448) and
+`csrc/flash_fwd.cu` (fp32), `csrc/flash_merge.cu` and their plain PyTorch
+versions.
 
 Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash.py::
 pallas_flash_attention` (bshd layout). Both versions compute the TPU
@@ -46,6 +47,9 @@ KERNEL_HEAD_DIMS = (64, 72, 112, 128)
 # the 7B memory's head dim (3584 / 8): bf16 only, through the kernel of
 # csrc/flash_fwd_wide_sm90.cu (`flash_forward_wide`)
 WIDE_HEAD_DIM = 448
+# Gemma's head dim, and the memory's at Gemma-2B's width (2048 / 8): bf16
+# only, through the same kernel (`flash_forward_d256`)
+D256 = 256
 MERGE_HEAD_DIMS = (64, 72, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -184,12 +188,13 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if d == WIDE_HEAD_DIM and q.dtype != torch.bfloat16:
-        raise ValueError(f"the flash kernel takes head dim {d} in bf16 only; its fp32 "
-                         f"kernel takes {KERNEL_HEAD_DIMS}")
-    if d not in KERNEL_HEAD_DIMS + (WIDE_HEAD_DIM,):
-        raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS} or "
-                         f"{WIDE_HEAD_DIM}, got {d}")
+    if d in (D256, WIDE_HEAD_DIM) and q.dtype != torch.bfloat16:
+        raise ValueError(f"the flash kernel takes head dim {d} in bf16 only (fp32 at {d} is "
+                         f"still to port, ROADMAP §2); its fp32 kernel takes "
+                         f"{KERNEL_HEAD_DIMS}")
+    if d not in KERNEL_HEAD_DIMS + (D256, WIDE_HEAD_DIM):
+        raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS}, {D256} "
+                         f"or {WIDE_HEAD_DIM}, got {d}")
     # 16-byte vector loads: rows start on 16 bytes, the head dim is contiguous
     align = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -211,8 +216,9 @@ def forward_tiles(head_dim: int) -> Tuple[int, int]:
     """(keys per K/V tile, most query rows per block) of the bf16 forward
     kernel at a head dim, as the built library reports them: its online
     softmax rounds P against the running max of each key tile, so the plain
-    version that holds it takes the same `block_k`. At `WIDE_HEAD_DIM` the
-    tiles are the wide kernel's (32 keys, 64 rows)."""
+    version that holds it takes the same `block_k`. At `D256` and
+    `WIDE_HEAD_DIM` the tiles are the wide kernel's (64 and 32 keys, 64
+    rows)."""
     key_tile, rows = ctypes.c_int(), ctypes.c_int()
     lib = cuda_lib.load()
     cuda_lib.check(lib, lib.flash_fwd_tiles(head_dim, ctypes.byref(key_tile),
@@ -263,9 +269,9 @@ def forward_plan(b, sq, skv, h, d, causal, device) -> Tuple[int, torch.Tensor]:
 
 
 def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
-    if q.shape[-1] == WIDE_HEAD_DIM:
-        return flash_forward_wide(q, k, v, kv_valid_len, causal=causal, scale=scale,
-                                  kv_groups=kv_groups)
+    wide = {D256: flash_forward_d256, WIDE_HEAD_DIM: flash_forward_wide}.get(q.shape[-1])
+    if wide is not None:
+        return wide(q, k, v, kv_valid_len, causal=causal, scale=scale, kv_groups=kv_groups)
     return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, flash_attention)
 
 
@@ -283,6 +289,22 @@ def flash_forward_wide(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
 
 
 flash_forward_wide.launches = 0
+
+
+def flash_forward_d256(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
+    """#1 at head dim `D256` (Gemma's LM prefill, and the memory's
+    cross-attentions at Gemma-2B's width), which `flash_attention` reaches
+    at that head dim: CPU tensors take the plain version; bf16 CUDA tensors
+    launch `csrc/flash_fwd_wide_sm90.cu` at 256 (key tiles of 64,
+    `forward_tiles`), counted in `flash_forward_d256.launches`; fp32 CUDA
+    tensors raise."""
+    if q.shape[-1] != D256:
+        raise ValueError(f"flash_forward_d256 takes head dim {D256}, got {q.shape[-1]}")
+    return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
+                           flash_forward_d256)
+
+
+flash_forward_d256.launches = 0
 
 
 def _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, counter):
@@ -374,9 +396,9 @@ def flash_attention(
     the arguments. CPU tensors take the plain version; CUDA tensors launch
     `csrc/flash_fwd_sm90.cu` (bf16; one block per item of `forward_plan`)
     or `csrc/flash_fwd.cu` (fp32), head dims 64/72/112/128, and count the
-    launch in `flash_attention.launches`; head dim 448 goes to
-    `flash_forward_wide`, which counts its own. Differentiable: the backward
-    is `_FlashAttention`'s plain recompute."""
+    launch in `flash_attention.launches`; head dims 256 and 448 go to
+    `flash_forward_d256` and `flash_forward_wide`, which count their own.
+    Differentiable: the backward is `_FlashAttention`'s plain recompute."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     scale = d ** -0.5 if scale is None else scale
     if kv_valid_len is None:

@@ -104,7 +104,7 @@ def _spec_verify_step(params, cfg: VLMConfig, logits: torch.Tensor, drafts: torc
     g0 = torch.argmax(logits, dim=-1).to(torch.int32)
     chunk_toks = torch.cat([g0[:, None], drafts.to(torch.int32)], dim=1)
     starts = torch.where(active, cache.length, max_len)
-    emb = qwen2.embed_tokens(lm, chunk_toks.long()).to(_act_dtype(lm))
+    emb = qwen2.embed_tokens(lm, chunk_toks.long(), cfg.lm).to(_act_dtype(lm))
     hidden, cache = qwen2.decode_chunk_batched(lm, cfg.lm, emb, cache, starts)
     logits_all = qwen2.unembed(lm, hidden)                       # (B, K, V)
     preds = torch.argmax(logits_all, dim=-1).to(torch.int32)
@@ -127,7 +127,7 @@ def _decode_step(params, cfg: VLMConfig, logits: torch.Tensor, cache: qwen2.KVCa
     int32, next logits (B, V), cache)."""
     lm = params["language_model"]
     tok = paged_kv.sample_tokens(logits, active, temps, top_ps, noise, nucleus)
-    emb = qwen2.embed_tokens(lm, tok[:, None].long()).to(_act_dtype(lm))
+    emb = qwen2.embed_tokens(lm, tok[:, None].long(), cfg.lm).to(_act_dtype(lm))
     hidden, cache = qwen2.decode_step(lm, cfg.lm, emb, cache)
     return tok, qwen2.unembed(lm, hidden)[:, 0], cache
 
@@ -429,7 +429,7 @@ class BatchEngine:
         req = self._slots[victim]
         if req.generated:
             ids = torch.tensor(req.generated, dtype=torch.long, device=self.device)
-            gen = qwen2.embed_tokens(self.params["language_model"], ids)
+            gen = qwen2.embed_tokens(self.params["language_model"], ids, self.cfg.lm)
             req.embeds = np.concatenate(
                 [req.embeds, gen.float().cpu().numpy().astype(req.embeds.dtype)])
             req.generated = []

@@ -94,7 +94,8 @@ def dpo_loss(policy_chosen_lp, policy_rejected_lp, ref_chosen_lp, ref_rejected_l
 
 
 def _forward_response(params, cfg: VLMConfig, visual, ids, labels, image_pos, text_len):
-    text_embeds = qwen2.embed_tokens(params["language_model"], ids.clamp_min(0)).to(visual.dtype)
+    text_embeds = qwen2.embed_tokens(params["language_model"], ids.clamp_min(0),
+                                     cfg.lm).to(visual.dtype)
     embeds, lab = trainer_mod._splice_batched(text_embeds, visual, image_pos, labels,
                                               constants.IGNORE_INDEX)
     valid_len = (text_len.to(embeds.device) + visual.shape[1]).to(torch.int32)

@@ -117,7 +117,7 @@ def sft_loss(params, cfg: VLMConfig, input_ids: torch.Tensor, labels: torch.Tens
              valid_len: torch.Tensor):
     """Next-token CE over supervised positions (the HF Trainer objective the
     reference SFTTrainer delegates to): (mean loss, supervised tokens)."""
-    embeds = qwen2.embed_tokens(params["language_model"], input_ids)
+    embeds = qwen2.embed_tokens(params["language_model"], input_ids, cfg.lm)
     loss, metrics = trainer_mod._lm_loss(params, cfg, embeds, labels,
                                          valid_len.to(torch.int32))
     return loss, metrics["target_tokens"]

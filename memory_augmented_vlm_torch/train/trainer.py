@@ -220,7 +220,7 @@ def multimodal_loss(params, cfg: VLMConfig, batch: TrainBatch, *, nseg: int,
                                batch.fine_idx[i], nseg, drop_fine_frames=drop_frames)
         for i in range(b)])
     lm = params["language_model"]
-    text_embeds = qwen2.embed_tokens(lm, batch.input_ids.clamp_min(0)).to(visual.dtype)
+    text_embeds = qwen2.embed_tokens(lm, batch.input_ids.clamp_min(0), cfg.lm).to(visual.dtype)
     embeds, labels = _splice_batched(text_embeds, visual, batch.image_pos, batch.labels,
                                      IGNORE_INDEX)
     valid_len = (batch.text_len.to(embeds.device) + visual.shape[1]).to(torch.int32)
@@ -233,7 +233,7 @@ def multimodal_loss(params, cfg: VLMConfig, batch: TrainBatch, *, nseg: int,
 
 def text_loss(params, cfg: VLMConfig, batch: TextBatch):
     """LM loss of a text-only batch (embeds in the param dtype)."""
-    embeds = qwen2.embed_tokens(params["language_model"], batch.input_ids.clamp_min(0))
+    embeds = qwen2.embed_tokens(params["language_model"], batch.input_ids.clamp_min(0), cfg.lm)
     return _lm_loss(params, cfg, embeds, batch.labels, batch.text_len.to(torch.int32))
 
 

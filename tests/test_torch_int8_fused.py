@@ -418,7 +418,7 @@ def test_mlp_half_gate(monkeypatch):
     assert calls == []  # the flag is off by default
     monkeypatch.setattr(tqwen2, "fused_swiglu_enabled", True)
     composed = tqwen2.rms_norm(prefill, lp["post_attention_layernorm"], pcfg.rms_norm_eps)
-    composed = prefill + tqwen2._mlp(lp, composed)
+    composed = prefill + tqwen2._mlp(lp, composed, pcfg)
     torch.testing.assert_close(tqwen2._mlp_half(lp, prefill, pcfg), composed,
                                rtol=1e-4, atol=1e-4)
     assert calls == [1024]  # b * s >= 1024 rows: the fused kernel

@@ -241,7 +241,7 @@ def test_qwen2_prefill_and_decode_match_jax():
 
 @pytest.mark.parametrize("part,field,value", [
     ("lm", "position_embedding", "alibi"), ("lm", "num_local_experts", 4),
-    ("lm", "rope_scaling_type", "linear"), ("lm", "attention_bias", False),
+    ("lm", "rope_scaling_type", "linear"), ("lm", "mlp_gated", False),
     ("memory", "hidden_act", "gelu"), ("memory", "learnable_pe", True),
     ("pipeline", "dynamic_video_sampling", True), ("pipeline", "mm_newline_position", "frame"),
     ("pipeline", "mm_vision_tower", "openai/clip-vit-large-patch14-336"),
