@@ -31,7 +31,15 @@ each of which raises on failure:
                 training kernels at the LM's train shape (S = 9557, causal,
                 GQA 14/2; dQ and dK/dV also run twice for the same bits and
                 beside three neighbouring functions that must fail their
-                check) and at edge cases in bf16 and fp32, the backward
+                check) and at Gemma-2B's (S = 9557, 8 heads of 256 over one
+                KV head; their own wrappers flash_fwd_lse_d256,
+                flash_bwd_dq_d256 and flash_bwd_dkv_d256, the same checks
+                and controls, and dK/dV with the column halves of Q and dO
+                swapped), each timed beside SDPA, and at edge cases in bf16
+                and fp32 (B = 2 with a valid length of 0, cross attention,
+                fp32 cuts at 64 and 256), flash_fwd_d256_f32 (#1's fp32
+                kernel at 256, the Gemma parity cut's memory) at the memory's
+                fuse and evolve shapes, the backward
                 of flash_fwd at the memory's fuse shape, flash_fwd, the
                 three int8 kernels of the default tower, the four of the
                 fused configuration and the w8a8 layer (int8_matmul,
@@ -70,9 +78,12 @@ each of which raises on failure:
                 fused attention half-block at the tower's shape and at the
                 tool's 768-row stream, beside the two composed halves it
                 would replace (drift held, timed in turns); then both
-                micro-benchmarks (int8 GEMM TOP/s, GEMV chain GB/s, and the
-                device kernels of one graph replay of the GEMV chain: one
-                per product, and how many consecutive products overlap);
+                micro-benchmarks (int8 GEMM TOP/s, GEMV chain GB/s; the GEMV
+                chain's CUDA graph holds one gemv kernel node per product,
+                counted from the captured graph itself, and its replay's
+                output equals the eager chain's bit for bit; the profiler's
+                record of one replay, how many consecutive products overlap,
+                is logged);
   5. requests — the full-width 0.5B int8 serving model (random weights from
                 a seed, prequantized on the card) answers 64-, 16- and
                 128-frame clips with 32 greedy tokens, and a 64-frame clip
@@ -193,7 +204,12 @@ each of which raises on failure:
                 --tower_int8 under torch.profiler (the int8 tower
                 bit-identical, its three kernels 26 each, the data, step
                 and checkpoint spans in the trace); the optimizer update
-                alone; one SFT, LoRA and DPO step with their launches. And `python -m
+                alone; one SFT, LoRA and DPO step with their launches. Then
+                the train CLI on small llava_gemma (`--version gemma`, bf16,
+                the LM's training kernels at 256) and untied llava_llama
+                (`--version llava_llama_3`, fp32, its first loss held to the
+                CPU's and its lm_head moved) checkpoints, two micro-steps
+                each, and one SFT and one LoRA step on each. And `python -m
                 memory_augmented_vlm_torch.bench` runs as a subprocess with
                 no flags and with --model 7b, its JSON line held to
                 bench.py's keys and metric names, then `... .bench_serving`
@@ -215,7 +231,10 @@ each of which raises on failure:
                 segments, the ring cache's cap, ~22k tokens), each JSON line
                 held to bench_train.py's keys (less impl, staged, backend,
                 vs_baseline_iso_peak; with peak_memory_gb and card) and to
-                finite losses;
+                finite losses; then Gemma-2B's train step at full width
+                (`phase_train_gemma`: three steps of bench_train's batch,
+                launches 26 + 5 of #1, 36 / 18 / 18 of the training kernels
+                at 256, watched leaves, step seconds, peak memory);
   7. parity   — full widths cut to 2 tower and 2 LM layers, fp32: the card
                 (through the kernels) against the CPU (plain versions) on the
                 same weights, for the bf16-path model (8 frames), the int8
@@ -223,11 +242,15 @@ each of which raises on failure:
                 and one train step (40 frames,
                 2 segments), whose loss, grad_norm and every gradient leaf
                 are compared, then one update accumulated over two
-                micro-steps (k = 2), whose parameters are compared.
+                micro-steps (k = 2), whose parameters are compared; then the
+                same train step of Gemma-2B's config cut to 2 + 2 layers
+                (40 frames, fp32: #9-#11 and #1 at 256 through their fp32
+                kernels), loss, grad_norm and every gradient leaf.
 
-The line before the last is a JSON object describing each of the 17
-kernels (#1's head dims 448 and 256 as rows of their own), with its
-launches on each path; the last
+The line before the last is a JSON object describing each of the 21
+kernels (#1's head dims 448 and 256 and its fp32 kernel at 256, and the
+training kernels at 256, as rows of their own), with its launches on
+each path; the last
 line is {"ok": true, "device": {...}}. Nothing is printed as a result when
 there is no card: the run raises first.
 """
@@ -270,7 +293,8 @@ from memory_augmented_vlm_torch.config import LMConfig, VisionConfig, VLMConfig
 from memory_augmented_vlm_torch.models import beam_search, image_path, qwen2, siglip, vlm
 from memory_augmented_vlm_torch.models import paged as paged_kv
 from memory_augmented_vlm_torch.microbench import gemv, int8_ceiling
-from memory_augmented_vlm_torch.microbench.timing import graph_ms, replay_trace, require_card
+from memory_augmented_vlm_torch.microbench.timing import (capture, graph_kernels, graph_ms,
+                                                         replay_trace, require_card)
 from memory_augmented_vlm_torch.microbench.timing import time_ms as _time_ms
 from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_bwd, mlp_int8,
                                             norms, pallas_int8, qkv_int8, quant,
@@ -454,7 +478,8 @@ def _nbytes(*tensors) -> int:
 
 
 def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.bfloat16,
-                timed=False, controls=False, name_library=False, control_rows=None):
+                timed=False, controls=False, name_library=False, control_rows=None,
+                peak=PEAK_BF16):
     """flash_fwd on one input against its plain version: bf16 held bit-close
     (`_hold_bitwise`) to the online softmax over the kernel's key tile
     (`flash.forward_tiles`), fp32 to every element within F32_ATOL +
@@ -464,7 +489,7 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
     and keys of each batch (where the one-tile control's whole score matrix
     would not fit the card);
     `name_library` records the device kernels of the timed library call
-    (its backend)."""
+    (its backend); `peak` is the rate the bound takes (fp32: PEAK_F32)."""
     q, k, v = (x.to(dtype) for x in (q, k, v))
     out = flash.flash_attention(q, k, v, valid, causal=causal, kv_groups=kv_groups)
     torch.cuda.synchronize()
@@ -502,7 +527,7 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
         row["library_ms"] = _time_ms(sdpa)
         if name_library:
             row["library_kernels"] = _device_kernels(sdpa)
-        row["bound_ms"], row["bound_by"] = _flash_bound(q, k, v, valid, causal, kv_groups)
+        row["bound_ms"], row["bound_by"] = _flash_bound(q, k, v, valid, causal, kv_groups, peak)
         log(json.dumps(row))
     return row
 
@@ -556,13 +581,14 @@ def _sdpa_call(q, k, v, valid, causal, kv_groups):
                                                   enable_gqa=kv_groups > 1)
 
 
-def _flash_bound(q, k, v, valid, causal, kv_groups):
+def _flash_bound(q, k, v, valid, causal, kv_groups, peak=PEAK_BF16):
     """Attention work of these inputs: 4 * (query, valid key) pairs * D per
-    head, reading only the valid keys."""
+    head at `peak`, reading only the valid keys."""
     b, sq, h, d = q.shape
     flops = 4.0 * _attn_pairs(sq, k.shape[1], valid, causal, h) * d
-    kv_read = sum(min(n, k.shape[1]) for n in valid.tolist()) * k.shape[2] * d * 2 * 2
-    return _bound(flops, PEAK_BF16, 2 * _nbytes(q) + kv_read)
+    kv_read = sum(min(n, k.shape[1]) for n in valid.tolist()) * k.shape[2] * d * 2 * \
+        q.element_size()
+    return _bound(flops, peak, 2 * _nbytes(q) + kv_read)
 
 
 def _attn_pairs(sq, skv, valid, causal, h) -> int:
@@ -719,6 +745,40 @@ def _d256_cases(shapes) -> dict:
         for case, q, kv, valid, causal in shapes]
     errs = [r["max_abs_err"] for r in path_rows] + _wide_edges(randn, lens, flash.D256)
     return _flash_row("flash_fwd_d256", "flash_fwd_wide_sm90.cu", path_rows, errs)
+
+
+def _f32_d256_row() -> dict:
+    """#1's fp32 kernel at head dim 256 (the SIMT kernel of
+    csrc/flash_fwd.cu, which the Gemma parity cut's memory runs) at the
+    memory's fuse and evolve shapes at Gemma-2B's width, timed beside the
+    plain version and SDPA in fp32, its bound at the fp32 peak outside the
+    tensor cores; then causal GQA 8 with a ragged batch and a cross case
+    with a batch of valid length 0. Every case held to the one-tile plain
+    version at F32_ATOL + F32_RTOL. Returns the kernels line's row."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def lens(*v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    path_rows = [
+        _check_case(case, randn(1, 1568, 8, 256), randn(1, skv, 8, 256), randn(1, skv, 8, 256),
+                    lens(valid), dtype=torch.float32, timed=True, peak=PEAK_F32)
+        for case, skv, valid in (("memory_fuse_gemma_f32", 6272, 6272),
+                                 ("memory_evolve_gemma_f32", 15680, 1568))]
+    errs = [r["max_abs_err"] for r in path_rows] + [
+        _check_case("f32_d256_causal_gqa8", randn(2, 300, 8, 256), randn(2, 300, 1, 256),
+                    randn(2, 300, 1, 256), lens(300, 211), causal=True, kv_groups=8,
+                    dtype=torch.float32)["max_abs_err"],
+        _check_case("f32_d256_cross_valid0", randn(2, 150, 4, 256), randn(2, 333, 2, 256),
+                    randn(2, 333, 2, 256), lens(0, 300), kv_groups=2,
+                    dtype=torch.float32)["max_abs_err"]]
+    row = _flash_row("flash_fwd_d256_f32", "flash_fwd.cu", path_rows, errs)
+    torch.cuda.empty_cache()
+    return row
 
 
 def _device_kernels(fn) -> list:
@@ -1951,13 +2011,7 @@ def phase_microbench():
     torch.cuda.synchronize()
     paths["gemv_microbench"] = _launches()
     log(json.dumps({"gemv": gemv.measure(x, w1, w2)}))
-    # one device kernel per product in a graph replay of the chain, and
-    # whether consecutive products overlap (the programmatic edge kept)
-    trace = replay_trace(lambda: gemv.chain(gemv.gemv, x, w1, w2), "gemv")
-    log(json.dumps({"gemv_chain_graph_replay": trace}))
-    if trace["device_kernels"] != 2 * w1.shape[0]:
-        raise RuntimeError(f"gemv chain replay: {trace['device_kernels']} device kernels, "
-                           f"want {2 * w1.shape[0]}")
+    _hold_gemv_graph(x, w1, w2)
     want = {"int8_ceiling_microbench": {"int8_gemm_bf16": 1},
             "gemv_microbench": {"gemv": 2 * w1.shape[0]}}
     for path, counts in want.items():
@@ -1965,6 +2019,40 @@ def phase_microbench():
             raise RuntimeError(f"{path}: launches {paths[path]}, want {counts}")
     torch.cuda.empty_cache()
     return paths
+
+
+def _hold_gemv_graph(x, w1, w2):
+    """The GEMV chain captured in a CUDA graph: one kernel node per product,
+    every node a gemv kernel, counted from the captured graph itself
+    (`timing.graph_kernels`, which cannot drop a node as the profiler can
+    drop a record), and one replay's output bit-equal to the eager chain's.
+    The profiler's record of a replay (how many consecutive products
+    overlap, the programmatic edge kept; the gaps) is logged beside it and
+    decides nothing."""
+    held = {}
+
+    def run():
+        held["out"] = gemv.chain(gemv.gemv, x, w1, w2)
+
+    graph = capture(run, keep_graph=True)
+    nodes = graph_kernels(graph)
+    want = 2 * w1.shape[0]
+    graph.replay()
+    eager = gemv.chain(gemv.gemv, x, w1, w2)
+    torch.cuda.synchronize()
+    row = {"gemv_chain_graph": {
+        "kernel_nodes": len(nodes), "gemv_kernel_nodes": sum("gemv" in n for n in nodes),
+        "want": want, "node_names": sorted(set(nodes)),
+        "replay_bit_equal_to_eager": torch.equal(held["out"], eager)},
+        "gemv_chain_graph_replay_profile": replay_trace(lambda: gemv.chain(gemv.gemv, x, w1, w2),
+                                                        "gemv")}
+    log(json.dumps(row))
+    graph_row = row["gemv_chain_graph"]
+    if graph_row["kernel_nodes"] != want or graph_row["gemv_kernel_nodes"] != want:
+        raise RuntimeError(f"gemv chain graph: {graph_row['gemv_kernel_nodes']} gemv kernel "
+                           f"nodes of {graph_row['kernel_nodes']}, want {want} of {want}")
+    if not graph_row["replay_bit_equal_to_eager"]:
+        raise RuntimeError("gemv chain graph: the replay's output differs from the eager chain's")
 
 
 # ----------------------------------------------------- training kernels
@@ -1975,7 +2063,10 @@ TRAIN_REPLACES = {
     "flash_bwd_dkv": "memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:232",
 }
 TRAIN_SOURCES = {"flash_fwd_lse": "flash_fwd_sm90.cu", "flash_bwd_dq": "flash_bwd_sm90.cu",
-                 "flash_bwd_dkv": "flash_bwd_sm90.cu"}
+                 "flash_bwd_dkv": "flash_bwd_sm90.cu",
+                 "flash_fwd_lse_d256": "flash_fwd_wide_sm90.cu",
+                 "flash_bwd_dq_d256": "flash_bwd_sm90.cu",
+                 "flash_bwd_dkv_d256": "flash_bwd_sm90.cu"}
 # flops per (query, valid key) pair and head dim: QK^T and PV in the forward;
 # the dQ kernel recomputes QK^T and does dO V^T and dS K; the dK/dV kernel
 # recomputes QK^T and does dO V^T, P^T dO and dS^T Q
@@ -2022,7 +2113,9 @@ def _train_controls(q, k, v, g, lse, delta, vl, refs, **kw):
     output it would replace: dK/dV with the first query head of each group
     left out; dK/dV with the first query tile each dK/dV item visits (the
     diagonal's, when causal) skipped; dQ with the last key tile each dQ item
-    visits left out. Yields (label, output, plain output)."""
+    visits left out; at head dim 256, dK and dV with the column halves of Q
+    and dO swapped (`_dkv_halves_swapped`). Yields (label, output, plain
+    output)."""
     rq, rk, rv = refs
     b, sq, h, d = q.shape
     kv_groups = kw["kv_groups"]
@@ -2049,6 +2142,23 @@ def _train_controls(q, k, v, g, lse, delta, vl, refs, **kw):
     dq, _, _ = _backward_without(q, k, v, g, lse, delta, vl,
                                  cols // flash_bwd.DQ_BLOCK_K == last, **kw)
     yield "dq, the last key tile of each query tile left out", dq, rq
+    del dq
+    if d == flash.D256:  # the dK/dV kernel's blocks each take one half of the columns
+        dk, dv = _dkv_halves_swapped(q, k, v, g, lse, delta, vl, **kw)
+        yield "dk, q's column halves swapped in dS^T Q", dk, rk
+        yield "dv, dO's column halves swapped in P^T dO", dv, rv
+
+
+def _dkv_halves_swapped(q, k, v, g, lse, delta, vl, *, causal, scale, kv_groups):
+    """The plain dK and dV with the scores from q and dO as they are, but
+    the products dS^T Q and P^T dO taken over Q and dO with their two column
+    halves swapped: the function of a column-split dK/dV kernel that staged
+    the wrong half."""
+    p, ds = flash_bwd._dscores(q, k, v, g, lse, delta, vl, causal, scale, kv_groups)
+    qs, gs = (torch.cat(x.chunk(2, dim=-1)[::-1], dim=-1) for x in (q, g))
+    dv = torch.einsum("bhqk,bqhd->bhkd", p.to(g.dtype).float(), gs.float())
+    dk = torch.einsum("bhqk,bqhd->bhkd", ds.to(q.dtype).float(), qs.float())
+    return tuple(flash_bwd.group_sum(x, kv_groups).to(k.dtype) for x in (dk, dv))
 
 
 def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=torch.bfloat16,
@@ -2219,40 +2329,72 @@ def _flash_backward_check(gen):
     return row
 
 
+# the training kernels' edge cases: (name, B, Sq, Skv, H, H_kv, D, causal,
+# valid lengths, dtypes)
+TRAIN_EDGES = [
+    # B=2, one batch shorter; 4 query heads keep the plain version's
+    # (B, H, S, S) fp32 intermediates near 3 GB each
+    ("b2_ragged", 2, TRAIN_TOKENS, TRAIN_TOKENS, 4, 2, 64, True, (9000, TRAIN_TOKENS),
+     (torch.bfloat16,)),
+    ("cross_d128", 2, 1000, 3000, 4, 2, 128, False, (3000, 1234),
+     (torch.bfloat16, torch.float32)),
+    ("valid0_causal", 2, 150, 150, 4, 2, 64, True, (0, 77), (torch.bfloat16, torch.float32)),
+    ("valid0_cross", 2, 150, 333, 4, 4, 128, False, (0, 300),
+     (torch.bfloat16, torch.float32)),
+    ("lm_cut_f32", 1, 700, 700, 14, 2, 64, True, (700,), (torch.float32,)),
+    # Gemma (head dim 256, GQA 8 over one KV head): B = 2 ragged with a
+    # batch of valid length 0, cross attention with Skv != Sq, an fp32 cut
+    ("d256_b2_valid0", 2, 600, 600, 8, 1, 256, True, (0, 531),
+     (torch.bfloat16, torch.float32)),
+    ("d256_cross", 2, 1000, 3000, 8, 1, 256, False, (3000, 1234),
+     (torch.bfloat16, torch.float32)),
+    # (at S = 700 one dV element of 1.4M, a sum of 8 x 700 products taken in
+    # sequence by the SIMT kernel, fell 2.4e-5 from the plain version's
+    # blocked sum: fp32 order, outside the 1e-5 rule)
+    ("d256_cut_f32", 1, 300, 300, 8, 1, 256, True, (300,), (torch.float32,)),
+]
+
+
+def _train_kernel_rows(main_rows, errs, suffix=""):
+    """The kernels line's rows of the three training kernels, from the timed
+    case's rows and every case's errors; `suffix` names the head dim 256
+    wrappers."""
+    rows = []
+    for kname, row in main_rows.items():
+        name = kname + suffix
+        rows.append({
+            "name": name, "route": "cuda", "source": CSRC + TRAIN_SOURCES[name],
+            "replaces": TRAIN_REPLACES[kname], "max_abs_err": max(errs[kname]),
+            **{key: row[key] for key in ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "library_call")}})
+    return rows
+
+
 def phase_train_kernels():
-    """forward_with_lse, backward_dq and backward_dkv at the LM's training
-    shape (timed) and at edge cases, in bf16 and fp32; then #1's backward."""
+    """forward_with_lse, backward_dq and backward_dkv at the 0.5B LM's
+    training shape (S = 9557, 14 heads of 64 over 2 KV heads) and at
+    Gemma-2B's (8 heads of 256 over one KV head), each timed with its
+    controls, and at edge cases (`TRAIN_EDGES`), in bf16 and fp32; then
+    #1's backward. Returns (the kernels line's rows, #1's backward row)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     s = TRAIN_TOKENS
-    main_rows = _train_kernels_case("lm_train", gen, 1, s, s, 14, 2, 64, True, (s,),
-                                    timed=True)
-    errs = {name: [row["max_abs_err"]] for name, row in main_rows.items()}
-    cases = [
-        # B=2, one batch shorter; 4 query heads keep the plain version's
-        # (B, H, S, S) fp32 intermediates near 3 GB each
-        ("b2_ragged", 2, s, s, 4, 2, 64, True, (9000, s), (torch.bfloat16,)),
-        ("cross_d128", 2, 1000, 3000, 4, 2, 128, False, (3000, 1234),
-         (torch.bfloat16, torch.float32)),
-        ("valid0_causal", 2, 150, 150, 4, 2, 64, True, (0, 77), (torch.bfloat16, torch.float32)),
-        ("valid0_cross", 2, 150, 333, 4, 4, 128, False, (0, 300),
-         (torch.bfloat16, torch.float32)),
-        ("lm_cut_f32", 1, 700, 700, 14, 2, 64, True, (700,), (torch.float32,)),
-    ]
-    for name, b, sq, skv, h, hkv, d, causal, valid, dtypes in cases:
+    main = {64: _train_kernels_case("lm_train", gen, 1, s, s, 14, 2, 64, True, (s,),
+                                    timed=True),
+            flash.D256: _train_kernels_case("gemma_train", gen, 1, s, s, 8, 1, flash.D256,
+                                            True, (s,), timed=True)}
+    # head dims 64 and 128 share the wrappers of the first rows, 256 has its own
+    errs = {d: {name: [row["max_abs_err"]] for name, row in rows.items()}
+            for d, rows in main.items()}
+    for name, b, sq, skv, h, hkv, d, causal, valid, dtypes in TRAIN_EDGES:
         for dtype in dtypes:
             rows = _train_kernels_case(f"{name}_{str(dtype).split('.')[-1]}", gen, b, sq, skv,
                                        h, hkv, d, causal, valid, dtype)
             for kname, row in rows.items():
-                errs[kname].append(row["max_abs_err"])
+                errs[flash.D256 if d == flash.D256 else 64][kname].append(row["max_abs_err"])
     backward = _flash_backward_check(gen)
-    kernels = []
-    for kname, row in main_rows.items():
-        kernels.append({
-            "name": kname, "route": "cuda", "source": CSRC + TRAIN_SOURCES[kname],
-            "replaces": TRAIN_REPLACES[kname], "max_abs_err": max(errs[kname]),
-            **{key: row[key] for key in ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms", "library_call")}})
+    kernels = (_train_kernel_rows(main[64], errs[64])
+               + _train_kernel_rows(main[flash.D256], errs[flash.D256], "_d256"))
     return kernels, backward
 
 
@@ -2268,6 +2410,10 @@ WRAPPERS = {
     "flash_fwd_lse": flash_bwd.forward_with_lse,
     "flash_bwd_dq": flash_bwd.backward_dq,
     "flash_bwd_dkv": flash_bwd.backward_dkv,
+    "flash_fwd_lse_d256": flash_bwd.forward_with_lse_d256,
+    "flash_bwd_dq_d256": flash_bwd.backward_dq_d256,
+    "flash_bwd_dkv_d256": flash_bwd.backward_dkv_d256,
+    "flash_fwd_d256_f32": flash.flash_forward_d256_f32,
     "flash_attention_out_proj_int8": flash.flash_attention_out_proj_int8,
     "fused_mlp_int8": mlp_int8.fused_mlp_int8,
     "fused_swiglu_block_int8": swiglu_int8.fused_swiglu_block_int8,
@@ -2324,14 +2470,42 @@ def _expected_launches(cfg: VLMConfig, num_frames: int, fused_oproj: bool = Fals
     return want
 
 
-def _expected_train_launches(cfg: VLMConfig, num_frames: int) -> dict:
-    """One train step: the frozen tower and the memory through flash_fwd
-    (the memory's backward is a plain recompute), each LM layer through the
-    training kernels, its forward twice under remat."""
-    lm = cfg.lm.num_hidden_layers
-    return {**dict.fromkeys(WRAPPERS, 0),
-            "flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, num_frames),
-            "flash_fwd_lse": 2 * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm}
+def _attn_kernel(head_dim: int, dtype=torch.bfloat16) -> str:
+    """The wrapper (WRAPPERS' name) that counts #1 at a head dim and dtype."""
+    if head_dim == flash.WIDE_HEAD_DIM:
+        return "flash_fwd_d448"
+    if head_dim == flash.D256:
+        return "flash_fwd_d256_f32" if dtype == torch.float32 else "flash_fwd_d256"
+    return "flash_fwd"
+
+
+def _train_kernel_names(head_dim: int) -> tuple:
+    """The wrappers that count the training kernels (#9, #10, #11) at a head
+    dim: head dim 256 has its own."""
+    suffix = "_d256" if head_dim == flash.D256 else ""
+    return tuple(n + suffix for n in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+def _lm_train_launches(cfg: VLMConfig, steps: int = 1, passes: int = 1) -> dict:
+    """The LM's training kernels over `steps` steps of `passes` LM passes
+    with a backward each: its forward twice a layer under remat."""
+    lm = cfg.lm.num_hidden_layers * steps * passes
+    fwd, dq, dkv = _train_kernel_names(cfg.lm.head_dim)
+    return {**dict.fromkeys(WRAPPERS, 0), fwd: 2 * lm, dq: lm, dkv: lm}
+
+
+def _expected_train_launches(cfg: VLMConfig, num_frames: int,
+                             dtype=torch.bfloat16) -> dict:
+    """One train step: the frozen tower and the memory through #1 (the
+    memory's backward is a plain recompute), each LM layer through the
+    training kernels, its forward twice under remat. Each at its head dim's
+    wrapper (Gemma-2B's memory and LM at 256); `dtype` is the activations'."""
+    want = _lm_train_launches(cfg)
+    want[_attn_kernel(cfg.vision.hidden_size // cfg.vision.num_attention_heads, dtype)] += \
+        cfg.vision.num_used_layers
+    want[_attn_kernel(cfg.memory.hidden_size // cfg.memory.num_attention_heads, dtype)] += \
+        _memory_calls(cfg, num_frames)
+    return want
 
 
 def _visual_tokens(cfg: VLMConfig, num_frames: int, nseg: int, no_memory: bool = False) -> int:
@@ -2875,6 +3049,34 @@ def _gemma_request(label, cfg, params, gen, kv_int8, calls: list) -> dict:
     return counted.total
 
 
+def _gemma_parity_setup():
+    """(the 2 + 2-layer cut of Gemma-2B's config, its seeded bf16 params on
+    the CPU, the seeded pixels, the pipeline)."""
+    full = _gemma_config()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
+        lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+    bf16 = vlm.init_params(cfg, seed=7, device="cpu", dtype=torch.bfloat16)
+    gen = torch.Generator()
+    gen.manual_seed(8)
+    pixels = torch.randn((GEMMA_PARITY_FRAMES, 384, 384, 3), generator=gen)
+    fn, _ = pipeline.build_pipeline(cfg, GEMMA_PARITY_FRAMES, return_logits=True,
+                                    max_new_tokens=8)
+    return cfg, bf16, pixels, fn
+
+
+def _gemma_parity_cpu():
+    """`_gemma_parity`'s CPU half: the cut's request in fp32 (tokens, spliced
+    length, logits) and in bf16 (logits), and its seconds."""
+    _, bf16, pixels, fn = _gemma_parity_setup()
+    f32 = tree_map(lambda x: x.float() if x.is_floating_point() else x, bf16)
+    tb, ta = torch.tensor(TEXT_BEFORE), torch.tensor(TEXT_AFTER)
+    t0 = time.perf_counter()
+    tok_c, s_c, lg_c = fn(f32, pixels, tb, ta)
+    _, _, lg_b = fn(bf16, pixels.to(torch.bfloat16), tb, ta)
+    return tok_c, s_c, lg_c, lg_b, time.perf_counter() - t0
+
+
 def _gemma_parity():
     """The Gemma-2B config cut to 2 tower and 2 LM layers: a GEMMA_PARITY_FRAMES
     clip through `pipeline.build_pipeline` (8 greedy tokens), bf16 weights on
@@ -2882,18 +3084,8 @@ def _gemma_parity():
     FUSED_FLOOR_FACTOR times the CPU's own bf16 floor (the CPU in bf16 against
     the CPU in fp32); greedy tokens agree while the CPU's top-2 margin
     exceeds the difference."""
-    full = _gemma_config()
-    cfg = dataclasses.replace(
-        full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
-        lm=dataclasses.replace(full.lm, num_hidden_layers=2))
-    bf16 = vlm.init_params(cfg, seed=7, device="cpu", dtype=torch.bfloat16)
-    f32 = tree_map(lambda x: x.float() if x.is_floating_point() else x, bf16)
-    gen = torch.Generator()
-    gen.manual_seed(8)
-    pixels = torch.randn((GEMMA_PARITY_FRAMES, 384, 384, 3), generator=gen)
+    cfg, bf16, pixels, fn = _gemma_parity_setup()
     tb, ta = torch.tensor(TEXT_BEFORE), torch.tensor(TEXT_AFTER)
-    fn, _ = pipeline.build_pipeline(cfg, GEMMA_PARITY_FRAMES, return_logits=True,
-                                    max_new_tokens=8)
     _reset_launches()
     tok_g, s_g, lg_g = fn(_to_cuda(bf16), pixels.cuda().to(torch.bfloat16), tb.cuda(),
                           ta.cuda())
@@ -2901,10 +3093,7 @@ def _gemma_parity():
     want = _gemma_launches(cfg, GEMMA_PARITY_FRAMES)
     if _launches() != want:
         raise RuntimeError(f"gemma parity: launches {_launches()}, want {want}")
-    t0 = time.perf_counter()
-    tok_c, s_c, lg_c = fn(f32, pixels, tb, ta)
-    _, _, lg_b = fn(bf16, pixels.to(torch.bfloat16), tb, ta)
-    cpu_s = time.perf_counter() - t0
+    tok_c, s_c, lg_c, lg_b, cpu_s = _cpu_reference("gemma_parity", _gemma_parity_cpu)
     ref = lg_c[0]
     err, floor_err = [float((x[0].float().cpu() - ref).abs().max()) for x in (lg_g, lg_b)]
     rms, floor_rms = [float((x[0].float().cpu() - ref).pow(2).mean().sqrt() / ref.std())
@@ -4218,61 +4407,236 @@ def phase_train():
     return want
 
 
+def _parity_cut(full: VLMConfig) -> VLMConfig:
+    """`full` cut to 2 tower and 2 LM layers, its widths kept."""
+    return dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
+        lm=dataclasses.replace(full.lm, num_hidden_layers=2))
+
+
+def _train_parity_setup():
+    """(the 0.5B cut, its seeded fp32 params on the CPU)."""
+    cfg = _parity_cut(VLMConfig.onevision_0_5b())
+    return cfg, vlm.init_params(cfg, seed=6, device="cpu", dtype=torch.float32)
+
+
+def _gemma_train_parity_setup():
+    """(Gemma-2B's cut, its seeded fp32 params on the CPU)."""
+    cfg = _parity_cut(_gemma_config())
+    return cfg, vlm.init_params(cfg, seed=12, device="cpu", dtype=torch.float32)
+
+
 def phase_train_parity():
     """One fp32 train step, full widths cut to 2 tower and 2 LM layers, 64
     padded frames of which 40 are real (2 segments, so evolve is
     differentiated) and 8 fine frames: card (kernels) against CPU (plain
-    versions), the same weights and batch. Loss, grad_norm and every
-    gradient leaf are compared."""
+    versions), the same weights and batch (`_card_vs_cpu_step`); then an
+    accumulated update (`_accumulated_update_parity`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    full = VLMConfig.onevision_0_5b()
-    cfg = dataclasses.replace(
-        full, vision=dataclasses.replace(full.vision, num_hidden_layers=3),  # 2 used
-        lm=dataclasses.replace(full.lm, num_hidden_layers=2))
-    params = vlm.init_params(cfg, seed=6, device="cpu", dtype=torch.float32)
+    cfg, params = _train_parity_setup()
+    _card_vs_cpu_step("fp32, 2 tower + 2 LM layers, 40 frames, card vs cpu", cfg, params, 8,
+                      _cpu_reference("train_parity", lambda: _parity_step(
+                          *_train_parity_setup(), 8, "cpu")))
+    _accumulated_update_parity(cfg, params)
+
+
+def _parity_step(cfg: VLMConfig, params, num_fine: int, dev: str):
+    """One fp32 train step (`make_train_step`, 2 segments: 40 of 64 padded
+    frames, `num_fine` fine frames, the batch from seed 7) from `params` on
+    `dev`, whose gradients it keeps: (metrics as floats, [(path, gradient
+    on the CPU)], seconds, launches)."""
     opt = port_bench_train.optimizer_config()  # step 0 runs at lr 0
     step = trainer.make_train_step(cfg, opt, nseg=2)
-    results = {}
-    for dev in ("cuda", "cpu"):
-        batch = _train_batch(np.random.default_rng(7), cfg, 40, 8, dev, torch.float32)
-        state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
-        _reset_launches()
-        t0 = time.perf_counter()
-        metrics, grads = _step_grads(step, state, batch)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            if _launches() != _expected_train_launches(cfg, 40):
-                raise RuntimeError(f"train parity: launches {_launches()}")
-        results[dev] = (metrics, grads, time.perf_counter() - t0)
-    (mg, gg, tg), (mc, gc, tc) = results["cuda"], results["cpu"]
+    batch = _train_batch(np.random.default_rng(7), cfg, 40, num_fine, dev, torch.float32)
+    state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
+    _reset_launches()
+    t0 = time.perf_counter()
+    metrics, grads = _step_grads(step, state, batch)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in metrics.items()}
+    grads = [(name, g.cpu()) for name, g in grads]
+    return metrics, grads, seconds, _launches()
+
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """#1 and the training kernels' wrappers replaced by their plain
+    versions, which then run on CUDA tensors too: the card computes the
+    same step as the CPU without the port's kernels, for a noise floor."""
+    def forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
+        return flash.flash_attention_reference(q, k, v, kv_valid_len, causal=causal,
+                                               scale=scale, kv_groups=kv_groups)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(flash, "_flash_forward", forward))
+        for name in ("forward_with_lse", "backward_dq", "backward_dkv"):
+            stack.enter_context(_patched(flash_bwd, name,
+                                         getattr(flash_bwd, f"{name}_reference")))
+        yield
+
+
+def _card_vs_cpu_step(label, cfg: VLMConfig, params, num_fine: int, cpu,
+                      floor: bool = False) -> dict:
+    """One fp32 train step (`_parity_step`) from `params` on the card, held
+    against `cpu`, the same step on the CPU: the card's launches
+    (`_expected_train_launches` in fp32), the loss and grad_norm to
+    TRAIN_PARITY_LOSS_RTOL, every gradient leaf to TRAIN_PARITY_RTOL of its
+    own largest magnitude plus TRAIN_PARITY_MODEL_RTOL of the model's (every
+    leaf outside named). With `floor`, the step runs once more on the card
+    through the plain versions (`_plain_on_card`), and each leaf may also
+    differ by FUSED_FLOOR_FACTOR times that run's difference from the CPU:
+    the noise of fp32 sums taken in another order on the card. Returns the
+    logged row."""
+    mg, gg, tg, launches = _parity_step(cfg, params, num_fine, "cuda")
+    want = _expected_train_launches(cfg, 40, torch.float32)
+    if launches != want:
+        raise RuntimeError(f"train parity ({label}): launches {launches}, want {want}")
+    torch.cuda.empty_cache()
+    mc, gc, tc, _ = cpu
+    floor_err = {}
+    if floor:
+        with _plain_on_card():
+            mf, gf, _, plain_launches = _parity_step(cfg, params, num_fine, "cuda")
+        if any(plain_launches.values()):
+            raise RuntimeError(f"train parity ({label}): the plain run launched "
+                               f"{plain_launches}")
+        floor_err = {name: float((a - b).abs().max()) for (name, a), (_, b) in zip(gf, gc)}
+        torch.cuda.empty_cache()
     model_max = max(float(b.abs().max()) for _, b in gc)
-    worst = []
+    worst, outside = [], []
     for (name, a), (_, b) in zip(gg, gc):
-        err = float((a.cpu() - b).abs().max())
+        err = float((a - b).abs().max())
         scale = float(b.abs().max())
-        tol = TRAIN_PARITY_RTOL * scale + TRAIN_PARITY_MODEL_RTOL * model_max
+        tol = max(TRAIN_PARITY_RTOL * scale + TRAIN_PARITY_MODEL_RTOL * model_max,
+                  FUSED_FLOOR_FACTOR * floor_err.get(name, 0.0))
         if not err <= tol:
-            raise RuntimeError(f"train parity: grad {name} differs by {err} (max |grad| "
-                               f"{scale}, tolerance {tol})")
-        worst.append((err / tol if tol else 0.0, name, err, scale))
+            outside.append((name, err, scale, tol))
+        worst.append((err / tol if tol else 0.0, name, err, scale, floor_err.get(name)))
+    if outside:
+        raise RuntimeError(f"train parity ({label}): gradient leaves outside their tolerance "
+                           f"(name, err, max |grad|, tolerance): {outside}")
     worst = sorted(worst, reverse=True)[:5]
     for key in ("loss", "grad_norm"):
-        a, b = float(mg[key]), float(mc[key])
+        a, b = mg[key], mc[key]
         if not abs(a - b) <= TRAIN_PARITY_LOSS_RTOL * abs(b):
-            raise RuntimeError(f"train parity: {key} {a} on the card, {b} on the CPU")
+            raise RuntimeError(f"train parity ({label}): {key} {a} on the card, {b} on the CPU")
     if int(mg["target_tokens"]) != int(mc["target_tokens"]):
-        raise RuntimeError("train parity: target token counts differ")
-    log(json.dumps({"train_parity": "fp32, 2 tower + 2 LM layers, 40 frames, card vs cpu",
-                    "loss_card": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
-                    "grad_norm_card": float(mg["grad_norm"]),
-                    "grad_norm_cpu": float(mc["grad_norm"]), "grad_leaves": len(gg),
-                    "model_max_grad": model_max,
-                    "worst_leaves_err_over_tol_err_max": worst,
-                    "tol": f"{TRAIN_PARITY_RTOL} of each leaf's max |grad| + "
-                           f"{TRAIN_PARITY_MODEL_RTOL} of the model's",
-                    "card_step_s": tg, "cpu_step_s": tc}))
-    _accumulated_update_parity(cfg, params)
+        raise RuntimeError(f"train parity ({label}): target token counts differ")
+    row = {"train_parity": label, "loss_card": mg["loss"], "loss_cpu": mc["loss"],
+           "grad_norm_card": mg["grad_norm"], "grad_norm_cpu": mc["grad_norm"],
+           "grad_leaves": len(gg), "model_max_grad": model_max,
+           "launches": {k: v for k, v in launches.items() if v},
+           "worst_leaves_err_over_tol_err_max_floor": worst,
+           "tol": f"{TRAIN_PARITY_RTOL} of each leaf's max |grad| + "
+                  f"{TRAIN_PARITY_MODEL_RTOL} of the model's"
+                  + (f", or {FUSED_FLOOR_FACTOR} x the plain card run's difference"
+                     if floor else ""),
+           "card_step_s": tg, "cpu_step_s": tc}
+    if floor:
+        row["plain_card_loss"] = mf["loss"]
+    log(json.dumps(row))
+    return row
+
+
+GEMMA_TRAIN_STEPS = 3
+# the LM, memory and projector leaves a Gemma-2B step must move, and a
+# frozen tower leaf it must not (paths of `_leaves`)
+GEMMA_WATCHED = {
+    "language_model.layers.0.q_proj.kernel": True,
+    "language_model.layers.17.down_proj.kernel": True,
+    "memory.recurrent_memory_transformer.memory_update_attention.q_proj.kernel": True,
+    "vision_tower.layers.0.q_proj.kernel": False}
+
+
+def phase_train_gemma():
+    """Gemma-2B training at full width through `trainer.make_train_step`,
+    as `phase_train` drives the 0.5B step: GEMMA_2B through
+    `config_from_json` (18 LM layers of 8 heads of 256 over one KV head,
+    vocabulary 256000; the memory at 2048 over 8 heads), seeded bf16
+    weights, the SigLIP-SO400M tower frozen, bench_train's batch (64 frames,
+    9557 spliced tokens, past Gemma's 8192 positions, which neither package
+    bounds) and AdamW as bench_train configures it (step 0 at lr 0).
+    GEMMA_TRAIN_STEPS steps on distinct batches, each timed: finite losses,
+    120 target tokens, exact launches (#1 26 in the tower at head dim 72
+    and 5 in the memory at 256; #9 36, #10 18, #11 18 at 256), the watched
+    leaves moved or held (GEMMA_WATCHED), and the peak memory. Returns a
+    step's launches."""
+    dev = "cuda"
+    cfg = _gemma_config()
+    opt = port_bench_train.optimizer_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = vlm.init_params(cfg, seed=1, device=dev, dtype=torch.bfloat16)
+    state = trainer.init_train_state(params, opt)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in _leaves(params))
+    log(f"init Gemma-2B VLM bf16 params ({n_params / 1e9:.3f} B) and AdamW state: "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GB")
+    watched = {name: x.clone() for name, x in _leaves(params) if name in GEMMA_WATCHED}
+    if set(watched) != set(GEMMA_WATCHED):
+        raise RuntimeError(f"gemma train: watched leaves {sorted(watched)}")
+    del params
+    nseg = vlm.pad_frames_to_segment_multiple(TRAIN_FRAMES, cfg.memory.segment_frames) \
+        // cfg.memory.segment_frames
+    step = trainer.make_train_step(cfg, opt, nseg=nseg)
+    want = _expected_train_launches(cfg, TRAIN_FRAMES)
+    rng = np.random.default_rng(11)
+    times, losses, norms = [], [], []
+    for i in range(GEMMA_TRAIN_STEPS):
+        batch = _train_batch(rng, cfg, TRAIN_FRAMES, cfg.memory.num_fine_frames, dev,
+                             torch.bfloat16)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        loss, tokens = float(metrics["loss"]), int(metrics["target_tokens"])
+        losses.append(loss)
+        norms.append(float(metrics["grad_norm"]))
+        if _launches() != want:
+            raise RuntimeError(f"gemma train step {i}: launches {_launches()}, want {want}")
+        if not (math.isfinite(loss) and math.isfinite(norms[-1])) \
+                or tokens != TRAIN_TEXT - TRAIN_IGNORED:
+            raise RuntimeError(f"gemma train step {i}: loss {loss}, grad_norm {norms[-1]}, "
+                               f"target_tokens {tokens}")
+        log(json.dumps({"gemma_train_step": i, "loss": loss, "grad_norm": norms[-1],
+                        "seconds": times[-1]}))
+    now = dict(_leaves(state.params))
+    moved = {name: not torch.equal(x, now[name]) for name, x in watched.items()}
+    if moved != GEMMA_WATCHED:
+        raise RuntimeError(f"gemma train: leaves moved {moved}, want {GEMMA_WATCHED}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(json.dumps({"train": "Gemma-2B bf16, bench_train batch", "spliced": TRAIN_TOKENS,
+                    "params_b": n_params / 1e9, "step_seconds": times, "losses": losses,
+                    "grad_norms": norms, "peak_mem_gb": peak,
+                    "launches": {k: v for k, v in want.items() if v}}))
+    del state, watched, now
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_train_parity_gemma():
+    """Gemma-2B's config cut to 2 tower and 2 LM layers at full widths
+    (vocabulary 256000), fp32: one train step on the card (#9-#11 at head
+    dim 256 in fp32 in the LM, #1 in fp32 at 256 in the memory) against the
+    CPU (plain versions) on one batch of 40 frames (2 segments, 2 fine
+    frames), loss, grad_norm and every gradient leaf (`_card_vs_cpu_step`
+    with its noise floor: the memory's gradients at 2048 wide nearly cancel,
+    and read 2e-3 of their largest from the CPU's in the first card run).
+    Returns the card step's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = _gemma_train_parity_setup()
+    cpu = _cpu_reference("train_parity_gemma", lambda: _parity_step(
+        *_gemma_train_parity_setup(), 2, "cpu"))
+    row = _card_vs_cpu_step("Gemma-2B fp32, 2 tower + 2 LM layers, 40 frames, card vs cpu",
+                            cfg, params, 2, cpu, floor=True)
+    return {**dict.fromkeys(WRAPPERS, 0), **row["launches"]}
 
 
 ACCUM_PARITY_FRAMES = 16  # one segment of 32 padded frames, 2 fine: the CPU half stays short
@@ -4288,6 +4652,36 @@ def _adam_step_bound(g, tol_g, lr, clip, eps):
     return torch.clamp(lr * clip * tol_g * eps / (low + eps) ** 2, max=2 * lr)
 
 
+def _accumulation_config():
+    return dataclasses.replace(port_bench_train.optimizer_config(), warmup_ratio=0.0,
+                               grad_accum_steps=2)
+
+
+def _accumulated_run(cfg: VLMConfig, params, dev: str):
+    """`_accumulated_update_parity`'s run on `dev`: two micro-steps (k = 2)
+    of ACCUM_PARITY_FRAMES-frame batches from seed 8, the first moving no
+    parameter. Returns (each micro-step's metrics as floats, the
+    accumulated mean gradient and each leaf's move, on the CPU, seconds)."""
+    opt = _accumulation_config()
+    rng = np.random.default_rng(8)
+    state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
+    step = trainer.make_train_step(cfg, opt, nseg=1)
+    first = _leaves(state.params)
+    metrics, grads, t0 = [], [], time.perf_counter()
+    for i in range(2):
+        batch = _train_batch(rng, cfg, ACCUM_PARITY_FRAMES, 2, dev, torch.float32)
+        state, m, g = _step_state_grads(step, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append(g)
+        if i == 0 and any(not torch.equal(a, b) for (_, a), (_, b) in
+                          zip(first, _leaves(state.params))):
+            raise RuntimeError(f"accumulated update on {dev}: the first micro-step moved "
+                               "parameters")
+    mean = [(n, (a + (b - a) / 2).cpu()) for (n, a), (_, b) in zip(*grads)]
+    moves = [(n, (b - a).cpu()) for (n, a), (_, b) in zip(first, _leaves(state.params))]
+    return metrics, mean, moves, time.perf_counter() - t0
+
+
 def _accumulated_update_parity(cfg: VLMConfig, params):
     """One accumulated update (grad_accum_steps 2, two batches, no warmup),
     card against CPU: the losses and grad norms of both micro-steps to
@@ -4300,31 +4694,13 @@ def _accumulated_update_parity(cfg: VLMConfig, params):
     moves; near Adam's eps it follows g), + TRAIN_PARITY_MODEL_RTOL of the
     largest move for the update's own rounding, + the rounding of p + u
     on each side (a move is read as p1 - p0: an fp32 ulp of p each)."""
-    opt = dataclasses.replace(port_bench_train.optimizer_config(), warmup_ratio=0.0,
-                              grad_accum_steps=2)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        rng = np.random.default_rng(8)
-        state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
-        step = trainer.make_train_step(cfg, opt, nseg=1)
-        first = _leaves(state.params)
-        metrics, grads, t0 = [], [], time.perf_counter()
-        for i in range(2):
-            batch = _train_batch(rng, cfg, ACCUM_PARITY_FRAMES, 2, dev, torch.float32)
-            state, m, g = _step_state_grads(step, state, batch)
-            metrics.append(m)
-            grads.append(g)
-            if i == 0 and any(not torch.equal(a, b) for (_, a), (_, b) in
-                              zip(first, _leaves(state.params))):
-                raise RuntimeError(f"accumulated update on {dev}: the first micro-step moved "
-                                   "parameters")
-        mean = [(n, (a + (b - a) / 2).cpu()) for (n, a), (_, b) in zip(*grads)]
-        moves = [(n, (b - a).cpu()) for (n, a), (_, b) in zip(first, _leaves(state.params))]
-        runs[dev] = (metrics, mean, moves, time.perf_counter() - t0)
-    (mg, gg, dg, tg), (mc, gc, dc, tc) = runs["cuda"], runs["cpu"]
+    opt = _accumulation_config()
+    mg, gg, dg, tg = _accumulated_run(cfg, params, "cuda")
+    mc, gc, dc, tc = _cpu_reference("accumulated_update", lambda: _accumulated_run(
+        *_train_parity_setup(), "cpu"))
     for i in range(2):
         for key in ("loss", "grad_norm"):
-            a, b = float(mg[i][key]), float(mc[i][key])
+            a, b = mg[i][key], mc[i][key]
             if not abs(a - b) <= TRAIN_PARITY_LOSS_RTOL * abs(b):
                 raise RuntimeError(f"accumulated update, micro-step {i + 1}: {key} {a} on the "
                                    f"card, {b} on the CPU")
@@ -4363,8 +4739,8 @@ def _accumulated_update_parity(cfg: VLMConfig, params):
         raise RuntimeError("accumulated update: no parameter moved")
     log(json.dumps({"train_parity_accumulated": "fp32, k = 2, two batches of "
                     f"{ACCUM_PARITY_FRAMES} frames, card vs cpu",
-                    "loss_card": [float(m["loss"]) for m in mg],
-                    "loss_cpu": [float(m["loss"]) for m in mc],
+                    "loss_card": [m["loss"] for m in mg],
+                    "loss_cpu": [m["loss"] for m in mc],
                     "elements_moved_cpu": moved, "clip": clip, "largest_move": move_max,
                     "worst_leaves_err_over_bound": sorted(worst)[-3:],
                     "card_s": tg, "cpu_s": tc}))
@@ -4743,12 +5119,17 @@ def _eval_image(model, cfg, label, image, ids, want):
     return launches
 
 
-def _write_tokenizer(directory: Path):
-    """A small byte-level BPE tokenizer with Qwen2's chat specials, trained
-    here (no Qwen2 tokenizer can be fetched), saved beside the exported
-    weights so that the entries, which tokenize a prompt, load it. Its
-    2000 ids lie inside the model's vocabulary; decoding the model's other
-    ids gives "", so the checks read `output_ids`."""
+QWEN_SPECIALS = {"specials": ["<|endoftext|>", "<|im_start|>", "<|im_end|>"],
+                 "eos_token": "<|im_end|>", "pad_token": "<|endoftext|>"}
+
+
+def _write_tokenizer(directory: Path, chat: dict = QWEN_SPECIALS):
+    """A small byte-level BPE tokenizer with a chat template's specials
+    (`chat`: Qwen2's by default), trained here (no published tokenizer can
+    be fetched), saved beside the exported weights so that the entries,
+    which tokenize a prompt, load it. Its 2000 ids lie inside the model's
+    vocabulary; decoding the model's other ids gives "", so the checks read
+    `output_ids`."""
     from tokenizers import Tokenizer, models as tok_models, pre_tokenizers, trainers
 
     tok = Tokenizer(tok_models.BPE(unk_token=None))
@@ -4756,14 +5137,14 @@ def _write_tokenizer(directory: Path):
     # every byte in the alphabet: a character the corpus lacks still encodes
     trainer = trainers.BpeTrainer(vocab_size=2000, show_progress=False,
                                   initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
-                                  special_tokens=["<|endoftext|>", "<|im_start|>", "<|im_end|>"])
+                                  special_tokens=chat["specials"])
     tok.train_from_iterator(["What happens in the video?", "Describe the image.",
                              "What does a memory token hold?", "a cat sits on a mat"] * 50,
                             trainer)
     tok.save(str(directory / "tokenizer.json"))
     (directory / "tokenizer_config.json").write_text(json.dumps(
-        {"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "<|im_end|>",
-         "pad_token": "<|endoftext|>"}))
+        {"tokenizer_class": "PreTrainedTokenizerFast",
+         **{k: v for k, v in chat.items() if k != "specials"}}))
 
 
 def _eval_entries(cfg, frames, image):
@@ -5022,15 +5403,15 @@ def _cli_launches(cfg: VLMConfig, records: list, int8_tower: bool = False) -> di
     """Launches of the CLI's micro-steps: a video step is one bench_train
     step (64 frames), a text step the LM's training kernels alone."""
     video = sum("dropped_frames" in r for r in records)
-    lm = cfg.lm.num_hidden_layers
-    want = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd_lse": 2 * lm * len(records),
-            "flash_bwd_dq": lm * len(records), "flash_bwd_dkv": lm * len(records)}
-    want["flash_fwd"] = video * _memory_calls(cfg, 64)
+    want = _lm_train_launches(cfg, len(records))
+    want[_attn_kernel(cfg.memory.hidden_size // cfg.memory.num_attention_heads)] += \
+        video * _memory_calls(cfg, 64)
     tower = {k: v * video for k, v in _expected_tower_launches(cfg, False).items() if v}
     if int8_tower:
         want.update(tower)
     else:
-        want["flash_fwd"] += video * cfg.vision.num_used_layers
+        want[_attn_kernel(cfg.vision.hidden_size // cfg.vision.num_attention_heads)] += \
+            video * cfg.vision.num_used_layers
     return want
 
 
@@ -5100,9 +5481,7 @@ def _sft_lora_dpo(cfg: VLMConfig, params, opt) -> dict:
     factor moved) and one DPO step on a 64-frame pair, at full width on the
     card, each with its launches and seconds."""
     rng = np.random.default_rng(TRAIN_CLI_SEED)
-    lm = cfg.lm.num_hidden_layers
-    text = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd_lse": 2 * lm, "flash_bwd_dq": lm,
-            "flash_bwd_dkv": lm}
+    text = _lm_train_launches(cfg)
     launches, seconds = {}, {}
     packed = sft.pack_constant_length(
         [rng.integers(5, 2000, int(n)).tolist() for n in rng.integers(100, 900, 12)], 2048, 2)
@@ -5153,9 +5532,10 @@ def _sft_lora_dpo(cfg: VLMConfig, params, opt) -> dict:
         dpo.make_dpo_train_step(cfg, opt, dpo.DPOConfig(), nseg=2),
         trainer.init_train_state(params, opt), params, batch)
     launches["dpo"] = _launches()
-    want = {**dict.fromkeys(WRAPPERS, 0),
-            "flash_fwd": cfg.vision.num_used_layers + _memory_calls(cfg, 64),
-            "flash_fwd_lse": 6 * lm, "flash_bwd_dq": 2 * lm, "flash_bwd_dkv": 2 * lm}
+    # two policy passes with a backward, two reference passes without
+    want = _lm_train_launches(cfg, passes=2)
+    want["flash_fwd_lse"] += 2 * cfg.lm.num_hidden_layers
+    want["flash_fwd"] = cfg.vision.num_used_layers + _memory_calls(cfg, 64)
     metrics = {k: float(v) for k, v in m.items()}
     if launches["dpo"] != want or not all(math.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f"dpo: launches {launches['dpo']} (want {want}), metrics {metrics}")
@@ -5295,33 +5675,261 @@ def phase_train_cli():
     return launches
 
 
+# the train CLI on small family checkpoints: each family's --version and
+# the chat specials its preprocess reads
+FAMILY_CLI = {
+    "llava_gemma": ("gemma", {"specials": ["<pad>", "<eos>", "<bos>", "<start_of_turn>",
+                                           "<end_of_turn>"],
+                              "eos_token": "<eos>", "pad_token": "<pad>", "bos_token": "<bos>"}),
+    "llava_llama": ("llava_llama_3", {"specials": ["<|begin_of_text|>", "<|end_of_text|>",
+                                                   "<|start_header_id|>", "<|end_header_id|>",
+                                                   "<|eot_id|>"],
+                                      "eos_token": "<|eot_id|>",
+                                      "pad_token": "<|end_of_text|>"}),
+}
+FAMILY_CLI_DIR = Path(__file__).resolve().parent / "build" / "train_cli_families"
+
+
+def _family_cli_data(root: Path):
+    """One 65-frame 64x64 uint8 video (.npy, 1 fps: 64 sampled, two
+    segments) and one text sample under `root`: (manifest, video folder)."""
+    rng = np.random.default_rng(TRAIN_CLI_SEED + 1)
+    vids = root / "videos"
+    vids.mkdir(parents=True, exist_ok=True)
+    np.save(vids / "v0.npy", rng.integers(0, 256, (TRAIN_CLI_FRAMES, 64, 64, 3), dtype=np.uint8))
+    items = [{"id": 0, "video": "v0.npy", "conversations": [
+                 {"from": "human", "value": "<image>\nWhat happens in the video?"},
+                 {"from": "gpt", "value": "a cat sits on a mat " * 3}]},
+             {"id": 1, "conversations": [
+                 {"from": "human", "value": "What does a memory token hold?"},
+                 {"from": "gpt", "value": "Describe the image. " * 4}]}]
+    (root / "data.json").write_text(json.dumps(items))
+    return str(root / "data.json"), str(vids)
+
+
+def _family_cli_run(label, directory, version, data, vids, out, device, dtype):
+    """`train_cli.main` over the checkpoint at `directory`, loaded on
+    `device` in `dtype` (`build_model` replaced, as the CPU tests replace
+    it), two micro-steps of one sample, k = 1, --dropout_frames: (records,
+    the watched record, launches)."""
+    def build(args):
+        tokenizer, model, _, _ = load_pretrained_model(
+            args.model_name_or_path, None, "llava_qwen", torch_dtype=dtype, device_map=device)
+        return tokenizer, model.params, model.cfg
+
+    shutil.rmtree(out, ignore_errors=True)
+    _reset_launches()
+    with _patched(train_cli, "build_model", build), _watched_cli({}) as rec:
+        train_cli.main(["--model_name_or_path", str(directory), "--data_path", data,
+                        "--video_folder", vids, "--output_dir", out, "--version", version,
+                        "--per_device_train_batch_size", "1", "--gradient_accumulation_steps",
+                        "1", "--max_steps", "2", "--save_steps", "100", "--dropout_frames",
+                        "--learning_rate", str(TRAIN_CLI_LR), "--warmup_ratio", "0",
+                        "--seed", "3"])
+    records = _cli_records(out)
+    if [r["step"] for r in records] != [1, 2]:
+        raise RuntimeError(f"{label}: micro-steps {[r['step'] for r in records]}")
+    return records, rec, _launches()
+
+
+def _family_sft_lora(family, cfg, params) -> dict:
+    """One SFT step (two packed 512-token rows) and one LoRA step (r 8) on a
+    family checkpoint's bf16 params on the card: finite losses, the LM's
+    training kernels at its head dim (`_lm_train_launches`)."""
+    rng = np.random.default_rng(TRAIN_CLI_SEED)
+    opt = optimizer.OptimizerConfig(learning_rate=TRAIN_CLI_LR, warmup_ratio=0.0, total_steps=10)
+    ids = torch.from_numpy(rng.integers(5, 2000, (2, 512))).to("cuda")
+    valid = torch.tensor([512, 300], device="cuda")
+    want, launches = _lm_train_launches(cfg), {}
+    _reset_launches()
+    _, m = sft.make_sft_train_step(cfg, opt)(trainer.init_train_state(params, opt), ids, ids,
+                                             valid)
+    launches[f"{family}_sft"] = _launches()
+    lora_cfg = lora.LoraConfig(r=8, alpha=16)
+    factors = lora.init_lora(params, lora_cfg, torch.Generator("cuda").manual_seed(0))
+    _reset_launches()
+    _, m2 = lora.make_lora_train_step(cfg, opt, lora_cfg)(
+        trainer.init_train_state(factors, opt), params, trainer.TextBatch(ids, ids, valid))
+    launches[f"{family}_lora"] = _launches()
+    losses = [float(m["loss"]), float(m2["loss"])]
+    for path, got in launches.items():
+        if got != want:
+            raise RuntimeError(f"{path}: launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{family} SFT / LoRA losses {losses}")
+    log(json.dumps({"family_sft_lora": family, "losses": losses}))
+    return launches
+
+
+def phase_train_cli_families():
+    """The train CLI (`train.cli.main`) on the small family checkpoints of
+    `family_checkpoint` (written under build/ with a tokenizer holding the
+    family's chat specials, FAMILY_CLI), over a 65-frame video and a text
+    sample, two micro-steps, k = 1: llava_gemma (`--version gemma`; tied,
+    2 heads of 256 over one KV head) in bf16 on the card, its launches held
+    (the LM's training kernels at 256) and the watched leaf moved at each
+    update; the untied llava_llama (`--version llava_llama_3`) in fp32 on
+    the card and again on the CPU, the first micro-step's loss held to
+    TRAIN_PARITY_LOSS_RTOL, its launches held and its `lm_head` moved. Then
+    one SFT and one LoRA step on each checkpoint's bf16 params. Returns the
+    launches by path."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(FAMILY_CLI_DIR, ignore_errors=True)
+    data, vids = _family_cli_data(FAMILY_CLI_DIR)
+    launches, losses = {}, {}
+    for family, (version, chat) in FAMILY_CLI.items():
+        directory = FAMILY_CLI_DIR / family
+        _, cfg, _ = family_checkpoint(directory, family)
+        _write_tokenizer(directory, chat)
+        out = str(FAMILY_CLI_DIR / f"run_{family}")
+        dtype = "bfloat16" if family == "llava_gemma" else "float32"
+        records, rec, got = _family_cli_run(f"train CLI {family}", directory, version, data,
+                                            vids, out, "cuda", dtype)
+        _check_cli_run(f"train CLI {family}", records, rec, {1, 2}, cfg, got)
+        launches[f"train_cli_{family}"] = got
+        losses[family] = [r["loss"] for r in records]
+        if family == "llava_llama":
+            first = rec["first"].params["language_model"]
+            if "lm_head" not in first or torch.equal(
+                    first["lm_head"], rec["state"].params["language_model"]["lm_head"]):
+                raise RuntimeError("train CLI llava_llama: lm_head is missing or did not move")
+            cpu_records, _, _ = _family_cli_run("train CLI llava_llama on the CPU", directory,
+                                                version, data, vids, out + "_cpu", "cpu",
+                                                dtype)
+            a, b = records[0]["loss"], cpu_records[0]["loss"]
+            losses["llava_llama_cpu"] = [r["loss"] for r in cpu_records]
+            if not abs(a - b) <= TRAIN_PARITY_LOSS_RTOL * abs(b):
+                raise RuntimeError(f"train CLI llava_llama: first loss {a} on the card, {b} on "
+                                   "the CPU")
+        del rec
+        _, model, _, _ = load_pretrained_model(str(directory))
+        launches.update(_family_sft_lora(family, model.cfg, model.params))
+        del model
+        torch.cuda.empty_cache()
+    shutil.rmtree(FAMILY_CLI_DIR)
+    log(json.dumps({"train_cli_families": losses, "launches": {
+        path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()},
+        "phase_s": time.perf_counter() - t_phase}))
+    return launches
+
+
+# The CPU halves of the parity checks (plain versions over full widths, a
+# few minutes of the card machine's CPU in all), computed by a child
+# process while the card runs the kernel phases, so that they take no time
+# of their own; a phase that needs one waits for the child. Without a
+# child (a phase called alone) each is computed in the calling process.
+CPU_REFERENCE_DIR = Path(__file__).resolve().parent / "build" / "cpu_references"
+CPU_REFERENCE_JOBS = {
+    "gemma_parity": _gemma_parity_cpu,
+    "train_parity": lambda: _parity_step(*_train_parity_setup(), 8, "cpu"),
+    "accumulated_update": lambda: _accumulated_run(*_train_parity_setup(), "cpu"),
+    "train_parity_gemma": lambda: _parity_step(*_gemma_train_parity_setup(), 2, "cpu"),
+}
+_CPU_CHILD = {}
+
+
+def _cpu_references():
+    """The child: every CPU_REFERENCE_JOBS entry in order, each saved under
+    CPU_REFERENCE_DIR as it is done, on all cores but two (the parent's
+    host work keeps them)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+    torch.backends.cudnn.allow_tf32 = False
+    for name, job in CPU_REFERENCE_JOBS.items():
+        t0 = time.perf_counter()
+        result = job()
+        torch.save(result, CPU_REFERENCE_DIR / f"{name}.tmp")
+        os.replace(CPU_REFERENCE_DIR / f"{name}.tmp", CPU_REFERENCE_DIR / f"{name}.pt")
+        log(f"cpu reference {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def _start_cpu_references():
+    """Start the child (no card visible to it), its output in a log."""
+    shutil.rmtree(CPU_REFERENCE_DIR, ignore_errors=True)
+    CPU_REFERENCE_DIR.mkdir(parents=True)
+    out = open(CPU_REFERENCE_DIR / "child.log", "w")
+    _CPU_CHILD["proc"] = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke._cpu_references()"],
+        cwd=str(Path(__file__).resolve().parent), stdout=out, stderr=subprocess.STDOUT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    _CPU_CHILD["log"] = out
+
+
+def _stop_cpu_references():
+    proc = _CPU_CHILD.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "log" in _CPU_CHILD:
+        _CPU_CHILD.pop("log").close()
+
+
+def _cpu_reference(name: str, compute):
+    """The CPU half `name`: the child's, once it is saved (waiting for it),
+    else `compute()` here. A child that ended without it raises with its
+    log."""
+    proc = _CPU_CHILD.get("proc")
+    if proc is None:
+        return compute()
+    path = CPU_REFERENCE_DIR / f"{name}.pt"
+    t0 = time.perf_counter()
+    while not path.exists():
+        if proc.poll() is not None and not path.exists():
+            tail = (CPU_REFERENCE_DIR / "child.log").read_text()[-3000:]
+            raise RuntimeError(f"the CPU reference process ended (rc {proc.returncode}) "
+                               f"without {name}:\n{tail}")
+        time.sleep(0.5)
+    log(json.dumps({"cpu_reference": name, "waited_s": time.perf_counter() - t0}))
+    return torch.load(path, weights_only=False)
+
+
+def _phase(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, its seconds logged as one line."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(json.dumps({"phase": fn.__name__, "seconds": time.perf_counter() - t0}))
+    return out
+
+
 def main():
     phase_card()
-    phase_build()
-    train_kernels, flash_backward = phase_train_kernels()
-    kernels = [*phase_flash_kernel(), *phase_int8_kernels(), *phase_fused_kernels(),
-               *train_kernels, *phase_int8_attn_kernels()]
+    _phase(phase_build)
+    _start_cpu_references()
+    try:
+        _main()
+    finally:
+        _stop_cpu_references()
+    shutil.rmtree(CPU_REFERENCE_DIR, ignore_errors=True)
+
+
+def _main():
+    train_kernels, flash_backward = _phase(phase_train_kernels)
+    kernels = [*_phase(phase_flash_kernel), *_phase(phase_int8_kernels),
+               *_phase(phase_fused_kernels), *train_kernels, *_phase(phase_int8_attn_kernels)]
     kernels[0]["backward"] = flash_backward
-    chain_launches = phase_chain()
-    attn_block_launches = phase_attn_block()
-    microbench_launches = phase_microbench()
-    launches = phase_requests()
-    launches["7b_int8_64_frames"] = phase_requests_7b()
-    d256_row, gemma_launches = phase_requests_gemma()
+    chain_launches = _phase(phase_chain)
+    attn_block_launches = _phase(phase_attn_block)
+    microbench_launches = _phase(phase_microbench)
+    launches = _phase(phase_requests)
+    launches["7b_int8_64_frames"] = _phase(phase_requests_7b)
+    d256_row, gemma_launches = _phase(phase_requests_gemma)
     kernels.insert(2, d256_row)
+    kernels.insert(3, _phase(_f32_d256_row))
     launches.update(gemma_launches)
-    launches["serving"] = phase_serving()
-    launches.update(phase_load(keep=True))
-    launches.update(phase_eval(keep=True))
-    launches.update(phase_train_cli())
-    phase_entry_point()
+    launches["serving"] = _phase(phase_serving)
+    launches.update(_phase(phase_load, keep=True))
+    launches.update(_phase(phase_eval, keep=True))
+    launches.update(_phase(phase_train_cli))
+    launches.update(_phase(phase_train_cli_families))
+    _phase(phase_entry_point)
     launches["int8_mlp_chain"] = chain_launches
     launches["attn_block"] = attn_block_launches
     launches.update(microbench_launches)
-    launches["train_step"] = phase_train()
-    phase_bench_train()
-    phase_parity()
-    phase_train_parity()
+    launches["train_step"] = _phase(phase_train)
+    launches["train_step_gemma"] = _phase(phase_train_gemma)
+    _phase(phase_bench_train)
+    _phase(phase_parity)
+    _phase(phase_train_parity)
+    launches["train_parity_gemma"] = _phase(phase_train_parity_gemma)
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())

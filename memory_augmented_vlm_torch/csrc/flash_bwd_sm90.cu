@@ -23,7 +23,9 @@
 // are here: dQ recomputes q k^T and does dO v^T and ds K (6), dK/dV
 // recomputes q k^T and does dO v^T, p^T dO and ds^T Q (8). At the LM's train
 // shape (S = 9557, D = 64, 14 query heads over 2 KV heads, causal) that is
-// 0.25 and 0.33 ms at the bf16 peak, while their bytes take 0.02 ms.
+// 0.25 and 0.33 ms at the bf16 peak, while their bytes take 0.02 ms; at
+// Gemma-2B's (the same S, D = 256, 8 query heads over one KV head) 0.57
+// and 0.76 ms.
 //
 // The design, per kernel:
 //   - work split: a block takes one item of a work list that the wrapper
@@ -66,6 +68,33 @@
 //     their score products (named barriers), so one's softmax runs under
 //     the other's products. Tiles wholly inside the mask skip the mask
 //     arithmetic, and exp2 runs on the special-function unit.
+//
+// Head dim 256 (Gemma's LM: 8 query heads over one KV head), where a 64 x
+// 256 fp32 accumulator is 128 registers a thread. ptxas gives a thread at
+// most 168 in a block of two consumer warpgroups and a producer warp (nine
+// warps: three share a quarter of the register file), and 255 in a block of
+// one consumer warpgroup and the producer (five warps), so both kernels
+// take one consumer warpgroup at 256:
+//   - dQ: one 64-row item holds the whole 64 x 256 dQ accumulator (128
+//     registers) beside S and dP (32 each): 192 live, under 255. Its
+//     shared memory (q, dO and two K/V stages, 32 KB a tile) is 193 KB, so
+//     one block per SM;
+//   - dK/dV: the two 64 x 256 accumulators (256 registers) cannot live in
+//     one warpgroup, so each 64-key item runs as two blocks, one per half
+//     of the head dim's columns (bwd_dkv_half_sm90_kernel). Each
+//     recomputes S^T = K qs^T and dP^T = V dO^T over the whole head dim
+//     (the softmax needs every column), then dV[:, half] += P^T dO[:, half]
+//     and dK[:, half] += dS^T Q[:, half]: 64 + 64 accumulators beside S^T
+//     and dP^T, 192 live, at 1.5x the minimal tensor work (the score
+//     products twice). The key tile stays resident (K and V, 64 KB); a
+//     stage holds qs and dO at full width and q's half (80 KB), two stages;
+//     the stages' lse and delta sit after them: 226 KB in all. The two
+//     halves of an item are neighbouring blocks, so they read the same
+//     tiles close together in time (L2). The partials and the group sum
+//     are as above: at Gemma-2B's train shape the partials are 2 x 8 heads
+//     x S x 256 fp32, 157 MB.
+//   Neither overlaps its softmax with another warpgroup's products (one
+//   consumer warpgroup a block, one block an SM): a simple design first.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -457,6 +486,189 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   }
 }
 
+// dK/dV at the head dims whose two accumulators do not fit one warpgroup
+// (256): a block takes one 64-key item and one half of the columns, DH =
+// D / 2 (block 2i + c: item i, half c).
+template <int D>
+struct DkvHalfShape {
+  static constexpr int DH = D / 2;          // output columns of a block
+  static constexpr int BN = kWgRows;        // keys per item: one warpgroup
+  static constexpr int BM = kStepRows;      // query rows per stage
+  static constexpr uint32_t KV_BYTES = BN * D * 2;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;    // a full-width query tile
+  static constexpr uint32_t QH_BYTES = BM * DH * 2;  // q's half
+  // a stage: qs and dO at full width, then q's half
+  static constexpr uint32_t STAGE = 2 * Q_BYTES + QH_BYTES;
+  // after the stages: each stage's lse and delta (BM floats each)
+  static constexpr uint32_t ROWS = 2 * KV_BYTES + STAGES * STAGE;
+  static constexpr uint32_t BARS = ROWS + STAGES * 2 * BM * 4;
+  static constexpr size_t SMEM = BARS + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(DH % 64 == 0 && STAGE % 1024 == 0, "1024-byte aligned swizzled blocks");
+  static_assert(SMEM <= 227 * 1024, "one block's shared memory");
+};
+
+// One item and one column half: 64 keys of one query head's KV head,
+// looping over 64-row query tiles from the causal diagonal to Sq; writes
+// this head's fp32 dK and dV partials for its keys at the half's columns.
+// S^T and dP^T reduce over the whole head dim, as bwd_dkv_sm90_kernel's.
+template <int D>
+__global__ void __launch_bounds__(128 + 32, 1)
+    bwd_dkv_half_sm90_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                             const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, const BwdParams p) {
+  using S = DkvHalfShape<D>;
+  constexpr int CB = D / kSwzCols, CBH = S::DH / kSwzCols;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // `base` as a generic pointer
+  const uint32_t s_k = base, s_v = base + S::KV_BYTES, s_st = base + 2 * S::KV_BYTES;
+  const uint32_t kv_bar = base + S::BARS, full0 = kv_bar + 8, empty0 = full0 + 8 * STAGES;
+
+  const int* item = p.items + 3 * (blockIdx.x >> 1);
+  const int half = blockIdx.x & 1, col0 = half * S::DH;
+  const int b = item[0], h = item[1], k0 = item[2] * S::BN;
+  const int hk = h / p.kv_groups;
+  const int kv_end = min(p.valid_len[b], p.Skv);
+  const int m_first = p.causal ? k0 / S::BM : 0;
+  const int m_tiles = (p.Sq + S::BM - 1) / S::BM;
+  // the item's query tiles, seen as uniform (wgmma behind a branch on a
+  // value ptxas cannot prove warp-uniform is serialised)
+  const int n_iters = __shfl_sync(
+      0xffffffffu, (k0 < kv_end && m_tiles > m_first) ? m_tiles - m_first : 0, 0);
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer's lanes
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (n_iters > 0) {
+      if (lane == 0) {
+        mbar_arrive_tx(kv_bar, 2 * S::KV_BYTES);
+        for (int c = 0; c < CB; ++c) {
+          tma_load(s_k + c * S::BN * kRowBytes, &tm_k, kv_bar, c * kSwzCols, k0, hk, b);
+          tma_load(s_v + c * S::BN * kRowBytes, &tm_v, kv_bar, c * kSwzCols, k0, hk, b);
+        }
+      }
+      const long long rows = ((long long)b * p.H + h) * p.Sq;
+      for (int j = 0; j < n_iters; ++j) {
+        const int s = j % STAGES, m0 = (m_first + j) * S::BM;
+        const uint32_t stage = s_st + s * S::STAGE, full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((j / STAGES) & 1) ^ 1);
+        float* sl = reinterpret_cast<float*>(gbase + S::ROWS) + s * 2 * S::BM;
+        for (int r = lane; r < S::BM; r += 32) {  // lse = inf on rows past Sq: p = 0
+          const int row = m0 + r;
+          sl[r] = row < p.Sq ? p.lse[rows + row] : INFINITY;
+          sl[S::BM + r] = row < p.Sq ? p.delta[rows + row] : 0.f;
+        }
+        if (lane == 0) {  // every lane arrives after its own stores
+          mbar_arrive_tx(full, 2 * S::Q_BYTES + S::QH_BYTES);
+          for (int c = 0; c < CB; ++c) {
+            const uint32_t off = c * S::BM * kRowBytes;
+            tma_load(stage + off, &tm_qs, full, c * kSwzCols, m0, h, b);
+            tma_load(stage + S::Q_BYTES + off, &tm_do, full, c * kSwzCols, m0, h, b);
+          }
+          for (int c = 0; c < CBH; ++c) {
+            tma_load(stage + 2 * S::Q_BYTES + c * S::BM * kRowBytes, &tm_q, full,
+                     col0 + c * kSwzCols, m0, h, b);
+          }
+        } else {
+          mbar_arrive(full);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + wl * 16 + g;  // this thread's keys: key0, key0 + 8
+  float dk[CBH][32], dv[CBH][32], st[32], dpt[32];
+  zero<S::DH>(dk);
+  zero<S::DH>(dv);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  if (n_iters > 0) mbar_wait(kv_bar, 0);
+  const bool diag_free = k0 + S::BN <= kv_end;  // no key of the item is past the valid length
+  for (int j = 0; j < n_iters; ++j) {
+    const int s = j % STAGES, m0 = (m_first + j) * S::BM;
+    const uint32_t stage = s_st + s * S::STAGE;
+    const uint32_t s_do = stage + S::Q_BYTES, s_qh = stage + 2 * S::Q_BYTES;
+    mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // S^T = K qs^T
+      wgmma_ss_n64(st, desc_kmajor(s_k, S::BN, 0, kk), desc_kmajor(stage, S::BM, 0, kk), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // dP^T = V dO^T
+      wgmma_ss_n64(dpt, desc_kmajor(s_v, S::BN, 0, kk), desc_kmajor(s_do, S::BM, 0, kk), kk);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(st);
+    reg_fence(dpt);
+    const float* sl = reinterpret_cast<const float*>(gbase + S::ROWS) + s * 2 * S::BM;
+    const bool inside = diag_free && (!p.causal || k0 + S::BN - 1 <= m0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {  // element 4c + e: key key0 + 8 (e >> 1), query column
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * c + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(sl + S::BM + 8 * c + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * c + e;
+        const float lse = (e & 1) ? l2.y : l2.x, dlt = (e & 1) ? d2.y : d2.x;
+        float pr;
+        if (inside) {  // no pair of the tile is masked for these keys
+          pr = fast_exp2(st[i] - lse);
+        } else {
+          const int key = key0 + 8 * (e >> 1), query = m0 + 8 * c + 2 * t + (e & 1);
+          const bool ok = key < kv_end && (!p.causal || key <= query);
+          pr = ok ? fast_exp2(st[i] - lse) : 0.f;
+        }
+        st[i] = pr;
+        dpt[i] = pr * (dpt[i] - dlt) * p.scale;
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+    acc_to_a(st, pa);   // P^T rounded to bf16
+    acc_to_a(dpt, da);  // dS^T rounded to bf16
+    wg_fence();
+    // dV[:, half] += P^T dO[:, half]: dO's column blocks of this half
+    mma_rows_by_tile<S::DH>(dv, pa, s_do + half * CBH * S::BM * kRowBytes);
+    mma_rows_by_tile<S::DH>(dk, da, s_qh);  // dK[:, half] += dS^T Q[:, half]
+    wg_commit();
+    wg_wait_all();
+    fence_all<S::DH>(dv);
+    fence_all<S::DH>(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  const long long head = ((long long)b * p.H + h) * p.Skv;
+  float* dkp = static_cast<float*>(p.out) + head * D + col0;
+  float* dvp = static_cast<float*>(p.out2) + head * D + col0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= p.Skv) continue;
+#pragma unroll
+    for (int c = 0; c < S::DH / 8; ++c) {
+      const long long off = (long long)key * D + 8 * c + 2 * t;
+      const int i = 4 * (c % 8) + 2 * r;
+      *reinterpret_cast<float2*>(dkp + off) = make_float2(dk[c / 8][i], dk[c / 8][i + 1]);
+      *reinterpret_cast<float2*>(dvp + off) = make_float2(dv[c / 8][i], dv[c / 8][i + 1]);
+    }
+  }
+}
+
 // dK and dV (B, Skv, Hkv, D) from the partials (B, H, Skv, D): each group's
 // G heads summed in head order in fp32, cast to bf16 once.
 __global__ void dkv_group_sum_kernel(const float* dk_part, const float* dv_part,
@@ -514,11 +726,13 @@ BwdParams make_params(const void* lse, const void* delta, const void* valid_len,
 // query rows each) and blocks per SM; dK/dV: consumer warpgroups (64 keys
 // each). At D = 64 dQ runs three one-warpgroup blocks per SM, so three
 // independent items interleave their products and softmax; at D = 128 its
-// accumulators need the registers of one two-warpgroup block. dK/dV keeps
-// one warpgroup at D = 128, for registers.
+// accumulators need the registers of one two-warpgroup block; at D = 256
+// one warpgroup holds them alone (255 registers). dK/dV keeps one
+// warpgroup at D = 128, for registers, and at 256 splits the columns
+// (DkvHalfShape).
 template <int D>
 struct DqConfig {
-  static constexpr int NWG = D == 64 ? 1 : 2, MINB = D == 64 ? 3 : 1;
+  static constexpr int NWG = D == 128 ? 2 : 1, MINB = D == 64 ? 3 : 1;
 };
 template <int D>
 struct DkvConfig {
@@ -549,6 +763,22 @@ int run_dq(const void* qs, const void* k, const void* v, const void* dout, void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch error of the kernel before it, else the group sum's launch
+// (dkv_group_sum_kernel) from the partials into dK and dV.
+int group_sum(void* dk_part, void* dv_part, void* dk, void* dv, int B, int Hkv, int kv_groups,
+              int Skv, int D, const long long* dkv_strides, cudaStream_t stream) {
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const long long n = (long long)B * Hkv * Skv * (D / 4);
+  const int threads = 256;
+  const int blocks = static_cast<int>(n / threads + 1 < 132 * 16 ? n / threads + 1 : 132 * 16);
+  dkv_group_sum_kernel<<<blocks, threads, 0, stream>>>(
+      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Hkv, kv_groups, Skv,
+      D, dkv_strides[0], dkv_strides[1], dkv_strides[2]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int run_dkv(const void* qs, const void* q, const void* k, const void* v, const void* dout,
             void* dk_part, void* dv_part, void* dk, void* dv, const BwdParams& params,
@@ -571,19 +801,40 @@ int run_dkv(const void* qs, const void* q, const void* k, const void* v, const v
   p.out = dk_part;
   p.out2 = dv_part;
   const auto kernel = bwd_dkv_sm90_kernel<D, NWG>;
-  int rc = set_smem(kernel, S::SMEM);
+  const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
   kernel<<<n_items, NWG * 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
-  rc = static_cast<int>(cudaGetLastError());
+  return group_sum(dk_part, dv_part, dk, dv, B, Hkv, kv_groups, Skv, D, dkv_strides, stream);
+}
+
+// dK/dV at D = 256: two blocks per item, one per half of the columns
+// (bwd_dkv_half_sm90_kernel), then the group sum.
+template <int D>
+int run_dkv_half(const void* qs, const void* q, const void* k, const void* v,
+                 const void* dout, void* dk_part, void* dv_part, void* dk, void* dv,
+                 const BwdParams& params, int n_items, int B, int Sq, int Skv, int H,
+                 int kv_groups, const long long* qs_strides, const long long* q_strides,
+                 const long long* k_strides, const long long* v_strides,
+                 const long long* d_strides, const long long* dkv_strides,
+                 cudaStream_t stream) {
+  using S = DkvHalfShape<D>;
+  const int Hkv = H / kv_groups;
+  CUtensorMap m[5];
+  if (!make_map(&m[0], qs, D, Sq, H, B, qs_strides, S::BM) ||
+      !make_map(&m[1], q, D, Sq, H, B, q_strides, S::BM) ||
+      !make_map(&m[2], dout, D, Sq, H, B, d_strides, S::BM) ||
+      !make_map(&m[3], k, D, Skv, Hkv, B, k_strides, S::BN) ||
+      !make_map(&m[4], v, D, Skv, Hkv, B, v_strides, S::BN)) {
+    return kTmaRejected;
+  }
+  BwdParams p = params;
+  p.out = dk_part;
+  p.out2 = dv_part;
+  const auto kernel = bwd_dkv_half_sm90_kernel<D>;
+  const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
-  const long long n = (long long)B * Hkv * Skv * (D / 4);
-  const int threads = 256;
-  const int blocks = static_cast<int>(n / threads + 1 < 132 * 16 ? n / threads + 1 : 132 * 16);
-  dkv_group_sum_kernel<<<blocks, threads, 0, stream>>>(
-      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Hkv, kv_groups, Skv,
-      D, dkv_strides[0], dkv_strides[1], dkv_strides[2]);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<2 * n_items, 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
+  return group_sum(dk_part, dv_part, dk, dv, B, Hkv, kv_groups, Skv, D, dkv_strides, stream);
 }
 
 }  // namespace
@@ -599,11 +850,24 @@ int run_dkv(const void* qs, const void* q, const void* k, const void* v, const v
 // loop over dkv_rows-row query tiles.
 extern "C" int flash_bwd_tiles(int head_dim, int* dq_rows, int* dq_keys, int* dkv_rows,
                                int* dkv_keys) {
-  if (head_dim != 64 && head_dim != 128) return -1;
-  *dq_rows = (head_dim == 64 ? DqConfig<64>::NWG : DqConfig<128>::NWG) * kWgRows;
+  switch (head_dim) {
+    case 64:
+      *dq_rows = DqConfig<64>::NWG * kWgRows;
+      *dkv_keys = DkvConfig<64>::NWG * kWgRows;
+      break;
+    case 128:
+      *dq_rows = DqConfig<128>::NWG * kWgRows;
+      *dkv_keys = DkvConfig<128>::NWG * kWgRows;
+      break;
+    case 256:
+      *dq_rows = DqConfig<256>::NWG * kWgRows;
+      *dkv_keys = DkvHalfShape<256>::BN;
+      break;
+    default:
+      return -1;
+  }
   *dq_keys = kStepRows;
   *dkv_rows = kStepRows;
-  *dkv_keys = (head_dim == 64 ? DkvConfig<64>::NWG : DkvConfig<128>::NWG) * kWgRows;
   return 0;
 }
 
@@ -627,6 +891,10 @@ extern "C" int flash_bwd_dq_sm90(int head_dim, const void* qs, const void* k, co
   }
   if (head_dim == 128) {
     return run_dq<128>(qs, k, v, dout, dq, p, n_items, B, Sq, Skv, H, kv_groups, qs_strides,
+                       k_strides, v_strides, d_strides, s);
+  }
+  if (head_dim == 256) {
+    return run_dq<256>(qs, k, v, dout, dq, p, n_items, B, Sq, Skv, H, kv_groups, qs_strides,
                        k_strides, v_strides, d_strides, s);
   }
   return -1;
@@ -653,6 +921,11 @@ extern "C" int flash_bwd_dkv_sm90(int head_dim, const void* qs, const void* q, c
   }
   if (head_dim == 128) {
     return run_dkv<128>(
+        qs, q, k, v, dout, dk_part, dv_part, dk, dv, p, n_items, B, Sq, Skv, H, kv_groups,
+        qs_strides, q_strides, k_strides, v_strides, d_strides, dkv_strides, s);
+  }
+  if (head_dim == 256) {
+    return run_dkv_half<256>(
         qs, q, k, v, dout, dk_part, dv_part, dk, dv, p, n_items, B, Sq, Skv, H, kv_groups,
         qs_strides, q_strides, k_strides, v_strides, d_strides, dkv_strides, s);
   }

@@ -14,7 +14,10 @@
 //
 // bf16 inputs, the main path, run the TMA-fed wgmma kernel of
 // flash_fwd_sm90.cu. fp32 inputs take the SIMT kernel here (one warp per
-// query row, lanes over keys); it serves fp32 parity runs only.
+// query row, lanes over keys) at head dims 64, 72, 112, 128 and 256; it
+// serves fp32 parity runs only. Its tiles live in dynamic shared memory:
+// at 256 they take 72 KB, past the 48 KB a block gets without the opt-in
+// attribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,13 +49,21 @@ struct FlashParams {
 constexpr int kRowsF32 = 8;   // warps per block, one query row each
 constexpr int kBNF32 = 32;    // keys per tile, one per lane
 
+// shared floats of the kernel's tiles: K [kBNF32][D + 1] (padded against
+// bank conflicts), V [kBNF32][D], the block's q rows [kRowsF32][D]
+template <int D>
+constexpr size_t smem_f32_bytes() {
+  return (kBNF32 * (D + 1) + kBNF32 * D + kRowsF32 * D) * sizeof(float);
+}
+
 template <int D>
 __global__ void __launch_bounds__(32 * kRowsF32)
 flash_fwd_f32_kernel(const FlashParams p) {
   constexpr int NI = (D + 31) / 32;  // output dims per lane
-  __shared__ float sK[kBNF32][D + 1];
-  __shared__ float sV[kBNF32][D];
-  __shared__ float sQ[kRowsF32][D];
+  extern __shared__ float smem_f32[];
+  float(*sK)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem_f32);
+  float(*sV)[D] = reinterpret_cast<float(*)[D]>(smem_f32 + kBNF32 * (D + 1));
+  float(*sQ)[D] = reinterpret_cast<float(*)[D]>(smem_f32 + kBNF32 * (D + 1) + kBNF32 * D);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -137,19 +148,25 @@ template <template <int> class Launch>
 int dispatch_head_dim(int head_dim, const FlashParams& p, dim3 grid,
                       cudaStream_t stream) {
   switch (head_dim) {
-    case 64: Launch<64>::run(p, grid, stream); break;
-    case 72: Launch<72>::run(p, grid, stream); break;
-    case 112: Launch<112>::run(p, grid, stream); break;
-    case 128: Launch<128>::run(p, grid, stream); break;
+    case 64: return Launch<64>::run(p, grid, stream);
+    case 72: return Launch<72>::run(p, grid, stream);
+    case 112: return Launch<112>::run(p, grid, stream);
+    case 128: return Launch<128>::run(p, grid, stream);
+    case 256: return Launch<256>::run(p, grid, stream);
     default: return -1;
   }
-  return 0;
 }
 
 template <int D>
 struct LaunchF32 {
-  static void run(const FlashParams& p, dim3 grid, cudaStream_t stream) {
-    flash_fwd_f32_kernel<D><<<grid, 32 * kRowsF32, 0, stream>>>(p);
+  static int run(const FlashParams& p, dim3 grid, cudaStream_t stream) {
+    constexpr size_t smem = smem_f32_bytes<D>();
+    const cudaError_t rc = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    flash_fwd_f32_kernel<D><<<grid, 32 * kRowsF32, smem, stream>>>(p);
+    return 0;
   }
 };
 

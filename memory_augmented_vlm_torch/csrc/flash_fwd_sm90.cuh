@@ -31,9 +31,10 @@ int run(const Args& a, int head_dim, void* stream);
 }  // namespace fwd_sm90
 
 // The wide-head kernel of flash_fwd_wide_sm90.cu: bf16, head dims 256 (the
-// Gemma LM and the memory at its hidden size of 2048 over 8 heads) and 448
-// (the 7B memory: hidden 3584 over 8 heads), no lse. Its online softmax
-// takes key tiles of key_tile(D) keys; a block takes kBlockRows query rows.
+// Gemma LM and the memory at its hidden size of 2048 over 8 heads; with
+// the lse epilogue for training) and 448 (the 7B memory: hidden 3584 over
+// 8 heads; no lse). Its online softmax takes key tiles of key_tile(D)
+// keys; a block takes kBlockRows query rows.
 namespace fwd_wide {
 
 constexpr bool is_head_dim(int d) { return d == 256 || d == 448; }
@@ -41,7 +42,7 @@ constexpr int key_tile(int d) { return d == 448 ? 32 : 64; }
 constexpr int kBlockRows = 64;
 
 // As fwd_sm90::run at a head dim of is_head_dim: -1 when an lse is asked
-// for, -3 for other block rows.
+// for at 448, -3 for other block rows.
 int run(const fwd_sm90::Args& a, int head_dim, void* stream);
 
 }  // namespace fwd_wide

@@ -3,13 +3,21 @@
 // beside its scores: 256 (Gemma's LM, and the memory at Gemma-2B's hidden
 // size of 2048 over 8 heads) and 448 (the 7B model's memory, whose hidden
 // size of 3584 is split over 8 heads). It is reached through flash_fwd
-// (flash_fwd.cu) -> fwd_sm90::run, as the other head dims are.
+// (flash_fwd.cu) and, at 256, flash_fwd_lse (flash_train.cu) ->
+// fwd_sm90::run, as the other head dims are: a template with a flag for
+// the lse epilogue, instantiated under one name per entry point
+// (flash_fwd_wide_kernel, flash_fwd_lse_wide_kernel).
 //
-// Replaces the TPU kernel _flash_fwd_kernel behind
-// memory_augmented_vlm_tpu/ops/pallas_flash.py::pallas_flash_attention (#1)
-// at those widths (the JAX model pads 448 to 512, a TPU lane alignment;
-// here no pad), and computes its function at a key tile of BN = 64 keys
-// (D = 256) or 32 (D = 448):
+// Replaces the TPU kernels
+//   _flash_fwd_kernel  behind memory_augmented_vlm_tpu/ops/pallas_flash.py::
+//                      pallas_flash_attention (#1) at those widths (the JAX
+//                      model pads 448 to 512, a TPU lane alignment; here no
+//                      pad), and
+//   _fwd_lse_kernel    behind memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py::
+//                      _forward_with_lse (#9) at 256 (Gemma training; no JAX
+//                      path trains at 448, which refuses the lse),
+// and computes their function at a key tile of BN = 64 keys (D = 256) or 32
+// (D = 448):
 //   - q is scaled by scale*log2(e) and rounded to bf16 before QK^T;
 //   - per tile of BN keys, the running max m, alpha = exp2(m_prev - m_next),
 //     p = exp2(s - m_next) rounded to bf16 for PV, l and the fp32
@@ -18,8 +26,11 @@
 //   - keys at or past kv_valid_len[b], and above the diagonal when causal,
 //     score MASK_VALUE; tiles wholly past the valid length or above the
 //     block's diagonal are skipped; a batch with valid length 0 gives zeros;
-//   - out = acc / l in bf16. Layout is bshd (strides, the head dim
-//     contiguous, rows on 16 bytes); GQA reads K/V head h / kv_groups.
+//   - out = acc / l in bf16; with the lse epilogue also lse = m +
+//     log2(max(l, 1e-30)) in log2 units, (B, H, Sq) fp32, -inf for a batch
+//     with valid length 0 (written by the first warpgroup; both hold the
+//     same m and l). Layout is bshd (strides, the head dim contiguous, rows
+//     on 16 bytes); GQA reads K/V head h / kv_groups.
 //
 // What bounds it on the H100: arithmetic. The 7B memory's fuse (1568
 // queries of 8 heads over 3136 valid keys) is 70 GFLOP of bf16 products,
@@ -119,13 +130,15 @@ struct Params {
   const int* valid_len;  // (B,)
   const int* items;      // (n_items, 3): batch, query head, tile of BM rows
   __nv_bfloat16* o;      // bshd
-  int Sq, Skv, kv_groups, causal;
+  float* lse;            // (B, H, Sq), or null without the lse epilogue
+  int Sq, Skv, H, kv_groups, causal;
   long long o_sb, o_ss, o_sh;
 };
 
 // The consumer side of a block, for warpgroup WG: its share of PV and of
-// the output columns; both warpgroups run the same QK^T and softmax.
-template <int D, int WG>
+// the output columns; both warpgroups run the same QK^T and softmax. LSE
+// adds the lse epilogue (warpgroup 0 writes it).
+template <int D, int WG, bool LSE>
 __device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t q_tile,
                                         uint32_t full0, uint32_t empty0, int n_tiles,
                                         int kv_valid, int q0, int b, int h) {
@@ -255,6 +268,9 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = row0 + 8 * r;
     if (row >= p.Sq) continue;
+    if (LSE && WG == 0 && t == 0) {
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = m_run[r] + log2f(fmaxf(l, 1e-30f));
+    }
     const float inv = l == 0.f ? 0.f : 1.f / l;  // a row that saw no key is zero
     __nv_bfloat16* orow = out + (long long)row * p.o_ss;
 #pragma unroll
@@ -265,24 +281,24 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t
   }
 }
 
-// consume<D, wg>, the warpgroup index made a constant
-template <int D, int WG>
+// consume<D, wg, LSE>, the warpgroup index made a constant
+template <int D, int WG, bool LSE>
 __device__ __forceinline__ void consume_as(int wg, const Params& p, uint32_t base,
                                            uint32_t q_tile, uint32_t full0, uint32_t empty0,
                                            int n_tiles, int kv_valid, int q0, int b, int h) {
   if (wg == WG) {
-    consume<D, WG>(p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
+    consume<D, WG, LSE>(p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
   } else if constexpr (WG + 1 < Wide<D>::NWG) {
-    consume_as<D, WG + 1>(wg, p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
+    consume_as<D, WG + 1, LSE>(wg, p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b,
+                               h);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Wide<D>::THREADS, 1)
-    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v, const Params p,
-                          const float scale_log2) {
+// The kernel's body; LSE adds the lse epilogue (flash_fwd_lse).
+template <int D, bool LSE>
+__device__ __forceinline__ void forward(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                        const CUtensorMap& tm_v, const Params& p,
+                                        const float scale_log2) {
   using T = Wide<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -349,7 +365,28 @@ __global__ void __launch_bounds__(Wide<D>::THREADS, 1)
     fence_async_smem();
     asm volatile("bar.sync 1, %0;\n" :: "n"(T::NWG * 128) : "memory");  // the consumers
   }
-  consume_as<D, 0>(warp >> 2, p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
+  consume_as<D, 0, LSE>(warp >> 2, p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b,
+                        h);
+}
+
+// The kernels of the two entry points, one name each, so that a profile
+// tells them apart.
+template <int D>
+__global__ void __launch_bounds__(Wide<D>::THREADS, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const Params p,
+                          const float scale_log2) {
+  forward<D, false>(tm_q, tm_k, tm_v, p, scale_log2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Wide<D>::THREADS, 1)
+    flash_fwd_lse_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const Params p,
+                              const float scale_log2) {
+  forward<D, true>(tm_q, tm_k, tm_v, p, scale_log2);
 }
 
 template <int D>
@@ -366,24 +403,33 @@ int launch(const fwd_sm90::Args& a, cudaStream_t stream) {
   p.valid_len = static_cast<const int*>(a.valid_len);
   p.items = static_cast<const int*>(a.items);
   p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.lse = static_cast<float*>(a.lse);
   p.Sq = a.Sq;
   p.Skv = a.Skv;
+  p.H = a.H;
   p.kv_groups = a.kv_groups;
   p.causal = a.causal;
   p.o_sb = a.o_st[0];
   p.o_ss = a.o_st[1];
   p.o_sh = a.o_st[2];
-  const int rc = set_smem(flash_fwd_wide_kernel<D>, T::SMEM);
+  auto kernel = flash_fwd_wide_kernel<D>;
+  if (a.lse != nullptr) {
+    if constexpr (D == 256) {  // flash_fwd_lse's wide head dim
+      kernel = flash_fwd_lse_wide_kernel<D>;
+    } else {
+      return -1;
+    }
+  }
+  const int rc = set_smem(kernel, T::SMEM);
   if (rc != 0) return rc;
-  flash_fwd_wide_kernel<D><<<a.n_items, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, p,
-                                                                        a.scale_log2);
+  kernel<<<a.n_items, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, p, a.scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 int run(const fwd_sm90::Args& a, int head_dim, void* stream) {
-  if (a.lse != nullptr) return -1;  // the lse entry point takes head dims 64 and 128
+  if (a.lse != nullptr && head_dim != 256) return -1;  // no lse at 448
   if (a.block_rows != kBlockRows) return -3;
   if (a.n_items == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -24,7 +24,10 @@
 // contiguous) and (B, H, Sq) fp32 for lse and delta.
 //
 // The fp32 kernels are SIMT (a warp per query or key row, lanes over the
-// other axis). They serve fp32 parity runs only.
+// other axis), at head dims 64, 128 and 256. They serve fp32 parity runs
+// only. Their tiles live in dynamic shared memory (F32Smem), since at 256
+// they pass the 48 KB a block takes without the opt-in attribute: 72 KB
+// for the forward, 82 KB for each backward kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,12 +72,33 @@ __device__ __forceinline__ int kv_limit(const TrainParams& p, int b) {
 constexpr int kRowsF32 = 8;  // warps per block, one row each
 constexpr int kColsF32 = 32;  // columns per loop tile, one per lane
 
+// The kernels' shared tiles, in dynamic shared memory: two [kColsF32][D + 1]
+// tiles of the looped rows (padded against bank conflicts), two
+// [kRowsF32][D] tiles of the block's own rows and two vectors of kColsF32
+// (dK/dV's lse and delta); each kernel takes what it uses.
+template <int D>
+struct F32Smem {
+  static constexpr int COLS = kColsF32 * (D + 1), ROWS = kRowsF32 * D;
+  static constexpr size_t BYTES = (2 * COLS + 2 * ROWS + 2 * kColsF32) * sizeof(float);
+  float* base;
+  __device__ explicit F32Smem(float* p) : base(p) {}
+  __device__ float (*cols(int i))[D + 1] {
+    return reinterpret_cast<float (*)[D + 1]>(base + i * COLS);
+  }
+  __device__ float (*rows(int i))[D] {
+    return reinterpret_cast<float (*)[D]>(base + 2 * COLS + i * ROWS);
+  }
+  __device__ float* vec(int i) { return base + 2 * COLS + 2 * ROWS + i * kColsF32; }
+};
+
 template <int D>
 __global__ void __launch_bounds__(32 * kRowsF32) fwd_lse_f32_kernel(const TrainParams p) {
   constexpr int NI = D / 32;
-  __shared__ float sK[kColsF32][D + 1];
-  __shared__ float sV[kColsF32][D];
-  __shared__ float sQ[kRowsF32][D];
+  extern __shared__ float smem_f32[];
+  F32Smem<D> sm(smem_f32);
+  float(*sK)[D + 1] = sm.cols(0);
+  float(*sV)[D + 1] = sm.cols(1);
+  float(*sQ)[D] = sm.rows(0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRowsF32;
   const int row = q0 + warp, hk = h / p.kv_groups;
@@ -132,10 +156,12 @@ __global__ void __launch_bounds__(32 * kRowsF32) fwd_lse_f32_kernel(const TrainP
 template <int D>
 __global__ void __launch_bounds__(32 * kRowsF32) bwd_dq_f32_kernel(const TrainParams p) {
   constexpr int NI = D / 32;
-  __shared__ float sK[kColsF32][D + 1];
-  __shared__ float sV[kColsF32][D + 1];
-  __shared__ float sQ[kRowsF32][D];
-  __shared__ float sDO[kRowsF32][D];
+  extern __shared__ float smem_f32[];
+  F32Smem<D> sm(smem_f32);
+  float(*sK)[D + 1] = sm.cols(0);
+  float(*sV)[D + 1] = sm.cols(1);
+  float(*sQ)[D] = sm.rows(0);
+  float(*sDO)[D] = sm.rows(1);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRowsF32;
   const int row = q0 + warp, hk = h / p.kv_groups;
@@ -192,11 +218,14 @@ __global__ void __launch_bounds__(32 * kRowsF32) bwd_dq_f32_kernel(const TrainPa
 template <int D>
 __global__ void __launch_bounds__(32 * kRowsF32) bwd_dkv_f32_kernel(const TrainParams p) {
   constexpr int NI = D / 32;
-  __shared__ float sQ[kColsF32][D + 1];  // raw q
-  __shared__ float sDO[kColsF32][D + 1];
-  __shared__ float sK[kRowsF32][D];
-  __shared__ float sV[kRowsF32][D];
-  __shared__ float sLse[kColsF32], sDelta[kColsF32];
+  extern __shared__ float smem_f32[];
+  F32Smem<D> sm(smem_f32);
+  float(*sQ)[D + 1] = sm.cols(0);  // raw q
+  float(*sDO)[D + 1] = sm.cols(1);
+  float(*sK)[D] = sm.rows(0);
+  float(*sV)[D] = sm.rows(1);
+  float* sLse = sm.vec(0);
+  float* sDelta = sm.vec(1);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kRowsF32;
   const int key = k0 + warp;
@@ -272,29 +301,32 @@ __global__ void __launch_bounds__(32 * kRowsF32) bwd_dkv_f32_kernel(const TrainP
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <int D>
-void launch_f32(Which which, const TrainParams& p, int B, int Hkv, cudaStream_t stream) {
+int launch_f32(Which which, const TrainParams& p, int B, int Hkv, cudaStream_t stream) {
   const dim3 block(32 * kRowsF32);
-  if (which == kFwd) {
-    fwd_lse_f32_kernel<D><<<dim3((p.Sq + kRowsF32 - 1) / kRowsF32, p.H, B), block, 0, stream>>>(p);
-  } else if (which == kDq) {
-    bwd_dq_f32_kernel<D><<<dim3((p.Sq + kRowsF32 - 1) / kRowsF32, p.H, B), block, 0, stream>>>(p);
-  } else {
-    bwd_dkv_f32_kernel<D><<<dim3((p.Skv + kRowsF32 - 1) / kRowsF32, Hkv, B), block, 0, stream>>>(
-        p);
-  }
+  const dim3 rows((p.Sq + kRowsF32 - 1) / kRowsF32, p.H, B);
+  auto kernel = which == kFwd ? fwd_lse_f32_kernel<D>
+                : which == kDq ? bwd_dq_f32_kernel<D> : bwd_dkv_f32_kernel<D>;
+  const dim3 grid = which == kDkv ? dim3((p.Skv + kRowsF32 - 1) / kRowsF32, Hkv, B) : rows;
+  constexpr size_t smem = F32Smem<D>::BYTES;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<grid, block, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 only: bf16 runs flash_fwd_sm90.cu (forward) and flash_bwd_sm90.cu
+// fp32 only: bf16 runs flash_fwd_sm90.cu / flash_fwd_wide_sm90.cu (forward)
+// and flash_bwd_sm90.cu
 int launch(Which which, int dtype, int head_dim, const TrainParams& p, int B, int Hkv,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 1) return -2;
   switch (head_dim) {
-    case 64: launch_f32<64>(which, p, B, Hkv, s); break;
-    case 128: launch_f32<128>(which, p, B, Hkv, s); break;
+    case 64: return launch_f32<64>(which, p, B, Hkv, s);
+    case 128: return launch_f32<128>(which, p, B, Hkv, s);
+    case 256: return launch_f32<256>(which, p, B, Hkv, s);
     default: return -1;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 TrainParams make_params(const void* q, const void* k, const void* v, const void* valid_len,
@@ -337,7 +369,7 @@ extern "C" int flash_fwd_lse(int dtype, int head_dim, const void* q, const void*
                              const long long* v_strides, const long long* o_strides,
                              float scale, float scale_log2, void* stream, const void* items,
                              int n_items, int block_rows) {
-  if (dtype == 0) {  // head dims 64 and 128
+  if (dtype == 0) {  // head dims 64, 128 and 256 (flash_fwd_wide_sm90.cu)
     mavlm::fwd_sm90::Args a = {q, k, v, out, lse, valid_len, items, n_items, block_rows, B, Sq,
                                Skv, H, kv_groups, causal};
     for (int i = 0; i < 3; ++i) {

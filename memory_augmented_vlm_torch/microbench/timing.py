@@ -1,13 +1,15 @@
 """Timing on the card for the micro-benchmarks: CUDA events around a call,
 or around the replay of a CUDA graph that captured it, median of `reps`
-after a warm-up; and the device kernels of one such replay, by
-torch.profiler. A measurement needs a card and raises without one."""
+after a warm-up; the kernel nodes of such a graph, read from the graph
+itself; and the device kernels of one replay, by torch.profiler. A
+measurement needs a card and raises without one."""
 
 from __future__ import annotations
 
+import ctypes
 import statistics
 import subprocess
-from typing import Callable
+from typing import Callable, List
 
 import torch
 
@@ -44,26 +46,77 @@ def graph_ms(fn: Callable[[], object], reps: int = 5) -> float:
     return time_ms(capture(fn).replay, reps)
 
 
-def capture(fn: Callable[[], object]) -> torch.cuda.CUDAGraph:
+def capture(fn: Callable[[], object], keep_graph: bool = False) -> torch.cuda.CUDAGraph:
     """A CUDA graph that captured `fn`, after a warm-up call off the capture
-    (as torch.cuda.graph asks)."""
+    (as torch.cuda.graph asks). `keep_graph` keeps the captured graph
+    beside its instantiation, for `graph_kernels`."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
     return graph
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+    _fields_ = [("func", ctypes.c_void_p), *((f, ctypes.c_uint) for f in (
+        "grid_x", "grid_y", "grid_z", "block_x", "block_y", "block_z", "shared_mem")),
+        ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def graph_kernels(graph: torch.cuda.CUDAGraph) -> List[str]:
+    """The names of the kernel nodes of `graph` (made by `capture` with
+    `keep_graph=True`), read from the captured graph itself through the CUDA
+    driver (cuGraphGetNodes, cuGraphNodeGetType, cuGraphKernelNodeGetParams,
+    cuFuncGetName or cuKernelGetName). Unlike a profiler's records, none
+    can go missing. A node of another type raises."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+    raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    count = ctypes.c_size_t()
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            raise RuntimeError(f"graph node of type {kind.value}, not a kernel")
+        params = _KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
 def replay_trace(fn, name: str) -> dict:
     """The device kernels whose name holds `name` in one replay of a CUDA
-    graph that captured `fn`, by torch.profiler: how many ran, how many
-    consecutive pairs overlap (the next one started before this one ended,
-    as a programmatic dependent launch lets it), the gaps between
-    consecutive kernels and the replay's span, in us."""
+    graph that captured `fn`, by torch.profiler: how many it recorded, how
+    many consecutive pairs overlap (the next one started before this one
+    ended, as a programmatic dependent launch lets it), the gaps between
+    consecutive kernels and the replay's span, in us. A reading only: the
+    profiler can drop a record (`graph_kernels` counts a graph's kernels)."""
     graph = capture(fn)
     graph.replay()
     torch.cuda.synchronize()

@@ -48,7 +48,8 @@ KERNEL_HEAD_DIMS = (64, 72, 112, 128)
 # csrc/flash_fwd_wide_sm90.cu (`flash_forward_wide`)
 WIDE_HEAD_DIM = 448
 # Gemma's head dim, and the memory's at Gemma-2B's width (2048 / 8): bf16
-# only, through the same kernel (`flash_forward_d256`)
+# through the same kernel (`flash_forward_d256`), fp32 through the SIMT
+# kernel of csrc/flash_fwd.cu (`flash_forward_d256_f32`)
 D256 = 256
 MERGE_HEAD_DIMS = (64, 72, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -188,10 +189,10 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if d in (D256, WIDE_HEAD_DIM) and q.dtype != torch.bfloat16:
+    if d == WIDE_HEAD_DIM and q.dtype != torch.bfloat16:
         raise ValueError(f"the flash kernel takes head dim {d} in bf16 only (fp32 at {d} is "
                          f"still to port, ROADMAP §2); its fp32 kernel takes "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIMS + (D256,)}")
     if d not in KERNEL_HEAD_DIMS + (D256, WIDE_HEAD_DIM):
         raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS}, {D256} "
                          f"or {WIDE_HEAD_DIM}, got {d}")
@@ -269,6 +270,9 @@ def forward_plan(b, sq, skv, h, d, causal, device) -> Tuple[int, torch.Tensor]:
 
 
 def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
+    if q.shape[-1] == D256 and q.dtype == torch.float32:
+        return flash_forward_d256_f32(q, k, v, kv_valid_len, causal=causal, scale=scale,
+                                      kv_groups=kv_groups)
     wide = {D256: flash_forward_d256, WIDE_HEAD_DIM: flash_forward_wide}.get(q.shape[-1])
     if wide is not None:
         return wide(q, k, v, kv_valid_len, causal=causal, scale=scale, kv_groups=kv_groups)
@@ -294,10 +298,9 @@ flash_forward_wide.launches = 0
 def flash_forward_d256(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
     """#1 at head dim `D256` (Gemma's LM prefill, and the memory's
     cross-attentions at Gemma-2B's width), which `flash_attention` reaches
-    at that head dim: CPU tensors take the plain version; bf16 CUDA tensors
-    launch `csrc/flash_fwd_wide_sm90.cu` at 256 (key tiles of 64,
-    `forward_tiles`), counted in `flash_forward_d256.launches`; fp32 CUDA
-    tensors raise."""
+    at that head dim in bf16: CPU tensors take the plain version; bf16 CUDA
+    tensors launch `csrc/flash_fwd_wide_sm90.cu` at 256 (key tiles of 64,
+    `forward_tiles`), counted in `flash_forward_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"flash_forward_d256 takes head dim {D256}, got {q.shape[-1]}")
     return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
@@ -305,6 +308,22 @@ def flash_forward_d256(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
 
 
 flash_forward_d256.launches = 0
+
+
+def flash_forward_d256_f32(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
+    """#1 at head dim `D256` in fp32 (the fp32 parity runs of a Gemma-2B
+    model: the memory at 2048 over 8 heads), which `flash_attention` reaches
+    at that head dim and dtype: CPU tensors take the plain version; CUDA
+    tensors launch the SIMT kernel of `csrc/flash_fwd.cu` at 256, counted in
+    `flash_forward_d256_f32.launches`."""
+    if q.shape[-1] != D256 or q.dtype != torch.float32:
+        raise ValueError(f"flash_forward_d256_f32 takes fp32 at head dim {D256}, got "
+                         f"{q.dtype} at {q.shape[-1]}")
+    return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
+                           flash_forward_d256_f32)
+
+
+flash_forward_d256_f32.launches = 0
 
 
 def _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, counter):
@@ -397,7 +416,8 @@ def flash_attention(
     `csrc/flash_fwd_sm90.cu` (bf16; one block per item of `forward_plan`)
     or `csrc/flash_fwd.cu` (fp32), head dims 64/72/112/128, and count the
     launch in `flash_attention.launches`; head dims 256 and 448 go to
-    `flash_forward_d256` and `flash_forward_wide`, which count their own.
+    `flash_forward_d256` (fp32: `flash_forward_d256_f32`) and
+    `flash_forward_wide`, which count their own.
     Differentiable: the backward is `_FlashAttention`'s plain recompute."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     scale = d ** -0.5 if scale is None else scale

@@ -20,17 +20,24 @@ layout, GQA through `kv_groups`):
     saves (q, k, v, out, lse, kv_valid_len), as `_flash_train_fwd` does.
 
 The bf16 forward runs `csrc/flash_fwd_sm90.cu`, the kernel of
-`flash.flash_attention`, with the lse epilogue. The bf16 backward runs
-`csrc/flash_bwd_sm90.cu` (TMA and wgmma) over a work list built here once
-per shape (`work_list`): items of (batch, query head, tile), longest loop
-first (the causal forward takes dQ's list at its own tiles). dK/dV items
-write each query head's fp32 partials, which a second kernel sums over the
-group in head order (`backward_dkv_partials_reference` and `group_sum` are
-their plain versions). fp32 runs the SIMT kernels of `csrc/flash_train.cu`.
+`flash.flash_attention`, with the lse epilogue (at head dim 256 the wide
+kernel of `csrc/flash_fwd_wide_sm90.cu`, as #1 takes it there). The bf16
+backward runs `csrc/flash_bwd_sm90.cu` (TMA and wgmma) over a work list
+built here once per shape (`work_list`): items of (batch, query head,
+tile), longest loop first (the causal forward takes dQ's list at its own
+tiles). dK/dV items write each query head's fp32 partials, which a second
+kernel sums over the group in head order (`backward_dkv_partials_reference`
+and `group_sum` are their plain versions); at head dim 256 each dK/dV item
+runs as two blocks, one per half of the columns. fp32 runs the SIMT kernels
+of `csrc/flash_train.cu`.
 
 Each kernel wrapper takes its plain version (`*_reference`) only for
 tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
-head dims 64 and 128) or raises, and counts the call in `.launches`.
+head dims `TRAIN_HEAD_DIMS`) or raises, and counts the call in
+`.launches`. Head dim 256 (Gemma's LM) goes through wrappers of its own,
+`forward_with_lse_d256`, `backward_dq_d256` and `backward_dkv_d256`, which
+the three entry points reach at that head dim, so that a run counts those
+launches apart.
 """
 
 from __future__ import annotations
@@ -42,25 +49,27 @@ from typing import Optional, Tuple
 import torch
 
 from memory_augmented_vlm_torch.ops import cuda_lib
-from memory_augmented_vlm_torch.ops.flash import (_KERNEL_DTYPES, LOG2E, MASK_VALUE,
+from memory_augmented_vlm_torch.ops.flash import (_KERNEL_DTYPES, D256, LOG2E, MASK_VALUE,
                                                   _check_kernel_args, _shapes, attention_mask,
                                                   forward_plan, map_strides, online_softmax)
 
-TRAIN_HEAD_DIMS = (64, 128)
+TRAIN_HEAD_DIMS = (64, 128, D256)
 # Tiles of the bf16 backward kernels (`csrc/flash_bwd_sm90.cu`, checked
 # against its `flash_bwd_tiles` when a list first goes to the card): a dQ
 # item takes 64 query rows (128 at head dim 128) and loops over 64-key
-# tiles; a dK/dV item takes 128 keys (64 at head dim 128) and loops over
-# 64-row query tiles.
+# tiles; a dK/dV item takes 128 keys (64 at head dims 128 and 256) and
+# loops over 64-row query tiles.
 DQ_BLOCK_K = DKV_BLOCK_Q = 64
+_DQ_BLOCK_Q = {64: 64, 128: 128, D256: 64}
+_DKV_BLOCK_K = {64: 128, 128: 64, D256: 64}
 
 
 def dq_block_q(head_dim: int) -> int:
-    return 64 if head_dim == 64 else 128
+    return _DQ_BLOCK_Q[head_dim]
 
 
 def dkv_block_k(head_dim: int) -> int:
-    return 128 if head_dim == 64 else 64
+    return _DKV_BLOCK_K[head_dim]
 
 
 def _repeat(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -266,7 +275,26 @@ def forward_with_lse(q, k, v, kv_valid_len, *, causal: bool, scale: float,
     """Flash forward that also returns lse; see `forward_with_lse_reference`.
     CUDA tensors launch `flash_fwd_lse`: bf16 runs `csrc/flash_fwd_sm90.cu`
     (one block per item of `flash.forward_plan`), fp32 the SIMT kernel of
-    `csrc/flash_train.cu`."""
+    `csrc/flash_train.cu`. Head dim 256 goes to `forward_with_lse_d256`."""
+    if q.shape[-1] == D256:
+        return forward_with_lse_d256(q, k, v, kv_valid_len, causal=causal, scale=scale,
+                                     kv_groups=kv_groups)
+    return _forward_with_lse(q, k, v, kv_valid_len, causal, scale, kv_groups, forward_with_lse)
+
+
+def forward_with_lse_d256(q, k, v, kv_valid_len, *, causal: bool, scale: float,
+                          kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`forward_with_lse` at head dim 256 (Gemma's LM): bf16 CUDA tensors
+    launch the wide kernel of `csrc/flash_fwd_wide_sm90.cu` with its lse
+    epilogue (64-key tiles), fp32 the SIMT kernel at 256; counted in
+    `forward_with_lse_d256.launches`."""
+    if q.shape[-1] != D256:
+        raise ValueError(f"forward_with_lse_d256 takes head dim {D256}, got {q.shape[-1]}")
+    return _forward_with_lse(q, k, v, kv_valid_len, causal, scale, kv_groups,
+                             forward_with_lse_d256)
+
+
+def _forward_with_lse(q, k, v, kv_valid_len, causal, scale, kv_groups, counter):
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     if q.device.type == "cpu":
         return forward_with_lse_reference(q, k, v, kv_valid_len, causal=causal, scale=scale,
@@ -289,11 +317,12 @@ def forward_with_lse(q, k, v, kv_valid_len, *, causal: bool, scale: float,
         None if items is None else items.data_ptr(), 0 if items is None else items.shape[0],
         rows)
     cuda_lib.check(lib, rc, "flash_fwd_lse")
-    forward_with_lse.launches += 1
+    counter.launches += 1
     return out, lse
 
 
 forward_with_lse.launches = 0
+forward_with_lse_d256.launches = 0
 
 
 def _backward_args(q, k, v, dout, lse, delta, kv_groups, causal):
@@ -314,7 +343,29 @@ def backward_dq(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale:
                 kv_groups: int = 1, qs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dQ; see `backward_dq_reference`. CUDA tensors launch
     `flash_bwd_dq_sm90` (bf16; `qs`, the `scaled_q` of q, is made here unless
-    given) or `flash_bwd_dq` (fp32)."""
+    given) or `flash_bwd_dq` (fp32). Head dim 256 goes to
+    `backward_dq_d256`."""
+    if q.shape[-1] == D256:
+        return backward_dq_d256(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
+                                scale=scale, kv_groups=kv_groups, qs=qs)
+    return _backward_dq(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
+                        backward_dq)
+
+
+def backward_dq_d256(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
+                     kv_groups: int = 1, qs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`backward_dq` at head dim 256: bf16 CUDA tensors launch
+    `flash_bwd_dq_sm90` at 256 (one consumer warpgroup holding the 64 x 256
+    accumulator), fp32 the SIMT kernel; counted in
+    `backward_dq_d256.launches`."""
+    if q.shape[-1] != D256:
+        raise ValueError(f"backward_dq_d256 takes head dim {D256}, got {q.shape[-1]}")
+    return _backward_dq(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
+                        backward_dq_d256)
+
+
+def _backward_dq(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
+                 counter):
     b, sq, skv, h, d = _backward_args(q, k, v, dout, lse, delta, kv_groups, causal)
     if q.device.type == "cpu":
         return backward_dq_reference(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
@@ -345,11 +396,12 @@ def backward_dq(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale:
             kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
             _strides(k), _strides(v), _strides(dout), _strides(dq), scale, scale * LOG2E, stream)
         cuda_lib.check(lib, rc, "flash_bwd_dq")
-    backward_dq.launches += 1
+    counter.launches += 1
     return dq
 
 
 backward_dq.launches = 0
+backward_dq_d256.launches = 0
 
 
 def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
@@ -358,7 +410,30 @@ def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale
     """dK and dV; see `backward_dkv_reference`. CUDA tensors launch
     `flash_bwd_dkv_sm90` (bf16: per-head fp32 partials into a scratch, then
     the group sum; one counted call) or `flash_bwd_dkv` (fp32: one block per
-    64 keys of a KV head accumulates its whole group)."""
+    8 keys of a KV head accumulates its whole group). Head dim 256 goes to
+    `backward_dkv_d256`."""
+    if q.shape[-1] == D256:
+        return backward_dkv_d256(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
+                                 scale=scale, kv_groups=kv_groups, qs=qs)
+    return _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
+                         backward_dkv)
+
+
+def backward_dkv_d256(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
+                      kv_groups: int = 1, qs: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`backward_dkv` at head dim 256: bf16 CUDA tensors launch
+    `flash_bwd_dkv_sm90` at 256 (each 64-key item as two blocks, one per
+    half of the columns, then the group sum), fp32 the SIMT kernel; counted
+    in `backward_dkv_d256.launches`."""
+    if q.shape[-1] != D256:
+        raise ValueError(f"backward_dkv_d256 takes head dim {D256}, got {q.shape[-1]}")
+    return _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
+                         backward_dkv_d256)
+
+
+def _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
+                  counter):
     b, sq, skv, h, d = _backward_args(q, k, v, dout, lse, delta, kv_groups, causal)
     if q.device.type == "cpu":
         return backward_dkv_reference(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
@@ -393,11 +468,12 @@ def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale
             kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
             _strides(k), _strides(v), _strides(dout), _strides(dk), scale, scale * LOG2E, stream)
         cuda_lib.check(lib, rc, "flash_bwd_dkv")
-    backward_dkv.launches += 1
+    counter.launches += 1
     return dk, dv
 
 
 backward_dkv.launches = 0
+backward_dkv_d256.launches = 0
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

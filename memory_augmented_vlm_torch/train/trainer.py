@@ -153,19 +153,27 @@ def _targets(labels, valid_len):
 
 
 def _nll_sum(hidden, table, targets, mask):
-    """Summed masked NLL of fp32 logits against the tied (V, H) table in
-    fp32 (`qwen2.unembed`'s float path)."""
+    """Summed masked NLL of fp32 logits against a (V, H) table in fp32
+    (`qwen2.unembed`'s float path)."""
     logits = F.linear(hidden.float(), table)
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
     return ((logz - tgt) * mask).sum()
 
 
+def unembed_table(params) -> torch.Tensor:
+    """The loss's (V, H) fp32 table, as `qwen2.unembed` takes its weight:
+    the untied (H, V) `lm_head` (a transposed view of its fp32 copy) where
+    the LM has one, else the tied `embed_tokens`. Cast once per loss."""
+    lm = params["language_model"]
+    return lm["lm_head"].float().t() if "lm_head" in lm else lm["embed_tokens"].float()
+
+
 def dense_cross_entropy(params, cfg: VLMConfig, hidden, labels, valid_len):
     """Next-token CE over the whole (B, S, vocab) fp32 logits. Returns
     (mean loss, token count)."""
     targets, mask = _targets(labels, valid_len)
-    total = _nll_sum(hidden, params["language_model"]["embed_tokens"].float(), targets, mask)
+    total = _nll_sum(hidden, unembed_table(params), targets, mask)
     cnt = mask.sum()
     return total / cnt.clamp_min(1), cnt
 
@@ -176,7 +184,7 @@ def chunked_cross_entropy(params, cfg: VLMConfig, hidden, labels, valid_len,
     checkpoint: only one piece's logits exist at a time, in the forward and
     again in the backward. The table is cast to fp32 once for all pieces."""
     targets, mask = _targets(labels, valid_len)
-    table = params["language_model"]["embed_tokens"].float()
+    table = unembed_table(params)
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, hidden.shape[1], chunk):
         sl = slice(i, i + chunk)

@@ -103,6 +103,14 @@ def _tiled_case(case, d, seed=14):
     return arrays, [torch.from_numpy(x).to(torch.bfloat16) for x in arrays]
 
 
+# head dim 256 (Gemma's LM): causal GQA 8 over one KV head, and a ragged
+# batch with a valid length of 0
+D256_TILED_CASES = [
+    (1, 256, 256, 8, 1, True, (256,)),
+    (2, 150, 150, 4, 1, True, (0, 131)),
+]
+
+
 @pytest.mark.parametrize("d", [64, 72, 112, 128])
 @pytest.mark.parametrize("case", TILED_CASES)
 def test_tiled_forward_with_lse_matches_pallas_interpret(d, case):
@@ -131,6 +139,12 @@ def test_tiled_forward_with_lse_matches_pallas_interpret(d, case):
     fin = np.isfinite(jlse)
     assert np.array_equal(np.isfinite(lse), fin) and (lse[~fin] < 0).all()
     np.testing.assert_allclose(lse[fin], jlse[fin], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", D256_TILED_CASES)
+def test_d256_tiled_forward_with_lse_matches_pallas_interpret(case):
+    """#9 at head dim 256: the same rule at the wide kernel's 64-key tiles."""
+    test_tiled_forward_with_lse_matches_pallas_interpret(256, case)
 
 
 def _lse_control_case():
@@ -356,6 +370,59 @@ def test_dkv_partials_and_group_sum_are_the_reference(case, dtype):
     assert torch.equal(flash_bwd.group_sum(pv, h // 2).to(rv.dtype), rv)
 
 
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, H_kv, causal, valid): Gemma's GQA 8 over one KV head,
+    # causal; cross attention with a ragged batch
+    (1, 256, 256, 8, 1, True, (256,)),
+    (2, 128, 256, 2, 1, False, (256, 100)),
+])
+def test_d256_backward_kernels_match_pallas(case):
+    """#10 and #11 at head dim 256: dQ and dK/dV (its per-head partials and
+    their group sum) from JAX's own (out, lse), on the same numpy inputs,
+    against `_backward` in interpret mode (JAX repeats K/V, so its dK/dV
+    arrive summed over each group), at the file's gradient tolerance; and
+    through the wrappers, which take the plain versions on the CPU and
+    count no launch."""
+    b, sq, skv, h, hkv, causal, valid = case
+    g = h // hkv
+    q, k, v, vl = _inputs((b, sq, skv, h, 256, causal, valid), seed=16, hkv=hkv)
+    dout = np.random.default_rng(17).standard_normal(q.shape).astype(np.float32)
+    scale = 256 ** -0.5
+    jq, jk, jv = (jnp.asarray(x) for x in (q, repeat_kv(jnp.asarray(k), g),
+                                           repeat_kv(jnp.asarray(v), g)))
+    jout, jlse = _forward_with_lse(jq, jk, jv, jnp.asarray(vl), causal, scale, BLOCK, BLOCK,
+                                   True)
+    jdq, jdk, jdv = _backward(jq, jk, jv, jout, jlse, jnp.asarray(dout), jnp.asarray(vl), causal,
+                              scale, BLOCK, BLOCK, True)
+    lse = _t(np.asarray(jlse)[:, :, 0, :sq]).contiguous()
+    delta = flash_bwd.attention_delta(_t(jout), _t(dout))
+    kw = dict(causal=causal, scale=scale, kv_groups=g)
+    args = (_t(q), _t(k), _t(v), _t(dout), lse, delta, _t(vl))
+    before = (flash_bwd.backward_dq_d256.launches, flash_bwd.backward_dkv_d256.launches)
+    dq = flash_bwd.backward_dq(*args, **kw)
+    dk, dv = flash_bwd.backward_dkv(*args, **kw)
+    assert (flash_bwd.backward_dq_d256.launches, flash_bwd.backward_dkv_d256.launches) == before
+    pk, pv = flash_bwd.backward_dkv_partials_reference(*args, **kw)
+    jdk, jdv = (np.asarray(x).reshape(b, skv, hkv, g, 256).sum(axis=3) for x in (jdk, jdv))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), **GRAD_TOL, err_msg="dq")
+    for name, got, part, ref in (("dk", dk, pk, jdk), ("dv", dv, pv, jdv)):
+        np.testing.assert_allclose(got.numpy(), ref, **GRAD_TOL, err_msg=name)
+        np.testing.assert_allclose(flash_bwd.group_sum(part, g).numpy(), ref, **GRAD_TOL,
+                                   err_msg=f"{name} partials")
+
+
+def test_d256_wrappers_raise_on_other_head_dims():
+    """The head dim 256 wrappers take that head dim only, and a head dim no
+    training kernel takes still raises at the argument check."""
+    x = torch.zeros(1, 8, 1, 64)
+    vl = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_bwd.forward_with_lse_d256(x, x, x, vl, causal=True, scale=0.125)
+    assert flash_bwd.TRAIN_HEAD_DIMS == (64, 128, 256)
+    with pytest.raises(ValueError, match="training kernels take head dims"):
+        flash_bwd._check_train_args(*(torch.zeros(1, 8, 1, 72),) * 3, vl, 72)
+
+
 def test_dkv_partials_match_pallas_group_sum():
     """The partials' group sum against JAX's Pallas backward in interpret
     mode on the same numpy inputs (JAX repeats K/V, so its dK/dV arrive
@@ -376,6 +443,55 @@ def test_dkv_partials_match_pallas_group_sum():
     jdk, jdv = (np.asarray(x).reshape(2, 256, 2, 3, 64).sum(axis=3) for x in (jdk, jdv))
     np.testing.assert_allclose(flash_bwd.group_sum(pk, 3).numpy(), jdk, **GRAD_TOL)
     np.testing.assert_allclose(flash_bwd.group_sum(pv, 3).numpy(), jdv, **GRAD_TOL)
+
+
+def _d256_control_inputs():
+    """Gemma's head dim at S = 256: causal, GQA 8 over one KV head, bf16."""
+    case = (1, 256, 256, 8, 256, True, (256,))
+    q, k, v, vl = (_t(x) for x in _inputs(case, seed=18, hkv=1))
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    g = torch.from_numpy(np.random.default_rng(19).standard_normal(q.shape).astype(np.float32))
+    return q, k, v, g.bfloat16(), vl, dict(causal=True, scale=256 ** -0.5, kv_groups=8)
+
+
+@pytest.mark.parametrize("control", range(7))
+def test_chip_smoke_d256_train_kernel_controls_fail_its_check(control):
+    """At head dim 256 chip_smoke runs seven controls at Gemma-2B's train
+    shape: the five of head dims 64 and 128 at the 256 tiles (the group sum
+    with a head dropped among them) and the column halves of Q and dO
+    swapped (each dK/dV block takes one half). Each fails the kernel rule
+    here too, on the plain versions at S = 256, GQA 8."""
+    import chip_smoke
+
+    q, k, v, g, vl, kw = _d256_control_inputs()
+    out, lse = flash_bwd.forward_with_lse(q, k, v, vl, **kw)
+    delta = flash_bwd.attention_delta(out, g)
+    refs = (flash_bwd.backward_dq_reference(q, k, v, g, lse, delta, vl, **kw),
+            *flash_bwd.backward_dkv_reference(q, k, v, g, lse, delta, vl, **kw))
+    controls = list(chip_smoke._train_controls(q, k, v, g, lse, delta, vl, refs, **kw))
+    assert len(controls) == 7
+    label, got, ref = controls[control]
+    assert chip_smoke._train_outside(got, ref) > 0, label
+    assert chip_smoke._train_outside(ref.clone(), ref) == 0
+
+
+def test_chip_smoke_d256_lse_controls_fail_its_check():
+    """The lse controls at head dim 256 (natural-log units; the causal
+    diagonal moved by one key at the wide kernel's 64-key tile) fail the
+    lse rule, and q unrounded fails the forward's bit-close rule."""
+    import chip_smoke
+
+    q, k, v, _, vl, kw = _d256_control_inputs()
+    out, lse = flash_bwd.forward_with_lse_reference(q, k, v, vl, block_k=64, **kw)
+    fin = torch.isfinite(lse)
+    _, moved = chip_smoke._online_variant(q, k, v, vl, causal=True, kv_groups=8, block_k=64,
+                                          diagonal=1)
+    for control in (lse * np.log(2.0), moved):
+        assert chip_smoke._f32_close("control", control[fin], lse[fin])["outside"] > 0
+    unrounded, _ = chip_smoke._online_variant(q, k, v, vl, causal=True, kv_groups=8,
+                                              block_k=64, round_q=False)
+    assert not chip_smoke._bit_close("q unrounded", unrounded, out)["held"]
+    assert chip_smoke._bit_close("self", out.clone(), out)["held"]
 
 
 @pytest.mark.parametrize("control", range(5))
