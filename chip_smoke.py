@@ -459,7 +459,8 @@ def phase_build():
     cuda_lib.load()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {cuda_lib.BUILD_LOG['path']}")
     for line in cuda_lib.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "C75" in line):  # the C75xx lines: wgmma serialised, setmaxnreg ignored
             log("  " + line.strip())
 
 
@@ -680,7 +681,7 @@ WIDE_EDGES = {
         ("sq_65", 65, 333, 8, 8, (333,), False, True),
         ("b2_unequal", 100, 333, 2, 2, (333, 65), False, True)],
     # Gemma: GQA 8 (one KV head) and 1, valid lengths off the 64-key tile,
-    # fewer queries than one 64-row tile, B = 2
+    # fewer queries than one 128-row block (its second warpgroup idle), B = 2
     flash.D256: [
         ("valid_0_and_77_causal_gqa8", 150, 150, 8, 1, (0, 77), True, False),
         ("causal_gqa8_ragged", 200, 200, 8, 1, (200, 131), True, True),
@@ -2127,11 +2128,10 @@ def _train_controls(q, k, v, g, lse, delta, vl, refs, **kw):
     del pk, pv
     rows = torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(k.shape[1], device=q.device)[None, :]
-    block_k = flash_bwd.dkv_block_k(d)
-    first = (cols // block_k * block_k // flash_bwd.DKV_BLOCK_Q if kw["causal"]
+    block_k, block_q = flash_bwd.dkv_block_k(d), flash_bwd.dkv_block_q(d)
+    first = (cols // block_k * block_k // block_q if kw["causal"]
              else torch.zeros_like(cols))
-    _, dk, dv = _backward_without(q, k, v, g, lse, delta, vl,
-                                  rows // flash_bwd.DKV_BLOCK_Q == first, **kw)
+    _, dk, dv = _backward_without(q, k, v, g, lse, delta, vl, rows // block_q == first, **kw)
     yield "dk, each key tile's first query tile skipped", dk, rk
     yield "dv, each key tile's first query tile skipped", dv, rv
     del dk, dv
@@ -2143,7 +2143,7 @@ def _train_controls(q, k, v, g, lse, delta, vl, refs, **kw):
                                  cols // flash_bwd.DQ_BLOCK_K == last, **kw)
     yield "dq, the last key tile of each query tile left out", dq, rq
     del dq
-    if d == flash.D256:  # the dK/dV kernel's blocks each take one half of the columns
+    if d == flash.D256:  # the dK/dV kernel's warpgroups each take one half of the columns
         dk, dv = _dkv_halves_swapped(q, k, v, g, lse, delta, vl, **kw)
         yield "dk, q's column halves swapped in dS^T Q", dk, rk
         yield "dv, dO's column halves swapped in P^T dO", dv, rv

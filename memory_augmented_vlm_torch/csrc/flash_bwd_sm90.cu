@@ -71,30 +71,51 @@
 //
 // Head dim 256 (Gemma's LM: 8 query heads over one KV head), where a 64 x
 // 256 fp32 accumulator is 128 registers a thread. ptxas gives a thread at
-// most 168 in a block of two consumer warpgroups and a producer warp (nine
-// warps: three share a quarter of the register file), and 255 in a block of
-// one consumer warpgroup and the producer (five warps), so both kernels
-// take one consumer warpgroup at 256:
-//   - dQ: one 64-row item holds the whole 64 x 256 dQ accumulator (128
-//     registers) beside S and dP (32 each): 192 live, under 255. Its
-//     shared memory (q, dO and two K/V stages, 32 KB a tile) is 193 KB, so
-//     one block per SM;
-//   - dK/dV: the two 64 x 256 accumulators (256 registers) cannot live in
-//     one warpgroup, so each 64-key item runs as two blocks, one per half
-//     of the head dim's columns (bwd_dkv_half_sm90_kernel). Each
-//     recomputes S^T = K qs^T and dP^T = V dO^T over the whole head dim
-//     (the softmax needs every column), then dV[:, half] += P^T dO[:, half]
-//     and dK[:, half] += dS^T Q[:, half]: 64 + 64 accumulators beside S^T
-//     and dP^T, 192 live, at 1.5x the minimal tensor work (the score
-//     products twice). The key tile stays resident (K and V, 64 KB); a
-//     stage holds qs and dO at full width and q's half (80 KB), two stages;
-//     the stages' lse and delta sit after them: 226 KB in all. The two
-//     halves of an item are neighbouring blocks, so they read the same
-//     tiles close together in time (L2). The partials and the group sum
-//     are as above: at Gemma-2B's train shape the partials are 2 x 8 heads
-//     x S x 256 fp32, 157 MB.
-//   Neither overlaps its softmax with another warpgroup's products (one
-//   consumer warpgroup a block, one block an SM): a simple design first.
+// most 168 in a block of nine warps or more (three share a quarter of the
+// register file) and 255 in one of eight or fewer:
+//   - dQ: one consumer warpgroup and the producer warp (five warps); one
+//     64-row item holds the whole 64 x 256 dQ accumulator (128 registers)
+//     beside S and dP (32 each): 192 live, under 255. Its shared memory (q,
+//     dO and two K/V stages, 32 KB a tile) is 193 KB, so one block per SM;
+//     it waits for its products before each softmax;
+//   - dK/dV (bwd_dkv_split_sm90_kernel): one block per 64-key item, two
+//     warpgroups and no producer (256 threads, 206 registers, 0 spilled).
+//     Warpgroup w owns columns [128 w, 128 w + 128) of dK and dV: 64 + 64
+//     accumulators. The query loop steps 32-row tiles through three 48 KB
+//     stages (qs, dO, q) beside the resident K and V (64 KB); the last warp
+//     to finish with a stage refills it by TMA (a shared-memory counter).
+//     The warpgroups take turns to score: warpgroup j % 2 computes tile j's
+//     S^T = K qs^T and dP^T = V dO^T once (wgmma m64n32k16, both operands
+//     from shared memory), forms P^T and dS^T (dS from the fp32 P, then
+//     rounded) and hands their bf16 A fragments to the other through a
+//     16 KB exchange ([4][128] uint4 a warpgroup, no bank conflicts;
+//     mbarriers full and empty). Each warpgroup then adds its half of dV +=
+//     P^T dO and dK += dS^T Q for every tile, in ascending order: the other's
+//     tile j - 1 is issued right after its own tile j's scores, so it runs
+//     under the softmax gradient. 4 units of 64 x 64 x 256 products per
+//     64-query span instead of the column-half design's 6, and the partials
+//     keep their bits (per element the same k-steps in the same order; the
+//     n32 score products give the n64 ones' bits). lse and delta are read
+//     from global memory into registers before each tile's scores. The
+//     partials and the group sum are as above: at Gemma-2B's train shape
+//     the partials are 2 x 8 heads x S x 256 fp32, 157 MB.
+//   Measured and rejected (NVIDIA H100 80GB HBM3, 700.00 W,
+//   microbench/flash_ab.py's timing; ms of ten calls back to back at (1,
+//   9557, 8, 256), causal, GQA 8, where the column-half design ran 2.68): a
+//   producer warpgroup handing registers over by setmaxnreg (384 threads):
+//   ptxas kept 168 registers, spilled 432 bytes and serialised wgmma (C7515):
+//   10.5; the stage's lse and delta written by the refilling warp, whose
+//   global reads stall a computing warpgroup: 2.06 (1.75 from registers); a
+//   role split, warpgroup 0 holding K and warpgroup 1 holding V as register A
+//   fragments (scores read a third of the shared memory): 255 registers and
+//   two exchanges a tile, 2.29 (2.9 with the next tile's scores issued early,
+//   which ptxas serialised); the next own tile's scores issued before the
+//   current update lands (a wgmma group in flight across the loop's back
+//   edge): ptxas serialises, 2.96; ping-pong turns around the score products:
+//   1.80, no gain; qs not loaded (a timing probe): 1.93 against 2.06. With
+//   the stage refills left out (a timing probe) it runs 1.52: the rest is the
+//   n32 score products, which read 3 KB of shared memory per 16 clocks of
+//   tensor work, above the 128 bytes a clock an SM gives.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -486,49 +507,58 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   }
 }
 
-// dK/dV at the head dims whose two accumulators do not fit one warpgroup
-// (256): a block takes one 64-key item and one half of the columns, DH =
-// D / 2 (block 2i + c: item i, half c).
+// dK/dV at head dim 256, where a warpgroup holds one column half of dK and
+// dV (64 + 64 accumulator registers a thread): one block per 64-key item,
+// two warpgroups (warpgroup w owns columns [128 w, 128 w + 128)) and no
+// producer: the last warp to finish with a stage refills it. The query loop
+// steps 32 rows a stage; the warpgroups take turns to score them:
+// warpgroup j % 2 computes tile j's S^T and dP^T (m64n32) once, forms P^T
+// and dS^T, and passes their bf16 A fragments to the other through shared
+// memory; each then adds its half of dV += P^T dO and dK += dS^T Q.
 template <int D>
-struct DkvHalfShape {
-  static constexpr int DH = D / 2;          // output columns of a block
-  static constexpr int BN = kWgRows;        // keys per item: one warpgroup
-  static constexpr int BM = kStepRows;      // query rows per stage
+struct DkvSplitShape {
+  static constexpr int DH = D / 2;          // output columns of a warpgroup
+  static constexpr int BN = kWgRows;        // keys per item
+  static constexpr int BM = 32;             // query rows per stage
+  static constexpr int STAGES = 3;
+  static constexpr int WARPS = 8;           // two warpgroups
   static constexpr uint32_t KV_BYTES = BN * D * 2;
-  static constexpr uint32_t Q_BYTES = BM * D * 2;    // a full-width query tile
-  static constexpr uint32_t QH_BYTES = BM * DH * 2;  // q's half
-  // a stage: qs and dO at full width, then q's half
-  static constexpr uint32_t STAGE = 2 * Q_BYTES + QH_BYTES;
-  // after the stages: each stage's lse and delta (BM floats each)
-  static constexpr uint32_t ROWS = 2 * KV_BYTES + STAGES * STAGE;
-  static constexpr uint32_t BARS = ROWS + STAGES * 2 * BM * 4;
-  static constexpr size_t SMEM = BARS + 8 * (1 + 2 * STAGES) + 1024;
-  static_assert(DH % 64 == 0 && STAGE % 1024 == 0, "1024-byte aligned swizzled blocks");
+  static constexpr uint32_t Q_BYTES = BM * D * 2;  // a full-width tile of BM query rows
+  static constexpr uint32_t STAGE = 3 * Q_BYTES;   // qs, dO, q
+  // a scored tile's fragments: P^T's two k-steps, then dS^T's, one uint4
+  // of each per thread of a warpgroup, laid out [4][128] (no bank conflicts)
+  static constexpr uint32_t X_BYTES = 4 * 128 * 16;
+  static constexpr uint32_t XBUF = 2 * KV_BYTES + STAGES * STAGE;  // one slot per warpgroup
+  static constexpr uint32_t BARS = XBUF + 2 * X_BYTES;
+  // kv, full[STAGES], xfull[2], xempty[2], then the stages' counters
+  static constexpr uint32_t COUNTERS = BARS + 8 * (1 + STAGES + 4);
+  static constexpr size_t SMEM = COUNTERS + 4 * STAGES + 1024;
+  static_assert(DH % 64 == 0 && Q_BYTES % 1024 == 0, "1024-byte aligned swizzled blocks");
   static_assert(SMEM <= 227 * 1024, "one block's shared memory");
 };
 
-// One item and one column half: 64 keys of one query head's KV head,
-// looping over 64-row query tiles from the causal diagonal to Sq; writes
-// this head's fp32 dK and dV partials for its keys at the half's columns.
-// S^T and dP^T reduce over the whole head dim, as bwd_dkv_sm90_kernel's.
+// One item: 64 keys of one query head's KV head, looping over 32-row query
+// tiles from the causal diagonal to Sq; writes this head's fp32 dK and dV
+// partials for its keys.
 template <int D>
-__global__ void __launch_bounds__(128 + 32, 1)
-    bwd_dkv_half_sm90_kernel(const __grid_constant__ CUtensorMap tm_qs,
-                             const __grid_constant__ CUtensorMap tm_q,
-                             const __grid_constant__ CUtensorMap tm_do,
-                             const __grid_constant__ CUtensorMap tm_k,
-                             const __grid_constant__ CUtensorMap tm_v, const BwdParams p) {
-  using S = DkvHalfShape<D>;
+__global__ void __launch_bounds__(2 * 128, 1)
+    bwd_dkv_split_sm90_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                              const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const BwdParams p) {
+  using S = DkvSplitShape<D>;
   constexpr int CB = D / kSwzCols, CBH = S::DH / kSwzCols;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);  // `base` as a generic pointer
   const uint32_t s_k = base, s_v = base + S::KV_BYTES, s_st = base + 2 * S::KV_BYTES;
-  const uint32_t kv_bar = base + S::BARS, full0 = kv_bar + 8, empty0 = full0 + 8 * STAGES;
+  const uint32_t kv_bar = base + S::BARS, full0 = kv_bar + 8, xfull0 = full0 + 8 * S::STAGES;
+  const uint32_t xempty0 = xfull0 + 16;
+  unsigned int* counters = reinterpret_cast<unsigned int*>(gbase + S::COUNTERS);
 
-  const int* item = p.items + 3 * (blockIdx.x >> 1);
-  const int half = blockIdx.x & 1, col0 = half * S::DH;
+  const int* item = p.items + 3 * blockIdx.x;
   const int b = item[0], h = item[1], k0 = item[2] * S::BN;
   const int hk = h / p.kv_groups;
   const int kv_end = min(p.valid_len[b], p.Skv);
@@ -538,94 +568,105 @@ __global__ void __launch_bounds__(128 + 32, 1)
   // value ptxas cannot prove warp-uniform is serialised)
   const int n_iters = __shfl_sync(
       0xffffffffu, (k0 < kv_end && m_tiles > m_first) ? m_tiles - m_first : 0, 0);
-  const int warp = warp_index(), lane = threadIdx.x & 31;
+  const int warp = warp_index(), lane = threadIdx.x & 31, tid = threadIdx.x & 127;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const long long rows = ((long long)b * p.H + h) * p.Sq;
+
+  // tile j's qs, dO and q into its stage (one thread)
+  auto load = [&](int j) {
+    const int s = j % S::STAGES, m0 = (m_first + j) * S::BM;
+    const uint32_t stage = s_st + s * S::STAGE, full = full0 + 8 * s;
+    mbar_arrive_tx(full, S::STAGE);
+    for (int c = 0; c < CB; ++c) {
+      const uint32_t off = c * S::BM * kRowBytes;
+      tma_load(stage + off, &tm_qs, full, c * kSwzCols, m0, h, b);
+      tma_load(stage + S::Q_BYTES + off, &tm_do, full, c * kSwzCols, m0, h, b);
+      tma_load(stage + 2 * S::Q_BYTES + off, &tm_q, full, c * kSwzCols, m0, h, b);
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(kv_bar, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 32);  // the producer's lanes
-      mbar_init(empty0 + 8 * s, 4);
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      counters[s] = 0;
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(xfull0 + 8 * w, 128);   // the scoring warpgroup's threads
+      mbar_init(xempty0 + 8 * w, 128);  // the other's
     }
     mbar_fence_init();
   }
   __syncthreads();
-
-  if (warp == 4) {  // the producer warp
-    if (n_iters > 0) {
-      if (lane == 0) {
-        mbar_arrive_tx(kv_bar, 2 * S::KV_BYTES);
-        for (int c = 0; c < CB; ++c) {
-          tma_load(s_k + c * S::BN * kRowBytes, &tm_k, kv_bar, c * kSwzCols, k0, hk, b);
-          tma_load(s_v + c * S::BN * kRowBytes, &tm_v, kv_bar, c * kSwzCols, k0, hk, b);
-        }
-      }
-      const long long rows = ((long long)b * p.H + h) * p.Sq;
-      for (int j = 0; j < n_iters; ++j) {
-        const int s = j % STAGES, m0 = (m_first + j) * S::BM;
-        const uint32_t stage = s_st + s * S::STAGE, full = full0 + 8 * s;
-        mbar_wait(empty0 + 8 * s, ((j / STAGES) & 1) ^ 1);
-        float* sl = reinterpret_cast<float*>(gbase + S::ROWS) + s * 2 * S::BM;
-        for (int r = lane; r < S::BM; r += 32) {  // lse = inf on rows past Sq: p = 0
-          const int row = m0 + r;
-          sl[r] = row < p.Sq ? p.lse[rows + row] : INFINITY;
-          sl[S::BM + r] = row < p.Sq ? p.delta[rows + row] : 0.f;
-        }
-        if (lane == 0) {  // every lane arrives after its own stores
-          mbar_arrive_tx(full, 2 * S::Q_BYTES + S::QH_BYTES);
-          for (int c = 0; c < CB; ++c) {
-            const uint32_t off = c * S::BM * kRowBytes;
-            tma_load(stage + off, &tm_qs, full, c * kSwzCols, m0, h, b);
-            tma_load(stage + S::Q_BYTES + off, &tm_do, full, c * kSwzCols, m0, h, b);
-          }
-          for (int c = 0; c < CBH; ++c) {
-            tma_load(stage + 2 * S::Q_BYTES + c * S::BM * kRowBytes, &tm_q, full,
-                     col0 + c * kSwzCols, m0, h, b);
-          }
-        } else {
-          mbar_arrive(full);
-        }
-      }
+  if (threadIdx.x == 0 && n_iters > 0) {  // K and V, and the first stages
+    mbar_arrive_tx(kv_bar, 2 * S::KV_BYTES);
+    for (int c = 0; c < CB; ++c) {
+      tma_load(s_k + c * S::BN * kRowBytes, &tm_k, kv_bar, c * kSwzCols, k0, hk, b);
+      tma_load(s_v + c * S::BN * kRowBytes, &tm_v, kv_bar, c * kSwzCols, k0, hk, b);
     }
-    return;
+    for (int j = 0; j < min(n_iters, S::STAGES); ++j) load(j);
   }
 
-  const int wl = warp & 3, g = lane >> 2, t = lane & 3;
   const int key0 = k0 + wl * 16 + g;  // this thread's keys: key0, key0 + 8
-  float dk[CBH][32], dv[CBH][32], st[32], dpt[32];
+  float dk[CBH][32], dv[CBH][32], st[16], dpt[16];
   zero<S::DH>(dk);
   zero<S::DH>(dv);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
-  if (n_iters > 0) mbar_wait(kv_bar, 0);
+  uint32_t pa[2][4], da[2][4];  // the fragments of a tile this warpgroup scored
+  uint32_t xa[2][4], xd[2][4];  // the other's
   const bool diag_free = k0 + S::BN <= kv_end;  // no key of the item is past the valid length
-  for (int j = 0; j < n_iters; ++j) {
-    const int s = j % STAGES, m0 = (m_first + j) * S::BM;
-    const uint32_t stage = s_st + s * S::STAGE;
-    const uint32_t s_do = stage + S::Q_BYTES, s_qh = stage + 2 * S::Q_BYTES;
-    mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
+
+  auto stage_of = [&](int j) { return s_st + (j % S::STAGES) * S::STAGE; };
+  auto xslot = [&](int owner) {
+    return reinterpret_cast<uint4*>(gbase + S::XBUF + owner * S::X_BYTES);
+  };
+  auto wait_tile = [&](int j) { mbar_wait(full0 + 8 * (j % S::STAGES), (j / S::STAGES) & 1); };
+  // this warp is done with tile j's stage: the last of the eight refills it
+  auto done_with = [&](int j) {
+    if (last_out<S::WARPS>(counters + j % S::STAGES) && lane == 0 && j + S::STAGES < n_iters) {
+      load(j + S::STAGES);
+    }
+  };
+  // lse and delta of this thread's query columns of tile j (element 4c + e
+  // takes row 2c + (e & 1)), read before its scores so that the loads land
+  // under the products; lse = inf on rows past Sq: p = 0
+  float lse_r[S::BM / 4], dlt_r[S::BM / 4];
+  auto rows_of = [&](int j) {
+    const int m0 = (m_first + j) * S::BM;
+#pragma unroll
+    for (int c = 0; c < S::BM / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m0 + 8 * c + 2 * t + e;
+        lse_r[2 * c + e] = row < p.Sq ? p.lse[rows + row] : INFINITY;
+        dlt_r[2 * c + e] = row < p.Sq ? p.delta[rows + row] : 0.f;
+      }
+    }
+  };
+  // tile j's S^T = K qs^T and dP^T = V dO^T, one commit group
+  auto scores = [&](int j) {
+    const uint32_t stage = stage_of(j);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {  // S^T = K qs^T
-      wgmma_ss_n64(st, desc_kmajor(s_k, S::BN, 0, kk), desc_kmajor(stage, S::BM, 0, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n32(st, desc_kmajor(s_k, S::BN, 0, kk), desc_kmajor(stage, S::BM, 0, kk), kk);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {  // dP^T = V dO^T
-      wgmma_ss_n64(dpt, desc_kmajor(s_v, S::BN, 0, kk), desc_kmajor(s_do, S::BM, 0, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n32(dpt, desc_kmajor(s_v, S::BN, 0, kk),
+                   desc_kmajor(stage + S::Q_BYTES, S::BM, 0, kk), kk);
     }
     wg_commit();
-    wg_wait_all();
-    reg_fence(st);
-    reg_fence(dpt);
-    const float* sl = reinterpret_cast<const float*>(gbase + S::ROWS) + s * 2 * S::BM;
+  };
+  // P^T and dS^T of tile j from its scores, rounded to bf16 into pa and da
+  auto probs = [&](int j) {
+    const int m0 = (m_first + j) * S::BM;
     const bool inside = diag_free && (!p.causal || k0 + S::BN - 1 <= m0);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {  // element 4c + e: key key0 + 8 (e >> 1), query column
-      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * c + 2 * t);
-      const float2 d2 = *reinterpret_cast<const float2*>(sl + S::BM + 8 * c + 2 * t);
+    for (int c = 0; c < S::BM / 8; ++c) {  // element 4c + e: key key0 + 8 (e >> 1), query column
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * c + e;
-        const float lse = (e & 1) ? l2.y : l2.x, dlt = (e & 1) ? d2.y : d2.x;
+        const float lse = lse_r[2 * c + (e & 1)], dlt = dlt_r[2 * c + (e & 1)];
         float pr;
         if (inside) {  // no pair of the tile is masked for these keys
           pr = fast_exp2(st[i] - lse);
@@ -638,21 +679,110 @@ __global__ void __launch_bounds__(128 + 32, 1)
         dpt[i] = pr * (dpt[i] - dlt) * p.scale;
       }
     }
-    uint32_t pa[4][4], da[4][4];
     acc_to_a(st, pa);   // P^T rounded to bf16
     acc_to_a(dpt, da);  // dS^T rounded to bf16
+  };
+  // this warpgroup's tile j's fragments to its slot, for the other
+  auto publish = [&](int j) {
+    mbar_wait(xempty0 + 8 * wg, ((j >> 1) & 1) ^ 1);
+    uint4* x = xslot(wg);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      x[kk * 128 + tid] = make_uint4(pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]);
+      x[(2 + kk) * 128 + tid] = make_uint4(da[kk][0], da[kk][1], da[kk][2], da[kk][3]);
+    }
+    mbar_arrive(xfull0 + 8 * wg);
+  };
+  // the other warpgroup's tile j's fragments from its slot
+  auto fetch = [&](int j) {
+    const int owner = j & 1;
+    mbar_wait(xfull0 + 8 * owner, (j >> 1) & 1);
+    const uint4* x = xslot(owner);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint4 fa = x[kk * 128 + tid], fd = x[(2 + kk) * 128 + tid];
+      xa[kk][0] = fa.x; xa[kk][1] = fa.y; xa[kk][2] = fa.z; xa[kk][3] = fa.w;
+      xd[kk][0] = fd.x; xd[kk][1] = fd.y; xd[kk][2] = fd.z; xd[kk][3] = fd.w;
+    }
+    mbar_arrive(xempty0 + 8 * owner);
+  };
+  // dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] for
+  // tile j, one commit group
+  auto update = [&](const uint32_t (&fp)[2][4], const uint32_t (&fd)[2][4], int j) {
+    const uint32_t stage = stage_of(j);
+    const uint32_t s_do = stage + S::Q_BYTES + wg * CBH * S::BM * kRowBytes;
+    const uint32_t s_q = stage + 2 * S::Q_BYTES + wg * CBH * S::BM * kRowBytes;
     wg_fence();
-    // dV[:, half] += P^T dO[:, half]: dO's column blocks of this half
-    mma_rows_by_tile<S::DH>(dv, pa, s_do + half * CBH * S::BM * kRowBytes);
-    mma_rows_by_tile<S::DH>(dk, da, s_qh);  // dK[:, half] += dS^T Q[:, half]
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int cb = 0; cb < CBH; ++cb) {
+        wgmma_rs_n64<1>(dv[cb], fp[kk], desc_mnmajor(s_do + cb * S::BM * kRowBytes, S::BM, kk),
+                        1);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int cb = 0; cb < CBH; ++cb) {
+        wgmma_rs_n64<1>(dk[cb], fd[kk], desc_mnmajor(s_q + cb * S::BM * kRowBytes, S::BM, kk),
+                        1);
+      }
+    }
     wg_commit();
+  };
+
+  // Warpgroup 0 scores tile 0 alone; then at each step j a warpgroup scores
+  // its tile j, adds the other's tile j - 1 while its softmax gradient runs
+  // (the scores' wait leaves that update on the tensor cores), then adds
+  // tile j; the other's last tile, if any, comes after the loop. The
+  // updates keep ascending tile order, so each partial sums its query
+  // tiles in the order of the single-warpgroup kernel.
+  if (n_iters > 0) mbar_wait(kv_bar, 0);
+  if (wg == 0 && n_iters > 0) {
+    rows_of(0);
+    wait_tile(0);
+    scores(0);
+    wg_wait_all();
+    reg_fence(st);
+    reg_fence(dpt);
+    probs(0);
+    publish(0);
+    update(pa, da, 0);
     wg_wait_all();
     fence_all<S::DH>(dv);
     fence_all<S::DH>(dk);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    done_with(0);
   }
+  for (int j = 2 - wg; j < n_iters; j += 2) {
+    rows_of(j);
+    wait_tile(j);
+    scores(j);
+    fetch(j - 1);
+    update(xa, xd, j - 1);
+    wg_wait<1>();
+    reg_fence(st);
+    reg_fence(dpt);
+    probs(j);
+    publish(j);
+    update(pa, da, j);
+    wg_wait_all();
+    fence_all<S::DH>(dv);
+    fence_all<S::DH>(dk);
+    done_with(j - 1);
+    done_with(j);
+  }
+  if (n_iters > 0 && ((n_iters - 1) & 1) != wg) {  // the other's last tile
+    fetch(n_iters - 1);
+    update(xa, xd, n_iters - 1);
+    wg_wait_all();
+    fence_all<S::DH>(dv);
+    fence_all<S::DH>(dk);
+    done_with(n_iters - 1);
+  }
+
   const long long head = ((long long)b * p.H + h) * p.Skv;
+  const int col0 = wg * S::DH;
   float* dkp = static_cast<float*>(p.out) + head * D + col0;
   float* dvp = static_cast<float*>(p.out2) + head * D + col0;
 #pragma unroll
@@ -729,7 +859,7 @@ BwdParams make_params(const void* lse, const void* delta, const void* valid_len,
 // accumulators need the registers of one two-warpgroup block; at D = 256
 // one warpgroup holds them alone (255 registers). dK/dV keeps one
 // warpgroup at D = 128, for registers, and at 256 splits the columns
-// (DkvHalfShape).
+// between two warpgroups (DkvSplitShape).
 template <int D>
 struct DqConfig {
   static constexpr int NWG = D == 128 ? 2 : 1, MINB = D == 64 ? 3 : 1;
@@ -807,17 +937,17 @@ int run_dkv(const void* qs, const void* q, const void* k, const void* v, const v
   return group_sum(dk_part, dv_part, dk, dv, B, Hkv, kv_groups, Skv, D, dkv_strides, stream);
 }
 
-// dK/dV at D = 256: two blocks per item, one per half of the columns
-// (bwd_dkv_half_sm90_kernel), then the group sum.
+// dK/dV at D = 256: one block per 64-key item (bwd_dkv_split_sm90_kernel),
+// then the group sum.
 template <int D>
-int run_dkv_half(const void* qs, const void* q, const void* k, const void* v,
-                 const void* dout, void* dk_part, void* dv_part, void* dk, void* dv,
-                 const BwdParams& params, int n_items, int B, int Sq, int Skv, int H,
-                 int kv_groups, const long long* qs_strides, const long long* q_strides,
-                 const long long* k_strides, const long long* v_strides,
-                 const long long* d_strides, const long long* dkv_strides,
-                 cudaStream_t stream) {
-  using S = DkvHalfShape<D>;
+int run_dkv_split(const void* qs, const void* q, const void* k, const void* v,
+                  const void* dout, void* dk_part, void* dv_part, void* dk, void* dv,
+                  const BwdParams& params, int n_items, int B, int Sq, int Skv, int H,
+                  int kv_groups, const long long* qs_strides, const long long* q_strides,
+                  const long long* k_strides, const long long* v_strides,
+                  const long long* d_strides, const long long* dkv_strides,
+                  cudaStream_t stream) {
+  using S = DkvSplitShape<D>;
   const int Hkv = H / kv_groups;
   CUtensorMap m[5];
   if (!make_map(&m[0], qs, D, Sq, H, B, qs_strides, S::BM) ||
@@ -830,10 +960,10 @@ int run_dkv_half(const void* qs, const void* q, const void* k, const void* v,
   BwdParams p = params;
   p.out = dk_part;
   p.out2 = dv_part;
-  const auto kernel = bwd_dkv_half_sm90_kernel<D>;
+  const auto kernel = bwd_dkv_split_sm90_kernel<D>;
   const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
-  kernel<<<2 * n_items, 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
+  kernel<<<n_items, 2 * 128, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
   return group_sum(dk_part, dv_part, dk, dv, B, Hkv, kv_groups, Skv, D, dkv_strides, stream);
 }
 
@@ -861,8 +991,10 @@ extern "C" int flash_bwd_tiles(int head_dim, int* dq_rows, int* dq_keys, int* dk
       break;
     case 256:
       *dq_rows = DqConfig<256>::NWG * kWgRows;
-      *dkv_keys = DkvHalfShape<256>::BN;
-      break;
+      *dkv_keys = DkvSplitShape<256>::BN;
+      *dkv_rows = DkvSplitShape<256>::BM;
+      *dq_keys = kStepRows;
+      return 0;
     default:
       return -1;
   }
@@ -925,7 +1057,7 @@ extern "C" int flash_bwd_dkv_sm90(int head_dim, const void* qs, const void* q, c
         qs_strides, q_strides, k_strides, v_strides, d_strides, dkv_strides, s);
   }
   if (head_dim == 256) {
-    return run_dkv_half<256>(
+    return run_dkv_split<256>(
         qs, q, k, v, dout, dk_part, dv_part, dk, dv, p, n_items, B, Sq, Skv, H, kv_groups,
         qs_strides, q_strides, k_strides, v_strides, d_strides, dkv_strides, s);
   }

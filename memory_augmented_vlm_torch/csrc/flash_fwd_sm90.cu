@@ -488,11 +488,11 @@ int run(const Args& a, int head_dim, void* stream) {
 
 // The kernel's tiles at a head dim: its online softmax rounds P against the
 // running max of each tile of key_tile keys; a block takes 64 query rows or
-// max_block_rows.
+// max_block_rows (the wide kernel's only block size at 256 and 448).
 extern "C" int flash_fwd_tiles(int head_dim, int* key_tile, int* max_block_rows) {
   if (mavlm::fwd_wide::is_head_dim(head_dim)) {
     *key_tile = mavlm::fwd_wide::key_tile(head_dim);
-    *max_block_rows = mavlm::fwd_wide::kBlockRows;
+    *max_block_rows = mavlm::fwd_wide::block_rows(head_dim);
     return 0;
   }
   if (head_dim != 64 && head_dim != 72 && head_dim != 112 && head_dim != 128) return -1;

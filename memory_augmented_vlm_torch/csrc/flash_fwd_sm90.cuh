@@ -34,15 +34,16 @@ int run(const Args& a, int head_dim, void* stream);
 // Gemma LM and the memory at its hidden size of 2048 over 8 heads; with
 // the lse epilogue for training) and 448 (the 7B memory: hidden 3584 over
 // 8 heads; no lse). Its online softmax takes key tiles of key_tile(D)
-// keys; a block takes kBlockRows query rows.
+// keys; a block takes block_rows(D) query rows: 128 at 256 (two consumer
+// warpgroups of 64 rows each), 64 at 448.
 namespace fwd_wide {
 
 constexpr bool is_head_dim(int d) { return d == 256 || d == 448; }
 constexpr int key_tile(int d) { return d == 448 ? 32 : 64; }
-constexpr int kBlockRows = 64;
+constexpr int block_rows(int d) { return d == 256 ? 128 : 64; }
 
 // As fwd_sm90::run at a head dim of is_head_dim: -1 when an lse is asked
-// for at 448, -3 for other block rows.
+// for at 448, -3 for block rows other than block_rows(head_dim).
 int run(const fwd_sm90::Args& a, int head_dim, void* stream);
 
 }  // namespace fwd_wide

@@ -140,6 +140,35 @@ __device__ __forceinline__ void reg_fence(int (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
+// Named barrier ID (1..15; 0 is __syncthreads) over THREADS threads.
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(THREADS) : "memory");
+}
+
+// Arrive at named barrier ID without waiting (the other side bar.syncs).
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "n"(THREADS) : "memory");
+}
+
+// A warp is done with the tile in a ring slot that all WARPS warps of the
+// block read: lane 0 counts it on the slot's counter in shared memory and
+// returns true to the whole warp when it was the last of them (then this
+// warp refills the slot). Each warp counts a slot's next tile only after it
+// saw that tile land, so the counts of two tiles never mix.
+template <int WARPS>
+__device__ __forceinline__ bool last_out(unsigned int* counter) {
+  __syncwarp();
+  unsigned int last = 0;
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();
+    last = atomicAdd(counter, 1u) % WARPS == WARPS - 1;
+    __threadfence_block();
+  }
+  return __shfl_sync(0xffffffffu, last, 0) != 0;
+}
+
 // The index of this thread's warp, broadcast from lane 0 so that the
 // compiler sees it as uniform across the warp: wgmma behind a branch on a
 // value it cannot prove uniform is serialized (ptxas C7520).

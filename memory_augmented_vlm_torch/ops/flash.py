@@ -213,13 +213,21 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise ValueError("batch and head counts must fit a CUDA grid axis")
 
 
+# Query rows of a block of the wide kernel (csrc/flash_fwd_wide_sm90.cu),
+# its only block size at each head dim: 128 at D256 (two consumer
+# warpgroups of 64 rows), 64 at WIDE_HEAD_DIM (two warpgroups splitting the
+# columns of the same 64 rows). `forward_plan` checks it against the
+# library's `flash_fwd_tiles`.
+WIDE_BLOCK_ROWS = {D256: 128, WIDE_HEAD_DIM: 64}
+
+
 def forward_tiles(head_dim: int) -> Tuple[int, int]:
     """(keys per K/V tile, most query rows per block) of the bf16 forward
     kernel at a head dim, as the built library reports them: its online
     softmax rounds P against the running max of each key tile, so the plain
     version that holds it takes the same `block_k`. At `D256` and
-    `WIDE_HEAD_DIM` the tiles are the wide kernel's (64 and 32 keys, 64
-    rows)."""
+    `WIDE_HEAD_DIM` the tiles are the wide kernel's (64 and 32 keys,
+    `WIDE_BLOCK_ROWS`)."""
     key_tile, rows = ctypes.c_int(), ctypes.c_int()
     lib = cuda_lib.load()
     cuda_lib.check(lib, lib.flash_fwd_tiles(head_dim, ctypes.byref(key_tile),
@@ -227,14 +235,20 @@ def forward_tiles(head_dim: int) -> Tuple[int, int]:
     return key_tile.value, rows.value
 
 
-def forward_block_rows(b: int, sq: int, h: int, max_rows: int, sms: int) -> int:
-    """Query rows per block of the bf16 forward kernel: `max_rows` (three
-    consumer warpgroups of 64 rows, two at D >= 112) when that grid gives
-    each of the card's `sms` SMs two blocks or more, else one warpgroup's 64
-    (two such blocks share an SM). The memory's cross-attentions, 8 heads of
-    1568 rows, would make 72 blocks of 192 rows; they take 200 of 64, since
-    the kernel does not split the key axis (that would move P's rounding
-    points)."""
+def forward_block_rows(b: int, sq: int, h: int, d: int, max_rows: int, sms: int) -> int:
+    """Query rows per block of the bf16 forward kernel at head dim `d`. The
+    wide kernel (`D256`, `WIDE_HEAD_DIM`) has one block size,
+    `WIDE_BLOCK_ROWS[d]`: at 256 its two warpgroups own 64 rows each, so a
+    64-row block would leave one idle (the memory's fuse, 8 heads of 1568
+    rows, runs 104 blocks of 128 rows in one wave on 132 SMs). The narrower
+    kernel takes `max_rows` (three consumer warpgroups of 64 rows, two at
+    D >= 112) when that grid gives each of the card's `sms` SMs two blocks
+    or more, else one warpgroup's 64 (two such blocks share an SM): the
+    memory's cross-attentions at head dim 112 would make 72 blocks of 192
+    rows; they take 200 of 64, since the kernel does not split the key axis
+    (that would move P's rounding points)."""
+    if d in WIDE_BLOCK_ROWS:
+        return WIDE_BLOCK_ROWS[d]
     return max_rows if b * h * -(-sq // max_rows) >= 2 * sms else 64
 
 
@@ -261,8 +275,11 @@ def forward_plan(b, sq, skv, h, d, causal, device) -> Tuple[int, torch.Tensor]:
     key = (b, sq, skv, h, d, causal, str(device))
     if key not in _FWD_PLANS:
         key_tile, max_rows = forward_tiles(d)
+        if d in WIDE_BLOCK_ROWS and max_rows != WIDE_BLOCK_ROWS[d]:
+            raise RuntimeError(f"the wide kernel's block rows at {d}: library {max_rows}, "
+                               f"WIDE_BLOCK_ROWS {WIDE_BLOCK_ROWS[d]}")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        rows = forward_block_rows(b, sq, h, max_rows, sms)
+        rows = forward_block_rows(b, sq, h, d, max_rows, sms)
         items = forward_work_list(b, sq, skv, h, causal, rows, key_tile)
         _FWD_PLANS[key] = rows, torch.tensor(items, dtype=torch.int32,
                                              device=device).reshape(-1, 3)
@@ -299,8 +316,9 @@ def flash_forward_d256(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
     """#1 at head dim `D256` (Gemma's LM prefill, and the memory's
     cross-attentions at Gemma-2B's width), which `flash_attention` reaches
     at that head dim in bf16: CPU tensors take the plain version; bf16 CUDA
-    tensors launch `csrc/flash_fwd_wide_sm90.cu` at 256 (key tiles of 64,
-    `forward_tiles`), counted in `flash_forward_d256.launches`."""
+    tensors launch `csrc/flash_fwd_wide_sm90.cu` at 256 (blocks of 128 rows,
+    key tiles of 64, `forward_tiles`), counted in
+    `flash_forward_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"flash_forward_d256 takes head dim {D256}, got {q.shape[-1]}")
     return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,

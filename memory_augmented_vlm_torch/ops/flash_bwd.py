@@ -27,9 +27,10 @@ built here once per shape (`work_list`): items of (batch, query head,
 tile), longest loop first (the causal forward takes dQ's list at its own
 tiles). dK/dV items write each query head's fp32 partials, which a second
 kernel sums over the group in head order (`backward_dkv_partials_reference`
-and `group_sum` are their plain versions); at head dim 256 each dK/dV item
-runs as two blocks, one per half of the columns. fp32 runs the SIMT kernels
-of `csrc/flash_train.cu`.
+and `group_sum` are their plain versions); at head dim 256 a dK/dV item's
+two consumer warpgroups each hold one half of the columns and share the
+scores of its 32-row query tiles. fp32 runs the SIMT kernels of
+`csrc/flash_train.cu`.
 
 Each kernel wrapper takes its plain version (`*_reference`) only for
 tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
@@ -58,10 +59,12 @@ TRAIN_HEAD_DIMS = (64, 128, D256)
 # against its `flash_bwd_tiles` when a list first goes to the card): a dQ
 # item takes 64 query rows (128 at head dim 128) and loops over 64-key
 # tiles; a dK/dV item takes 128 keys (64 at head dims 128 and 256) and
-# loops over 64-row query tiles.
-DQ_BLOCK_K = DKV_BLOCK_Q = 64
+# loops over 64-row query tiles (32-row at 256, whose stages of qs, dO and
+# q fit three to a block beside K and V).
+DQ_BLOCK_K = 64
 _DQ_BLOCK_Q = {64: 64, 128: 128, D256: 64}
 _DKV_BLOCK_K = {64: 128, 128: 64, D256: 64}
+_DKV_BLOCK_Q = {64: 64, 128: 64, D256: 32}
 
 
 def dq_block_q(head_dim: int) -> int:
@@ -70,6 +73,10 @@ def dq_block_q(head_dim: int) -> int:
 
 def dkv_block_k(head_dim: int) -> int:
     return _DKV_BLOCK_K[head_dim]
+
+
+def dkv_block_q(head_dim: int) -> int:
+    return _DKV_BLOCK_Q[head_dim]
 
 
 def _repeat(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -227,13 +234,13 @@ _WORK_ITEMS = {}
 def _work_items(kind, b, sq, skv, h, causal, d, device) -> torch.Tensor:
     """`work_list` as an (n, 3) int32 tensor on `device`, made once per shape."""
     block_q, block_k = ((dq_block_q(d), DQ_BLOCK_K) if kind == "dq"
-                        else (DKV_BLOCK_Q, dkv_block_k(d)))
+                        else (dkv_block_q(d), dkv_block_k(d)))
     key = (kind, b, sq, skv, h, causal, block_q, block_k, str(device))
     if key not in _WORK_ITEMS:
         tiles = [ctypes.c_int() for _ in range(4)]
         lib = cuda_lib.load()
         cuda_lib.check(lib, lib.flash_bwd_tiles(d, *map(ctypes.byref, tiles)), "flash_bwd_tiles")
-        want = (dq_block_q(d), DQ_BLOCK_K, DKV_BLOCK_Q, dkv_block_k(d))
+        want = (dq_block_q(d), DQ_BLOCK_K, dkv_block_q(d), dkv_block_k(d))
         if tuple(x.value for x in tiles) != want:
             raise RuntimeError(f"backward tiles {[x.value for x in tiles]} != {want}")
         items = work_list(kind, b, sq, skv, h, causal, block_q, block_k)
@@ -423,9 +430,9 @@ def backward_dkv_d256(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, 
                       kv_groups: int = 1, qs: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`backward_dkv` at head dim 256: bf16 CUDA tensors launch
-    `flash_bwd_dkv_sm90` at 256 (each 64-key item as two blocks, one per
-    half of the columns, then the group sum), fp32 the SIMT kernel; counted
-    in `backward_dkv_d256.launches`."""
+    `flash_bwd_dkv_sm90` at 256 (one block per 64-key item, two warpgroups
+    each holding one half of the columns, then the group sum), fp32 the SIMT
+    kernel; counted in `backward_dkv_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"backward_dkv_d256 takes head dim {D256}, got {q.shape[-1]}")
     return _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,

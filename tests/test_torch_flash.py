@@ -256,17 +256,23 @@ def test_flash_forward_kernels_are_tma_fed_wgmma_on_the_shared_header():
     assert "mma_bf16_16816" not in kernel and "sVt" not in kernel
 
 
-@pytest.mark.parametrize("b,sq,h,max_rows,rows", [
-    (64, 729, 16, 192, 192),   # the tower: 4096 blocks of 192 rows
-    (1, 9472, 14, 192, 192),   # the LM prefill: 700
-    (1, 1568, 8, 128, 64),     # the memory's attentions: 104 of 128 rows would idle SMs
-    (1, 9557, 14, 128, 128),   # the train shape at head dim 128: 1050
-    (2, 150, 4, 192, 64),      # an edge case
+@pytest.mark.parametrize("b,sq,h,d,max_rows,rows", [
+    (64, 729, 16, 72, 192, 192),   # the tower: 4096 blocks of 192 rows
+    (1, 9472, 14, 64, 192, 192),   # the LM prefill: 700
+    (1, 1568, 8, 112, 128, 64),    # the memory's attentions: 104 of 128 rows would idle SMs
+    (1, 9557, 14, 128, 128, 128),  # the train shape at head dim 128: 1050
+    (2, 150, 4, 64, 192, 64),      # an edge case
+    # the wide kernel's one block size: Gemma-2B's memory fuse (104 blocks
+    # of 128 rows, one wave) and prefill, and the 7B memory at 448
+    (1, 1568, 8, 256, 128, 128),
+    (1, 9472, 8, 256, 128, 128),
+    (1, 1568, 8, 448, 64, 64),
 ])
-def test_forward_block_rows_by_shape(b, sq, h, max_rows, rows):
+def test_forward_block_rows_by_shape(b, sq, h, d, max_rows, rows):
     """The bf16 forward takes its largest blocks where the grid gives each
-    of 132 SMs two of them, else blocks of one warpgroup (64 rows)."""
-    assert flash.forward_block_rows(b, sq, h, max_rows, sms=132) == rows
+    of 132 SMs two of them, else blocks of one warpgroup (64 rows); the wide
+    kernel (head dims 256 and 448) has one block size, `WIDE_BLOCK_ROWS`."""
+    assert flash.forward_block_rows(b, sq, h, d, max_rows, sms=132) == rows
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -297,6 +303,26 @@ def test_forward_work_list_at_the_lm_prefill_shape():
     items = flash.forward_work_list(1, s, s, 14, True, rows, 64)
     loops = [len(flash_bwd.dq_key_tiles(i, s, s, True, rows, 64)) for _, _, i in items]
     assert (len(items), loops[0], loops[-1], sum(loops)) == (700, 148, 3, 53522)
+
+
+@pytest.mark.parametrize("sq,skv,causal,items,longest,total", [
+    (1568, 6272, False, 104, 98, 10192),   # the memory's fuse: 13 tiles of 8 heads
+    (1568, 15680, False, 104, 245, 25480),  # its evolve
+    (9472, 9472, True, 592, 148, 44400),    # the causal LM prefill
+])
+def test_forward_work_list_at_gemma_shapes(sq, skv, causal, items, longest, total):
+    """#1 at head dim 256 in blocks of `WIDE_BLOCK_ROWS[256]` = 128 rows at
+    Gemma-2B's three path shapes (8 query heads): every (head, tile) once,
+    the longest key loop first. The prefill's 592 blocks loop over 2 to 148
+    key tiles of 64, 44,400 block-iterations (64-row blocks ran 1,184 and
+    88,208, each iteration half the rows)."""
+    rows = flash.WIDE_BLOCK_ROWS[flash.D256]
+    work = flash.forward_work_list(1, sq, skv, 8, causal, rows, 64)
+    tiles = -(-sq // rows)
+    assert sorted(work) == [(0, hi, i) for hi in range(8) for i in range(tiles)]
+    loops = [len(flash_bwd.dq_key_tiles(i, sq, skv, causal, rows, 64)) for _, _, i in work]
+    assert loops == sorted(loops, reverse=True)
+    assert (len(work), loops[0], sum(loops)) == (items, longest, total)
 
 
 def _control_case(causal):
@@ -345,9 +371,11 @@ def test_flash_ab_calls_only_entry_points_every_tree_has():
     """microbench/flash_ab.py also runs against older trees of the port: of
     the port's modules it calls only entry points that every tree has had
     since the train step was ported, except under its check that the tree
-    has the wide kernel (head dim 448, which came with `forward_tiles`), and
-    of nvcc's ptxas report it keeps the bf16 flash forward kernels, the
-    mma.sync ones and the wgmma ones alike."""
+    has the wide kernel (head dim 448, which came with `forward_tiles`) and
+    in `_d256_kernels`, which it calls only under its check that the tree has
+    the head dim 256 training entries, and of nvcc's ptxas report it keeps
+    the bf16 flash forward kernels, the mma.sync ones and the wgmma ones
+    alike."""
     import ast
     import inspect
 
@@ -369,8 +397,18 @@ def test_flash_ab_calls_only_entry_points_every_tree_has():
     everywhere = {("flash", "flash_attention"), ("flash_bwd", "forward_with_lse"),
                   ("siglip", "init_params"), ("siglip", "forward"), ("qwen2", "init_params"),
                   ("qwen2", "forward"), ("cuda_lib", "load"), ("cuda_lib", "BUILD_LOG")}
-    assert used_in(tree) == everywhere | wide
-    guard.body = []
+    (guard256,) = [n for n in ast.walk(tree) if isinstance(n, ast.If)
+                   and ast.unparse(n.test) == "hasattr(flash_bwd, 'backward_dkv_d256')"]
+    assert "_d256_kernels" in ast.unparse(guard256)
+    (fn256,) = [n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "_d256_kernels"]
+    d256 = {("flash", "D256"), ("flash", "flash_attention"),
+            ("flash_bwd", "forward_with_lse_d256"), ("flash_bwd", "attention_delta"),
+            ("flash_bwd", "scaled_q"), ("flash_bwd", "backward_dq_d256"),
+            ("flash_bwd", "backward_dkv_d256")}
+    assert used_in(fn256) == d256
+    assert used_in(tree) == everywhere | wide | d256
+    guard.body, fn256.body = [], []
     assert used_in(tree) == everywhere
     assert callable(flash_ab.main) and callable(flash_ab.measure)
     log = """ptxas info    : Compiling entry function '_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv' for 'sm_90a'
@@ -382,9 +420,16 @@ ptxas info    : Used 96 registers, used 1 barriers
 ptxas info    : Compiling entry function '_Z13gemv_kernelPKv' for 'sm_90a'
 ptxas info    : Used 40 registers
 ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelEv' for 'sm_90a'
-ptxas info    : Used 168 registers"""
+ptxas info    : Used 168 registers
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv' for 'sm_90a'
+ptxas info    : Used 218 registers"""
     report = flash_ab.ptxas_report(log)
     assert list(report) == ["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv",
                             "_ZN12_GLOBAL__N_119fwd_lse_bf16_kernelILi64EEEv",
-                            "_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelEv"]
+                            "_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelEv",
+                            "_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv", "warnings"]
+    assert report["warnings"] == [
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized"]
     assert "Used 114 registers" in report["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv"]

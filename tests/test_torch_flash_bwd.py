@@ -334,16 +334,23 @@ def test_work_list_covers_each_reachable_tile_pair_once(s, s_kv, b, h, causal, k
                              for i in range(tiles)]
 
 
-@pytest.mark.parametrize("kind,items,longest,total", [("dq", 2100, 150, 158550),
-                                                       ("dkv", 1050, 150, 79800)])
-def test_work_list_at_the_train_shape_is_balanced(kind, items, longest, total):
+@pytest.mark.parametrize("kind,d,h,items,longest,total", [
+    ("dq", 64, 14, 2100, 150, 158550),
+    ("dkv", 64, 14, 1050, 150, 79800),
+    # Gemma-2B (8 heads of 256 over one KV head): dQ's 64-row items; dK/dV's
+    # 64-key items loop over 32-row query tiles (299 at the first key tile)
+    ("dq", 256, 8, 1200, 150, 90600),
+    ("dkv", 256, 8, 1200, 299, 180000),
+])
+def test_work_list_at_the_train_shape_is_balanced(kind, d, h, items, longest, total):
     """At the LM's train shape (head dim 64) no item's loop is longer than
     150 tiles, under 1/7 of the 1050 that the longest block of a
-    group-per-block dK/dV split runs."""
+    group-per-block dK/dV split runs; at Gemma's (256) the lists follow the
+    kernels' tiles (`dq_block_q`, `dkv_block_q`, `dkv_block_k`)."""
     s = 9557
-    bq, bk = ((flash_bwd.dq_block_q(64), flash_bwd.DQ_BLOCK_K) if kind == "dq"
-              else (flash_bwd.DKV_BLOCK_Q, flash_bwd.dkv_block_k(64)))
-    work = flash_bwd.work_list(kind, 1, s, s, 14, True, bq, bk)
+    bq, bk = ((flash_bwd.dq_block_q(d), flash_bwd.DQ_BLOCK_K) if kind == "dq"
+              else (flash_bwd.dkv_block_q(d), flash_bwd.dkv_block_k(d)))
+    work = flash_bwd.work_list(kind, 1, s, s, h, True, bq, bk)
     loop = (flash_bwd.dq_key_tiles if kind == "dq" else flash_bwd.dkv_query_tiles)
     lengths = [len(loop(t, s, s, True, bq, bk)) for _, _, t in work]
     assert (len(work), max(lengths), sum(lengths)) == (items, longest, total)
