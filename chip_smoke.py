@@ -9,7 +9,11 @@ each of which raises on failure:
 
   1. card     — name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
   2. build    — compile the kernels (one nvcc per source, in parallel), print
-                the build time and ptxas report;
+                the build time and ptxas report (kept beside a cached
+                library), and fail if ptxas spills, ignores setmaxnreg
+                (C7508) or serialises wgmma (C7512, C7514, C7515, C7520, ...)
+                in the Hopper flash kernels at head dims 256 and 448
+                (`PTXAS_CLEAN`);
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths and at edge cases, with the
                 kernel's, the plain version's and a library call's times
@@ -19,7 +23,8 @@ each of which raises on failure:
                 flash_fwd_d448 (the wide kernel, head dim 448) at the 7B
                 memory's fuse and evolve shapes, SDPA's kernels named, and
                 at edge cases (valid length 0 and 1, 65 rows, two batches of
-                unequal valid length, causal GQA), flash_fwd_d256 (the same
+                unequal valid length, causal GQA, an even number of key
+                tiles so that both warpgroups score), flash_fwd_d256 (the same
                 kernel at head dim 256: Gemma-2B's memory and LM prefill,
                 held in the Gemma phase below at the shapes its requests
                 gave it, and at edge cases of GQA 8 and 1, valid lengths off
@@ -37,7 +42,8 @@ each of which raises on failure:
                 and controls, and dK/dV with the column halves of Q and dO
                 swapped), each timed beside SDPA, and at edge cases in bf16
                 and fp32 (B = 2 with a valid length of 0, cross attention,
-                fp32 cuts at 64 and 256), flash_fwd_d256_f32 (#1's fp32
+                fp32 cuts at 64 and 256, 540 rows at 256, whose last dQ item
+                leaves its upper warpgroup idle), flash_fwd_d256_f32 (#1's fp32
                 kernel at 256, the Gemma parity cut's memory) at the memory's
                 fuse and evolve shapes, the backward
                 of flash_fwd at the memory's fuse shape, flash_fwd, the
@@ -454,6 +460,44 @@ def phase_card() -> str:
     return card
 
 
+# kernels whose ptxas report must show no spill, no C7508 (setmaxnreg
+# ignored) and no warning that wgmma is serialised, whatever its code
+# (C7512, C7514, C7515, C7520, ...); C7519, injected arrives, is no fault
+PTXAS_CLEAN = ("bwd_dq_d256_kernel", "flash_fwd_d448_kernel", "flash_fwd_d256_kernel",
+               "flash_fwd_lse_d256_kernel", "bwd_dkv_split_sm90_kernelILi256E")
+PTXAS_FAULTS = re.compile(r"C7508|wgmma\.mma_async instructions are serialized")
+
+
+def ptxas_faults(log_text: str) -> dict:
+    """{kernel of PTXAS_CLEAN: its faults} from nvcc's -Xptxas -v output:
+    spill stores or loads in its function properties, a C7508 or
+    serialised-wgmma warning that names it (or, naming no function, follows
+    its "Compiling entry function" line), or no entry of that name at all."""
+    faults = {name: [] for name in PTXAS_CLEAN}
+    seen, entry, props = set(), None, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        named = re.findall(r"'(_Z[^']*)'", line)
+        for name in PTXAS_CLEAN:
+            if entry and name in entry:
+                seen.add(name)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill and props and name in props and (int(spill[1]) or int(spill[2])):
+                faults[name].append(line.strip())
+            if PTXAS_FAULTS.search(line) and any(
+                    name in f for f in (named or [entry or ""])):
+                faults[name].append(line.strip())
+    for name in PTXAS_CLEAN:
+        if name not in seen:
+            faults[name].append("no entry function of this name in the ptxas report")
+    return {name: f for name, f in faults.items() if f}
+
+
 def phase_build():
     t0 = time.perf_counter()
     cuda_lib.load()
@@ -462,6 +506,9 @@ def phase_build():
         if ("registers" in line or "spill" in line or "Compiling entry" in line
                 or "C75" in line):  # the C75xx lines: wgmma serialised, setmaxnreg ignored
             log("  " + line.strip())
+    faults = ptxas_faults(cuda_lib.BUILD_LOG["ptxas"])
+    if faults:
+        raise RuntimeError(f"ptxas spilled or serialised the Hopper flash kernels: {faults}")
 
 
 def _bound(ops: float, peak: float, nbytes: float):
@@ -679,7 +726,9 @@ WIDE_EDGES = {
         ("valid_0_and_77", 150, 150, 4, 2, (0, 77), False, False),
         ("valid_1", 65, 100, 2, 2, (1,), False, False),
         ("sq_65", 65, 333, 8, 8, (333,), False, True),
-        ("b2_unequal", 100, 333, 2, 2, (333, 65), False, True)],
+        ("b2_unequal", 100, 333, 2, 2, (333, 65), False, True),
+        # an even number of 32-key tiles: both warpgroups score
+        ("valid_64_even", 65, 100, 2, 2, (64,), False, True)],
     # Gemma: GQA 8 (one KV head) and 1, valid lengths off the 64-key tile,
     # fewer queries than one 128-row block (its second warpgroup idle), B = 2
     flash.D256: [
@@ -709,8 +758,8 @@ def _wide_cases(randn, lens):
     """#1 at head dim 448 (csrc/flash_fwd_wide_sm90.cu, the 7B memory): the
     fuse and evolve shapes of a 64-frame 7B request, timed, with the
     library call's backend named; edge cases of valid length 0 (zeros) and
-    1, 65 query rows, B = 2 with unequal valid lengths, causal GQA
-    (`WIDE_EDGES`). Each held bit-close to the online softmax at the
+    1, 65 query rows, B = 2 with unequal valid lengths, causal GQA, an even
+    number of key tiles (`WIDE_EDGES`). Each held bit-close to the online softmax at the
     kernel's 32-key tile. Returns (path rows, errors)."""
     d = flash.WIDE_HEAD_DIM
     path_rows = [
@@ -798,7 +847,7 @@ def _device_kernels(fn) -> list:
 def _flash_row(name, source, path_rows, errs):
     return {
         "name": name, "route": "cuda", "source": CSRC + source,
-        "replaces": "memory_augmented_vlm_tpu/ops/pallas_flash.py:567",
+        "replaces": "memory_augmented_vlm_tpu/ops/pallas_flash.py:565",
         "max_abs_err": max(errs),
         **{key: sum(r[key] for r in path_rows)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
@@ -2352,6 +2401,8 @@ TRAIN_EDGES = [
     # sequence by the SIMT kernel, fell 2.4e-5 from the plain version's
     # blocked sum: fp32 order, outside the 1e-5 rule)
     ("d256_cut_f32", 1, 300, 300, 8, 1, 256, True, (300,), (torch.float32,)),
+    # dQ's last 128-row item holds 28 rows: its upper warpgroup is idle
+    ("d256_sq_540", 1, 540, 540, 8, 1, 256, True, (540,), (torch.bfloat16,)),
 ]
 
 

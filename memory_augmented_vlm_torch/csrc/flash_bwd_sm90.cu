@@ -32,7 +32,7 @@
 //     builds once per shape (ops/flash_bwd.py): (batch, query head, tile),
 //     longest loop first, so the blocks that run longest start first and
 //     the short ones fill the tail. dQ's tile is 64 query rows (128 at
-//     D = 128) and its loop runs over 64-key tiles; dK/dV's tile is 128 keys
+//     D = 128 and 256) and its loop runs over 64-key tiles; dK/dV's tile is 128 keys
 //     (64 at D = 128) and its loop runs over 64-query tiles. The group of
 //     query heads is split across items, so no item loops more than 150
 //     times at the train shape (the group-per-block split ran 1050): each
@@ -73,11 +73,30 @@
 // 256 fp32 accumulator is 128 registers a thread. ptxas gives a thread at
 // most 168 in a block of nine warps or more (three share a quarter of the
 // register file) and 255 in one of eight or fewer:
-//   - dQ: one consumer warpgroup and the producer warp (five warps); one
-//     64-row item holds the whole 64 x 256 dQ accumulator (128 registers)
-//     beside S and dP (32 each): 192 live, under 255. Its shared memory (q,
-//     dO and two K/V stages, 32 KB a tile) is 193 KB, so one block per SM;
-//     it waits for its products before each softmax;
+//   - dQ (bwd_dq_d256_kernel): one block per 128-row item, two warpgroups
+//     of 64 rows and no producer (256 threads, 231 registers, 0 spilled,
+//     no C7508/C7512/C7515/C7520). Each holds its whole 64 x 256 dQ (128
+//     registers) beside S and dP (32 each). qs and dO of the item take 128
+//     KB; each 64-key K and V tile (32 KB) is staged once for both
+//     warpgroups, K in a ring of two slots (read by S and again by dQ += dS
+//     K), V in a ring of one (read by dP alone): 224 KB. The last warp out
+//     of a slot refills it. A warpgroup issues S, waits for V, issues dP,
+//     waits for both, forms dS and adds dQ += dS K; the other warpgroup's
+//     products fill the tensor cores meanwhile. Past its own causal
+//     diagonal a warpgroup only counts itself out of the slots; one whose
+//     rows all lie past Sq computes nothing. Per element the same k-steps in
+//     the same order as the 64-row kernel, so the same bits.
+//   Measured and rejected (NVIDIA H100 80GB HBM3, 700.00 W,
+//   microbench/flash_ab.py, ms of ten calls back to back at (1, 9557, 8,
+//   256), causal, GQA 8, where this design ran 0.931-0.932 and the
+//   one-warpgroup 64-row kernel before it 0.990-1.007): ping-pong turns
+//   around the score products (named barriers) 0.931-0.957 over three
+//   calls, no gain; tile j - 1's dQ
+//   product issued in the same turn as tile j's S and dP (234 registers, no
+//   warning from ptxas) 2.00, and without turns 1.28. With the K/V refills
+//   left out (a timing probe, wrong values) it ran 0.78: the rest is shared
+//   memory, whose S and dP products read both operands (128 bytes a clock at
+//   the tensor cores' rate, all an SM gives) beside TMA's K/V writes.
 //   - dK/dV (bwd_dkv_split_sm90_kernel): one block per 64-key item, two
 //     warpgroups and no producer (256 threads, 206 registers, 0 spilled).
 //     Warpgroup w owns columns [128 w, 128 w + 128) of dK and dV: 64 + 64
@@ -327,6 +346,176 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
     __nv_bfloat16* out = dq + (long long)row * p.o_ss + 2 * t;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(out + 8 * c) =
+          pack_bf16x2(acc[c / 8][4 * (c % 8) + 2 * r], acc[c / 8][4 * (c % 8) + 2 * r + 1]);
+    }
+  }
+}
+
+// dQ at head dim 256: an item is 128 query rows, two warpgroups of 64 rows
+// each holding their whole 64 x 256 fp32 dQ (128 registers a thread), 256
+// threads and no producer. Each staged 64-key K and V tile serves both
+// warpgroups. K tiles sit in a ring of two slots (a K tile is read by S =
+// qs K^T and again by dQ += dS K), V tiles in a ring of one (read by dP =
+// dO V^T alone; two slots of each would take 256 KB); the last warp out of
+// a slot refills it.
+struct DqD256Shape {
+  static constexpr int D = 256;
+  static constexpr int BM = 2 * kWgRows;  // query rows per item
+  static constexpr int BN = kStepRows;    // keys per K or V tile
+  static constexpr int CB = D / kSwzCols;
+  static constexpr int WARPS = 8;  // two warpgroups
+  using Ring = KvRings<2, 1, BN, CB>;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;  // the item's qs, or its dO
+  static constexpr uint32_t SLOT0 = 2 * Q_BYTES;   // K slots, then V's
+  // a full barrier per slot, the q barrier, then a counter per slot
+  static constexpr uint32_t BARS = SLOT0 + Ring::BYTES;
+  static constexpr uint32_t COUNTERS = BARS + 8 * (Ring::SLOTS + 1);
+  static constexpr size_t SMEM = COUNTERS + 4 * Ring::SLOTS + 1024;
+  static_assert(SMEM <= 227 * 1024, "qs, dO and the rings fit one block's shared memory");
+};
+
+// One item: 128 query rows of one head, warpgroup w owning rows [64 w, 64 w
+// + 64), looping over 64-key tiles up to the valid length and its own
+// causal diagonal. The warpgroups run unsynchronised but for the slots:
+// one's softmax gradient runs under the other's products.
+__global__ void __launch_bounds__(2 * 128, 1)
+    bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const BwdParams p) {
+  using S = DqD256Shape;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // `base` as a generic pointer
+  const uint32_t s_qs = base, s_do = base + S::Q_BYTES;
+  const uint32_t q_bar = base + S::BARS + 8 * S::Ring::SLOTS;  // after the slots' barriers
+
+  const int* item = p.items + 3 * blockIdx.x;
+  const int b = item[0], h = item[1], m0 = item[2] * S::BM;
+  const int hk = h / p.kv_groups;
+  const int kv_valid = min(p.valid_len[b], p.Skv);
+  const int kv_end = p.causal ? min(kv_valid, m0 + S::BM) : kv_valid;
+  // the block's key tiles, seen as uniform (wgmma behind a branch on a value
+  // ptxas cannot prove warp-uniform is serialised)
+  const int n_tiles =
+      __shfl_sync(0xffffffffu, kv_end > 0 ? (kv_end + S::BN - 1) / S::BN : 0, 0);
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+
+  const S::Ring kv{base + S::SLOT0, base + S::BARS,
+                   reinterpret_cast<unsigned int*>(gbase + S::COUNTERS), &tm_k, &tm_v, hk, b};
+  auto wait_tile = [&](int v, int j) { kv.wait(v, j); };
+  // this warp is done with tile j of K or V, which all eight warps read
+  auto done_with = [&](int v, int j) { kv.done_with<S::WARPS>(v, j, n_tiles); };
+
+  if (threadIdx.x == 0) {
+    kv.init();
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_tiles > 0) {  // qs and dO, and the first tiles of the rings
+    mbar_arrive_tx(q_bar, 2 * S::Q_BYTES);
+    for (int c = 0; c < S::CB; ++c) {
+      tma_load(s_qs + c * S::BM * kRowBytes, &tm_qs, q_bar, c * kSwzCols, m0, h, b);
+      tma_load(s_do + c * S::BM * kRowBytes, &tm_do, q_bar, c * kSwzCols, m0, h, b);
+    }
+    kv.load_first(n_tiles);
+  }
+
+  const int q_first = m0 + wg * kWgRows;  // this warpgroup's first row
+  const int row0 = q_first + wl * 16 + g;  // this thread's rows: row0, row0 + 8
+  // this warpgroup's key tiles: the block's, cut at its own diagonal; none
+  // when its rows all lie past Sq
+  const int wg_end = p.causal ? min(kv_valid, q_first + kWgRows) : kv_valid;
+  const int my_tiles = __shfl_sync(
+      0xffffffffu,
+      q_first < p.Sq && wg_end > 0 ? min(n_tiles, (wg_end + S::BN - 1) / S::BN) : 0, 0);
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long idx = ((long long)b * p.H + h) * p.Sq + row;
+    lse[r] = row < p.Sq ? p.lse[idx] : INFINITY;  // p = 0 on rows past Sq
+    dlt[r] = row < p.Sq ? p.delta[idx] : 0.f;
+  }
+  float acc[S::CB][32], sc[32], dp[32];
+  zero<S::D>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t a[4][4];
+
+  auto issue_s = [&](int j) {  // S = qs K^T
+#pragma unroll
+    for (int kk = 0; kk < S::D / 16; ++kk) {
+      wgmma_ss_n64(sc, desc_kmajor(s_qs, S::BM, wg * kWgRows, kk),
+                   desc_kmajor(kv.tile(0, j), S::BN, 0, kk), kk);
+    }
+  };
+  auto issue_dp = [&](int j) {  // dP = dO V^T
+#pragma unroll
+    for (int kk = 0; kk < S::D / 16; ++kk) {
+      wgmma_ss_n64(dp, desc_kmajor(s_do, S::BM, wg * kWgRows, kk),
+                   desc_kmajor(kv.tile(1, j), S::BN, 0, kk), kk);
+    }
+  };
+
+  if (my_tiles > 0) mbar_wait(q_bar, 0);
+  for (int j = 0; j < my_tiles; ++j) {
+    wait_tile(0, j);
+    wg_fence();
+    issue_s(j);
+    wg_commit();
+    wait_tile(1, j);  // V lands later than K: its single slot frees later
+    wg_fence();
+    issue_dp(j);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(sc);
+    reg_fence(dp);
+    done_with(1, j);
+    const int n0 = j * S::BN;
+    if (n0 + S::BN <= wg_end && (!p.causal || n0 + S::BN - 1 <= q_first)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // no key of the tile is masked for these rows
+        const int r = (i >> 1) & 1;
+        sc[i] = fast_exp2(sc[i] - lse[r]) * (dp[i] - dlt[r]) * p.scale;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // element i: row row0 + 8 r, key col
+        const int r = (i >> 1) & 1;
+        const int col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool ok = col < wg_end && (!p.causal || col <= row0 + 8 * r);
+        const float pr = ok ? fast_exp2(sc[i] - lse[r]) : 0.f;
+        sc[i] = pr * (dp[i] - dlt[r]) * p.scale;
+      }
+    }
+    acc_to_a(sc, a);  // dS rounded to bf16
+    wg_fence();
+    mma_rows_by_tile<S::D>(acc, a, kv.tile(0, j));  // dQ += dS K
+    wg_commit();
+    wg_wait_all();
+    fence_all<S::D>(acc);
+    done_with(0, j);
+  }
+  for (int j = my_tiles; j < n_tiles; ++j) {  // past this warpgroup's diagonal: count only
+    wait_tile(0, j);
+    done_with(0, j);
+    wait_tile(1, j);
+    done_with(1, j);
+  }
+
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.Sq) continue;
+    __nv_bfloat16* out = dq + (long long)row * p.o_ss + 2 * t;
+#pragma unroll
+    for (int c = 0; c < S::D / 8; ++c) {
       *reinterpret_cast<uint32_t*>(out + 8 * c) =
           pack_bf16x2(acc[c / 8][4 * (c % 8) + 2 * r], acc[c / 8][4 * (c % 8) + 2 * r + 1]);
     }
@@ -856,10 +1045,10 @@ BwdParams make_params(const void* lse, const void* delta, const void* valid_len,
 // query rows each) and blocks per SM; dK/dV: consumer warpgroups (64 keys
 // each). At D = 64 dQ runs three one-warpgroup blocks per SM, so three
 // independent items interleave their products and softmax; at D = 128 its
-// accumulators need the registers of one two-warpgroup block; at D = 256
-// one warpgroup holds them alone (255 registers). dK/dV keeps one
-// warpgroup at D = 128, for registers, and at 256 splits the columns
-// between two warpgroups (DkvSplitShape).
+// accumulators need the registers of one two-warpgroup block; D = 256 has
+// a kernel of its own (DqD256Shape: two warpgroups over 128-row items, no
+// producer). dK/dV keeps one warpgroup at D = 128, for registers, and at
+// 256 splits the columns between two warpgroups (DkvSplitShape).
 template <int D>
 struct DqConfig {
   static constexpr int NWG = D == 128 ? 2 : 1, MINB = D == 64 ? 3 : 1;
@@ -890,6 +1079,28 @@ int run_dq(const void* qs, const void* k, const void* v, const void* dout, void*
   const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
   kernel<<<n_items, C::NWG * 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dQ at D = 256: one block per 128-row item (bwd_dq_d256_kernel).
+int run_dq_d256(const void* qs, const void* k, const void* v, const void* dout, void* dq,
+                const BwdParams& params, int n_items, int B, int Sq, int Skv, int H,
+                int kv_groups, const long long* qs_strides, const long long* k_strides,
+                const long long* v_strides, const long long* d_strides, cudaStream_t stream) {
+  using S = DqD256Shape;
+  const int Hkv = H / kv_groups;
+  CUtensorMap m[4];
+  if (!make_map(&m[0], qs, S::D, Sq, H, B, qs_strides, S::BM) ||
+      !make_map(&m[1], dout, S::D, Sq, H, B, d_strides, S::BM) ||
+      !make_map(&m[2], k, S::D, Skv, Hkv, B, k_strides, S::BN) ||
+      !make_map(&m[3], v, S::D, Skv, Hkv, B, v_strides, S::BN)) {
+    return kTmaRejected;
+  }
+  BwdParams p = params;
+  p.out = dq;
+  const int rc = set_smem(bwd_dq_d256_kernel, S::SMEM);
+  if (rc != 0) return rc;
+  bwd_dq_d256_kernel<<<n_items, 2 * 128, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -990,7 +1201,7 @@ extern "C" int flash_bwd_tiles(int head_dim, int* dq_rows, int* dq_keys, int* dk
       *dkv_keys = DkvConfig<128>::NWG * kWgRows;
       break;
     case 256:
-      *dq_rows = DqConfig<256>::NWG * kWgRows;
+      *dq_rows = DqD256Shape::BM;
       *dkv_keys = DkvSplitShape<256>::BN;
       *dkv_rows = DkvSplitShape<256>::BM;
       *dq_keys = kStepRows;
@@ -1026,7 +1237,7 @@ extern "C" int flash_bwd_dq_sm90(int head_dim, const void* qs, const void* k, co
                        k_strides, v_strides, d_strides, s);
   }
   if (head_dim == 256) {
-    return run_dq<256>(qs, k, v, dout, dq, p, n_items, B, Sq, Skv, H, kv_groups, qs_strides,
+    return run_dq_d256(qs, k, v, dout, dq, p, n_items, B, Sq, Skv, H, kv_groups, qs_strides,
                        k_strides, v_strides, d_strides, s);
   }
   return -1;

@@ -7,7 +7,9 @@
 // (flash_train.cu) -> fwd_sm90::run, as the other head dims are. The two
 // head dims have kernels of their own: flash_fwd_d256_kernel (and
 // flash_fwd_lse_d256_kernel, the same with the lse epilogue) and
-// flash_fwd_wide_kernel<448>.
+// flash_fwd_d448_kernel. Both run two warpgroups and no producer (256
+// threads, so ptxas may give a thread 255 registers), K and V rings
+// refilled by the last warp out, and compute each score tile once.
 //
 // Replaces the TPU kernels
 //   _flash_fwd_kernel  behind memory_augmented_vlm_tpu/ops/pallas_flash.py::
@@ -91,21 +93,49 @@
 // refills left out (wrong values, a timing probe) the kernel of that stage
 // ran 0.63, not 0.80.
 //
-// Head dim 448 (flash_fwd_wide_kernel<448>): one 64-key K+V stage is 112 KB
-// beside a 56 KB q tile, so two stages do not fit 227 KB; 32-key tiles. A
-// block takes 64 rows; two consumer warpgroups own the same 64 rows and
-// split the output's columns (blocks 0..3, 128 accumulator registers a
-// thread, and 4..6); both compute the whole score tile S = Q K^T
-// themselves (1.5x the minimal tensor work, and no exchange between them):
-// the same wgmma sequence on the same shared operands gives both the same
-// bits, hence the same softmax and the same P. A producer warp fills a
-// ring of three 56 KB stages. The first warpgroup's accumulators alone are
-// 128 of the 168 registers ptxas gives it, so it spills and serialises
-// wgmma (C7512). Measured against that (PERF.md §6, the 448 row): a
-// producer warpgroup handing registers to the consumers by setmaxnreg was
-// 5-15% faster but still spilled (224 accumulators do not fit 240); three
-// or four consumer warpgroups, with smaller shares of the columns each and
-// S computed by each, 10-40% slower.
+// Head dim 448 (flash_fwd_d448_kernel). A 64 x 448 fp32 accumulator does
+// not fit one warpgroup's registers, and one 64-key K+V stage is 112 KB
+// beside a 56 KB q tile, so 32-key tiles and 64-row blocks:
+//   - a block is an item of the wrapper's work list, 64 query rows of one
+//     head; two warpgroups share the rows and split the output's columns
+//     (blocks 0..3, 128 accumulator registers a thread, and 4..6);
+//   - each score tile is computed once: warpgroup j % 2 computes tile j's
+//     S = Q K^T (28 k-steps of m64n32k16, both operands in shared memory),
+//     the online softmax and P, and hands P's bf16 A fragments with the
+//     rows' running max and sum to the other through a shared-memory
+//     exchange (a 6 KB slot per scoring warpgroup, [3][128] uint4, full and
+//     empty mbarriers); alpha is recomputed from the two maxima, so both
+//     warpgroups rescale by the same bits. Each warpgroup adds P V for its
+//     columns, tiles in ascending order: per element the parent's wgmma
+//     sequence, so the same bits;
+//   - no producer: 256 threads, 186 registers, 0 spilled, no C7508 and no
+//     warning that wgmma is serialised. Thread 0 loads q (56 KB) and the first tiles of a K
+//     ring (three 28 KB slots, each read by the four warps that score its
+//     tile) and a V ring (two slots, read by all eight); the last warp out
+//     of a slot refills it: 208 KB with q and the exchange;
+//   - overlap: a warpgroup issues its tile's scores and, while they run,
+//     takes over the other's previous tile; once they have landed it runs
+//     its softmax and hands P over, then rescales and adds the other tile's
+//     PV, then its own. Its products run under the other warpgroup's
+//     softmax, and its softmax under the other's products. No other
+//     instruction touches an accumulator while a product is in flight:
+//     every wait is unconditional, with both accumulators pinned below it.
+//     Each way of breaking that made ptxas serialise wgmma: a wait behind
+//     `if (own)` left it a path on which the softmax read scores in flight
+//     (C7514), the softmax under the other tile's PV wrote scores inside
+//     that PV's stage (C7515), the accumulator rescaled under the scores
+//     likewise (C7515): 0.364-0.382, 0.363-0.376 and 0.368-0.381 ms back to
+//     back at the fuse;
+//   - the rescale is skipped where alpha is 1 on every row of the warp.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W, microbench/flash_ab.py, ms of
+// ten calls back to back at the 7B memory's fuse, 1568 rows of 8 heads over
+// 6272 keys, 3136 valid, where the parent's column-split kernel with a
+// producer warp, 168 registers, 300 bytes spilled and C7512 ran
+// 0.554-0.570): 0.282-0.290; at the evolve (15680 keys, 1568 valid) 0.155
+// against 0.295-0.305. Timing probes of the serialised (C7514) form, wrong
+// values: with the K/V refills left out 0.306 against 0.366, half of S's
+// k-steps 0.298, half of PV's 0.330, no softmax 0.332. Rejected: a K ring
+// of two slots and a V ring of three, 0.368 (serialised form).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -185,29 +215,18 @@ struct D256 {
   static constexpr int THREADS = 2 * 128;        // two consumer warpgroups, no producer
   static constexpr int WARPS = THREADS / 32;
   static constexpr int NC = WG_ROWS * BN / 128;  // a thread's score accumulators
-  // a ring of K tiles and one of V tiles; K's slot frees as soon as both
-  // warpgroups' QK^T has read it, V's only after their PV
-  static constexpr int K_SLOTS = 2, V_SLOTS = 2;
-  static constexpr uint32_t Q_BLOCK = BM * kRowBytes;    // a 64-column block of the q tile
+  // a ring of K tiles and one of V tiles, two slots each; K's slot frees as
+  // soon as both warpgroups' QK^T has read it, V's only after their PV
+  using Ring = KvRings<2, 2, BN, CB>;
+  static constexpr uint32_t Q_BLOCK = BM * kRowBytes;  // a 64-column block of the q tile
   static constexpr uint32_t Q_BYTES = CB * Q_BLOCK;
-  static constexpr uint32_t KV_BLOCK = BN * kRowBytes;   // a 64-column block of a K or V tile
-  static constexpr uint32_t TILE_BYTES = CB * KV_BLOCK;  // a K or V tile
   // K slots, V slots, the q tile, then a full barrier per slot (K's, then
   // V's), the q barrier and a counter per slot
-  static constexpr int SLOTS = K_SLOTS + V_SLOTS;
-  static constexpr uint32_t Q0 = SLOTS * TILE_BYTES;
+  static constexpr uint32_t Q0 = Ring::BYTES;
   static constexpr uint32_t BARS = Q0 + Q_BYTES;
-  static constexpr uint32_t COUNTERS = BARS + 8 * (SLOTS + 1);
-  static constexpr size_t SMEM = COUNTERS + 4 * SLOTS + 1024;
-  // ring v's (0: K, 1: V) slot of tile j, numbered over both rings, and the
-  // parity of tile j's use of it
-  static __device__ __forceinline__ int depth(int v) { return v ? V_SLOTS : K_SLOTS; }
-  static __device__ __forceinline__ int slot(int v, int j) {
-    return v ? K_SLOTS + j % V_SLOTS : j % K_SLOTS;
-  }
-  static __device__ __forceinline__ int parity(int v, int j) { return (j / depth(v)) & 1; }
+  static constexpr uint32_t COUNTERS = BARS + 8 * (Ring::SLOTS + 1);
+  static constexpr size_t SMEM = COUNTERS + 4 * Ring::SLOTS + 1024;
   static_assert(BM == 2 * WG_ROWS && BN == 64, "two warpgroups of 64 rows, 64-key tiles");
-  static_assert(TILE_BYTES % 1024 == 0, "1024-byte aligned swizzled blocks");
   static_assert(SMEM <= 227 * 1024, "the rings and the q tile fit one block's shared memory");
 };
 
@@ -224,13 +243,13 @@ __device__ __forceinline__ void forward_d256(const CUtensorMap& tm_q, const CUte
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);  // `base` as a generic pointer
   const uint32_t q_tile = base + T::Q0;
-  const uint32_t full0 = base + T::BARS;  // K slots', then V slots' full barriers
-  const uint32_t q_bar = full0 + 8 * T::SLOTS;
-  unsigned int* counters = reinterpret_cast<unsigned int*>(gbase + T::COUNTERS);
+  const uint32_t q_bar = base + T::BARS + 8 * T::Ring::SLOTS;  // after the slots' barriers
 
   const int* item = p.items + 3 * blockIdx.x;
   const int b = item[0], h = item[1], q0 = item[2] * T::BM;
   const int hk = h / p.kv_groups;
+  const T::Ring kv{base, base + T::BARS,
+                   reinterpret_cast<unsigned int*>(gbase + T::COUNTERS), &tm_k, &tm_v, hk, b};
   const int kv_valid = max(min(p.valid_len[b], p.Skv), 0);
   const int kv_end = p.causal ? min(kv_valid, q0 + T::BM) : kv_valid;
   // the block's key tiles, seen as uniform (wgmma behind a branch on a value
@@ -239,31 +258,12 @@ __device__ __forceinline__ void forward_d256(const CUtensorMap& tm_q, const CUte
   const int warp = warp_index(), lane = threadIdx.x & 31;
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
 
-  // tile j of K (v = 0) or V (v = 1) into its slot
-  auto load = [&](int v, int j) {
-    const uint32_t slot = base + T::slot(v, j) * T::TILE_BYTES;
-    const uint32_t full = full0 + 8 * T::slot(v, j);
-    mbar_arrive_tx(full, T::TILE_BYTES);
-#pragma unroll
-    for (int c = 0; c < T::CB; ++c) {
-      tma_load(slot + c * T::KV_BLOCK, v ? &tm_v : &tm_k, full, 64 * c, j * T::BN, hk, b);
-    }
-  };
-  auto wait_tile = [&](int v, int j) { mbar_wait(full0 + 8 * T::slot(v, j), T::parity(v, j)); };
-  // this warp is done with tile j of K or V: the last of the eight refills
-  // its slot with the ring's next tile for it
-  auto done_with = [&](int v, int j) {
-    const bool last = last_out<T::WARPS>(counters + T::slot(v, j));
-    if (last && lane == 0 && j + T::depth(v) < n_tiles) {
-      load(v, j + T::depth(v));
-    }
-  };
+  auto wait_tile = [&](int v, int j) { kv.wait(v, j); };
+  // this warp is done with tile j of K or V, which all eight warps read
+  auto done_with = [&](int v, int j) { kv.done_with<T::WARPS>(v, j, n_tiles); };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < T::SLOTS; ++i) {
-      mbar_init(full0 + 8 * i, 1);
-      counters[i] = 0;
-    }
+    kv.init();
     mbar_init(q_bar, 1);
     mbar_fence_init();
   }
@@ -274,8 +274,7 @@ __device__ __forceinline__ void forward_d256(const CUtensorMap& tm_q, const CUte
     for (int c = 0; c < T::CB; ++c) {
       tma_load(q_tile + c * T::Q_BLOCK, &tm_q, q_bar, 64 * c, q0, h, b);
     }
-    for (int j = 0; j < min(n_tiles, T::K_SLOTS); ++j) load(0, j);
-    for (int j = 0; j < min(n_tiles, T::V_SLOTS); ++j) load(1, j);
+    kv.load_first(n_tiles);
   }
 
   const int q_first = q0 + wg * T::WG_ROWS;  // this warpgroup's first row
@@ -298,7 +297,7 @@ __device__ __forceinline__ void forward_d256(const CUtensorMap& tm_q, const CUte
   uint32_t pa[T::BN / 16][4];
 
   auto qk_issue = [&](int j) {
-    const uint32_t k_tile = base + T::slot(0, j) * T::TILE_BYTES;
+    const uint32_t k_tile = kv.tile(0, j);
 #pragma unroll
     for (int kk = 0; kk < T::KSTEPS; ++kk) {
       wgmma_ss_n64(sc, desc_kmajor(q_tile, T::BM, wg * T::WG_ROWS, kk),
@@ -306,12 +305,12 @@ __device__ __forceinline__ void forward_d256(const CUtensorMap& tm_q, const CUte
     }
   };
   auto pv_issue = [&](int j) {
-    const uint32_t v_tile = base + T::slot(1, j) * T::TILE_BYTES;
+    const uint32_t v_tile = kv.tile(1, j);
 #pragma unroll
     for (int kk = 0; kk < T::BN / 16; ++kk) {
 #pragma unroll
       for (int cb = 0; cb < T::CB; ++cb) {
-        wgmma_rs_n64<1>(o[cb], pa[kk], desc_mnmajor(v_tile + cb * T::KV_BLOCK, T::BN, kk), 1);
+        wgmma_rs_n64<1>(o[cb], pa[kk], desc_mnmajor(v_tile + cb * T::Ring::BLOCK, T::BN, kk), 1);
       }
     }
   };
@@ -466,50 +465,74 @@ __global__ void __launch_bounds__(D256::THREADS, 1)
 
 // ------------------------------------------------------------ head dim 448
 
-// The kernel's geometry at head dim D.
-template <int D>
-struct Wide {
-  static_assert(D == 448, "the column-split kernel serves head dim 448");
-  static constexpr int BM = block_rows(D);  // query rows of a block (wgmma M)
-  static constexpr int BN = key_tile(D);    // keys per K/V tile: QK^T's N
-  static constexpr int CB = D / 64;         // 128-byte swizzled column blocks
-  static constexpr int KSTEPS = D / 16;     // QK^T's 16-deep steps
-  // Knob: the consumer warpgroups, which split the output's column blocks
-  // (measured at 448: PERF.md §6).
-  static constexpr int NWG = 2;
-  static constexpr int THREADS = NWG * 128 + 32;  // and a producer warp
-  static constexpr int NC = BM * BN / 128;        // a thread's score accumulators
-  static constexpr int STAGES = 3;
-  static constexpr uint32_t Q_BLOCK = BM * kRowBytes;    // a 64-column block of the q tile
+struct D448 {
+  static constexpr int D = 448;
+  static constexpr int BM = block_rows(D);       // query rows of a block (wgmma M)
+  static constexpr int BN = key_tile(D);         // keys per K/V tile: QK^T's N
+  static constexpr int CB = D / 64;              // 128-byte swizzled column blocks
+  static constexpr int KSTEPS = D / 16;          // QK^T's 16-deep steps
+  static constexpr int THREADS = 2 * 128;        // two consumer warpgroups, no producer
+  static constexpr int NC = BM * BN / 128;       // a thread's score accumulators
+  // warpgroup 0 owns the output's column blocks [0, SPLIT), warpgroup 1
+  // [SPLIT, CB): 4 and 3 of the 7
+  static constexpr int SPLIT = 4;
+  // a ring of K tiles (three slots), each read by the warpgroup that
+  // scores it (four warps), and one of V tiles (two), read by both (eight)
+  using Ring = KvRings<3, 2, BN, CB>;
+  static constexpr uint32_t Q_BLOCK = BM * kRowBytes;  // a 64-column block of the q tile
   static constexpr uint32_t Q_BYTES = CB * Q_BLOCK;
-  static constexpr uint32_t KV_BLOCK = BN * kRowBytes;   // a 64-column block of a K or V tile
-  static constexpr uint32_t TILE_BYTES = CB * KV_BLOCK;  // a K or V tile
-  static constexpr uint32_t STAGE = 2 * TILE_BYTES;      // K, then V
-  static constexpr size_t SMEM = STAGES * STAGE + Q_BYTES + 8 * (2 * STAGES + 1) + 1024;
-  static_assert(D % 64 == 0 && TILE_BYTES % 1024 == 0, "1024-byte aligned swizzled blocks");
-  static_assert(SMEM <= 227 * 1024, "the ring and the q tile fit one block's shared memory");
+  // a scored tile handed to the other warpgroup: P's two k-steps of A
+  // fragments, then the rows' running max and sum, one uint4 of each per
+  // thread, laid out [3][128] (no bank conflicts)
+  static constexpr uint32_t X_BYTES = 3 * 128 * 16;
+  // K slots, V slots, the q tile, an exchange slot per scoring warpgroup,
+  // then a full barrier per ring slot (K's, then V's), the q barrier, the
+  // exchange's full and empty barriers and a counter per ring slot
+  static constexpr uint32_t Q0 = Ring::BYTES;
+  static constexpr uint32_t XBUF = Q0 + Q_BYTES;
+  static constexpr uint32_t BARS = XBUF + 2 * X_BYTES;
+  static constexpr uint32_t COUNTERS = BARS + 8 * (Ring::SLOTS + 1 + 4);
+  static constexpr size_t SMEM = COUNTERS + 4 * Ring::SLOTS + 1024;
+  static_assert(BM == 64 && BN == 32, "64 rows a block, 32-key tiles");
+  static_assert(SMEM <= 227 * 1024, "the rings, the q tile and the exchange fit one block");
 };
 
-// the output columns of consumer warpgroup WG: column blocks [first, first
-// + count), the wider shares first (4 and 3 blocks of 64 at 448)
-template <int D, int WG>
-struct Cols {
-  static constexpr int CB = Wide<D>::CB, NWG = Wide<D>::NWG;
-  static constexpr int first = (WG * CB + NWG - 1) / NWG;
-  static constexpr int count = ((WG + 1) * CB + NWG - 1) / NWG - first;
+// The shared-memory layout and the block's item, as both warpgroups see
+// them.
+struct Block448 {
+  uint32_t base, q_tile, xfull0, xempty0;
+  unsigned char* gbase;  // `base` as a generic pointer
+  D448::Ring kv;
+  int b, h, q0, kv_valid, n_tiles;
 };
 
-// The consumer side of a block, for warpgroup WG: its share of PV and of
-// the output columns; both warpgroups run the same QK^T and softmax.
-template <int D, int WG>
-__device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t q_tile,
-                                        uint32_t full0, uint32_t empty0, int n_tiles,
-                                        int kv_valid, int q0, int b, int h) {
-  using T = Wide<D>;
-  constexpr int CB0 = Cols<D, WG>::first, NCB = Cols<D, WG>::count;
-  const int warp = warp_index(), lane = threadIdx.x & 31;
+// Warpgroup WG's side of a block. Tile j is scored by warpgroup j % 2: S =
+// Q K^T (28 k-steps of m64n32k16), the online softmax and P, whose bf16 A
+// fragments go to the other warpgroup with the rows' running max and sum.
+// Each warpgroup then adds P V for its own columns, tiles in ascending
+// order, rescaling by alpha first (alpha from the handed-over max). At step
+// j a warpgroup issues its scores of tile j and takes over tile j - 1 while
+// they run; once they have landed it computes tile j's softmax and hands P
+// over, then issues tile j - 1's PV and, once that has landed, its own tile
+// j's PV; every group is waited for inside the step.
+template <int WG>
+__device__ __forceinline__ void consume448(const Params& p, const Block448& k) {
+  using T = D448;
+  constexpr int CB0 = WG == 0 ? 0 : T::SPLIT, NCB = WG == 0 ? T::SPLIT : T::CB - T::SPLIT;
+  const int warp = warp_index(), lane = threadIdx.x & 31, tid = threadIdx.x & 127;
   const int wl = warp & 3, g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + wl * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int row0 = k.q0 + wl * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  auto wait_tile = [&](int v, int j) { k.kv.wait(v, j); };
+  // this warp is done with tile j of K (read by its four scoring warps) or
+  // V (read by all eight)
+  auto done_with = [&](int v, int j) {
+    if (v) {
+      k.kv.done_with<8>(1, j, k.n_tiles);
+    } else {
+      k.kv.done_with<4>(0, j, k.n_tiles);
+    }
+  };
 
   float o[NCB][32];
 #pragma unroll
@@ -520,110 +543,132 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
   float sc[T::NC];
-  uint32_t pa[T::BN / 16][4];
+  uint32_t pa[T::BN / 16][4], xa[T::BN / 16][4];  // P of this warpgroup's tile, of the other's
 
-  auto qk_issue = [&](uint32_t k_tile) {
+  auto qk_issue = [&](int j) {
+    const uint32_t k_tile = k.kv.tile(0, j);
 #pragma unroll
     for (int kk = 0; kk < T::KSTEPS; ++kk) {
-      const uint64_t qd = desc_kmajor(q_tile, T::BM, 0, kk);
-      const uint64_t kd = desc_kmajor(k_tile, T::BN, 0, kk);
-      if constexpr (T::BN == 32) {
-        wgmma_ss_n32(sc, qd, kd, kk);
-      } else {
-        wgmma_ss_n64(sc, qd, kd, kk);
-      }
+      wgmma_ss_n32(sc, desc_kmajor(k.q_tile, T::BM, 0, kk), desc_kmajor(k_tile, T::BN, 0, kk),
+                   kk);
     }
   };
-  auto pv_issue = [&](uint32_t v_tile) {
+  auto pv_issue = [&](const uint32_t (&f)[T::BN / 16][4], int j) {
+    const uint32_t v_tile = k.kv.tile(1, j);
 #pragma unroll
     for (int kk = 0; kk < T::BN / 16; ++kk) {
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb) {
-        wgmma_rs_n64<1>(o[cb], pa[kk],
-                        desc_mnmajor(v_tile + (CB0 + cb) * T::KV_BLOCK, T::BN, kk), 1);
+        wgmma_rs_n64<1>(o[cb], f[kk],
+                        desc_mnmajor(v_tile + (CB0 + cb) * T::Ring::BLOCK, T::BN, kk), 1);
       }
     }
   };
-  auto release = [&](int s) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  auto o_fence = [&]() {
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
   };
-  // The online softmax of tile j's scores in place: element i of sc is row
-  // row0 + 8 ((i >> 1) & 1), key n0 + 8 (i >> 2) + 2t + (i & 1). Masks only
-  // where the valid length or the diagonal crosses the tile. Returns alpha
-  // per row; sc becomes p.
-  auto softmax = [&](int j, float (&alpha)[2]) {
-    const int n0 = j * T::BN;
-    if (!(n0 + T::BN <= kv_valid && (!p.causal || n0 + T::BN - 1 <= q0))) {
-#pragma unroll
-      for (int i = 0; i < T::NC; ++i) {
-        const int col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        const int row = row0 + 8 * ((i >> 1) & 1);
-        if (!(col < kv_valid && (!p.causal || col <= row))) sc[i] = kMaskValue;
-      }
-    }
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int i = 0; i < T::NC; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = fast_exp2(m_run[r] - mx[r]);  // 0 on the first tile (m_run = -inf)
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int i = 0; i < T::NC; ++i) {
-      const int r = (i >> 1) & 1;
-      sc[i] = fast_exp2(sc[i] - mx[r]);
-      sum[r] += sc[i];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
-  };
-
-  if (n_tiles > 0) {
-    float alpha[2];
-    mbar_wait(full0, 0);
-    wg_fence();
-    qk_issue(base);
-    wg_commit();
-    wg_wait_all();
-    reg_fence(sc);
-    softmax(0, alpha);  // the accumulator is zero: nothing to rescale
-    acc_to_a(sc, pa);   // P rounded to bf16
-    for (int j = 1; j < n_tiles; ++j) {
-      const int s = j % T::STAGES, sp = (j - 1) % T::STAGES;
-      mbar_wait(full0 + 8 * s, (j / T::STAGES) & 1);
-      wg_fence();
-      qk_issue(base + s * T::STAGE);
-      pv_issue(base + sp * T::STAGE + T::TILE_BYTES);  // tile j-1's PV
-      wg_commit();
-      wg_wait_all();
-      reg_fence(sc);
-#pragma unroll
-      for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
-      release(sp);
-      softmax(j, alpha);
+  // the rescale, skipped where it is exact already (alpha = 1 on every row
+  // of the warp: the running max did not move)
+  auto rescale = [&](const float (&alpha)[2]) {
+    if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[cb][i] *= alpha[(i >> 1) & 1];
       }
-      acc_to_a(sc, pa);
     }
-    const int s = (n_tiles - 1) % T::STAGES;
-    wg_fence();
-    pv_issue(base + s * T::STAGE + T::TILE_BYTES);
-    wg_commit();
-    wg_wait_all();
+  };
+  auto xslot = [&](int owner) {
+    return reinterpret_cast<uint4*>(k.gbase + T::XBUF + owner * T::X_BYTES);
+  };
+  // this warpgroup's tile j (its (j >> 1)-th) to its exchange slot
+  auto publish = [&](int j) {
+    mbar_wait(k.xempty0 + 8 * WG, ((j >> 1) & 1) ^ 1);
+    uint4* x = xslot(WG);
 #pragma unroll
-    for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
-    release(s);
+    for (int kk = 0; kk < 2; ++kk) {
+      x[kk * 128 + tid] = make_uint4(pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]);
+    }
+    x[2 * 128 + tid] = make_uint4(__float_as_uint(m_run[0]), __float_as_uint(m_run[1]),
+                                  __float_as_uint(l_run[0]), __float_as_uint(l_run[1]));
+    mbar_arrive(k.xfull0 + 8 * WG);
+  };
+  // the other warpgroup's tile j from its slot: P into xa, the running max
+  // and sum taken over, alpha from this warpgroup's max before it
+  auto fetch = [&](int j, float (&alpha)[2]) {
+    constexpr int owner = 1 - WG;
+    mbar_wait(k.xfull0 + 8 * owner, (j >> 1) & 1);
+    const uint4* x = xslot(owner);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint4 f = x[kk * 128 + tid];
+      xa[kk][0] = f.x; xa[kk][1] = f.y; xa[kk][2] = f.z; xa[kk][3] = f.w;
+    }
+    const uint4 s = x[2 * 128 + tid];
+    mbar_arrive(k.xempty0 + 8 * owner);
+    const float m_new[2] = {__uint_as_float(s.x), __uint_as_float(s.y)};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = fast_exp2(m_run[r] - m_new[r]);  // as the scoring warpgroup computed it
+      m_run[r] = m_new[r];
+    }
+    l_run[0] = __uint_as_float(s.z);
+    l_run[1] = __uint_as_float(s.w);
+  };
+
+  // No instruction but a wgmma touches an accumulator while a product is in
+  // flight (ptxas serialises wgmma otherwise: C7514 for a read, C7515 for a
+  // write), so tile j's softmax runs before tile j - 1's PV is issued, and
+  // the accumulator is rescaled only after every product has landed.
+  for (int j = WG; j <= k.n_tiles; j += 2) {
+    const bool own = j < k.n_tiles, other = j >= 1;  // tiles j (this one's) and j - 1
+    if (own) {
+      wait_tile(0, j);
+      wg_fence();
+      qk_issue(j);
+      wg_commit();
+    }
+    float alpha[2], alpha_x[2];  // of tile j, of tile j - 1
+    if (other) fetch(j - 1, alpha_x);
+    // Tile j's scores. The wait is outside `if (own)`: ptxas does not see
+    // that the two branches agree, and a wait behind one would leave it a
+    // path on which the softmax reads the scores in flight (C7514). Both
+    // accumulators are pinned below it, so that no rescale of o is
+    // scheduled inside the scores' stage (C7515).
+    wg_wait_all();
+    reg_fence(sc);
+    o_fence();
+    if (own) {
+      done_with(0, j);
+      online_softmax<T::BN>(sc, m_run, l_run, alpha, j * T::BN, k.kv_valid, p.causal, k.q0,
+                            row0, t);
+      acc_to_a(sc, pa);  // P rounded to bf16
+      publish(j);
+    }
+    if (other) {
+      if (j - 1 > 0) rescale(alpha_x);  // on the first tile the accumulator is zero
+      wait_tile(1, j - 1);
+      wg_fence();
+      pv_issue(xa, j - 1);
+      wg_commit();
+    }
+    wg_wait_all();
+    o_fence();
+    if (other) done_with(1, j - 1);
+    if (own) {
+      if (j > 0) rescale(alpha);
+      wait_tile(1, j);
+      wg_fence();
+      pv_issue(pa, j);
+      wg_commit();
+      wg_wait_all();
+      o_fence();
+      done_with(1, j);
+    }
   }
 
-  __nv_bfloat16* out = p.o + b * p.o_sb + h * p.o_sh + 64 * CB0 + 2 * t;
+  __nv_bfloat16* out = p.o + k.b * p.o_sb + k.h * p.o_sh + 64 * CB0 + 2 * t;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
@@ -641,99 +686,71 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t
   }
 }
 
-// consume<D, wg>, the warpgroup index made a constant
-template <int D, int WG>
-__device__ __forceinline__ void consume_as(int wg, const Params& p, uint32_t base,
-                                           uint32_t q_tile, uint32_t full0, uint32_t empty0,
-                                           int n_tiles, int kv_valid, int q0, int b, int h) {
-  if (wg == WG) {
-    consume<D, WG>(p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
-  } else if constexpr (WG + 1 < Wide<D>::NWG) {
-    consume_as<D, WG + 1>(wg, p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
-  }
-}
-
-// The kernel's body.
-template <int D>
-__device__ __forceinline__ void forward(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                        const CUtensorMap& tm_v, const Params& p,
-                                        const float scale_log2) {
-  using T = Wide<D>;
+__global__ void __launch_bounds__(D448::THREADS, 1)
+    flash_fwd_d448_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const Params p,
+                          const float scale_log2) {
+  using T = D448;
   extern __shared__ unsigned char smem_raw[];
+  Block448 k;
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t q_tile = base + T::STAGES * T::STAGE;
-  const uint32_t full0 = q_tile + T::Q_BYTES, empty0 = full0 + 8 * T::STAGES;
-  const uint32_t q_bar = empty0 + 8 * T::STAGES;
+  k.base = (raw + 1023u) & ~1023u;
+  k.gbase = smem_raw + (k.base - raw);
+  k.q_tile = k.base + T::Q0;
+  const uint32_t q_bar = k.base + T::BARS + 8 * T::Ring::SLOTS;  // after the slots' barriers
+  k.xfull0 = q_bar + 8;
+  k.xempty0 = k.xfull0 + 16;
 
   const int* item = p.items + 3 * blockIdx.x;
-  const int b = item[0], h = item[1], q0 = item[2] * T::BM;
-  const int hk = h / p.kv_groups;
-  const int kv_valid = max(min(p.valid_len[b], p.Skv), 0);
-  const int kv_end = p.causal ? min(kv_valid, q0 + T::BM) : kv_valid;
+  k.b = item[0];
+  k.h = item[1];
+  k.q0 = item[2] * T::BM;
+  k.kv = {k.base, k.base + T::BARS, reinterpret_cast<unsigned int*>(k.gbase + T::COUNTERS),
+          &tm_k, &tm_v, k.h / p.kv_groups, k.b};
+  k.kv_valid = max(min(p.valid_len[k.b], p.Skv), 0);
+  const int kv_end = p.causal ? min(k.kv_valid, k.q0 + T::BM) : k.kv_valid;
   // the block's key tiles, seen as uniform (wgmma behind a branch on a value
   // ptxas cannot prove warp-uniform is serialised)
-  const int n_tiles = __shfl_sync(0xffffffffu, (kv_end + T::BN - 1) / T::BN, 0);
-  const int warp = warp_index(), lane = threadIdx.x & 31;
+  k.n_tiles = __shfl_sync(0xffffffffu, (kv_end + T::BN - 1) / T::BN, 0);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 4 * T::NWG);
-    }
+    k.kv.init();
     mbar_init(q_bar, 1);
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(k.xfull0 + 8 * w, 128);   // the scoring warpgroup's threads
+      mbar_init(k.xempty0 + 8 * w, 128);  // the other's
+    }
     mbar_fence_init();
   }
   __syncthreads();
-
-  if (warp == 4 * T::NWG) {  // the producer warp
-    if (lane == 0 && n_tiles > 0) {
+  if (k.n_tiles > 0) {
+    if (threadIdx.x == 0) {  // the q tile and the first tiles of the rings
       mbar_arrive_tx(q_bar, T::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < T::CB; ++c) {
-        tma_load(q_tile + c * T::Q_BLOCK, &tm_q, q_bar, 64 * c, q0, h, b);
+        tma_load(k.q_tile + c * T::Q_BLOCK, &tm_q, q_bar, 64 * c, k.q0, k.h, k.b);
       }
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % T::STAGES;
-        const uint32_t k_tile = base + s * T::STAGE, full = full0 + 8 * s;
-        mbar_wait(empty0 + 8 * s, ((j / T::STAGES) & 1) ^ 1);
-        mbar_arrive_tx(full, T::STAGE);
-#pragma unroll
-        for (int c = 0; c < T::CB; ++c) {
-          tma_load(k_tile + c * T::KV_BLOCK, &tm_k, full, 64 * c, j * T::BN, hk, b);
-          tma_load(k_tile + T::TILE_BYTES + c * T::KV_BLOCK, &tm_v, full, 64 * c, j * T::BN,
-                   hk, b);
-        }
-      }
+      k.kv.load_first(k.n_tiles);
     }
-    return;
-  }
-
-  if (n_tiles > 0) {
     // scale*log2(e) and the bf16 rounding applied to the staged q tile in
-    // place (the swizzle moves 16-byte chunks, so every element stays where
-    // it is; TMA's zero fill maps to zero)
+    // place (the swizzle moves 16-byte chunks within a row, so every element
+    // stays in its row; TMA's zero fill maps to zero)
     mbar_wait(q_bar, 0);
-    unsigned char* qs = smem_raw + (q_tile - raw);
-    for (int i = threadIdx.x; i < static_cast<int>(T::Q_BYTES / 4); i += T::NWG * 128) {
-      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(qs) + i;
+    for (int i = threadIdx.x; i < static_cast<int>(T::Q_BYTES / 4); i += T::THREADS) {
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(k.gbase + T::Q0) + i;
       const __nv_bfloat162 v = *x;
       const uint32_t y = pack_bf16x2(__low2float(v) * scale_log2, __high2float(v) * scale_log2);
       *x = *reinterpret_cast<const __nv_bfloat162*>(&y);
     }
     fence_async_smem();
-    asm volatile("bar.sync 1, %0;\n" :: "n"(T::NWG * 128) : "memory");  // the consumers
+    __syncthreads();
   }
-  consume_as<D, 0>(warp >> 2, p, base, q_tile, full0, empty0, n_tiles, kv_valid, q0, b, h);
-}
-
-template <int D>
-__global__ void __launch_bounds__(Wide<D>::THREADS, 1)
-    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v, const Params p,
-                          const float scale_log2) {
-  forward<D>(tm_q, tm_k, tm_v, p, scale_log2);
+  if (warp_index() < 4) {
+    consume448<0>(p, k);
+  } else {
+    consume448<1>(p, k);
+  }
 }
 
 // ------------------------------------------------------------------ host
@@ -785,8 +802,8 @@ int run(const fwd_sm90::Args& a, int head_dim, void* stream) {
     return launch<256, T::BM, T::BN, T::THREADS, T::SMEM>(
         a.lse != nullptr ? flash_fwd_lse_d256_kernel : flash_fwd_d256_kernel, a, s);
   }
-  using T = Wide<448>;
-  return launch<448, T::BM, T::BN, T::THREADS, T::SMEM>(flash_fwd_wide_kernel<448>, a, s);
+  using T = D448;
+  return launch<448, T::BM, T::BN, T::THREADS, T::SMEM>(flash_fwd_d448_kernel, a, s);
 }
 
 }  // namespace fwd_wide

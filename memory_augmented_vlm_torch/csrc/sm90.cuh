@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed wgmma kernels
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu, two_sweep.cuh, flash_merge_int8.cu,
 // int8_gemm_sm90.cuh):
-// shared-memory addresses, mbarriers, TMA loads, wgmma fences, shared-memory
-// matrix descriptors, the wgmma shapes the kernels issue, the
-// accumulator-to-operand repack, and the host-side tensor-map encoder.
+// shared-memory addresses, mbarriers, TMA loads, wgmma fences, the K/V rings
+// of the kernels with no producer warp, shared-memory matrix descriptors,
+// the wgmma shapes the kernels issue, the accumulator-to-operand repack, and
+// the host-side tensor-map encoder.
 //
 // Layouts in shared memory are what TMA writes with a swizzle, and what the
 // matching descriptor tells wgmma to read:
@@ -183,6 +184,75 @@ __device__ __forceinline__ float fast_exp2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+// ------------------------------------------------------------ K/V rings
+
+// A ring of K tiles and a ring of V tiles in shared memory, for a kernel
+// with no producer warp (flash_fwd_wide_sm90.cu's head dims 256 and 448,
+// flash_bwd_sm90.cu's dQ at 256). A tile is BN rows of a bshd tensor in CB
+// 128-byte swizzled blocks of 64 columns, loaded by TMA. Ring v is K (v = 0)
+// or V (v = 1); the slots are numbered over both rings, K's first, and each
+// has a full mbarrier (one arrival and the tile's bytes) and a counter of
+// the warps done with its tile. One thread loads each ring's first tiles;
+// after that the last warp out of a slot (last_out) refills it with its
+// ring's tile `depth` ahead, so a ring needs no empty barrier.
+template <int K_SLOTS_, int V_SLOTS_, int BN, int CB>
+struct KvRings {
+  static constexpr int K_SLOTS = K_SLOTS_, V_SLOTS = V_SLOTS_, SLOTS = K_SLOTS + V_SLOTS;
+  static constexpr uint32_t BLOCK = BN * kRowBytes;      // a 64-column block of a tile
+  static constexpr uint32_t TILE_BYTES = CB * BLOCK;     // a K or V tile
+  static constexpr uint32_t BYTES = SLOTS * TILE_BYTES;  // every slot's tile
+  static_assert(TILE_BYTES % 1024 == 0, "1024-byte aligned swizzled blocks");
+
+  uint32_t tiles;           // slot 0's tile; the others follow, TILE_BYTES apart
+  uint32_t full0;           // slot 0's full barrier; the others follow, 8 bytes apart
+  unsigned int* counters;   // a counter per slot
+  const CUtensorMap* tm_k;  // the tensor maps the tiles come from
+  const CUtensorMap* tm_v;
+  int head, batch;          // the KV head and batch element they read
+
+  static __device__ __forceinline__ int depth(int v) { return v ? V_SLOTS : K_SLOTS; }
+  static __device__ __forceinline__ int slot(int v, int j) {
+    return v ? K_SLOTS + j % V_SLOTS : j % K_SLOTS;
+  }
+  // the parity of tile j's use of its slot
+  static __device__ __forceinline__ int parity(int v, int j) { return (j / depth(v)) & 1; }
+  __device__ __forceinline__ uint32_t tile(int v, int j) const {
+    return tiles + slot(v, j) * TILE_BYTES;
+  }
+  __device__ __forceinline__ uint32_t full(int v, int j) const { return full0 + 8 * slot(v, j); }
+
+  // the barriers and counters (one thread, before mbar_fence_init)
+  __device__ __forceinline__ void init() const {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      counters[i] = 0;
+    }
+  }
+  // tile j of ring v into its slot (one thread)
+  __device__ __forceinline__ void load(int v, int j) const {
+    const uint32_t bar = full(v, j);
+    mbar_arrive_tx(bar, TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      tma_load(tile(v, j) + c * BLOCK, v ? tm_v : tm_k, bar, kSwzCols * c, j * BN, head, batch);
+    }
+  }
+  // the first tiles of each ring, of the block's n_tiles (one thread)
+  __device__ __forceinline__ void load_first(int n_tiles) const {
+    for (int j = 0; j < min(n_tiles, K_SLOTS); ++j) load(0, j);
+    for (int j = 0; j < min(n_tiles, V_SLOTS); ++j) load(1, j);
+  }
+  __device__ __forceinline__ void wait(int v, int j) const { mbar_wait(full(v, j), parity(v, j)); }
+  // This warp is done with tile j of ring v, which READERS warps read: the
+  // last of them refills the slot with the ring's next tile for it, when the
+  // block's n_tiles hold one.
+  template <int READERS>
+  __device__ __forceinline__ void done_with(int v, int j, int n_tiles) const {
+    const bool last = last_out<READERS>(counters + slot(v, j));
+    if (last && (threadIdx.x & 31) == 0 && j + depth(v) < n_tiles) load(v, j + depth(v));
+  }
+};
 
 // ------------------------------------------------------------ descriptors
 

@@ -22,8 +22,8 @@ kernels' outputs as SHA-256 digests (`sha256`), so that two trees' bits
 compare; the 64-frame bf16 tower through `siglip.forward` and the 9,472-token
 bf16 prefill through `qwen2.forward` (median of 5), on seeded random
 weights; and the registers, spills and shared memory that ptxas reported
-for the flash kernels, with its C7508 (setmaxnreg ignored), C7512 and
-C7520 (wgmma serialised) warnings. It prints one JSON line. Given
+for the flash kernels, with its C7508 (setmaxnreg ignored) warnings and
+those that wgmma is serialised (C7512, C7514, C7515, C7520, ...). It prints one JSON line. Given
 checkouts (directories of other trees of this repository), it runs this
 file against each tree's package, in a process of its own and in the order
 given (e.g. parent, change, change, parent, to compare in turns on one
@@ -48,9 +48,10 @@ from memory_augmented_vlm_torch.microbench.timing import require_card, time_ms
 from memory_augmented_vlm_torch.models import qwen2, siglip
 from memory_augmented_vlm_torch.ops import cuda_lib, flash, flash_bwd
 
-KERNELS = re.compile(r"fwd_sm90|fwd_kernel|flash_fwd_bf16|fwd_lse_bf16|fwd_wide|d256|bwd_dq"
+KERNELS = re.compile(r"fwd_sm90|fwd_kernel|flash_fwd_bf16|fwd_lse_bf16|fwd_wide|d256|d448|bwd_dq"
                      r"|bwd_dkv")
-WARNINGS = re.compile(r"C7508|C7512|C7520")  # setmaxnreg ignored; wgmma serialised
+# setmaxnreg ignored; wgmma serialised, whatever the code (C7512, C7514, C7515, C7520, ...)
+WARNINGS = re.compile(r"C7508|wgmma\.mma_async instructions are serialized")
 PREFILL_TOKENS, PREFILL_VALID = 9472, 9444  # the 64-frame request's padded and spliced lengths
 TRAIN_TOKENS = 9557
 
@@ -58,7 +59,7 @@ TRAIN_TOKENS = 9557
 def ptxas_report(log: str) -> dict:
     """{entry: 'Used N registers, ...' and its spill line} for the flash
     kernels, from nvcc's -Xptxas -v output, and under "warnings" every
-    C7508, C7512 or C7520 line ptxas printed."""
+    C7508 or serialised-wgmma line ptxas printed."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '([^']+)'", line)

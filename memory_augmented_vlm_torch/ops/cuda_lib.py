@@ -6,7 +6,9 @@ and linked into one shared library with a plain C interface, which is
 loaded with `ctypes`. The build happens at first use, into
 `build/kernels/` at the root of the checkout, and is named after a hash of
 the sources and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. There is no fallback: without `nvcc` the build
+one is loaded as it is. ptxas's report (`-Xptxas -v`) is kept beside the
+library and read back when it is loaded as it is, so `BUILD_LOG` shows the
+same report either way. There is no fallback: without `nvcc` the build
 raises.
 """
 
@@ -74,12 +76,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def ptxas_log_path(lib: Path) -> Path:
+    """Where the build keeps ptxas's report of the library at `lib`."""
+    return lib.with_suffix(".ptxas.log")
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these exact sources exists;
-    returns its path."""
+    """Compile the kernels unless a library for these exact sources exists,
+    with its ptxas report beside it; returns its path. `BUILD_LOG["ptxas"]`
+    holds the report either way."""
     out = BUILD_DIR / f"libmavlm_kernels_{_digest()}.so"
-    if out.is_file():
-        BUILD_LOG.update(path=str(out), seconds=0.0)
+    report = ptxas_log_path(out)
+    if out.is_file() and report.is_file():
+        BUILD_LOG.update(path=str(out), seconds=0.0, ptxas=report.read_text())
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -98,9 +107,12 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    ptxas = "".join(se for _, _, se, _ in results)
+    tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+    tmp_report.write_text(ptxas)
+    os.replace(tmp_report, report)  # before the library: a library found has its report
     os.replace(tmp, out)
-    BUILD_LOG.update(path=str(out), seconds=time.perf_counter() - t0,
-                     ptxas="".join(se for _, _, se, _ in results))
+    BUILD_LOG.update(path=str(out), seconds=time.perf_counter() - t0, ptxas=ptxas)
     return out
 
 

@@ -57,12 +57,13 @@ from memory_augmented_vlm_torch.ops.flash import (_KERNEL_DTYPES, D256, LOG2E, M
 TRAIN_HEAD_DIMS = (64, 128, D256)
 # Tiles of the bf16 backward kernels (`csrc/flash_bwd_sm90.cu`, checked
 # against its `flash_bwd_tiles` when a list first goes to the card): a dQ
-# item takes 64 query rows (128 at head dim 128) and loops over 64-key
-# tiles; a dK/dV item takes 128 keys (64 at head dims 128 and 256) and
-# loops over 64-row query tiles (32-row at 256, whose stages of qs, dO and
-# q fit three to a block beside K and V).
+# item takes 64 query rows (128 at head dims 128 and 256, two warpgroups
+# of 64 rows sharing each staged K/V tile) and loops over 64-key tiles; a
+# dK/dV item takes 128 keys (64 at head dims 128 and 256) and loops over
+# 64-row query tiles (32-row at 256, whose stages of qs, dO and q fit
+# three to a block beside K and V).
 DQ_BLOCK_K = 64
-_DQ_BLOCK_Q = {64: 64, 128: 128, D256: 64}
+_DQ_BLOCK_Q = {64: 64, 128: 128, D256: 128}
 _DKV_BLOCK_K = {64: 128, 128: 64, D256: 64}
 _DKV_BLOCK_Q = {64: 64, 128: 64, D256: 32}
 
@@ -362,8 +363,8 @@ def backward_dq(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale:
 def backward_dq_d256(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale: float,
                      kv_groups: int = 1, qs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`backward_dq` at head dim 256: bf16 CUDA tensors launch
-    `flash_bwd_dq_sm90` at 256 (one consumer warpgroup holding the 64 x 256
-    accumulator), fp32 the SIMT kernel; counted in
+    `flash_bwd_dq_sm90` at 256 (128-row items, two warpgroups each holding
+    its 64 x 256 accumulator), fp32 the SIMT kernel; counted in
     `backward_dq_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"backward_dq_d256 takes head dim {D256}, got {q.shape[-1]}")

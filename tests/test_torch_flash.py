@@ -210,6 +210,55 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "kernels").exists() or not os.listdir(tmp_path / "kernels")
 
 
+@pytest.mark.parametrize("keep_report", [True, False])
+def test_cached_build_keeps_the_ptxas_report(monkeypatch, tmp_path, keep_report):
+    """A library built for the same sources is loaded as it is, and
+    `BUILD_LOG["ptxas"]` then holds the report of the build that made it
+    (read back from beside the library), so chip_smoke's ptxas gate sees
+    the same report on a second run; a library whose report is missing is
+    rebuilt. nvcc is a stand-in script that writes its outputs and prints a
+    ptxas line per source."""
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo x >> "{calls}"\n'
+        'out=""; src=""; prev=""\n'
+        'for a in "$@"; do\n'
+        '  [ "$prev" = "-o" ] && out="$a"\n'
+        '  [ "$prev" = "-c" ] && src="$a"\n'
+        '  prev="$a"\n'
+        "done\n"
+        ': > "$out"\n'
+        'if [ -n "$src" ]; then\n'
+        "  echo \"ptxas info    : Compiling entry function '$(basename \"$src\")' for 'sm_90a'\" >&2\n"
+        "fi\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda_lib, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda_lib, "BUILD_LOG", {"seconds": None, "path": None, "ptxas": ""})
+    n_nvcc = len(cuda_lib.sources()) + 1  # a compile per source and the link
+
+    lib = cuda_lib.build()
+    compiled = cuda_lib.BUILD_LOG["ptxas"]
+    assert len(calls.read_text().split()) == n_nvcc
+    assert compiled.count("Compiling entry function") == len(cuda_lib.sources())
+    assert "flash_fwd_wide_sm90.cu" in compiled
+    assert cuda_lib.ptxas_log_path(lib).read_text() == compiled
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()
+                  if not p.name.endswith(".o")) == sorted(
+        [lib.name, cuda_lib.ptxas_log_path(lib).name])
+
+    if not keep_report:
+        cuda_lib.ptxas_log_path(lib).unlink()
+    cuda_lib.BUILD_LOG.update(seconds=None, path=None, ptxas="")
+    assert cuda_lib.build() == lib
+    assert cuda_lib.BUILD_LOG["ptxas"] == compiled
+    assert cuda_lib.BUILD_LOG["path"] == str(lib)
+    assert len(calls.read_text().split()) == (n_nvcc if keep_report else 2 * n_nvcc)
+    assert cuda_lib.ptxas_log_path(lib).read_text() == compiled
+
+
 def test_merge_kernels_are_tma_fed_wgmma_on_the_shared_header():
     """The merge-heads kernels (#2 on two_sweep.cuh, #2s in
     flash_merge_int8.cu) and the training backward take their Hopper
@@ -234,6 +283,30 @@ def test_merge_kernels_are_tma_fed_wgmma_on_the_shared_header():
     assert "sVt" not in two_sweep and "scales_kernel" not in int8 and "load_tile" not in int8
     main = int8[int8.index("merge_int8_kernel("):]
     assert main.count("quant_code(") == 4  # q's codes, once per block; K and V's in the prep
+
+
+def test_producer_less_kernels_share_one_kv_ring():
+    """The kernels with no producer warp (#1 at head dims 256 and 448, dQ at
+    256) stage K and V in the one pair of rings of sm90.cuh (`KvRings`:
+    slots, parities, the one-thread TMA load and the last-out refill) and
+    keep no copy of that protocol of their own."""
+    csrc = cuda_lib.CSRC_DIR
+    header = (csrc / "sm90.cuh").read_text()
+    ring = header[header.index("struct KvRings"):]
+    ring = ring[:ring.index("\n};\n")]
+    for member in ("int depth(", "int slot(", "int parity(", "void init(", "void load(",
+                   "void load_first(", "void wait(", "void done_with(", "last_out<READERS>("):
+        assert member in ring, member
+    wide = (csrc / "flash_fwd_wide_sm90.cu").read_text()
+    bwd = (csrc / "flash_bwd_sm90.cu").read_text()
+    d256, d448 = wide[wide.index("struct D256"):], wide[wide.index("struct D448"):]
+    assert d256[:d256.index("\n};\n")].count("using Ring = KvRings<2, 2, BN, CB>;") == 1
+    assert d448[:d448.index("\n};\n")].count("using Ring = KvRings<3, 2, BN, CB>;") == 1
+    dq = bwd[bwd.index("struct DqD256Shape"):]
+    assert dq[:dq.index("\n};\n")].count("using Ring = KvRings<2, 1, BN, CB>;") == 1
+    for src in (wide, bwd):
+        assert "int parity(int v, int j)" not in src and "int depth(int v)" not in src
+    assert "last_out<" not in wide and "mbar_init(full0" not in wide
 
 
 def test_flash_forward_kernels_are_tma_fed_wgmma_on_the_shared_header():
@@ -433,3 +506,68 @@ ptxas info    : Used 218 registers"""
         "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
         "serialized"]
     assert "Used 114 registers" in report["_ZN5mavlm8fwd_sm9010fwd_kernelILi72ELi3EEEv"]
+
+
+_PTXAS_CLEAN_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118bwd_dq_d256_kernelILb0ELb1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118bwd_dq_d256_kernelILb0ELb1EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 231 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide21flash_fwd_d448_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN5mavlm8fwd_wide21flash_fwd_d448_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 178 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide25flash_fwd_lse_d256_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN5mavlm8fwd_wide25flash_fwd_lse_d256_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 220 registers, used 5 barriers
+ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide21flash_fwd_d256_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN5mavlm8fwd_wide21flash_fwd_d256_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 218 registers, used 5 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 206 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelILi448EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN5mavlm8fwd_wide21flash_fwd_wide_kernelILi448EEEv
+    248 bytes stack frame, 300 bytes spill stores, 288 bytes spill loads
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelILi448EEEv'
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 16570 by compiler to allow use of registers in GMMA in function '_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv'"""
+
+
+@pytest.mark.parametrize("fault,kernel", [
+    (None, None),
+    (("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 178",
+      "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+      "ptxas info    : Used 178"), "flash_fwd_d448_kernel"),
+    (("ptxas info    : Used 231 registers, used 16 barriers",
+      "ptxas info    : Used 231 registers, used 16 barriers\nptxas info    : (C7515) Potential "
+      "Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma "
+      "instructions defining accumulator registers of a wgmma between start and end of the "
+      "pipeline stage in the function '_ZN12_GLOBAL__N_118bwd_dq_d256_kernelILb0ELb1EEEv'"),
+     "bwd_dq_d256_kernel"),
+    (("flash_fwd_lse_d256_kernelEv' for", "flash_fwd_lse_d128_kernelEv' for"),
+     "flash_fwd_lse_d256_kernel"),
+    (("ptxas info    : Used 178 registers, used 1 barriers",
+      "ptxas info    : Used 178 registers, used 1 barriers\nptxas info    : (C7514) Potential "
+      "Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma "
+      "instructions reading accumulator registers of a wgmma between start and end of the "
+      "pipeline stage in the function '_ZN5mavlm8fwd_wide21flash_fwd_d448_kernelEv'"),
+     "flash_fwd_d448_kernel"),
+    (("ptxas info    : Used 218 registers, used 5 barriers",
+      "ptxas info    : Used 218 registers, used 5 barriers\nptxas info    : (C7508) Potential "
+      "Performance Loss: setmaxnreg ignored; unable to determine register count at entry"),
+     "flash_fwd_d256_kernel"),
+])
+def test_chip_smoke_ptxas_gate_names_spills_and_serialised_wgmma(fault, kernel):
+    """chip_smoke's build phase raises when ptxas spills, ignores setmaxnreg
+    (C7508) or serialises wgmma (any code: C7512, C7514, C7515, C7520) in
+    one of the five Hopper flash kernels at head dims 256 and 448, or builds
+    no entry of that name; the old 448 kernel's C7512 and the dK/dV kernel's
+    C7519 (injected arrives) are no fault of theirs."""
+    import chip_smoke
+
+    log = _PTXAS_CLEAN_LOG if fault is None else _PTXAS_CLEAN_LOG.replace(*fault, 1)
+    faults = chip_smoke.ptxas_faults(log)
+    assert list(faults) == ([] if kernel is None else [kernel]), faults

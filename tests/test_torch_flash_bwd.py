@@ -313,6 +313,19 @@ def test_work_list_covers_each_reachable_tile_pair_once(s, s_kv, b, h, causal, k
     """Each (batch, query tile, key tile, head) that the mask reaches is
     visited by exactly one item's loop, and nothing else is; items come
     longest loop first."""
+    _check_work_list(s, s_kv, b, h, causal, kind, block_q, block_k)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_work_list_covers_each_reachable_tile_pair_once_at_gemma_dq_tiles(causal):
+    """The same at dQ's head-dim-256 tiles (128-row items over 64-key
+    tiles) with Sq off the 128-row tile: the last item's upper warpgroup
+    holds 28 rows."""
+    _check_work_list(540, 700, 2, 3, causal, "dq", flash_bwd.dq_block_q(256),
+                     flash_bwd.DQ_BLOCK_K)
+
+
+def _check_work_list(s, s_kv, b, h, causal, kind, block_q, block_k):
     sq, skv = s, (s if causal else s_kv)
     items = flash_bwd.work_list(kind, b, sq, skv, h, causal, block_q, block_k)
     visited, lengths = [], []
@@ -337,9 +350,10 @@ def test_work_list_covers_each_reachable_tile_pair_once(s, s_kv, b, h, causal, k
 @pytest.mark.parametrize("kind,d,h,items,longest,total", [
     ("dq", 64, 14, 2100, 150, 158550),
     ("dkv", 64, 14, 1050, 150, 79800),
-    # Gemma-2B (8 heads of 256 over one KV head): dQ's 64-row items; dK/dV's
-    # 64-key items loop over 32-row query tiles (299 at the first key tile)
-    ("dq", 256, 8, 1200, 150, 90600),
+    # Gemma-2B (8 heads of 256 over one KV head): dQ's 128-row items (each
+    # two warpgroups of 64 rows); dK/dV's 64-key items loop over 32-row
+    # query tiles (299 at the first key tile)
+    ("dq", 256, 8, 600, 150, 45600),
     ("dkv", 256, 8, 1200, 299, 180000),
 ])
 def test_work_list_at_the_train_shape_is_balanced(kind, d, h, items, longest, total):
