@@ -12,7 +12,8 @@ each of which raises on failure:
                 the build time and ptxas report (kept beside a cached
                 library), and fail if ptxas spills, ignores setmaxnreg
                 (C7508) or serialises wgmma (C7512, C7514, C7515, C7520, ...)
-                in the Hopper flash kernels at head dims 256 and 448
+                in the Hopper flash kernels at head dims 256 and 448, or
+                spills in any head dim's instance of the fp32 3xTF32 kernel
                 (`PTXAS_CLEAN`);
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths and at edge cases, with the
@@ -43,9 +44,22 @@ each of which raises on failure:
                 swapped), each timed beside SDPA, and at edge cases in bf16
                 and fp32 (B = 2 with a valid length of 0, cross attention,
                 fp32 cuts at 64 and 256, 540 rows at 256, whose last dQ item
-                leaves its upper warpgroup idle), flash_fwd_d256_f32 (#1's fp32
-                kernel at 256, the Gemma parity cut's memory) at the memory's
-                fuse and evolve shapes, the backward
+                leaves its upper warpgroup idle), and #9-#11 in fp32 timed at
+                the LM shapes of the three fp32 parity cuts (0.5B: 14 heads of
+                64 over 2; Gemma-2B: 8 of 256 over 1; 7B: 28 of 128 over 4)
+                beside SDPA in fp32; #1's fp32 kernel (csrc/flash_fwd.cu,
+                3xTF32 on the tensor cores) at every head dim, timed beside
+                its plain version and SDPA in fp32 with TF32 off, with
+                bounds at the 3xTF32 rate and at the fp32 peak: the tower
+                (72), the 0.5B memory's fuse and evolve (112), an fp32 LM
+                prefill at 64 and 128, and as flash_fwd_d256_f32 and
+                flash_fwd_d448_f32 the memory's fuse and evolve of Gemma-2B
+                (256) and the 7B (448); at each head dim causal GQA with a
+                ragged batch, a cross case with a batch of valid length 0 and
+                65 query rows; each case held to the plain version at
+                F32_ATOL + F32_RTOL, and the same check failing a
+                single-TF32 form of the kernel's products (a control); the
+                backward
                 of flash_fwd at the memory's fuse shape, flash_fwd, the
                 three int8 kernels of the default tower, the four of the
                 fused configuration and the w8a8 layer (int8_matmul,
@@ -251,12 +265,17 @@ each of which raises on failure:
                 micro-steps (k = 2), whose parameters are compared; then the
                 same train step of Gemma-2B's config cut to 2 + 2 layers
                 (40 frames, fp32: #9-#11 and #1 at 256 through their fp32
-                kernels), loss, grad_norm and every gradient leaf.
+                kernels), loss, grad_norm and every gradient leaf; then the
+                7B config (Qwen2-7B's LM, the memory at 3584 over 8 heads of
+                448) cut the same way, fp32, over 33 frames (2 segments:
+                the memory's fuse and evolve at 448 through
+                flash_fwd_d448_f32, the LM's #9-#11 at 128), the same
+                comparison.
 
-The line before the last is a JSON object describing each of the 21
-kernels (#1's head dims 448 and 256 and its fp32 kernel at 256, and the
-training kernels at 256, as rows of their own), with its launches on
-each path; the last
+The line before the last is a JSON object describing each of the 22
+kernels (#1's head dims 448 and 256 and its fp32 kernel at 256 and 448,
+and the training kernels at 256, as rows of their own), with its launches
+on each path; the last
 line is {"ok": true, "device": {...}}. Nothing is printed as a result when
 there is no card: the run raises first.
 """
@@ -317,6 +336,8 @@ from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str, tr
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12  # fp32 outside the tensor cores
+PEAK_TF32 = 495e12
+PEAK_3XTF32 = PEAK_TF32 / 3  # fp32 work as 3xTF32: three TF32 products a product
 PEAK_BYTES = 3.35e12
 
 # The bf16 backward kernels (dQ, dK/dV) vs their plain versions: both round
@@ -324,7 +345,10 @@ PEAK_BYTES = 3.35e12
 # are bf16 (2^-8 relative steps), so they agree to the bf16 class. The bf16
 # forward kernels are held bit-close instead (EXACT_MIN_SHARE, below).
 BF16_ATOL = BF16_RTOL = 1e-2
-# fp32 flash kernel vs plain version: the same math in another summation order.
+# fp32 flash kernel vs plain version: the same math in another summation
+# order, the fp32 forward's products in 3xTF32 (~2^-21 of each product). A
+# single TF32 product (~2^-11) lands outside: the fp32 checks run it as a
+# control (`_tf32_attention`).
 F32_ATOL = F32_RTOL = 1e-5
 # int8 kernels vs plain versions. The int8 products are exact and the
 # epilogues repeat the plain arithmetic operation by operation, but the
@@ -462,9 +486,12 @@ def phase_card() -> str:
 
 # kernels whose ptxas report must show no spill, no C7508 (setmaxnreg
 # ignored) and no warning that wgmma is serialised, whatever its code
-# (C7512, C7514, C7515, C7520, ...); C7519, injected arrives, is no fault
+# (C7512, C7514, C7515, C7520, ...); C7519, injected arrives, is no fault.
+# The fp32 forward's instances (mma.sync, no wgmma) are held to no spill.
+F32_HEAD_DIMS = (64, 72, 112, 128, 256, 448)
 PTXAS_CLEAN = ("bwd_dq_d256_kernel", "flash_fwd_d448_kernel", "flash_fwd_d256_kernel",
-               "flash_fwd_lse_d256_kernel", "bwd_dkv_split_sm90_kernelILi256E")
+               "flash_fwd_lse_d256_kernel", "bwd_dkv_split_sm90_kernelILi256E",
+               *(f"flash_fwd_3xtf32_kernelILi{d}E" for d in F32_HEAD_DIMS))
 PTXAS_FAULTS = re.compile(r"C7508|wgmma\.mma_async instructions are serialized")
 
 
@@ -527,17 +554,22 @@ def _nbytes(*tensors) -> int:
 
 def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.bfloat16,
                 timed=False, controls=False, name_library=False, control_rows=None,
-                peak=PEAK_BF16):
+                plain_block_k=None):
     """flash_fwd on one input against its plain version: bf16 held bit-close
     (`_hold_bitwise`) to the online softmax over the kernel's key tile
     (`flash.forward_tiles`), fp32 to every element within F32_ATOL +
-    F32_RTOL of the one-tile plain version. `controls` runs `_flash_controls`
-    through the same check, each of which must fail it, over every query
-    row or, causal with `control_rows`, over the first that many queries
-    and keys of each batch (where the one-tile control's whole score matrix
-    would not fit the card);
+    F32_RTOL of the plain version (one tile over the keys, or the online
+    softmax over `plain_block_k` keys, the same function in fp32, where one
+    tile's scores would not fit the card). `controls` runs the neighbouring
+    functions through the same check, each of which must fail it
+    (`_flash_controls` in bf16, the single-TF32 form `_tf32_attention` in
+    fp32), over every query row or, causal with `control_rows`, over the
+    first that many queries and keys of each batch (where the one-tile
+    control's whole score matrix would not fit the card);
     `name_library` records the device kernels of the timed library call
-    (its backend); `peak` is the rate the bound takes (fp32: PEAK_F32)."""
+    (its backend). The bound is at the bf16 peak, or in fp32 at the 3xTF32
+    rate the kernel computes at (`bound_f32_peak_ms`: at the fp32 peak
+    outside the tensor cores)."""
     q, k, v = (x.to(dtype) for x in (q, k, v))
     out = flash.flash_attention(q, k, v, valid, causal=causal, kv_groups=kv_groups)
     torch.cuda.synchronize()
@@ -549,7 +581,7 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
             raise RuntimeError(f"{name}: batch {b} has valid length 0 but nonzero output")
     info = {"q": list(q.shape), "kv": list(k.shape), "valid": valid.tolist(), "causal": causal,
             "dtype": str(dtype).split(".")[-1]}
-    block_k = flash.forward_tiles(q.shape[-1])[0] if dtype == torch.bfloat16 else None
+    block_k = flash.forward_tiles(q.shape[-1])[0] if dtype == torch.bfloat16 else plain_block_k
     plain = functools.partial(flash.flash_attention_reference, q, k, v, valid, causal=causal,
                               kv_groups=kv_groups, block_k=block_k)
     ref = plain()
@@ -563,9 +595,13 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
             if not causal:
                 raise ValueError("control_rows cuts a causal case only")
             cq, ck, cv, cref = (x[:, :control_rows] for x in (q, k, v, ref))
-        for label, fn in _flash_controls(cq, ck, cv, valid.clamp_max(cq.shape[1]), causal,
-                                         kv_groups, block_k):
-            _must_fail(f"{name} control: {label}", fn()[0], cref)
+        cvalid = valid.clamp_max(cq.shape[1])
+        if dtype == torch.bfloat16:
+            for label, fn in _flash_controls(cq, ck, cv, cvalid, causal, kv_groups, block_k):
+                _must_fail(f"{name} control: {label}", fn()[0], cref)
+        else:
+            _must_fail_f32(f"{name} control: single TF32 products",
+                           _tf32_attention(cq, ck, cv, cvalid, causal, kv_groups, terms=1), cref)
     del ref
     if timed:
         row["ms"] = _time_ms(lambda: flash.flash_attention(q, k, v, valid, causal=causal,
@@ -575,9 +611,52 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
         row["library_ms"] = _time_ms(sdpa)
         if name_library:
             row["library_kernels"] = _device_kernels(sdpa)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_3XTF32
         row["bound_ms"], row["bound_by"] = _flash_bound(q, k, v, valid, causal, kv_groups, peak)
+        if dtype == torch.float32:
+            row["bound_f32_peak_ms"] = _flash_bound(q, k, v, valid, causal, kv_groups,
+                                                    PEAK_F32)[0]
         log(json.dumps(row))
     return row
+
+
+def _tf32(x: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """x as TF32 (10 mantissa bits), by masking its fp32 bits: to nearest,
+    ties away from zero (cvt.rna.tf32.f32), or with `nearest=False` by
+    dropping the 13 low bits, as the tensor core reads an fp32 operand."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 4096 if nearest else bits) & -8192).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """einsum(eq, a, b) as the fp32 forward computes it on the tensor cores:
+    each operand split into hi (to nearest TF32) and lo = x - hi (read as
+    TF32 by dropping its low bits), lo*hi + hi*lo + hi*hi summed in fp32
+    (`terms` 3); `terms` 1 keeps hi*hi, a single TF32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        al, bl = _tf32(a - ah, nearest=False), _tf32(b - bh, nearest=False)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _tf32_attention(q, k, v, valid, causal, kv_groups, terms=3):
+    """The fp32 flash forward's function with both products in TF32
+    (`_tf32_product`): 3xTF32, the kernel's own arithmetic, or a single
+    TF32 product (`terms=1`), the control its checks must fail. One tile
+    over the keys; a row with no valid key is zero."""
+    b, sq, h, d = q.shape
+    k, v = (x.repeat_interleave(kv_groups, dim=2).float() for x in (k, v))
+    qs = q.float() * (d ** -0.5 * flash.LOG2E)
+    s = _tf32_product("bqhd,bkhd->bhqk", qs, k, terms)
+    s = s.masked_fill(~flash.attention_mask(b, sq, k.shape[1], valid, causal, q.device),
+                      -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - torch.where(torch.isinf(m), 0.0, m))
+    l = p.sum(dim=-1).transpose(1, 2)[..., None]
+    o = _tf32_product("bhqk,bkhd->bqhd", p, v, terms)
+    return torch.where(l == 0, 0.0, o / l)
 
 
 def _online_variant(q, k, v, valid, *, causal, kv_groups, block_k, round_q=True,
@@ -654,6 +733,8 @@ def _attn_pairs(sq, skv, valid, causal, h) -> int:
 
 
 def phase_flash_kernel():
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions and SDPA
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     dev = "cuda"
@@ -713,8 +794,16 @@ def phase_flash_kernel():
                                         kv_groups=2, dtype=dtype)["max_abs_err"])
         errs.append(_check_case(f"cross_d{d}", randn(2, 100, 2, d), randn(2, 333, 2, d),
                                 randn(2, 333, 2, d), lens(333, 65))["max_abs_err"])
-    return [_flash_row("flash_fwd", "flash_fwd_sm90.cu", path_rows, errs),
-            _flash_row("flash_fwd_d448", "flash_fwd_wide_sm90.cu", *_wide_cases(randn, lens))]
+    row = _flash_row("flash_fwd", "flash_fwd_sm90.cu", path_rows, errs)
+    # fp32 at the head dims that flash_fwd counts: csrc/flash_fwd.cu's
+    # kernel, its rows apart from the bf16 ones that make the row's times
+    f32 = [_f32_cases(d, seed=13 + d) for d in flash.KERNEL_HEAD_DIMS]
+    row["f32_source"] = CSRC + "flash_fwd.cu"
+    row["f32_per_shape"] = _per_shape([r for rows, _ in f32 for r in rows])
+    row["max_abs_err"] = max([row["max_abs_err"]] + [e for _, errs in f32 for e in errs])
+    return [row, _flash_row("flash_fwd_d448", "flash_fwd_wide_sm90.cu", *_wide_cases(randn, lens)),
+            _f32_row("flash_fwd_d256_f32", flash.D256, seed=13),
+            _f32_row("flash_fwd_d448_f32", flash.WIDE_HEAD_DIM, seed=14)]
 
 
 # edge cases of the wide kernel: (name, Sq, Skv, H, H_kv, valid lengths,
@@ -797,16 +886,45 @@ def _d256_cases(shapes) -> dict:
     return _flash_row("flash_fwd_d256", "flash_fwd_wide_sm90.cu", path_rows, errs)
 
 
-def _f32_d256_row() -> dict:
-    """#1's fp32 kernel at head dim 256 (the SIMT kernel of
-    csrc/flash_fwd.cu, which the Gemma parity cut's memory runs) at the
-    memory's fuse and evolve shapes at Gemma-2B's width, timed beside the
-    plain version and SDPA in fp32, its bound at the fp32 peak outside the
-    tensor cores; then causal GQA 8 with a ragged batch and a cross case
-    with a batch of valid length 0. Every case held to the one-tile plain
-    version at F32_ATOL + F32_RTOL. Returns the kernels line's row."""
+# #1's fp32 kernel at each head dim: the fp32 path shapes, each timed with
+# its control, as (case, q shape, k/v shape, valid lengths, causal). The
+# parity cuts run the tower at 72 and the memory at 112 (0.5B), 256
+# (Gemma-2B) and 448 (7B); no fp32 path runs 64 or 128 at full width (the
+# CLI's small checkpoints run 64), which are timed at the 0.5B and 7B LMs'
+# prefill shapes, as an fp32 generate would give them.
+F32_PATHS = {
+    64: [("lm_prefill_f32", (1, 9472, 14, 64), (1, 9472, 2, 64), (9444,), True)],
+    72: [("tower_f32", (64, 729, 16, 72), (64, 729, 16, 72), (729,) * 64, False)],
+    112: [("memory_fuse_f32", (1, 1568, 8, 112), (1, 6272, 8, 112), (3136,), False),
+          ("memory_evolve_f32", (1, 1568, 8, 112), (1, 15680, 8, 112), (1568,), False)],
+    128: [("lm_prefill_7b_f32", (1, 9472, 28, 128), (1, 9472, 4, 128), (9444,), True)],
+    256: [("memory_fuse_gemma_f32", (1, 1568, 8, 256), (1, 6272, 8, 256), (6272,), False),
+          ("memory_evolve_gemma_f32", (1, 1568, 8, 256), (1, 15680, 8, 256), (1568,), False)],
+    448: [("memory_fuse_7b_f32", (1, 1568, 8, 448), (1, 6272, 8, 448), (3136,), False),
+          ("memory_evolve_7b_f32", (1, 1568, 8, 448), (1, 15680, 8, 448), (1568,), False)],
+}
+# ... and edge cases at every head dim: (name, B, Sq, Skv, H, H_kv, valid
+# lengths, causal): causal GQA with a ragged batch, a cross case with a
+# batch of valid length 0, 65 query rows (not a multiple of a block's 64 or
+# 32)
+F32_EDGES = [("causal_gqa_ragged", 2, 300, 300, 8, 1, (300, 211), True),
+             ("cross_valid0", 2, 150, 333, 4, 2, (0, 300), False),
+             ("sq_65", 1, 65, 200, 2, 2, (200,), False)]
+# the causal prefill shapes: the plain version's online softmax over tiles
+# of this many keys, and the controls over the first this many rows
+F32_PLAIN_BLOCK_K = 1024
+F32_CONTROL_ROWS = 2048
+
+
+def _f32_cases(d: int, seed: int):
+    """#1's fp32 kernel (csrc/flash_fwd.cu, 3xTF32) at head dim `d`: the
+    cases of F32_PATHS[d] timed beside the plain version and SDPA in fp32
+    (TF32 off), the library's backend named, the bound at the 3xTF32 rate
+    and at the fp32 peak; then F32_EDGES. Every case held to the plain
+    version at F32_ATOL + F32_RTOL, with the single-TF32 control failing the
+    same check. Returns (path rows, errors)."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(13)
+    gen.manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -814,20 +932,29 @@ def _f32_d256_row() -> dict:
     def lens(*v):
         return torch.tensor(v, dtype=torch.int32, device="cuda")
 
-    path_rows = [
-        _check_case(case, randn(1, 1568, 8, 256), randn(1, skv, 8, 256), randn(1, skv, 8, 256),
-                    lens(valid), dtype=torch.float32, timed=True, peak=PEAK_F32)
-        for case, skv, valid in (("memory_fuse_gemma_f32", 6272, 6272),
-                                 ("memory_evolve_gemma_f32", 15680, 1568))]
-    errs = [r["max_abs_err"] for r in path_rows] + [
-        _check_case("f32_d256_causal_gqa8", randn(2, 300, 8, 256), randn(2, 300, 1, 256),
-                    randn(2, 300, 1, 256), lens(300, 211), causal=True, kv_groups=8,
-                    dtype=torch.float32)["max_abs_err"],
-        _check_case("f32_d256_cross_valid0", randn(2, 150, 4, 256), randn(2, 333, 2, 256),
-                    randn(2, 333, 2, 256), lens(0, 300), kv_groups=2,
-                    dtype=torch.float32)["max_abs_err"]]
-    row = _flash_row("flash_fwd_d256_f32", "flash_fwd.cu", path_rows, errs)
-    torch.cuda.empty_cache()
+    path_rows = []
+    for case, qs, kvs, valid, causal in F32_PATHS[d]:
+        big = dict(plain_block_k=F32_PLAIN_BLOCK_K, control_rows=F32_CONTROL_ROWS) \
+            if causal else {}
+        path_rows.append(_check_case(
+            case, randn(*qs), randn(*kvs), randn(*kvs), lens(*valid), causal=causal,
+            kv_groups=qs[2] // kvs[2], dtype=torch.float32, timed=True, controls=True,
+            name_library=True, **big))
+        torch.cuda.empty_cache()
+    errs = [r["max_abs_err"] for r in path_rows]
+    for name, b, sq, skv, h, hkv, valid, causal in F32_EDGES:
+        errs.append(_check_case(f"f32_d{d}_{name}", randn(b, sq, h, d), randn(b, skv, hkv, d),
+                                randn(b, skv, hkv, d), lens(*valid), causal=causal,
+                                kv_groups=h // hkv, dtype=torch.float32,
+                                controls=True)["max_abs_err"])
+    return path_rows, errs
+
+
+def _f32_row(name: str, d: int, seed: int) -> dict:
+    """The kernels line's row of #1's fp32 kernel at head dim 256 or 448,
+    which count their own launches (`_f32_cases`)."""
+    row = _flash_row(name, "flash_fwd.cu", *_f32_cases(d, seed))
+    row["bound_f32_peak_ms"] = sum(r["bound_f32_peak_ms"] for r in row["per_shape"])
     return row
 
 
@@ -844,6 +971,13 @@ def _device_kernels(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
+def _per_shape(path_rows) -> list:
+    return [{key: r[key] for key in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                     "library_kernels", "bound_ms", "bound_by",
+                                     "bound_f32_peak_ms") if key in r}
+            for r in path_rows]
+
+
 def _flash_row(name, source, path_rows, errs):
     return {
         "name": name, "route": "cuda", "source": CSRC + source,
@@ -853,10 +987,7 @@ def _flash_row(name, source, path_rows, errs):
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in path_rows)
         else "bytes",
-        "per_shape": [{key: r[key] for key in ("case", "max_abs_err", "ms", "plain_ms",
-                                                "library_ms", "library_kernels", "bound_ms",
-                                                "bound_by") if key in r}
-                      for r in path_rows],
+        "per_shape": _per_shape(path_rows),
     }
 
 
@@ -2123,10 +2254,10 @@ TRAIN_SOURCES = {"flash_fwd_lse": "flash_fwd_sm90.cu", "flash_bwd_dq": "flash_bw
 TRAIN_FLOPS_PER_PAIR = {"flash_fwd_lse": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
 
 
-def _train_bounds(q, k, valid, causal):
-    """{kernel: (bound ms, bound_by)}: each kernel's operations at the bf16
-    peak against its bytes (inputs read once, outputs written once, only
-    the valid keys of K/V)."""
+def _train_bounds(q, k, valid, causal, peak=PEAK_BF16):
+    """{kernel: (bound ms, bound_by)}: each kernel's operations at `peak`
+    against its bytes (inputs read once, outputs written once, only the
+    valid keys of K/V)."""
     b, sq, h, d = q.shape
     pairs = _attn_pairs(sq, k.shape[1], valid, causal, h)
     kv = sum(min(n, k.shape[1]) for n in valid.tolist()) * k.shape[2] * d * q.element_size()
@@ -2134,7 +2265,7 @@ def _train_bounds(q, k, valid, causal):
     io = {"flash_fwd_lse": 2 * _nbytes(q) + 2 * kv + rows,
           "flash_bwd_dq": 3 * _nbytes(q) + 2 * kv + 2 * rows,
           "flash_bwd_dkv": 2 * _nbytes(q) + 4 * kv + 2 * rows}
-    return {name: _bound(f * pairs * d, PEAK_BF16, io[name])
+    return {name: _bound(f * pairs * d, peak, io[name])
             for name, f in TRAIN_FLOPS_PER_PAIR.items()}
 
 
@@ -2211,13 +2342,23 @@ def _dkv_halves_swapped(q, k, v, g, lse, delta, vl, *, causal, scale, kv_groups)
 
 
 def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=torch.bfloat16,
-                        timed=False):
+                        timed=False, parity_shape=False):
     """Run the three training kernels on one input and hold each output
     against its plain version (lse on its finite entries, and -inf where
     the plain version has -inf). The timed case (the train shape) also runs
     dQ and dK/dV a second time and requires the same bits, and runs the
-    controls of `_train_controls`, each of which must fail the check.
-    Returns {kernel: row}."""
+    controls of `_train_controls`, each of which must fail the check. fp32
+    bounds are at the 3xTF32 rate (`bound_f32_peak_ms`: at the fp32 peak).
+    A `parity_shape` case (fp32 at a parity cut's LM shape) is timed for
+    its row without controls, and its out, dQ, dK and dV are held to
+    TRAIN_PARITY_RTOL of each one's largest magnitude, the rule the cut's
+    step holds their gradients to: the SIMT kernels' sums of thousands of
+    terms in sequence drift past the elementwise fp32 rule (dK and dV at
+    the 0.5B cut's 4853 tokens: 13 of 1.2M elements, up to 6.0e-5, in the
+    first card run), which holds them at the edge cases; each row records
+    that count. Returns {kernel: row}."""
+    timed = timed or parity_shape
+    controls = timed and not parity_shape
     atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
     dev = "cuda"
     q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
@@ -2235,13 +2376,19 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
     dk, dv = dkv_fn()
     torch.cuda.synchronize()
     info = {"q": list(q.shape), "kv": list(k.shape), "valid": list(valid), "causal": causal,
-            "dtype": str(dtype).split(".")[-1], "tol": f"atol {atol} + rtol {rtol}"}
+            "dtype": str(dtype).split(".")[-1],
+            "tol": (f"{TRAIN_PARITY_RTOL} of the largest |ref|" if parity_shape
+                    else f"atol {atol} + rtol {rtol}")}
+    outside_elementwise = {}
 
     def held(label, got, ref):
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: non-finite kernel output")
         diff = (got.float() - ref.float()).abs()
         bad = _train_outside(got, ref)
+        if parity_shape:
+            outside_elementwise[label] = bad
+            bad = int((diff > TRAIN_PARITY_RTOL * ref.float().abs().max()).sum())
         if bad:
             raise RuntimeError(f"{name} {label}: {bad} elements outside tolerance "
                                f"(max err {float(diff.max())})")
@@ -2261,7 +2408,7 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
         fwd_err = held("out", out, rout)
     errs = {"flash_fwd_lse": max(fwd_err, _hold_f32(f"{name} lse", lse[fin], rlse[fin],
                                                     **info)["max_abs_err"])}
-    if timed:
+    if controls:
         for label, fn in _flash_controls(q, k, v, vl, causal, h // hkv, block_k):
             c_out, c_lse = fn()
             _must_fail(f"{name} out control: {label}", c_out, rout)
@@ -2282,6 +2429,7 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
         if not all(same):
             raise RuntimeError(f"{name}: a second run of the backward kernels differs: {same}")
         del repeat
+    if controls:
         for label, got, ref in _train_controls(q, k, v, g, lse, delta, vl, (rdq, rdk, rdv), **kw):
             outside = _train_outside(got, ref)
             log(json.dumps({"control": "must fail", "case": name, "neighbour": label,
@@ -2298,6 +2446,11 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
             raise RuntimeError(f"{name}: batch {i} has valid length 0 but a nonzero result")
     rows = {kname: {"case": name, "kernel": kname, **info, "max_abs_err": err}
             for kname, err in errs.items()}
+    if parity_shape:  # what the elementwise fp32 rule would say, for the record
+        for kname, labels in (("flash_fwd_lse", ("out",)), ("flash_bwd_dq", ("dq",)),
+                              ("flash_bwd_dkv", ("dk", "dv"))):
+            rows[kname]["outside_elementwise_f32_rule"] = sum(
+                outside_elementwise[x] for x in labels)
     if timed:
         plain = {
             "flash_fwd_lse": lambda: flash_bwd.forward_with_lse_reference(
@@ -2321,8 +2474,12 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
             rows[kname]["library_ms"] = lib_bwd
             rows[kname]["library_call"] = ("scaled_dot_product_attention backward (forward + "
                                            "backward minus forward): dQ, dK and dV together")
-        for kname, (bound, by) in _train_bounds(q, k, vl, causal).items():
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_3XTF32
+        for kname, (bound, by) in _train_bounds(q, k, vl, causal, peak).items():
             rows[kname]["bound_ms"], rows[kname]["bound_by"] = bound, by
+        if dtype == torch.float32:
+            for kname, (bound, _) in _train_bounds(q, k, vl, causal, PEAK_F32).items():
+                rows[kname]["bound_f32_peak_ms"] = bound
     for row in rows.values():
         log(json.dumps(row))
     torch.cuda.empty_cache()
@@ -2406,27 +2563,59 @@ TRAIN_EDGES = [
 ]
 
 
-def _train_kernel_rows(main_rows, errs, suffix=""):
+TRAIN_TIMED_KEYS = ("ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_call")
+
+
+def _train_kernel_rows(main_rows, errs, f32_rows, suffix=""):
     """The kernels line's rows of the three training kernels, from the timed
-    case's rows and every case's errors; `suffix` names the head dim 256
-    wrappers."""
+    case's rows, the timed fp32 cases' rows (`f32_per_shape`: the fp32
+    kernels of csrc/flash_train.cu) and every case's errors; `suffix` names
+    the head dim 256 wrappers."""
     rows = []
     for kname, row in main_rows.items():
         name = kname + suffix
         rows.append({
             "name": name, "route": "cuda", "source": CSRC + TRAIN_SOURCES[name],
             "replaces": TRAIN_REPLACES[kname], "max_abs_err": max(errs[kname]),
-            **{key: row[key] for key in ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms", "library_call")}})
+            **{key: row[key] for key in TRAIN_TIMED_KEYS},
+            "f32_source": CSRC + "flash_train.cu",
+            "f32_per_shape": [{key: r[key] for key in ("case", "q", "kv", "max_abs_err", "tol",
+                                                       "outside_elementwise_f32_rule",
+                                                       *TRAIN_TIMED_KEYS, "bound_f32_peak_ms")}
+                              for r in f32_rows[kname]]})
     return rows
+
+
+def _parity_tokens(cfg: VLMConfig, num_frames: int, num_fine: int) -> int:
+    """The LM's tokens in a parity cut's train step (`_train_batch`): the
+    text and the spliced visual tokens of `num_frames` frames, `num_fine`
+    of them fine."""
+    nseg = vlm.pad_frames_to_segment_multiple(num_frames, cfg.memory.segment_frames) \
+        // cfg.memory.segment_frames
+    memory = dataclasses.replace(cfg.memory, num_fine_frames=num_fine)
+    return TRAIN_TEXT + _visual_tokens(dataclasses.replace(cfg, memory=memory), num_frames, nseg)
+
+
+def _f32_train_shapes() -> list:
+    """(case, config, tokens) of the fp32 parity cuts' LMs, whose training
+    kernels run fp32 (csrc/flash_train.cu): the 0.5B (14 heads of 64 over
+    2), Gemma-2B (8 of 256 over 1) and the 7B (28 of 128 over 4)."""
+    return [("lm_train_f32", VLMConfig.onevision_0_5b(),
+             _parity_tokens(VLMConfig.onevision_0_5b(), PARITY_FRAMES, 8)),
+            ("gemma_train_f32", _gemma_config(), _parity_tokens(_gemma_config(), PARITY_FRAMES, 2)),
+            ("lm_train_7b_f32", VLMConfig.onevision_7b(),
+             _parity_tokens(VLMConfig.onevision_7b(), PARITY_7B_FRAMES, 2))]
 
 
 def phase_train_kernels():
     """forward_with_lse, backward_dq and backward_dkv at the 0.5B LM's
     training shape (S = 9557, 14 heads of 64 over 2 KV heads) and at
     Gemma-2B's (8 heads of 256 over one KV head), each timed with its
-    controls, and at edge cases (`TRAIN_EDGES`), in bf16 and fp32; then
-    #1's backward. Returns (the kernels line's rows, #1's backward row)."""
+    controls, in fp32 timed at the fp32 parity cuts' LM shapes
+    (`_f32_train_shapes`), and at edge cases (`TRAIN_EDGES`), in bf16 and
+    fp32; then #1's backward. Returns (the kernels line's rows, #1's
+    backward row)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     s = TRAIN_TOKENS
@@ -2443,9 +2632,19 @@ def phase_train_kernels():
                                        h, hkv, d, causal, valid, dtype)
             for kname, row in rows.items():
                 errs[flash.D256 if d == flash.D256 else 64][kname].append(row["max_abs_err"])
+    f32 = {d: {name: [] for name in TRAIN_REPLACES} for d in (64, flash.D256)}
+    for case, cfg, s in _f32_train_shapes():
+        lm = cfg.lm
+        rows = _train_kernels_case(case, gen, 1, s, s, lm.num_attention_heads,
+                                   lm.num_key_value_heads, lm.head_dim, True, (s,),
+                                   torch.float32, parity_shape=True)
+        d = flash.D256 if lm.head_dim == flash.D256 else 64
+        for kname, row in rows.items():
+            errs[d][kname].append(row["max_abs_err"])
+            f32[d][kname].append(row)
     backward = _flash_backward_check(gen)
-    kernels = (_train_kernel_rows(main[64], errs[64])
-               + _train_kernel_rows(main[flash.D256], errs[flash.D256], "_d256"))
+    kernels = (_train_kernel_rows(main[64], errs[64], f32[64])
+               + _train_kernel_rows(main[flash.D256], errs[flash.D256], f32[flash.D256], "_d256"))
     return kernels, backward
 
 
@@ -2465,6 +2664,7 @@ WRAPPERS = {
     "flash_bwd_dq_d256": flash_bwd.backward_dq_d256,
     "flash_bwd_dkv_d256": flash_bwd.backward_dkv_d256,
     "flash_fwd_d256_f32": flash.flash_forward_d256_f32,
+    "flash_fwd_d448_f32": flash.flash_forward_d448_f32,
     "flash_attention_out_proj_int8": flash.flash_attention_out_proj_int8,
     "fused_mlp_int8": mlp_int8.fused_mlp_int8,
     "fused_swiglu_block_int8": swiglu_int8.fused_swiglu_block_int8,
@@ -2524,7 +2724,7 @@ def _expected_launches(cfg: VLMConfig, num_frames: int, fused_oproj: bool = Fals
 def _attn_kernel(head_dim: int, dtype=torch.bfloat16) -> str:
     """The wrapper (WRAPPERS' name) that counts #1 at a head dim and dtype."""
     if head_dim == flash.WIDE_HEAD_DIM:
-        return "flash_fwd_d448"
+        return "flash_fwd_d448_f32" if dtype == torch.float32 else "flash_fwd_d448"
     if head_dim == flash.D256:
         return "flash_fwd_d256_f32" if dtype == torch.float32 else "flash_fwd_d256"
     return "flash_fwd"
@@ -4458,6 +4658,14 @@ def phase_train():
     return want
 
 
+# the parity cuts' train step: 40 real frames of 64 padded, 2 segments, so
+# that the memory's evolve is differentiated; the 7B cut takes the fewest
+# frames of 2 segments (the fuse and the evolve at head dim 448 both run),
+# which keeps its CPU half short
+PARITY_FRAMES = 40
+PARITY_7B_FRAMES = 33
+
+
 def _parity_cut(full: VLMConfig) -> VLMConfig:
     """`full` cut to 2 tower and 2 LM layers, its widths kept."""
     return dataclasses.replace(
@@ -4477,6 +4685,14 @@ def _gemma_train_parity_setup():
     return cfg, vlm.init_params(cfg, seed=12, device="cpu", dtype=torch.float32)
 
 
+def _7b_train_parity_setup():
+    """(the 7B config's cut: Qwen2-7B's LM widths, 3584 over 28 heads of
+    128 and 4 KV heads, 18944, an untied head over 152064; the memory at
+    3584 over 8 heads of 448; its seeded fp32 params on the CPU)."""
+    cfg = _parity_cut(VLMConfig.onevision_7b())
+    return cfg, vlm.init_params(cfg, seed=14, device="cpu", dtype=torch.float32)
+
+
 def phase_train_parity():
     """One fp32 train step, full widths cut to 2 tower and 2 LM layers, 64
     padded frames of which 40 are real (2 segments, so evolve is
@@ -4486,20 +4702,21 @@ def phase_train_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, params = _train_parity_setup()
-    _card_vs_cpu_step("fp32, 2 tower + 2 LM layers, 40 frames, card vs cpu", cfg, params, 8,
+    _card_vs_cpu_step(f"fp32, 2 tower + 2 LM layers, {PARITY_FRAMES} frames, card vs cpu",
+                      cfg, params, 8,
                       _cpu_reference("train_parity", lambda: _parity_step(
                           *_train_parity_setup(), 8, "cpu")))
     _accumulated_update_parity(cfg, params)
 
 
-def _parity_step(cfg: VLMConfig, params, num_fine: int, dev: str):
-    """One fp32 train step (`make_train_step`, 2 segments: 40 of 64 padded
-    frames, `num_fine` fine frames, the batch from seed 7) from `params` on
-    `dev`, whose gradients it keeps: (metrics as floats, [(path, gradient
-    on the CPU)], seconds, launches)."""
+def _parity_step(cfg: VLMConfig, params, num_fine: int, dev: str, frames: int = PARITY_FRAMES):
+    """One fp32 train step (`make_train_step`, 2 segments: `frames` of 64
+    padded frames, `num_fine` fine frames, the batch from seed 7) from
+    `params` on `dev`, whose gradients it keeps: (metrics as floats, [(path,
+    gradient on the CPU)], seconds, launches)."""
     opt = port_bench_train.optimizer_config()  # step 0 runs at lr 0
     step = trainer.make_train_step(cfg, opt, nseg=2)
-    batch = _train_batch(np.random.default_rng(7), cfg, 40, num_fine, dev, torch.float32)
+    batch = _train_batch(np.random.default_rng(7), cfg, frames, num_fine, dev, torch.float32)
     state = trainer.init_train_state(_to_cuda(params) if dev == "cuda" else params, opt)
     _reset_launches()
     t0 = time.perf_counter()
@@ -4530,7 +4747,7 @@ def _plain_on_card():
 
 
 def _card_vs_cpu_step(label, cfg: VLMConfig, params, num_fine: int, cpu,
-                      floor: bool = False) -> dict:
+                      floor: bool = False, frames: int = PARITY_FRAMES) -> dict:
     """One fp32 train step (`_parity_step`) from `params` on the card, held
     against `cpu`, the same step on the CPU: the card's launches
     (`_expected_train_launches` in fp32), the loss and grad_norm to
@@ -4541,8 +4758,8 @@ def _card_vs_cpu_step(label, cfg: VLMConfig, params, num_fine: int, cpu,
     differ by FUSED_FLOOR_FACTOR times that run's difference from the CPU:
     the noise of fp32 sums taken in another order on the card. Returns the
     logged row."""
-    mg, gg, tg, launches = _parity_step(cfg, params, num_fine, "cuda")
-    want = _expected_train_launches(cfg, 40, torch.float32)
+    mg, gg, tg, launches = _parity_step(cfg, params, num_fine, "cuda", frames)
+    want = _expected_train_launches(cfg, frames, torch.float32)
     if launches != want:
         raise RuntimeError(f"train parity ({label}): launches {launches}, want {want}")
     torch.cuda.empty_cache()
@@ -4550,7 +4767,7 @@ def _card_vs_cpu_step(label, cfg: VLMConfig, params, num_fine: int, cpu,
     floor_err = {}
     if floor:
         with _plain_on_card():
-            mf, gf, _, plain_launches = _parity_step(cfg, params, num_fine, "cuda")
+            mf, gf, _, plain_launches = _parity_step(cfg, params, num_fine, "cuda", frames)
         if any(plain_launches.values()):
             raise RuntimeError(f"train parity ({label}): the plain run launched "
                                f"{plain_launches}")
@@ -4685,8 +4902,31 @@ def phase_train_parity_gemma():
     cfg, params = _gemma_train_parity_setup()
     cpu = _cpu_reference("train_parity_gemma", lambda: _parity_step(
         *_gemma_train_parity_setup(), 2, "cpu"))
-    row = _card_vs_cpu_step("Gemma-2B fp32, 2 tower + 2 LM layers, 40 frames, card vs cpu",
+    row = _card_vs_cpu_step(f"Gemma-2B fp32, 2 tower + 2 LM layers, {PARITY_FRAMES} frames, "
+                            "card vs cpu",
                             cfg, params, 2, cpu, floor=True)
+    return {**dict.fromkeys(WRAPPERS, 0), **row["launches"]}
+
+
+def phase_train_parity_7b():
+    """The 7B config cut to 2 tower and 2 LM layers at full widths
+    (`_7b_train_parity_setup`), fp32: one train step on the card (#1 in fp32
+    at 448 in the memory, its fuse and evolve: flash_fwd_d448_f32; #9-#11
+    in fp32 at 128 in the LM; #1 at 72 in the tower) against the CPU (plain
+    versions) on one batch of PARITY_7B_FRAMES frames (2 segments, 2 fine
+    frames), launches held to the config's, loss, grad_norm and every
+    gradient leaf (`_card_vs_cpu_step` with its noise floor). Returns the
+    card step's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = _7b_train_parity_setup()
+    cpu = _cpu_reference("train_parity_7b", lambda: _parity_step(
+        *_7b_train_parity_setup(), 2, "cpu", PARITY_7B_FRAMES))
+    row = _card_vs_cpu_step(f"7B fp32, 2 tower + 2 LM layers, {PARITY_7B_FRAMES} frames, "
+                            "card vs cpu", cfg, params, 2, cpu, floor=True,
+                            frames=PARITY_7B_FRAMES)
+    del params, cpu
+    torch.cuda.empty_cache()
     return {**dict.fromkeys(WRAPPERS, 0), **row["launches"]}
 
 
@@ -5875,6 +6115,8 @@ CPU_REFERENCE_JOBS = {
     "train_parity": lambda: _parity_step(*_train_parity_setup(), 8, "cpu"),
     "accumulated_update": lambda: _accumulated_run(*_train_parity_setup(), "cpu"),
     "train_parity_gemma": lambda: _parity_step(*_gemma_train_parity_setup(), 2, "cpu"),
+    "train_parity_7b": lambda: _parity_step(*_7b_train_parity_setup(), 2, "cpu",
+                                            PARITY_7B_FRAMES),
 }
 _CPU_CHILD = {}
 
@@ -5964,7 +6206,6 @@ def _main():
     launches["7b_int8_64_frames"] = _phase(phase_requests_7b)
     d256_row, gemma_launches = _phase(phase_requests_gemma)
     kernels.insert(2, d256_row)
-    kernels.insert(3, _phase(_f32_d256_row))
     launches.update(gemma_launches)
     launches["serving"] = _phase(phase_serving)
     launches.update(_phase(phase_load, keep=True))
@@ -5981,6 +6222,7 @@ def _main():
     _phase(phase_parity)
     _phase(phase_train_parity)
     launches["train_parity_gemma"] = _phase(phase_train_parity_gemma)
+    launches["train_parity_7b"] = _phase(phase_train_parity_7b)
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -189,20 +189,24 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // A ring of K tiles and a ring of V tiles in shared memory, for a kernel
 // with no producer warp (flash_fwd_wide_sm90.cu's head dims 256 and 448,
-// flash_bwd_sm90.cu's dQ at 256). A tile is BN rows of a bshd tensor in CB
-// 128-byte swizzled blocks of 64 columns, loaded by TMA. Ring v is K (v = 0)
+// flash_bwd_sm90.cu's dQ at 256, flash_fwd.cu's fp32 kernel). A tile is BN
+// rows of a bshd tensor in CB blocks of COLS columns, loaded by TMA: 128-byte
+// swizzled rows of 64 bf16 columns, or (flash_fwd.cu) unswizzled rows of
+// ROW_BYTES, a little wider than COLS columns. Ring v is K (v = 0)
 // or V (v = 1); the slots are numbered over both rings, K's first, and each
 // has a full mbarrier (one arrival and the tile's bytes) and a counter of
 // the warps done with its tile. One thread loads each ring's first tiles;
 // after that the last warp out of a slot (last_out) refills it with its
 // ring's tile `depth` ahead, so a ring needs no empty barrier.
-template <int K_SLOTS_, int V_SLOTS_, int BN, int CB>
+template <int K_SLOTS_, int V_SLOTS_, int BN, int CB, int COLS = kSwzCols,
+          int ROW_BYTES = kRowBytes>
 struct KvRings {
   static constexpr int K_SLOTS = K_SLOTS_, V_SLOTS = V_SLOTS_, SLOTS = K_SLOTS + V_SLOTS;
-  static constexpr uint32_t BLOCK = BN * kRowBytes;      // a 64-column block of a tile
+  static constexpr uint32_t BLOCK = BN * ROW_BYTES;      // a block of COLS columns
   static constexpr uint32_t TILE_BYTES = CB * BLOCK;     // a K or V tile
   static constexpr uint32_t BYTES = SLOTS * TILE_BYTES;  // every slot's tile
-  static_assert(TILE_BYTES % 1024 == 0, "1024-byte aligned swizzled blocks");
+  static_assert(TILE_BYTES % (ROW_BYTES == kRowBytes ? 1024 : 128) == 0,
+                "1024-byte aligned swizzled blocks, 128-byte aligned plain ones");
 
   uint32_t tiles;           // slot 0's tile; the others follow, TILE_BYTES apart
   uint32_t full0;           // slot 0's full barrier; the others follow, 8 bytes apart
@@ -235,7 +239,7 @@ struct KvRings {
     mbar_arrive_tx(bar, TILE_BYTES);
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
-      tma_load(tile(v, j) + c * BLOCK, v ? tm_v : tm_k, bar, kSwzCols * c, j * BN, head, batch);
+      tma_load(tile(v, j) + c * BLOCK, v ? tm_v : tm_k, bar, COLS * c, j * BN, head, batch);
     }
   }
   // the first tiles of each ring, of the block's n_tiles (one thread)

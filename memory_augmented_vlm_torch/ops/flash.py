@@ -1,7 +1,7 @@
 """Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu` (bf16),
 `csrc/flash_fwd_wide_sm90.cu` (bf16 at head dims 256 and 448) and
-`csrc/flash_fwd.cu` (fp32), `csrc/flash_merge.cu` and their plain PyTorch
-versions.
+`csrc/flash_fwd.cu` (fp32 at every head dim, 3xTF32 on the tensor cores),
+`csrc/flash_merge.cu` and their plain PyTorch versions.
 
 Counterpart of `memory_augmented_vlm_tpu/ops/pallas_flash.py::
 pallas_flash_attention` (bshd layout). Both versions compute the TPU
@@ -44,12 +44,13 @@ from memory_augmented_vlm_torch.ops.quant import QUANT_FLOOR, int_mm, quantize_r
 LOG2E = 1.4426950408889634
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # pallas_flash.MASK_VALUE
 KERNEL_HEAD_DIMS = (64, 72, 112, 128)
-# the 7B memory's head dim (3584 / 8): bf16 only, through the kernel of
-# csrc/flash_fwd_wide_sm90.cu (`flash_forward_wide`)
+# the 7B memory's head dim (3584 / 8): bf16 through the kernel of
+# csrc/flash_fwd_wide_sm90.cu (`flash_forward_wide`), fp32 through the
+# 3xTF32 kernel of csrc/flash_fwd.cu (`flash_forward_d448_f32`)
 WIDE_HEAD_DIM = 448
 # Gemma's head dim, and the memory's at Gemma-2B's width (2048 / 8): bf16
-# through the same kernel (`flash_forward_d256`), fp32 through the SIMT
-# kernel of csrc/flash_fwd.cu (`flash_forward_d256_f32`)
+# through the same wide kernel (`flash_forward_d256`), fp32 through the
+# 3xTF32 kernel (`flash_forward_d256_f32`)
 D256 = 256
 MERGE_HEAD_DIMS = (64, 72, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -189,10 +190,6 @@ def _check_kernel_args(q, k, v, kv_valid_len, d):
         raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if d == WIDE_HEAD_DIM and q.dtype != torch.bfloat16:
-        raise ValueError(f"the flash kernel takes head dim {d} in bf16 only (fp32 at {d} is "
-                         f"still to port, ROADMAP §2); its fp32 kernel takes "
-                         f"{KERNEL_HEAD_DIMS + (D256,)}")
     if d not in KERNEL_HEAD_DIMS + (D256, WIDE_HEAD_DIM):
         raise ValueError(f"flash kernel head dim must be one of {KERNEL_HEAD_DIMS}, {D256} "
                          f"or {WIDE_HEAD_DIM}, got {d}")
@@ -287,10 +284,11 @@ def forward_plan(b, sq, skv, h, d, causal, device) -> Tuple[int, torch.Tensor]:
 
 
 def _flash_forward(q, k, v, kv_valid_len, causal, scale, kv_groups):
-    if q.shape[-1] == D256 and q.dtype == torch.float32:
-        return flash_forward_d256_f32(q, k, v, kv_valid_len, causal=causal, scale=scale,
-                                      kv_groups=kv_groups)
-    wide = {D256: flash_forward_d256, WIDE_HEAD_DIM: flash_forward_wide}.get(q.shape[-1])
+    if q.dtype == torch.float32:
+        wide = {D256: flash_forward_d256_f32, WIDE_HEAD_DIM: flash_forward_d448_f32}
+    else:
+        wide = {D256: flash_forward_d256, WIDE_HEAD_DIM: flash_forward_wide}
+    wide = wide.get(q.shape[-1])
     if wide is not None:
         return wide(q, k, v, kv_valid_len, causal=causal, scale=scale, kv_groups=kv_groups)
     return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, flash_attention)
@@ -301,10 +299,13 @@ def flash_forward_wide(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
     `flash_attention` reaches at that head dim: CPU tensors take the plain
     version; bf16 CUDA tensors launch `csrc/flash_fwd_wide_sm90.cu` (key
     tiles of 32, `forward_tiles`), counted in `flash_forward_wide.launches`;
-    fp32 CUDA tensors raise."""
+    fp32 CUDA tensors raise (`flash_forward_d448_f32` takes them)."""
     if q.shape[-1] != WIDE_HEAD_DIM:
         raise ValueError(f"flash_forward_wide takes head dim {WIDE_HEAD_DIM}, got "
                          f"{q.shape[-1]}")
+    if q.dtype == torch.float32 and q.device.type == "cuda":
+        raise TypeError("flash_forward_wide takes bf16 CUDA tensors; fp32 goes to "
+                        "flash_forward_d448_f32")
     return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
                            flash_forward_wide)
 
@@ -321,6 +322,9 @@ def flash_forward_d256(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
     `flash_forward_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"flash_forward_d256 takes head dim {D256}, got {q.shape[-1]}")
+    if q.dtype == torch.float32 and q.device.type == "cuda":
+        raise TypeError("flash_forward_d256 takes bf16 CUDA tensors; fp32 goes to "
+                        "flash_forward_d256_f32")
     return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
                            flash_forward_d256)
 
@@ -332,8 +336,8 @@ def flash_forward_d256_f32(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
     """#1 at head dim `D256` in fp32 (the fp32 parity runs of a Gemma-2B
     model: the memory at 2048 over 8 heads), which `flash_attention` reaches
     at that head dim and dtype: CPU tensors take the plain version; CUDA
-    tensors launch the SIMT kernel of `csrc/flash_fwd.cu` at 256, counted in
-    `flash_forward_d256_f32.launches`."""
+    tensors launch the 3xTF32 kernel of `csrc/flash_fwd.cu` at 256, counted
+    in `flash_forward_d256_f32.launches`."""
     if q.shape[-1] != D256 or q.dtype != torch.float32:
         raise ValueError(f"flash_forward_d256_f32 takes fp32 at head dim {D256}, got "
                          f"{q.dtype} at {q.shape[-1]}")
@@ -342,6 +346,22 @@ def flash_forward_d256_f32(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
 
 
 flash_forward_d256_f32.launches = 0
+
+
+def flash_forward_d448_f32(q, k, v, kv_valid_len, *, causal, scale, kv_groups):
+    """#1 at `WIDE_HEAD_DIM` in fp32 (the fp32 parity runs of a 7B model:
+    the memory at 3584 over 8 heads), which `flash_attention` reaches at
+    that head dim and dtype: CPU tensors take the plain version; CUDA
+    tensors launch the 3xTF32 kernel of `csrc/flash_fwd.cu` at 448, counted
+    in `flash_forward_d448_f32.launches`."""
+    if q.shape[-1] != WIDE_HEAD_DIM or q.dtype != torch.float32:
+        raise ValueError(f"flash_forward_d448_f32 takes fp32 at head dim {WIDE_HEAD_DIM}, "
+                         f"got {q.dtype} at {q.shape[-1]}")
+    return _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups,
+                           flash_forward_d448_f32)
+
+
+flash_forward_d448_f32.launches = 0
 
 
 def _launch_forward(q, k, v, kv_valid_len, causal, scale, kv_groups, counter):
@@ -434,8 +454,9 @@ def flash_attention(
     `csrc/flash_fwd_sm90.cu` (bf16; one block per item of `forward_plan`)
     or `csrc/flash_fwd.cu` (fp32), head dims 64/72/112/128, and count the
     launch in `flash_attention.launches`; head dims 256 and 448 go to
-    `flash_forward_d256` (fp32: `flash_forward_d256_f32`) and
-    `flash_forward_wide`, which count their own.
+    `flash_forward_d256` and `flash_forward_wide` (fp32:
+    `flash_forward_d256_f32`, `flash_forward_d448_f32`), which count their
+    own.
     Differentiable: the backward is `_FlashAttention`'s plain recompute."""
     b, sq, skv, h, d = _shapes(q, k, v, kv_groups, causal)
     scale = d ** -0.5 if scale is None else scale

@@ -417,18 +417,24 @@ def test_tiled_reference_at_head_dim_448_matches_pallas_interpret(causal, valid)
 
 
 def test_head_dim_448_reaches_the_wide_wrapper(monkeypatch):
-    """`flash_attention` sends head dim 448 to `flash_forward_wide` (its
-    own launch count), which takes the plain version on the CPU; the fp32
-    kernel does not take 448 and the argument check says so."""
+    """`flash_attention` sends head dim 448 to `flash_forward_wide` in bf16
+    and to `flash_forward_d448_f32` in fp32 (each its own launch count),
+    which take the plain version on the CPU; the kernels' argument check
+    takes 448 in both dtypes, and the wide wrapper no other head dim."""
     calls = []
-    real = flash.flash_forward_wide
-    monkeypatch.setattr(flash, "flash_forward_wide",
-                        lambda *a, **kw: calls.append(a[0].shape) or real(*a, **kw))
+    for name in ("flash_forward_wide", "flash_forward_d448_f32"):
+        real = getattr(flash, name)
+        monkeypatch.setattr(flash, name, lambda *a, _name=name, _real=real, **kw:
+                            calls.append((_name, a[0].shape, a[0].dtype)) or _real(*a, **kw))
     q = torch.randn(1, 5, 2, 448)
-    out = flash.flash_attention(q, q, q, torch.tensor([5], dtype=torch.int32))
-    assert calls == [(1, 5, 2, 448)] and out.shape == q.shape
-    with pytest.raises(ValueError, match="bf16 only"):
-        flash._check_kernel_args(q, q, q, torch.tensor([5], dtype=torch.int32), 448)
+    valid = torch.tensor([5], dtype=torch.int32)
+    for x in (q.bfloat16(), q):
+        out = flash.flash_attention(x, x, x, valid)
+        assert out.shape == q.shape and out.dtype == x.dtype
+    assert calls == [("flash_forward_wide", (1, 5, 2, 448), torch.bfloat16),
+                     ("flash_forward_d448_f32", (1, 5, 2, 448), torch.float32)]
+    for x in (q.bfloat16(), q):
+        flash._check_kernel_args(x, x, x, valid, 448)
     with pytest.raises(ValueError, match="head dim"):
         flash.flash_forward_wide(q[..., :64], q[..., :64], q[..., :64], None, causal=False,
                                  scale=0.125, kv_groups=1)

@@ -532,7 +532,13 @@ ptxas info    : Compiling entry function '_ZN5mavlm8fwd_wide21flash_fwd_wide_ker
 ptxas info    : Function properties for _ZN5mavlm8fwd_wide21flash_fwd_wide_kernelILi448EEEv
     248 bytes stack frame, 300 bytes spill stores, 288 bytes spill loads
 ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelILi448EEEv'
-ptxas info    : (C7519) warpgroup.arrive is injected in around line 16570 by compiler to allow use of registers in GMMA in function '_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv'"""
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 16570 by compiler to allow use of registers in GMMA in function '_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv'""" + "".join(
+    f"""
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}EEEv14CUtensorMap_stS1_NS_11FlashParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {r} registers, used 1 barriers"""
+    for d, r in ((448, 191), (256, 212), (128, 208), (112, 188), (72, 140), (64, 130)))
 
 
 @pytest.mark.parametrize("fault,kernel", [
@@ -559,13 +565,22 @@ ptxas info    : (C7519) warpgroup.arrive is injected in around line 16570 by com
       "ptxas info    : Used 218 registers, used 5 barriers\nptxas info    : (C7508) Potential "
       "Performance Loss: setmaxnreg ignored; unable to determine register count at entry"),
      "flash_fwd_d256_kernel"),
+    # the fp32 forward (3xTF32 on mma.sync) spilling at 448, or not built at 72
+    (("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 191",
+      "    176 bytes stack frame, 172 bytes spill stores, 172 bytes spill loads\n"
+      "ptxas info    : Used 255"), "flash_fwd_3xtf32_kernelILi448E"),
+    (("flash_fwd_3xtf32_kernelILi72EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for",
+      "flash_fwd_3xtf32_kernelILi80EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for"),
+     "flash_fwd_3xtf32_kernelILi72E"),
 ])
 def test_chip_smoke_ptxas_gate_names_spills_and_serialised_wgmma(fault, kernel):
     """chip_smoke's build phase raises when ptxas spills, ignores setmaxnreg
     (C7508) or serialises wgmma (any code: C7512, C7514, C7515, C7520) in
-    one of the five Hopper flash kernels at head dims 256 and 448, or builds
-    no entry of that name; the old 448 kernel's C7512 and the dK/dV kernel's
-    C7519 (injected arrives) are no fault of theirs."""
+    one of the five Hopper flash kernels at head dims 256 and 448 or in an
+    instance of the fp32 forward, or builds no entry of that name; the old
+    448 kernel's C7512 and the dK/dV kernel's C7519 (injected arrives) are
+    no fault of theirs."""
     import chip_smoke
 
     log = _PTXAS_CLEAN_LOG if fault is None else _PTXAS_CLEAN_LOG.replace(*fault, 1)

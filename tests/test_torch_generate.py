@@ -184,8 +184,10 @@ def test_longer_cache_gives_jax_tokens_at_its_exact_bound(models):
                 dec.run_chunk()
         np.testing.assert_array_equal(dec.state["tokens"][:, :MAX_NEW].numpy(),
                                       np.asarray(want.tokens))
-        np.testing.assert_allclose(dec.state["rows"][:MAX_NEW].numpy(), rows.numpy(),
-                                   rtol=1e-6, atol=1e-6)
+        # the logits' fp32 sums run over another cache length (56 or 53
+        # positions against generate_batched's), in another order: held to
+        # the module's fp32 bound for hidden states
+        np.testing.assert_allclose(dec.state["rows"][:MAX_NEW].numpy(), rows.numpy(), **HID)
 
 
 def test_no_graph_is_built_on_the_cpu(models, monkeypatch):
