@@ -487,11 +487,14 @@ def phase_card() -> str:
 # kernels whose ptxas report must show no spill, no C7508 (setmaxnreg
 # ignored) and no warning that wgmma is serialised, whatever its code
 # (C7512, C7514, C7515, C7520, ...); C7519, injected arrives, is no fault.
-# The fp32 forward's instances (mma.sync, no wgmma) are held to no spill.
+# The fp32 forward's and backward's instances (mma.sync, no wgmma) are held
+# to no spill.
 F32_HEAD_DIMS = (64, 72, 112, 128, 256, 448)
 PTXAS_CLEAN = ("bwd_dq_d256_kernel", "flash_fwd_d448_kernel", "flash_fwd_d256_kernel",
                "flash_fwd_lse_d256_kernel", "bwd_dkv_split_sm90_kernelILi256E",
-               *(f"flash_fwd_3xtf32_kernelILi{d}E" for d in F32_HEAD_DIMS))
+               *(f"flash_fwd_3xtf32_kernelILi{d}E" for d in F32_HEAD_DIMS),
+               *(f"bwd_{k}_3xtf32_kernelILi{d}E" for k in ("dq", "dkv")
+                 for d in flash_bwd.TRAIN_HEAD_DIMS))
 PTXAS_FAULTS = re.compile(r"C7508|wgmma\.mma_async instructions are serialized")
 
 
@@ -657,6 +660,26 @@ def _tf32_attention(q, k, v, valid, causal, kv_groups, terms=3):
     l = p.sum(dim=-1).transpose(1, 2)[..., None]
     o = _tf32_product("bhqk,bkhd->bqhd", p, v, terms)
     return torch.where(l == 0, 0.0, o / l)
+
+
+def _tf32_backward(q, k, v, g, lse, delta, valid, causal, kv_groups, terms=3):
+    """The fp32 backward's function (`flash_bwd.backward_dq_reference`,
+    `backward_dkv_reference`) with each of its five products in TF32
+    (`_tf32_product`): 3xTF32, the kernels' own arithmetic, or a single
+    TF32 product (`terms=1`), the control their checks must fail. Returns
+    (dQ, dK, dV), dK and dV summed over each group."""
+    b, sq, h, d = q.shape
+    scale = d ** -0.5
+    kr, vr = (x.repeat_interleave(kv_groups, dim=2).float() for x in (k, v))
+    s = _tf32_product("bqhd,bkhd->bhqk", q.float() * (scale * flash.LOG2E), kr, terms)
+    mask = flash.attention_mask(b, sq, k.shape[1], valid, causal, q.device)
+    p = torch.where(mask, torch.exp2(s - lse[..., None]), 0.0)
+    ds = p * (_tf32_product("bqhd,bkhd->bhqk", g.float(), vr, terms) - delta[..., None]) * scale
+    dq = _tf32_product("bhqk,bkhd->bqhd", ds, kr, terms)
+    dk, dv = (_tf32_product("bhqk,bqhd->bkhd", x, y.float(), terms)
+              .reshape(b, k.shape[1], h // kv_groups, kv_groups, d).sum(dim=3)
+              for x, y in ((ds, q), (p, g)))
+    return dq, dk, dv
 
 
 def _online_variant(q, k, v, valid, *, causal, kv_groups, block_k, round_q=True,
@@ -2349,14 +2372,17 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
     dQ and dK/dV a second time and requires the same bits, and runs the
     controls of `_train_controls`, each of which must fail the check. fp32
     bounds are at the 3xTF32 rate (`bound_f32_peak_ms`: at the fp32 peak).
-    A `parity_shape` case (fp32 at a parity cut's LM shape) is timed for
-    its row without controls, and its out, dQ, dK and dV are held to
-    TRAIN_PARITY_RTOL of each one's largest magnitude, the rule the cut's
-    step holds their gradients to: the SIMT kernels' sums of thousands of
-    terms in sequence drift past the elementwise fp32 rule (dK and dV at
-    the 0.5B cut's 4853 tokens: 13 of 1.2M elements, up to 6.0e-5, in the
-    first card run), which holds them at the edge cases; each row records
-    that count. Returns {kernel: row}."""
+    An fp32 edge case also runs the backward with single TF32 products
+    (`_tf32_backward(terms=1)`), whose dQ, dK and dV must each fail the
+    elementwise fp32 rule that the 3xTF32 kernels pass. A `parity_shape`
+    case (fp32 at a parity cut's LM shape) is timed for its row without
+    controls, and its out, dQ, dK and dV are held to TRAIN_PARITY_RTOL of
+    each one's largest magnitude, the rule the cut's step holds their
+    gradients to, with a bit-equal second run; each row records how many
+    elements the elementwise fp32 rule would put outside (the SIMT backward
+    that the 3xTF32 kernels replaced left 13 to 23 elements of dK and dV
+    outside at these lengths: sums of thousands of terms in sequence).
+    Returns {kernel: row}."""
     timed = timed or parity_shape
     controls = timed and not parity_shape
     atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
@@ -2421,6 +2447,11 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
     errs["flash_bwd_dq"] = held("dq", dq, rdq)
     rdk, rdv = flash_bwd.backward_dkv_reference(q, k, v, g, lse, delta, vl, **kw)
     errs["flash_bwd_dkv"] = max(held("dk", dk, rdk), held("dv", dv, rdv))
+    if dtype == torch.float32 and not parity_shape:
+        single = _tf32_backward(q, k, v, g, lse, delta, vl, causal, h // hkv, terms=1)
+        for label, got, ref in zip(("dq", "dk", "dv"), single, (rdq, rdk, rdv)):
+            _must_fail_f32(f"{name} {label} control: single TF32 products", got, ref)
+        del single
     if timed:
         repeat = (dq_fn(), *dkv_fn())
         torch.cuda.synchronize()
@@ -2555,9 +2586,13 @@ TRAIN_EDGES = [
     ("d256_cross", 2, 1000, 3000, 8, 1, 256, False, (3000, 1234),
      (torch.bfloat16, torch.float32)),
     # (at S = 700 one dV element of 1.4M, a sum of 8 x 700 products taken in
-    # sequence by the SIMT kernel, fell 2.4e-5 from the plain version's
-    # blocked sum: fp32 order, outside the 1e-5 rule)
+    # sequence by the SIMT kernel that came before the 3xTF32 one, fell
+    # 2.4e-5 from the plain version's blocked sum: outside the 1e-5 rule)
     ("d256_cut_f32", 1, 300, 300, 8, 1, 256, True, (300,), (torch.float32,)),
+    # the 7B LM's head dim in fp32, causal GQA 7: lengths that are no
+    # multiple of any tile, and B = 2 with a batch of valid length 0
+    ("d128_causal_gqa7", 1, 333, 333, 28, 4, 128, True, (333,), (torch.float32,)),
+    ("d128_causal_gqa7_b2", 2, 333, 333, 28, 4, 128, True, (333, 0), (torch.float32,)),
     # dQ's last 128-row item holds 28 rows: its upper warpgroup is idle
     ("d256_sq_540", 1, 540, 540, 8, 1, 256, True, (540,), (torch.bfloat16,)),
 ]

@@ -4,8 +4,8 @@
 // Replaces the TPU kernels of memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:
 //   flash_bwd_dq_sm90   <- _backward's dq pallas_call (_dq_kernel)
 //   flash_bwd_dkv_sm90  <- _backward's dk/dv pallas_call (_dkv_kernel)
-// for bf16 inputs (fp32 parity runs keep the SIMT kernels of
-// flash_train.cu), and computes their function:
+// for bf16 inputs (fp32 runs the 3xTF32 kernels of flash_train.cu), and
+// computes their function:
 //   - the caller passes qs = q * scale * log2(e) rounded to bf16 (one
 //     elementwise op per backward); s = qs k^T in log2 units;
 //   - p = exp2(s - lse), zero where masked (keys >= kv_valid_len[b], and

@@ -27,11 +27,12 @@
 // outside the fp32 rule the kernel is held to (1e-5); 3xTF32 keeps ~21.
 // The work is 3 TF32 products per fp32 product: 165 TFLOP/s of fp32 work at
 // the TF32 peak, against 67 outside the tensor cores.
-//   - mma.sync.m16n8k8 tf32, not wgmma: wgmma takes tf32 operands K-major
-//     only, so PV would need V transposed in shared memory, and it reads
-//     shared-memory operands as they are, so K and V would have to be
-//     staged twice, as hi and lo. With mma.sync each warp loads its
-//     fragments from one staged copy and splits them in registers.
+//   - mma.sync.m16n8k8 tf32 (tf32.cuh, shared with flash_train.cu's fp32
+//     backward), not wgmma: wgmma takes tf32 operands K-major only, so PV
+//     would need V transposed in shared memory, and it reads shared-memory
+//     operands as they are, so K and V would have to be staged twice, as
+//     hi and lo. With mma.sync each warp loads its fragments from one
+//     staged copy and splits them in registers.
 //   - The split is three integer and float instructions (add half a TF32
 //     step to the bits, clear the low 13, subtract); cvt.rna.tf32.f32 for
 //     hi and again for lo cost several instructions each, and the splits
@@ -80,10 +81,12 @@
 
 #include "flash_fwd_sm90.cuh"
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace mavlm::sm90;
+using namespace mavlm::tf32;
 
 struct FlashParams {
   const float* q;
@@ -131,36 +134,6 @@ struct F32Tile {
   static_assert(PITCH <= 256, "a TMA box is at most 256 columns");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
-
-// x = hi + lo: hi the TF32 nearest x (ties away from zero, as
-// cvt.rna.tf32.f32: half a TF32 step added to the bits, the 13 low bits
-// cleared), lo the rest, exact in fp32, which the tensor core reads as
-// TF32 by dropping its 13 low bits
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, fp32) += a (16 x 8) b (8 x 8), TF32 operands
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32, a split as (ah, al), b's fragment (b0, b1) split
-// here: the two small products first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split_tf32(b0, h0, l0);
-  split_tf32(b1, h1, l1);
-  mma_tf32(d, al, h0, h1);
-  mma_tf32(d, ah, l0, l1);
-  mma_tf32(d, ah, h0, h1);
-}
 
 template <int D>
 __global__ void __launch_bounds__(F32Tile<D>::THREADS, 1)
@@ -343,19 +316,6 @@ __global__ void __launch_bounds__(F32Tile<D>::THREADS, 1)
                                                              o[n][2 * r + 1] * inv);
     }
   }
-}
-
-// A 4-d map {D, S, H, B} of a bshd fp32 tensor (strides in elements:
-// batch, sequence, head), read in boxes of `rows` rows by `cols` columns,
-// unswizzled; columns past D read as zeros.
-bool make_map_f32(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
-                  const long long* st, int rows, int cols) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 4, (cuuint64_t)st[2] * 4,
-                                 (cuuint64_t)st[0] * 4};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 struct F32Args {

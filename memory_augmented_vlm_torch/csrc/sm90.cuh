@@ -189,15 +189,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // A ring of K tiles and a ring of V tiles in shared memory, for a kernel
 // with no producer warp (flash_fwd_wide_sm90.cu's head dims 256 and 448,
-// flash_bwd_sm90.cu's dQ at 256, flash_fwd.cu's fp32 kernel). A tile is BN
-// rows of a bshd tensor in CB blocks of COLS columns, loaded by TMA: 128-byte
-// swizzled rows of 64 bf16 columns, or (flash_fwd.cu) unswizzled rows of
-// ROW_BYTES, a little wider than COLS columns. Ring v is K (v = 0)
-// or V (v = 1); the slots are numbered over both rings, K's first, and each
-// has a full mbarrier (one arrival and the tile's bytes) and a counter of
-// the warps done with its tile. One thread loads each ring's first tiles;
-// after that the last warp out of a slot (last_out) refills it with its
-// ring's tile `depth` ahead, so a ring needs no empty barrier.
+// flash_bwd_sm90.cu's dQ at 256, the fp32 kernels of flash_fwd.cu and
+// flash_train.cu, whose dK/dV kernel rings Q and dO tiles instead). A tile
+// is BN rows of a bshd tensor in CB blocks of COLS columns, loaded by TMA:
+// 128-byte swizzled rows of 64 bf16 columns, or (fp32) unswizzled rows of
+// ROW_BYTES, a little wider than COLS columns; tile j starts at row
+// row0 + j * BN. Ring v is K (v = 0) or V (v = 1); the slots are numbered
+// over both rings, K's first, and each has a full mbarrier (one arrival and
+// the tile's bytes) and a counter of the warps done with its tile. One
+// thread loads each ring's first tiles; after that the last warp out of a
+// slot (last_out) refills it with its ring's tile `depth` ahead, so a ring
+// needs no empty barrier.
 template <int K_SLOTS_, int V_SLOTS_, int BN, int CB, int COLS = kSwzCols,
           int ROW_BYTES = kRowBytes>
 struct KvRings {
@@ -214,6 +216,7 @@ struct KvRings {
   const CUtensorMap* tm_k;  // the tensor maps the tiles come from
   const CUtensorMap* tm_v;
   int head, batch;          // the KV head and batch element they read
+  int row0 = 0;             // the row tile 0 starts at
 
   static __device__ __forceinline__ int depth(int v) { return v ? V_SLOTS : K_SLOTS; }
   static __device__ __forceinline__ int slot(int v, int j) {
@@ -239,7 +242,8 @@ struct KvRings {
     mbar_arrive_tx(bar, TILE_BYTES);
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
-      tma_load(tile(v, j) + c * BLOCK, v ? tm_v : tm_k, bar, COLS * c, j * BN, head, batch);
+      tma_load(tile(v, j) + c * BLOCK, v ? tm_v : tm_k, bar, COLS * c, row0 + j * BN, head,
+               batch);
     }
   }
   // the first tiles of each ring, of the block's n_tiles (one thread)

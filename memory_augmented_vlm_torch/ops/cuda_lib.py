@@ -169,12 +169,14 @@ def load() -> ctypes.CDLL:
     #               items, n_items, block_rows)
     lib.flash_fwd_lse.argtypes = ([c_int, c_int] + [ptr] * 6 + [c_int] * 6 + [strides] * 4
                                   + [ctypes.c_float] * 2 + [ptr, ptr, c_int, c_int])
-    # flash_bwd_dq(dtype, head_dim, q, k, v, dout, lse, delta, dq, valid_len,
-    #              B, Sq, Skv, H, kv_groups, causal, 5 x strides, scale, scale_log2, stream)
-    lib.flash_bwd_dq.argtypes = ([c_int, c_int] + [ptr] * 8 + [c_int] * 6 + [strides] * 5
+    # flash_bwd_dq(dtype, head_dim, q, k, v, dout, lse, delta, dq, valid_len, items,
+    #              n_items, B, Sq, Skv, H, kv_groups, causal, 5 x strides, scale,
+    #              scale_log2, stream)
+    lib.flash_bwd_dq.argtypes = ([c_int, c_int] + [ptr] * 9 + [c_int] * 7 + [strides] * 5
                                  + [ctypes.c_float] * 2 + [ptr])
-    # flash_bwd_dkv(..., dk, dv, valid_len, ...): as flash_bwd_dq with two outputs
-    lib.flash_bwd_dkv.argtypes = ([c_int, c_int] + [ptr] * 9 + [c_int] * 6 + [strides] * 5
+    # flash_bwd_dkv(..., delta, dk_part, dv_part, dk, dv, valid_len, items, ...): as
+    # flash_bwd_dq with the partials and two outputs
+    lib.flash_bwd_dkv.argtypes = ([c_int, c_int] + [ptr] * 12 + [c_int] * 7 + [strides] * 5
                                   + [ctypes.c_float] * 2 + [ptr])
     # flash_bwd_dq_sm90(head_dim, qs, k, v, dout, lse, delta, dq, valid_len, items,
     #                   n_items, B, Sq, Skv, H, kv_groups, causal, 5 x strides, scale, stream)
@@ -187,12 +189,14 @@ def load() -> ctypes.CDLL:
                                        + [ctypes.c_float, ptr])
     # flash_bwd_tiles(head_dim, &dq_rows, &dq_keys, &dkv_rows, &dkv_keys)
     lib.flash_bwd_tiles.argtypes = [c_int] + [ctypes.POINTER(c_int)] * 4
+    lib.flash_bwd_f32_tiles.argtypes = [c_int] + [ctypes.POINTER(c_int)] * 4
     # flash_fwd_tiles(head_dim, &key_tile, &max_block_rows)
     lib.flash_fwd_tiles.argtypes = [c_int] + [ctypes.POINTER(c_int)] * 2
     for fn in (lib.flash_fwd, lib.flash_merge, lib.flash_merge_oproj, lib.qkv_int8,
                lib.mlp_int8, lib.mlp_int8_core, lib.swiglu_int8, lib.int8_matmul,
                lib.flash_fwd_lse, lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_dq_sm90,
-               lib.flash_bwd_dkv_sm90, lib.flash_bwd_tiles, lib.flash_fwd_tiles,
+               lib.flash_bwd_dkv_sm90, lib.flash_bwd_tiles, lib.flash_bwd_f32_tiles,
+               lib.flash_fwd_tiles,
                lib.flash_merge_int8,
                lib.flash_merge_int8_prep,
                lib.attn_block_int8, lib.int8_gemm_bf16, lib.gemv_bf16):

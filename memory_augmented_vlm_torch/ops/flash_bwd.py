@@ -29,8 +29,10 @@ tiles). dK/dV items write each query head's fp32 partials, which a second
 kernel sums over the group in head order (`backward_dkv_partials_reference`
 and `group_sum` are their plain versions); at head dim 256 a dK/dV item's
 two consumer warpgroups each hold one half of the columns and share the
-scores of its 32-row query tiles. fp32 runs the SIMT kernels of
-`csrc/flash_train.cu`.
+scores of its 32-row query tiles. fp32 runs `csrc/flash_train.cu`: the
+SIMT forward, and a backward whose products run on the tensor cores in
+3xTF32, over work lists of its own tiles (`backward_tiles`), dK/dV with
+the same per-head partials and group sum.
 
 Each kernel wrapper takes its plain version (`*_reference`) only for
 tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
@@ -66,6 +68,12 @@ DQ_BLOCK_K = 64
 _DQ_BLOCK_Q = {64: 64, 128: 128, D256: 128}
 _DKV_BLOCK_K = {64: 128, 128: 64, D256: 64}
 _DKV_BLOCK_Q = {64: 64, 128: 64, D256: 32}
+# Tiles of the fp32 backward kernels (`csrc/flash_train.cu`, checked against
+# its `flash_bwd_f32_tiles`): an item takes 16-row warps' rows, 64 (32 at
+# head dim 256) query rows for dQ or keys for dK/dV, and loops over tiles
+# of 32 keys or query rows.
+F32_TILE = 32
+_F32_BLOCK_ROWS = {64: 64, 128: 64, D256: 32}
 
 
 def dq_block_q(head_dim: int) -> int:
@@ -78,6 +86,15 @@ def dkv_block_k(head_dim: int) -> int:
 
 def dkv_block_q(head_dim: int) -> int:
     return _DKV_BLOCK_Q[head_dim]
+
+
+def backward_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(dQ item rows, dQ key tile, dK/dV query tile, dK/dV item keys) of the
+    backward kernels at `dtype`: the bf16 kernels' or the fp32 ones'."""
+    if dtype == torch.float32:
+        rows = _F32_BLOCK_ROWS[head_dim]
+        return rows, F32_TILE, F32_TILE, rows
+    return dq_block_q(head_dim), DQ_BLOCK_K, dkv_block_q(head_dim), dkv_block_k(head_dim)
 
 
 def _repeat(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -232,16 +249,17 @@ def work_list(kind: str, b: int, sq: int, skv: int, h: int, causal: bool, block_
 _WORK_ITEMS = {}
 
 
-def _work_items(kind, b, sq, skv, h, causal, d, device) -> torch.Tensor:
-    """`work_list` as an (n, 3) int32 tensor on `device`, made once per shape."""
-    block_q, block_k = ((dq_block_q(d), DQ_BLOCK_K) if kind == "dq"
-                        else (dkv_block_q(d), dkv_block_k(d)))
+def _work_items(kind, b, sq, skv, h, causal, d, device, dtype) -> torch.Tensor:
+    """`work_list` as an (n, 3) int32 tensor on `device`, made once per shape,
+    at the tiles of the `dtype` kernels (`backward_tiles`)."""
+    want = backward_tiles(d, dtype)
+    block_q, block_k = want[:2] if kind == "dq" else want[2:]
     key = (kind, b, sq, skv, h, causal, block_q, block_k, str(device))
     if key not in _WORK_ITEMS:
         tiles = [ctypes.c_int() for _ in range(4)]
         lib = cuda_lib.load()
-        cuda_lib.check(lib, lib.flash_bwd_tiles(d, *map(ctypes.byref, tiles)), "flash_bwd_tiles")
-        want = (dq_block_q(d), DQ_BLOCK_K, dkv_block_q(d), dkv_block_k(d))
+        name = "flash_bwd_f32_tiles" if dtype == torch.float32 else "flash_bwd_tiles"
+        cuda_lib.check(lib, getattr(lib, name)(d, *map(ctypes.byref, tiles)), name)
         if tuple(x.value for x in tiles) != want:
             raise RuntimeError(f"backward tiles {[x.value for x in tiles]} != {want}")
         items = work_list(kind, b, sq, skv, h, causal, block_q, block_k)
@@ -364,7 +382,7 @@ def backward_dq_d256(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, s
                      kv_groups: int = 1, qs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`backward_dq` at head dim 256: bf16 CUDA tensors launch
     `flash_bwd_dq_sm90` at 256 (128-row items, two warpgroups each holding
-    its 64 x 256 accumulator), fp32 the SIMT kernel; counted in
+    its 64 x 256 accumulator), fp32 the 3xTF32 kernel at 256; counted in
     `backward_dq_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"backward_dq_d256 takes head dim {D256}, got {q.shape[-1]}")
@@ -387,10 +405,10 @@ def _backward_dq(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_grou
         return dq
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    items = _work_items("dq", b, sq, skv, h, causal, d, q.device, q.dtype)
     if q.dtype == torch.bfloat16:
         qs = scaled_q(q, scale) if qs is None else qs
         _check_qs(q, qs)
-        items = _work_items("dq", b, sq, skv, h, causal, d, q.device)
         rc = lib.flash_bwd_dq_sm90(
             d, qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), kv_valid_len.data_ptr(), items.data_ptr(),
@@ -401,8 +419,9 @@ def _backward_dq(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_grou
         rc = lib.flash_bwd_dq(
             _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
-            _strides(k), _strides(v), _strides(dout), _strides(dq), scale, scale * LOG2E, stream)
+            kv_valid_len.data_ptr(), items.data_ptr(), items.shape[0], b, sq, skv, h, kv_groups,
+            int(causal), _map_strides(q), _map_strides(k), _map_strides(v), _map_strides(dout),
+            _strides(dq), scale, scale * LOG2E, stream)
         cuda_lib.check(lib, rc, "flash_bwd_dq")
     counter.launches += 1
     return dq
@@ -416,10 +435,9 @@ def backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, scale
                  kv_groups: int = 1, qs: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV; see `backward_dkv_reference`. CUDA tensors launch
-    `flash_bwd_dkv_sm90` (bf16: per-head fp32 partials into a scratch, then
-    the group sum; one counted call) or `flash_bwd_dkv` (fp32: one block per
-    8 keys of a KV head accumulates its whole group). Head dim 256 goes to
-    `backward_dkv_d256`."""
+    `flash_bwd_dkv_sm90` (bf16) or `flash_bwd_dkv` (fp32), each writing
+    per-head fp32 partials into a scratch, then the group sum; one counted
+    call. Head dim 256 goes to `backward_dkv_d256`."""
     if q.shape[-1] == D256:
         return backward_dkv_d256(q, k, v, dout, lse, delta, kv_valid_len, causal=causal,
                                  scale=scale, kv_groups=kv_groups, qs=qs)
@@ -432,8 +450,8 @@ def backward_dkv_d256(q, k, v, dout, lse, delta, kv_valid_len, *, causal: bool, 
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`backward_dkv` at head dim 256: bf16 CUDA tensors launch
     `flash_bwd_dkv_sm90` at 256 (one block per 64-key item, two warpgroups
-    each holding one half of the columns, then the group sum), fp32 the SIMT
-    kernel; counted in `backward_dkv_d256.launches`."""
+    each holding one half of the columns, then the group sum), fp32 the
+    3xTF32 kernel at 256; counted in `backward_dkv_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"backward_dkv_d256 takes head dim {D256}, got {q.shape[-1]}")
     return _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_groups, qs,
@@ -456,11 +474,11 @@ def _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_gro
         return dk, dv
     lib = cuda_lib.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    items = _work_items("dkv", b, sq, skv, h, causal, d, q.device, q.dtype)
+    part = torch.empty((2, b, h, skv, d), dtype=torch.float32, device=q.device)
     if q.dtype == torch.bfloat16:
         qs = scaled_q(q, scale) if qs is None else qs
         _check_qs(q, qs)
-        items = _work_items("dkv", b, sq, skv, h, causal, d, q.device)
-        part = torch.empty((2, b, h, skv, d), dtype=torch.float32, device=q.device)
         rc = lib.flash_bwd_dkv_sm90(
             d, qs.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
@@ -472,9 +490,11 @@ def _backward_dkv(q, k, v, dout, lse, delta, kv_valid_len, causal, scale, kv_gro
     else:
         rc = lib.flash_bwd_dkv(
             _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            kv_valid_len.data_ptr(), b, sq, skv, h, kv_groups, int(causal), _strides(q),
-            _strides(k), _strides(v), _strides(dout), _strides(dk), scale, scale * LOG2E, stream)
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), dk.data_ptr(), dv.data_ptr(), kv_valid_len.data_ptr(),
+            items.data_ptr(), items.shape[0], b, sq, skv, h, kv_groups, int(causal),
+            _map_strides(q), _map_strides(k), _map_strides(v), _map_strides(dout), _strides(dk),
+            scale, scale * LOG2E, stream)
         cuda_lib.check(lib, rc, "flash_bwd_dkv")
     counter.launches += 1
     return dk, dv

@@ -186,7 +186,7 @@ def test_build_command_targets_sm90a_and_sources_exist():
                   "flash_bwd_dq", "flash_bwd_dkv", "kernel_error_string", "flash_merge_int8",
                   "attn_block_int8", "int8_gemm_bf16", "gemv_bf16", "flash_bwd_dq_sm90",
                   "flash_bwd_dkv_sm90", "flash_bwd_tiles", "flash_merge_int8_prep",
-                  "flash_fwd_tiles"):
+                  "flash_fwd_tiles", "flash_bwd_f32_tiles"):
         definition = re.compile(r'extern "C" [\w ]+\*? ?' + entry + r"\([^;{]*\)\s*\{")
         assert len(definition.findall(text)) == 1, entry
     assert all(p.is_file() for p in srcs)
@@ -538,7 +538,15 @@ ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__93c26f7f_12_flash_fwd
 ptxas info    : Function properties for _ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}EEEv14CUtensorMap_stS1_NS_11FlashParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used {r} registers, used 1 barriers"""
-    for d, r in ((448, 191), (256, 212), (128, 208), (112, 188), (72, 140), (64, 130)))
+    for d, r in ((448, 191), (256, 212), (128, 208), (112, 188), (72, 140), (64, 130))) + "".join(
+    f"""
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1ef7308d_14_flash_train_cu_1239d044{n}EEv14CUtensorMap_stS1_NS_11TrainParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__1ef7308d_14_flash_train_cu_1239d044{n}EEv14CUtensorMap_stS1_NS_11TrainParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {r} registers, used 16 barriers"""
+    for n, r in (("21bwd_dkv_3xtf32_kernelILi256E", 247), ("21bwd_dkv_3xtf32_kernelILi128E", 229),
+                 ("21bwd_dkv_3xtf32_kernelILi64E", 255), ("20bwd_dq_3xtf32_kernelILi256E", 255),
+                 ("20bwd_dq_3xtf32_kernelILi128E", 255), ("20bwd_dq_3xtf32_kernelILi64E", 245)))
 
 
 @pytest.mark.parametrize("fault,kernel", [
@@ -573,12 +581,22 @@ ptxas info    : Used {r} registers, used 1 barriers"""
     (("flash_fwd_3xtf32_kernelILi72EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for",
       "flash_fwd_3xtf32_kernelILi80EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for"),
      "flash_fwd_3xtf32_kernelILi72E"),
+    # the fp32 backward (3xTF32 on mma.sync): dK/dV spilling at 256, dQ not
+    # built at 64
+    (("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 247",
+      "    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads\n"
+      "ptxas info    : Used 255"), "bwd_dkv_3xtf32_kernelILi256E"),
+    (("bwd_dq_3xtf32_kernelILi64EEEv14CUtensorMap_stS1_NS_11TrainParamsE' for",
+      "bwd_dq_3xtf32_kernelILi96EEEv14CUtensorMap_stS1_NS_11TrainParamsE' for"),
+     "bwd_dq_3xtf32_kernelILi64E"),
 ])
 def test_chip_smoke_ptxas_gate_names_spills_and_serialised_wgmma(fault, kernel):
     """chip_smoke's build phase raises when ptxas spills, ignores setmaxnreg
     (C7508) or serialises wgmma (any code: C7512, C7514, C7515, C7520) in
     one of the five Hopper flash kernels at head dims 256 and 448 or in an
-    instance of the fp32 forward, or builds no entry of that name; the old
+    instance of the fp32 forward or backward, or builds no entry of that
+    name; the old
     448 kernel's C7512 and the dK/dV kernel's C7519 (injected arrives) are
     no fault of theirs."""
     import chip_smoke

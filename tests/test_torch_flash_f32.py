@@ -196,15 +196,17 @@ def test_3xtf32_at_a_memory_like_448_case():
 
 def test_fp32_forward_source_is_3xtf32_mma_and_the_simt_kernel_is_gone():
     """csrc/flash_fwd.cu's fp32 forward is one 3xTF32 kernel on mma.sync
-    (hi to nearest by the bits, lo the rest) for every head dim, with no
-    JAX in its code (its notes name the TPU kernel it replaces) and nothing
-    left of the SIMT kernel; chip_smoke's ptxas gate holds each of its
-    instances."""
+    (hi to nearest by the bits, lo the rest: the helpers of tf32.cuh, which
+    it includes) for every head dim, with no JAX in its code (its notes name
+    the TPU kernel it replaces) and nothing left of the SIMT kernel;
+    chip_smoke's ptxas gate holds each of its instances."""
     src = (cuda_lib.CSRC_DIR / "flash_fwd.cu").read_text()
+    helpers = (cuda_lib.CSRC_DIR / "tf32.cuh").read_text()
     assert "flash_fwd_f32_kernel" not in src and "kRowsF32" not in src
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
-    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in src
-    assert src.count("mma_tf32(d, ") == 3  # lo*hi, hi*lo, hi*hi
+    assert '#include "tf32.cuh"' in src and "mma_3xtf32(" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in helpers
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in helpers
+    assert helpers.count("mma_tf32(d, ") == 3  # lo*hi, hi*lo, hi*hi
     for d in chip_smoke.F32_HEAD_DIMS:
         assert f"case {d}: return launch_f32<{d}>(a, stream);" in src
         assert f"flash_fwd_3xtf32_kernelILi{d}E" in chip_smoke.PTXAS_CLEAN

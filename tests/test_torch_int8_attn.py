@@ -338,10 +338,11 @@ def test_no_mma_sync_gemm_is_left():
     """Every int8 product runs on the s8 wgmma core: no int8 or bf16
     mma.sync instruction, no int8k::gemm_kernel and none of its helpers (the
     s8 m16n8k32 mma, the cp.async copies, 32-bit fragment loads) is left in
-    the kernel sources. The one mma.sync left is the fp32 flash forward's
-    TF32 product (flash_fwd.cu: wgmma reads B from shared memory as it
-    lies, K-major in tf32, so its 3xTF32 form would stage K and V twice, as
-    hi and lo, and V transposed)."""
+    the kernel sources. The one mma.sync left is the fp32 flash kernels'
+    TF32 product (tf32.cuh, shared by flash_fwd.cu's forward and
+    flash_train.cu's backward: wgmma reads B from shared memory as it lies,
+    K-major in tf32, so a 3xTF32 form would stage each operand twice, as hi
+    and lo, and V transposed)."""
     from memory_augmented_vlm_torch.ops import cuda_lib
 
     for path in sorted(cuda_lib.CSRC_DIR.iterdir()):
@@ -350,7 +351,7 @@ def test_no_mma_sync_gemm_is_left():
                      "cp_async16", "cp.async.commit_group", "cp_async_wait", "lds32"):
             assert gone not in text, (path.name, gone)
         for mma in re.findall(r"mma\.sync\.aligned[\w.]*", text):
-            assert (path.name, mma) == ("flash_fwd.cu",
+            assert (path.name, mma) == ("tf32.cuh",
                                         "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32")
 
 
