@@ -487,12 +487,14 @@ def phase_card() -> str:
 # kernels whose ptxas report must show no spill, no C7508 (setmaxnreg
 # ignored) and no warning that wgmma is serialised, whatever its code
 # (C7512, C7514, C7515, C7520, ...); C7519, injected arrives, is no fault.
-# The fp32 forward's and backward's instances (mma.sync, no wgmma) are held
-# to no spill.
+# The fp32 forward's instances (mma.sync, no wgmma), #1f's at every fp32
+# head dim and #9f's (LSE) at the training ones, and the fp32 backward's
+# are held to no spill.
 F32_HEAD_DIMS = (64, 72, 112, 128, 256, 448)
 PTXAS_CLEAN = ("bwd_dq_d256_kernel", "flash_fwd_d448_kernel", "flash_fwd_d256_kernel",
                "flash_fwd_lse_d256_kernel", "bwd_dkv_split_sm90_kernelILi256E",
-               *(f"flash_fwd_3xtf32_kernelILi{d}E" for d in F32_HEAD_DIMS),
+               *(f"flash_fwd_3xtf32_kernelILi{d}ELb0E" for d in F32_HEAD_DIMS),
+               *(f"flash_fwd_3xtf32_kernelILi{d}ELb1E" for d in flash_bwd.TRAIN_HEAD_DIMS),
                *(f"bwd_{k}_3xtf32_kernelILi{d}E" for k in ("dq", "dkv")
                  for d in flash_bwd.TRAIN_HEAD_DIMS))
 PTXAS_FAULTS = re.compile(r"C7508|wgmma\.mma_async instructions are serialized")
@@ -604,7 +606,8 @@ def _check_case(name, q, k, v, valid, *, causal=False, kv_groups=1, dtype=torch.
                 _must_fail(f"{name} control: {label}", fn()[0], cref)
         else:
             _must_fail_f32(f"{name} control: single TF32 products",
-                           _tf32_attention(cq, ck, cv, cvalid, causal, kv_groups, terms=1), cref)
+                           _tf32_attention(cq, ck, cv, cvalid, causal, kv_groups, terms=1)[0],
+                           cref)
     del ref
     if timed:
         row["ms"] = _time_ms(lambda: flash.flash_attention(q, k, v, valid, causal=causal,
@@ -648,7 +651,8 @@ def _tf32_attention(q, k, v, valid, causal, kv_groups, terms=3):
     """The fp32 flash forward's function with both products in TF32
     (`_tf32_product`): 3xTF32, the kernel's own arithmetic, or a single
     TF32 product (`terms=1`), the control its checks must fail. One tile
-    over the keys; a row with no valid key is zero."""
+    over the keys. Returns (out, lse (B, H, Sq) in log2 units, m +
+    log2(max(l, 1e-30))): a row with no valid key has out 0 and lse -inf."""
     b, sq, h, d = q.shape
     k, v = (x.repeat_interleave(kv_groups, dim=2).float() for x in (k, v))
     qs = q.float() * (d ** -0.5 * flash.LOG2E)
@@ -657,9 +661,11 @@ def _tf32_attention(q, k, v, valid, causal, kv_groups, terms=3):
                       -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - torch.where(torch.isinf(m), 0.0, m))
-    l = p.sum(dim=-1).transpose(1, 2)[..., None]
+    l = p.sum(dim=-1)
     o = _tf32_product("bhqk,bkhd->bqhd", p, v, terms)
-    return torch.where(l == 0, 0.0, o / l)
+    lt = l.transpose(1, 2)[..., None]
+    lse = torch.where(l == 0, -math.inf, m[..., 0] + torch.log2(l.clamp_min(1e-30)))
+    return torch.where(lt == 0, 0.0, o / lt), lse
 
 
 def _tf32_backward(q, k, v, g, lse, delta, valid, causal, kv_groups, terms=3):
@@ -2271,6 +2277,8 @@ TRAIN_SOURCES = {"flash_fwd_lse": "flash_fwd_sm90.cu", "flash_bwd_dq": "flash_bw
                  "flash_fwd_lse_d256": "flash_fwd_wide_sm90.cu",
                  "flash_bwd_dq_d256": "flash_bwd_sm90.cu",
                  "flash_bwd_dkv_d256": "flash_bwd_sm90.cu"}
+TRAIN_F32_SOURCES = {"flash_fwd_lse": "flash_fwd.cu", "flash_bwd_dq": "flash_train.cu",
+                     "flash_bwd_dkv": "flash_train.cu"}
 # flops per (query, valid key) pair and head dim: QK^T and PV in the forward;
 # the dQ kernel recomputes QK^T and does dO V^T and dS K; the dK/dV kernel
 # recomputes QK^T and does dO V^T, P^T dO and dS^T Q
@@ -2367,14 +2375,16 @@ def _dkv_halves_swapped(q, k, v, g, lse, delta, vl, *, causal, scale, kv_groups)
 def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=torch.bfloat16,
                         timed=False, parity_shape=False):
     """Run the three training kernels on one input and hold each output
-    against its plain version (lse on its finite entries, and -inf where
-    the plain version has -inf). The timed case (the train shape) also runs
-    dQ and dK/dV a second time and requires the same bits, and runs the
-    controls of `_train_controls`, each of which must fail the check. fp32
-    bounds are at the 3xTF32 rate (`bound_f32_peak_ms`: at the fp32 peak).
-    An fp32 edge case also runs the backward with single TF32 products
-    (`_tf32_backward(terms=1)`), whose dQ, dK and dV must each fail the
-    elementwise fp32 rule that the 3xTF32 kernels pass. A `parity_shape`
+    against its plain version (lse on its finite entries, and -inf exactly
+    where the plain version has -inf). The timed case (the train shape) also
+    runs dQ and dK/dV a second time and requires the same bits, and runs the
+    controls of `_flash_controls` and `_train_controls`, each of which must
+    fail the check. fp32 bounds are at the 3xTF32 rate (`bound_f32_peak_ms`:
+    at the fp32 peak). An fp32 edge case also runs the forward and the
+    backward with single TF32 products (`_tf32_attention(terms=1)`,
+    `_tf32_backward(terms=1)`), whose out, lse, dQ, dK and dV must each fail
+    the elementwise fp32 rule that the 3xTF32 kernels pass, and lse in
+    natural-log units, which must fail it too. A `parity_shape`
     case (fp32 at a parity cut's LM shape) is timed for its row without
     controls, and its out, dQ, dK and dV are held to TRAIN_PARITY_RTOL of
     each one's largest magnitude, the rule the cut's step holds their
@@ -2426,7 +2436,7 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
     block_k = flash.forward_tiles(d)[0] if dtype == torch.bfloat16 else None
     rout, rlse = flash_bwd.forward_with_lse_reference(q, k, v, vl, block_k=block_k, **kw)
     fin = torch.isfinite(rlse)
-    if not torch.equal(torch.isfinite(lse), fin):
+    if not (torch.equal(torch.isfinite(lse), fin) and torch.equal(lse[~fin], rlse[~fin])):
         raise RuntimeError(f"{name}: lse is -inf on other rows than the plain version's")
     if dtype == torch.bfloat16:
         fwd_err = _hold_bitwise(f"{name} out", out, rout, block_k=block_k, **info)["max_abs_err"]
@@ -2440,6 +2450,13 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
             _must_fail(f"{name} out control: {label}", c_out, rout)
             if label == "the causal diagonal moved by one key":
                 _must_fail_f32(f"{name} lse control: {label}", c_lse[fin], rlse[fin])
+    f32_edge = dtype == torch.float32 and not parity_shape
+    if f32_edge:
+        c_out, c_lse = _tf32_attention(q, k, v, vl, causal, h // hkv, terms=1)
+        _must_fail_f32(f"{name} out control: single TF32 products", c_out, rout)
+        _must_fail_f32(f"{name} lse control: single TF32 products", c_lse[fin], rlse[fin])
+        del c_out, c_lse
+    if controls or f32_edge:
         _must_fail_f32(f"{name} lse control: natural-log units", rlse[fin] * math.log(2.0),
                        rlse[fin])
     del rout, rlse
@@ -2447,7 +2464,7 @@ def _train_kernels_case(name, gen, b, sq, skv, h, hkv, d, causal, valid, dtype=t
     errs["flash_bwd_dq"] = held("dq", dq, rdq)
     rdk, rdv = flash_bwd.backward_dkv_reference(q, k, v, g, lse, delta, vl, **kw)
     errs["flash_bwd_dkv"] = max(held("dk", dk, rdk), held("dv", dv, rdv))
-    if dtype == torch.float32 and not parity_shape:
+    if f32_edge:
         single = _tf32_backward(q, k, v, g, lse, delta, vl, causal, h // hkv, terms=1)
         for label, got, ref in zip(("dq", "dk", "dv"), single, (rdq, rdk, rdv)):
             _must_fail_f32(f"{name} {label} control: single TF32 products", got, ref)
@@ -2614,7 +2631,7 @@ def _train_kernel_rows(main_rows, errs, f32_rows, suffix=""):
             "name": name, "route": "cuda", "source": CSRC + TRAIN_SOURCES[name],
             "replaces": TRAIN_REPLACES[kname], "max_abs_err": max(errs[kname]),
             **{key: row[key] for key in TRAIN_TIMED_KEYS},
-            "f32_source": CSRC + "flash_train.cu",
+            "f32_source": CSRC + TRAIN_F32_SOURCES[kname],
             "f32_per_shape": [{key: r[key] for key in ("case", "q", "kv", "max_abs_err", "tol",
                                                        "outside_elementwise_f32_rule",
                                                        *TRAIN_TIMED_KEYS, "bound_f32_peak_ms")}
@@ -3238,8 +3255,9 @@ GEMMA_2B = {
     "mm_vision_tower": "google/siglip-so400m-patch14-384"}
 GEMMA_FRAMES = 64  # two segments: the memory's fuse and evolve both run at D = 256
 GEMMA_NEW = 32
-# The 2-layer cut, bf16 on the card against fp32 on the CPU (the fp32
-# kernel has no head dim 256, ROADMAP §2): prefill logits held to
+# The 2-layer cut, bf16 on the card (the requests' path) against fp32 on
+# the CPU (fp32 at head dim 256 on the card is held by `_f32_cases` and
+# `phase_train_parity_gemma`): prefill logits held to
 # FUSED_FLOOR_FACTOR times the bf16 floor of the same run, the CPU in bf16
 # against the CPU in fp32, in RMS over the logits' spread and in the
 # largest element; a wrong kernel lands near 1 std.

@@ -142,6 +142,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dkv_group_sum.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -988,39 +989,6 @@ __global__ void __launch_bounds__(2 * 128, 1)
   }
 }
 
-// dK and dV (B, Skv, Hkv, D) from the partials (B, H, Skv, D): each group's
-// G heads summed in head order in fp32, cast to bf16 once.
-__global__ void dkv_group_sum_kernel(const float* dk_part, const float* dv_part,
-                                     __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int Hkv,
-                                     int G, int Skv, int D, long long o_sb, long long o_ss,
-                                     long long o_sh) {
-  const int d4s = D / 4;
-  const long long n = (long long)B * Hkv * Skv * d4s;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int d4 = i % d4s;
-    long long rest = i / d4s;
-    const int key = rest % Skv;
-    rest /= Skv;
-    const int hk = rest % Hkv, b = rest / Hkv;
-    const long long head = (long long)Skv * D;
-    const long long src = (((long long)b * Hkv + hk) * G * Skv + key) * D + 4 * d4;
-    float4 a = *reinterpret_cast<const float4*>(dk_part + src);
-    float4 c = *reinterpret_cast<const float4*>(dv_part + src);
-    for (int gi = 1; gi < G; ++gi) {
-      const float4 x = *reinterpret_cast<const float4*>(dk_part + src + gi * head);
-      const float4 y = *reinterpret_cast<const float4*>(dv_part + src + gi * head);
-      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
-    }
-    const long long dst = b * o_sb + key * o_ss + hk * o_sh + 4 * d4;
-    uint2 pk = make_uint2(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w));
-    uint2 pv = make_uint2(pack_bf16x2(c.x, c.y), pack_bf16x2(c.z, c.w));
-    *reinterpret_cast<uint2*>(dk + dst) = pk;
-    *reinterpret_cast<uint2*>(dv + dst) = pv;
-  }
-}
-
 // --------------------------------------------------------------- host
 
 BwdParams make_params(const void* lse, const void* delta, const void* valid_len,
@@ -1104,22 +1072,6 @@ int run_dq_d256(const void* qs, const void* k, const void* v, const void* dout, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch error of the kernel before it, else the group sum's launch
-// (dkv_group_sum_kernel) from the partials into dK and dV.
-int group_sum(void* dk_part, void* dv_part, void* dk, void* dv, int B, int Hkv, int kv_groups,
-              int Skv, int D, const long long* dkv_strides, cudaStream_t stream) {
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const long long n = (long long)B * Hkv * Skv * (D / 4);
-  const int threads = 256;
-  const int blocks = static_cast<int>(n / threads + 1 < 132 * 16 ? n / threads + 1 : 132 * 16);
-  dkv_group_sum_kernel<<<blocks, threads, 0, stream>>>(
-      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Hkv, kv_groups, Skv,
-      D, dkv_strides[0], dkv_strides[1], dkv_strides[2]);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
 int run_dkv(const void* qs, const void* q, const void* k, const void* v, const void* dout,
             void* dk_part, void* dv_part, void* dk, void* dv, const BwdParams& params,
@@ -1145,7 +1097,8 @@ int run_dkv(const void* qs, const void* q, const void* k, const void* v, const v
   const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
   kernel<<<n_items, NWG * 128 + 32, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
-  return group_sum(dk_part, dv_part, dk, dv, B, Hkv, kv_groups, Skv, D, dkv_strides, stream);
+  return mavlm::launch_group_sum<__nv_bfloat16>(dk_part, dv_part, dk, dv, B, Hkv, kv_groups,
+                                                Skv, D, dkv_strides, stream);
 }
 
 // dK/dV at D = 256: one block per 64-key item (bwd_dkv_split_sm90_kernel),
@@ -1175,7 +1128,8 @@ int run_dkv_split(const void* qs, const void* q, const void* k, const void* v,
   const int rc = set_smem(kernel, S::SMEM);
   if (rc != 0) return rc;
   kernel<<<n_items, 2 * 128, S::SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
-  return group_sum(dk_part, dv_part, dk, dv, B, Hkv, kv_groups, Skv, D, dkv_strides, stream);
+  return mavlm::launch_group_sum<__nv_bfloat16>(dk_part, dv_part, dk, dv, B, Hkv, kv_groups,
+                                                Skv, D, dkv_strides, stream);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
 // Flash-attention forward, bound to Python with ctypes: the C entry point
-// flash_fwd, and its fp32 kernel.
+// flash_fwd, and the fp32 kernel of it and of flash_fwd_lse (flash_train.cu).
 //
 // Replaces the TPU kernel `_flash_fwd_kernel` behind
-// memory_augmented_vlm_tpu/ops/pallas_flash.py::pallas_flash_attention and
+// memory_augmented_vlm_tpu/ops/pallas_flash.py::pallas_flash_attention and,
+// in fp32 with its lse epilogue, `_fwd_lse_kernel` behind
+// memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py::_forward_with_lse, and
 // computes the same function:
 //   - q is scaled by scale*log2(e) and rounded to the input dtype before QK^T;
 //   - scores, the running max m, the running sum l and the accumulator are
@@ -16,7 +18,13 @@
 // flash_fwd_sm90.cu. fp32 inputs (parity runs: the tower at head dim 72,
 // the memory at 112, 256 and 448, the CLI's small checkpoints at 64) run
 // flash_fwd_3xtf32_kernel here at head dims 64, 72, 112, 128, 256 and 448;
-// in fp32, q and P are not rounded.
+// in fp32, q and P are not rounded. flash_fwd_lse's fp32 branch (training at
+// head dims 64, 128 and 256) runs the same kernel with LSE set: column warp 0
+// of each row group also writes lse = m + log2(max(l, 1e-30)) in log2 units,
+// -inf for a row that saw no key, (B, H, Sq) fp32. The TPU kernel gives a
+// masked score the finite MASK_VALUE and this one -inf (skipping whole
+// tiles): exp2 of either is 0 beside a finite max, so the two agree on every
+// row that sees a key.
 //
 // The fp32 kernel. Both products run on the tensor cores in 3xTF32: each
 // fp32 operand x splits into hi, x rounded to the nearest TF32 (ties away
@@ -96,6 +104,7 @@ struct FlashParams {
   long long q_sb, q_ss, q_sh;
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // softmax scale * log2(e)
+  float* lse;        // (B, H, Sq) fp32, written by the LSE instances
 };
 
 // ---------------------------------------------------------------------------
@@ -135,7 +144,7 @@ struct F32Tile {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(F32Tile<D>::THREADS, 1)
     flash_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
@@ -308,6 +317,13 @@ __global__ void __launch_bounds__(F32Tile<D>::THREADS, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = row0 + 8 * r;
     if (row >= p.Sq) continue;
+    if constexpr (LSE) {
+      // every column warp holds the same m and l: one lane of column warp
+      // 0's quad writes (-inf for a row that saw no key, whose m stays -inf)
+      if (cw == 0 && t == 0) {
+        p.lse[((long long)b * gridDim.y + h) * p.Sq + row] = m_run[r] + log2f(fmaxf(l, 1e-30f));
+      }
+    }
     const float inv = l == 0.f ? 0.f : 1.f / l;  // a row that saw no key is zero
     float* orow = out + row * p.o_ss;
 #pragma unroll
@@ -318,31 +334,38 @@ __global__ void __launch_bounds__(F32Tile<D>::THREADS, 1)
   }
 }
 
-struct F32Args {
-  FlashParams p;
-  const void* k;
-  const void* v;
-  int B, H, Skv;
-  long long k_st[3], v_st[3];
-};
-
-template <int D>
-int launch_f32(const F32Args& a, cudaStream_t stream) {
+template <int D, bool LSE = false>
+int launch_f32(const mavlm::fwd_sm90::Args& a, cudaStream_t stream) {
   using T = F32Tile<D>;
-  const int hkv = a.H / a.p.kv_groups;
+  const int hkv = a.H / a.kv_groups;
   CUtensorMap mk, mv;
   if (!make_map_f32(&mk, a.k, D, a.Skv, hkv, a.B, a.k_st, T::BN, T::PITCH) ||
       !make_map_f32(&mv, a.v, D, a.Skv, hkv, a.B, a.v_st, T::BN, T::PITCH)) {
     return kTmaRejected;
   }
-  const int rc = set_smem(flash_fwd_3xtf32_kernel<D>, T::SMEM);
+  const FlashParams p = {static_cast<const float*>(a.q), static_cast<float*>(a.o),
+                         static_cast<const int*>(a.valid_len), a.Sq, a.Skv, a.kv_groups,
+                         a.causal, a.q_st[0], a.q_st[1], a.q_st[2], a.o_st[0], a.o_st[1],
+                         a.o_st[2], a.scale_log2, static_cast<float*>(a.lse)};
+  const int rc = set_smem(flash_fwd_3xtf32_kernel<D, LSE>, T::SMEM);
   if (rc != 0) return rc;
-  const dim3 grid((a.p.Sq + T::BM - 1) / T::BM, a.H, a.B);
-  flash_fwd_3xtf32_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(mk, mv, a.p);
+  const dim3 grid((a.Sq + T::BM - 1) / T::BM, a.H, a.B);
+  flash_fwd_3xtf32_kernel<D, LSE><<<grid, T::THREADS, T::SMEM, stream>>>(mk, mv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int run_f32(const F32Args& a, int head_dim, cudaStream_t stream) {
+}  // namespace
+
+int mavlm::fwd_f32::run(const fwd_sm90::Args& a, int head_dim, void* cuda_stream) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  if (a.lse != nullptr) {
+    switch (head_dim) {
+      case 64: return launch_f32<64, true>(a, stream);
+      case 128: return launch_f32<128, true>(a, stream);
+      case 256: return launch_f32<256, true>(a, stream);
+      default: return -1;
+    }
+  }
   switch (head_dim) {
     case 64: return launch_f32<64>(a, stream);
     case 72: return launch_f32<72>(a, stream);
@@ -353,8 +376,6 @@ int run_f32(const F32Args& a, int head_dim, cudaStream_t stream) {
     default: return -1;
   }
 }
-
-}  // namespace
 
 // dtype: 0 = bf16, 1 = fp32. bf16 runs one block per item of `items`
 // ((n_items, 3) int32: batch, query head, tile of block_rows query rows),
@@ -372,33 +393,13 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                          long long o_sb, long long o_ss, long long o_sh,
                          float scale_log2, void* stream, const void* items, int n_items,
                          int block_rows) {
-  if (dtype == 0) {
-    const mavlm::fwd_sm90::Args a = {
-        q, k, v, o, nullptr, valid_len, items, n_items, block_rows, B, Sq, Skv, H,
-        kv_groups, causal, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
-        {o_sb, o_ss, o_sh}, scale_log2};
-    return mavlm::fwd_sm90::run(a, head_dim, stream);
-  }
-  if (dtype != 1) return -2;
-  F32Args a;
-  a.p.q = static_cast<const float*>(q);
-  a.p.o = static_cast<float*>(o);
-  a.p.valid_len = static_cast<const int*>(valid_len);
-  a.p.Sq = Sq;
-  a.p.Skv = Skv;
-  a.p.kv_groups = kv_groups;
-  a.p.causal = causal;
-  a.p.q_sb = q_sb; a.p.q_ss = q_ss; a.p.q_sh = q_sh;
-  a.p.o_sb = o_sb; a.p.o_ss = o_ss; a.p.o_sh = o_sh;
-  a.p.scale_log2 = scale_log2;
-  a.k = k;
-  a.v = v;
-  a.B = B;
-  a.H = H;
-  a.Skv = Skv;
-  a.k_st[0] = k_sb; a.k_st[1] = k_ss; a.k_st[2] = k_sh;
-  a.v_st[0] = v_sb; a.v_st[1] = v_ss; a.v_st[2] = v_sh;
-  return run_f32(a, head_dim, static_cast<cudaStream_t>(stream));
+  const mavlm::fwd_sm90::Args a = {
+      q, k, v, o, nullptr, valid_len, items, n_items, block_rows, B, Sq, Skv, H,
+      kv_groups, causal, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
+      {o_sb, o_ss, o_sh}, scale_log2};
+  if (dtype == 0) return mavlm::fwd_sm90::run(a, head_dim, stream);
+  if (dtype == 1) return mavlm::fwd_f32::run(a, head_dim, stream);
+  return -2;
 }
 
 // The message of a code returned by any launch function of the library.

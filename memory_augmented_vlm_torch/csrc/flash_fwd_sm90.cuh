@@ -1,7 +1,7 @@
-// The bf16 flash-attention forward of flash_fwd_sm90.cu (and of
-// flash_fwd_wide_sm90.cu at head dims 256 and 448), as the two entry points that take
-// it call it: flash_fwd (flash_fwd.cu) with lse null, and flash_fwd_lse
-// (flash_train.cu).
+// The flash-attention forward kernels as the two entry points that take
+// them call them, flash_fwd (flash_fwd.cu) with lse null and flash_fwd_lse
+// (flash_train.cu): bf16 flash_fwd_sm90.cu's (flash_fwd_wide_sm90.cu's at
+// head dims 256 and 448), fp32 flash_fwd.cu's 3xTF32 kernel.
 
 #pragma once
 
@@ -9,7 +9,7 @@ namespace mavlm {
 namespace fwd_sm90 {
 
 struct Args {
-  const void* q;          // (B, Sq, H, D) bf16
+  const void* q;          // (B, Sq, H, D) bf16 or fp32
   const void* k;          // (B, Skv, H / kv_groups, D)
   const void* v;
   void* o;                // (B, Sq, H, D)
@@ -47,4 +47,13 @@ constexpr int block_rows(int d) { return d == 256 ? 128 : 64; }
 int run(const fwd_sm90::Args& a, int head_dim, void* stream);
 
 }  // namespace fwd_wide
+
+// The fp32 kernel of flash_fwd.cu (3xTF32 on mma.sync), which reads no
+// items: head dims 64, 72, 112, 128, 256 and 448, or with an lse 64, 128
+// and 256; as fwd_sm90::run otherwise (-1 for another head dim).
+namespace fwd_f32 {
+
+int run(const fwd_sm90::Args& a, int head_dim, void* stream);
+
+}  // namespace fwd_f32
 }  // namespace mavlm

@@ -1,7 +1,9 @@
 // Flash attention for training, bound to Python with ctypes: the C entry
 // points of the forward that saves the log-sum-exp and of the fp32 backward,
-// and their fp32 kernels. The bf16 forward is flash_fwd_sm90.cu's kernel,
-// the bf16 backward kernels are in flash_bwd_sm90.cu.
+// and the fp32 backward's kernels. The forward is #1's kernel with an lse
+// epilogue (bf16: flash_fwd_sm90.cu's, flash_fwd_wide_sm90.cu's at 256;
+// fp32: flash_fwd.cu's 3xTF32 kernel); the bf16 backward kernels are in
+// flash_bwd_sm90.cu.
 //
 // Replaces the TPU kernels of memory_augmented_vlm_tpu/ops/pallas_flash_bwd.py:
 //   flash_fwd_lse  <- _forward_with_lse (_fwd_lse_kernel)
@@ -11,9 +13,10 @@
 //   - q is scaled by scale*log2(e) and rounded to the input dtype before QK^T;
 //     the softmax is base 2 and the saved lse is in log2 units,
 //     lse = m + log2(max(l, 1e-30)) (-inf for a row that sees no key);
-//   - the forward gives masked scores the finite MASK_VALUE; the backward
-//     zeroes p at masked positions (keys >= kv_valid_len[b], and above the
-//     diagonal when causal);
+//   - masked positions are keys >= kv_valid_len[b], and above the diagonal
+//     when causal: the TPU forward gives their scores the finite MASK_VALUE,
+//     the kernels -inf (the same out and lse on every row that sees a key);
+//     the backward zeroes p there;
 //   - p = exp2(s - lse); ds = p * (dp - delta) * scale, in raw-score units,
 //     with delta = rowsum(dO * O) computed by the caller;
 //   - dQ = ds K, dV = p^T dO, dK = ds^T Q (Q unscaled);
@@ -23,9 +26,9 @@
 // Layout is bshd for q/k/v/o/dO/dQ/dK/dV (read through strides, the head dim
 // contiguous) and (B, H, Sq) fp32 for lse and delta.
 //
-// The fp32 forward (fwd_lse_f32_kernel) is SIMT: a warp per query row,
-// lanes over keys, tiles in dynamic shared memory (F32Smem: 72 KB at 256,
-// past the 48 KB a block takes without the opt-in attribute).
+// The fp32 forward is flash_fwd.cu's flash_fwd_3xtf32_kernel<D, true>
+// (fwd_f32::run with an lse): both products in 3xTF32 on the tensor cores,
+// and column warp 0 of each row group writes its rows' lse.
 //
 // The fp32 backward, bwd_dq_3xtf32_kernel and bwd_dkv_3xtf32_kernel at head
 // dims 64, 128 and 256, runs every product on the tensor cores in 3xTF32,
@@ -60,20 +63,19 @@
 //     work_list, longest loop first). A dK/dV item takes one query head, so
 //     a KV head's keys spread over its group's heads (Gemma-2B has one KV
 //     head: blocks of its 32 keys would not fill the card): each item
-//     writes its head's fp32 dK and dV, and dkv_group_sum_f32_kernel sums
-//     each group in head order, as the bf16 path does.
+//     writes its head's fp32 dK and dV, and dkv_group_sum_kernel<float>
+//     (dkv_group_sum.cuh, the bf16 path's too) sums each group in head order.
 //   - Shared memory: dQ 35 / 101 / 169 KB at 64 / 128 / 256 (K and V rings
 //     of 2); dK/dV 69 / 169 / 203 KB (at 256 a dO ring of 1).
 // Bound: operations, 3 TF32 products per fp32 product at the TF32 peak (dQ
 // 3 products per (query, key) pair, dK/dV 4).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "dkv_group_sum.cuh"
 #include "flash_fwd_sm90.cuh"
-#include "mma.cuh"
 #include "sm90.cuh"
 #include "tf32.cuh"
 
@@ -82,16 +84,14 @@ namespace {
 using namespace mavlm::sm90;
 using namespace mavlm::tf32;
 
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // pallas_flash.MASK_VALUE
-
 struct TrainParams {
   const void* q;
   const void* k;
   const void* v;
   const void* dout;    // dO
-  void* out;           // forward: o; backward: dq, or dk (or its partials)
-  void* out2;          // dkv kernel: dv (or its partials)
-  float* lse;          // (B, H, Sq)
+  void* out;           // dq, or dk's partials
+  void* out2;          // dv's partials
+  const float* lse;    // (B, H, Sq)
   const float* delta;  // (B, H, Sq)
   const int* valid_len;
   const int* items;    // backward: (n_items, 3) int32, batch, query head, tile
@@ -107,94 +107,6 @@ struct TrainParams {
 
 __device__ __forceinline__ int kv_limit(const TrainParams& p, int b) {
   return min(p.valid_len[b], p.Skv);
-}
-
-// ---------------------------------------------------------------------------
-// fp32 forward: SIMT
-// ---------------------------------------------------------------------------
-
-constexpr int kRowsF32 = 8;  // warps per block, one row each
-constexpr int kColsF32 = 32;  // columns per loop tile, one per lane
-
-// The kernels' shared tiles, in dynamic shared memory: two [kColsF32][D + 1]
-// tiles of the looped rows (padded against bank conflicts), two
-// [kRowsF32][D] tiles of the block's own rows and two vectors of kColsF32
-// (dK/dV's lse and delta); each kernel takes what it uses.
-template <int D>
-struct F32Smem {
-  static constexpr int COLS = kColsF32 * (D + 1), ROWS = kRowsF32 * D;
-  static constexpr size_t BYTES = (2 * COLS + 2 * ROWS + 2 * kColsF32) * sizeof(float);
-  float* base;
-  __device__ explicit F32Smem(float* p) : base(p) {}
-  __device__ float (*cols(int i))[D + 1] {
-    return reinterpret_cast<float (*)[D + 1]>(base + i * COLS);
-  }
-  __device__ float (*rows(int i))[D] {
-    return reinterpret_cast<float (*)[D]>(base + 2 * COLS + i * ROWS);
-  }
-  __device__ float* vec(int i) { return base + 2 * COLS + 2 * ROWS + i * kColsF32; }
-};
-
-template <int D>
-__global__ void __launch_bounds__(32 * kRowsF32) fwd_lse_f32_kernel(const TrainParams p) {
-  constexpr int NI = D / 32;
-  extern __shared__ float smem_f32[];
-  F32Smem<D> sm(smem_f32);
-  float(*sK)[D + 1] = sm.cols(0);
-  float(*sV)[D + 1] = sm.cols(1);
-  float(*sQ)[D] = sm.rows(0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRowsF32;
-  const int row = q0 + warp, hk = h / p.kv_groups;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  float* o = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
-  int kv_end = kv_limit(p, b);
-  if (p.causal) kv_end = min(kv_end, q0 + kRowsF32);
-
-  for (int d = lane; d < D; d += 32) {
-    sQ[warp][d] = row < p.Sq ? q[(long long)row * p.q_ss + d] * p.scale_log2 : 0.f;
-  }
-  float acc[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) acc[i] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
-  for (int n0 = 0; n0 < kv_end; n0 += kColsF32) {
-    __syncthreads();
-    for (int i = tid; i < kColsF32 * D; i += 32 * kRowsF32) {
-      const int r = i / D, d = i % D;
-      const bool in = n0 + r < kv_end;
-      sK[r][d] = in ? k[(long long)(n0 + r) * p.k_ss + d] : 0.f;
-      sV[r][d] = in ? v[(long long)(n0 + r) * p.v_ss + d] : 0.f;
-    }
-    __syncthreads();
-    const int col = n0 + lane;
-    float s = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) s = fmaf(sQ[warp][d], sK[lane][d], s);
-    if (!(col < kv_end && (!p.causal || col <= row))) s = kMaskValue;
-    const float m_new = fmaxf(m_run, mavlm::warp_max(s));
-    const float alpha = exp2f(m_run - m_new);
-    const float pr = exp2f(s - m_new);
-    l_run = l_run * alpha + mavlm::warp_sum(pr);
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc[i] *= alpha;
-    for (int j = 0; j < kColsF32; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, pr, j);
-#pragma unroll
-      for (int i = 0; i < NI; ++i) acc[i] = fmaf(pj, sV[j][lane + 32 * i], acc[i]);
-    }
-  }
-  if (row < p.Sq) {
-    const float inv = l_run == 0.f ? 1.f : 1.f / l_run;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) o[(long long)row * p.o_ss + lane + 32 * i] = acc[i] * inv;
-    if (lane == 0) {
-      p.lse[((long long)b * p.H + h) * p.Sq + row] = m_run + log2f(fmaxf(l_run, 1e-30f));
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -606,49 +518,9 @@ __global__ void __launch_bounds__(BwdF32Tile<D, true>::THREADS, 1)
   }
 }
 
-// dK and dV (B, Skv, Hkv, D) from the per-query-head partials (B, H, Skv,
-// D): each group's heads summed in head order, in fp32.
-__global__ void dkv_group_sum_f32_kernel(const float* dk_part, const float* dv_part, float* dk,
-                                         float* dv, int B, int Hkv, int G, int Skv, int D,
-                                         long long o_sb, long long o_ss, long long o_sh) {
-  const int d4s = D / 4;
-  const long long n = (long long)B * Hkv * Skv * d4s;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int d4 = i % d4s;
-    long long rest = i / d4s;
-    const int key = rest % Skv;
-    rest /= Skv;
-    const int hk = rest % Hkv, b = rest / Hkv;
-    const long long head = (long long)Skv * D;
-    const long long src = (((long long)b * Hkv + hk) * G * Skv + key) * D + 4 * d4;
-    float4 a = *reinterpret_cast<const float4*>(dk_part + src);
-    float4 c = *reinterpret_cast<const float4*>(dv_part + src);
-    for (int gi = 1; gi < G; ++gi) {
-      const float4 x = *reinterpret_cast<const float4*>(dk_part + src + gi * head);
-      const float4 y = *reinterpret_cast<const float4*>(dv_part + src + gi * head);
-      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
-    }
-    const long long dst = b * o_sb + key * o_ss + hk * o_sh + 4 * d4;
-    *reinterpret_cast<float4*>(dk + dst) = a;
-    *reinterpret_cast<float4*>(dv + dst) = c;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-template <int D>
-int launch_fwd(const TrainParams& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = F32Smem<D>::BYTES;
-  const int rc = set_smem(fwd_lse_f32_kernel<D>, smem);
-  if (rc != 0) return rc;
-  const dim3 grid((p.Sq + kRowsF32 - 1) / kRowsF32, p.H, B);
-  fwd_lse_f32_kernel<D><<<grid, 32 * kRowsF32, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // one block per work item: dQ's query-row tiles over K/V maps, or dK/dV's
 // key tiles over Q/dO maps
@@ -708,7 +580,7 @@ TrainParams make_params(const void* q, const void* k, const void* v, const void*
 void backward_params(TrainParams& p, const void* dout, const void* lse, const void* delta,
                      const void* items, const long long* d_strides) {
   p.dout = dout;
-  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.items = static_cast<const int*>(items);
   p.d_sb = d_strides[0]; p.d_ss = d_strides[1]; p.d_sh = d_strides[2];
@@ -725,8 +597,9 @@ void backward_params(TrainParams& p, const void* dout, const void* lse, const vo
 
 // out (B, Sq, H, D) and lse (B, H, Sq) fp32 are written. bf16 runs
 // flash_fwd_sm90.cu's kernel, one block per item of `items` ((n_items, 3)
-// int32: batch, query head, tile of block_rows query rows); fp32 ignores the
-// three.
+// int32: batch, query head, tile of block_rows query rows); fp32 runs
+// flash_fwd.cu's 3xTF32 kernel with its lse epilogue (head dims 64, 128 and
+// 256) and ignores the three.
 extern "C" int flash_fwd_lse(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, void* out, void* lse, const void* valid_len,
                              int B, int Sq, int Skv, int H, int kv_groups, int causal,
@@ -734,31 +607,18 @@ extern "C" int flash_fwd_lse(int dtype, int head_dim, const void* q, const void*
                              const long long* v_strides, const long long* o_strides,
                              float scale, float scale_log2, void* stream, const void* items,
                              int n_items, int block_rows) {
-  if (dtype == 0) {  // head dims 64, 128 and 256 (flash_fwd_wide_sm90.cu)
-    mavlm::fwd_sm90::Args a = {q, k, v, out, lse, valid_len, items, n_items, block_rows, B, Sq,
-                               Skv, H, kv_groups, causal};
-    for (int i = 0; i < 3; ++i) {
-      a.q_st[i] = q_strides[i];
-      a.k_st[i] = k_strides[i];
-      a.v_st[i] = v_strides[i];
-      a.o_st[i] = o_strides[i];
-    }
-    a.scale_log2 = scale_log2;
-    return mavlm::fwd_sm90::run(a, head_dim, stream);
+  mavlm::fwd_sm90::Args a = {q, k, v, out, lse, valid_len, items, n_items, block_rows, B, Sq,
+                             Skv, H, kv_groups, causal};
+  for (int i = 0; i < 3; ++i) {
+    a.q_st[i] = q_strides[i];
+    a.k_st[i] = k_strides[i];
+    a.v_st[i] = v_strides[i];
+    a.o_st[i] = o_strides[i];
   }
-  if (dtype != 1) return -2;
-  TrainParams p = make_params(q, k, v, valid_len, H, Sq, Skv, kv_groups, causal, q_strides,
-                              k_strides, v_strides, scale, scale_log2);
-  p.out = out;
-  p.lse = static_cast<float*>(lse);
-  p.o_sb = o_strides[0]; p.o_ss = o_strides[1]; p.o_sh = o_strides[2];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return launch_fwd<64>(p, B, s);
-    case 128: return launch_fwd<128>(p, B, s);
-    case 256: return launch_fwd<256>(p, B, s);
-    default: return -1;
-  }
+  a.scale_log2 = scale_log2;
+  if (dtype == 0) return mavlm::fwd_sm90::run(a, head_dim, stream);  // 256: the wide kernel
+  if (dtype == 1) return mavlm::fwd_f32::run(a, head_dim, stream);
+  return -2;
 }
 
 // The tiles of the fp32 backward's work items at a head dim: dQ items take
@@ -817,7 +677,7 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* 
 // one block per item of `items` ((n_items, 3) int32: batch, query head, tile
 // of dkv_keys keys); fp32 only (bf16: flash_bwd_dkv_sm90). The items write
 // each query head's fp32 dK and dV into dk_part and dv_part ((B, H, Skv,
-// D), contiguous), which dkv_group_sum_f32_kernel sums over each group in
+// D), contiguous), which dkv_group_sum_kernel<float> sums over each group in
 // head order.
 extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, const void* dout, const void* lse,
@@ -846,13 +706,6 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q, const void*
     default: return -1;
   }
   if (rc != 0) return rc;
-  const int Hkv = H / kv_groups;
-  const long long n = (long long)B * Hkv * Skv * (head_dim / 4);
-  const int threads = 256;
-  const int blocks = static_cast<int>(n / threads + 1 < 132 * 16 ? n / threads + 1 : 132 * 16);
-  dkv_group_sum_f32_kernel<<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<float*>(dk), static_cast<float*>(dv), B, Hkv, kv_groups, Skv, head_dim,
-      dkv_strides[0], dkv_strides[1], dkv_strides[2]);
-  return static_cast<int>(cudaGetLastError());
+  return mavlm::launch_group_sum<float>(dk_part, dv_part, dk, dv, B, H / kv_groups, kv_groups,
+                                        Skv, head_dim, dkv_strides, s);
 }

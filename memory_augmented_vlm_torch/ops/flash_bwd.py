@@ -29,10 +29,11 @@ tiles). dK/dV items write each query head's fp32 partials, which a second
 kernel sums over the group in head order (`backward_dkv_partials_reference`
 and `group_sum` are their plain versions); at head dim 256 a dK/dV item's
 two consumer warpgroups each hold one half of the columns and share the
-scores of its 32-row query tiles. fp32 runs `csrc/flash_train.cu`: the
-SIMT forward, and a backward whose products run on the tensor cores in
-3xTF32, over work lists of its own tiles (`backward_tiles`), dK/dV with
-the same per-head partials and group sum.
+scores of its 32-row query tiles. fp32 runs every product on the tensor
+cores in 3xTF32: the forward is #1's fp32 kernel (`csrc/flash_fwd.cu`)
+with its lse epilogue, the backward `csrc/flash_train.cu` over work lists
+of its own tiles (`backward_tiles`), dK/dV with the same per-head
+partials and group sum.
 
 Each kernel wrapper takes its plain version (`*_reference`) only for
 tensors on the CPU. For CUDA tensors it launches its kernel (bf16 or fp32,
@@ -300,8 +301,9 @@ def forward_with_lse(q, k, v, kv_valid_len, *, causal: bool, scale: float,
                      kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward that also returns lse; see `forward_with_lse_reference`.
     CUDA tensors launch `flash_fwd_lse`: bf16 runs `csrc/flash_fwd_sm90.cu`
-    (one block per item of `flash.forward_plan`), fp32 the SIMT kernel of
-    `csrc/flash_train.cu`. Head dim 256 goes to `forward_with_lse_d256`."""
+    (one block per item of `flash.forward_plan`), fp32 the 3xTF32 kernel of
+    `csrc/flash_fwd.cu` with its lse epilogue. Head dim 256 goes to
+    `forward_with_lse_d256`."""
     if q.shape[-1] == D256:
         return forward_with_lse_d256(q, k, v, kv_valid_len, causal=causal, scale=scale,
                                      kv_groups=kv_groups)
@@ -312,7 +314,8 @@ def forward_with_lse_d256(q, k, v, kv_valid_len, *, causal: bool, scale: float,
                           kv_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """`forward_with_lse` at head dim 256 (Gemma's LM): bf16 CUDA tensors
     launch the wide kernel of `csrc/flash_fwd_wide_sm90.cu` with its lse
-    epilogue (64-key tiles), fp32 the SIMT kernel at 256; counted in
+    epilogue (64-key tiles), fp32 the 3xTF32 kernel of `csrc/flash_fwd.cu`
+    at 256 with its lse epilogue; counted in
     `forward_with_lse_d256.launches`."""
     if q.shape[-1] != D256:
         raise ValueError(f"forward_with_lse_d256 takes head dim {D256}, got {q.shape[-1]}")

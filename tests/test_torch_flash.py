@@ -534,11 +534,12 @@ ptxas info    : Function properties for _ZN5mavlm8fwd_wide21flash_fwd_wide_kerne
 ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN5mavlm8fwd_wide21flash_fwd_wide_kernelILi448EEEv'
 ptxas info    : (C7519) warpgroup.arrive is injected in around line 16570 by compiler to allow use of registers in GMMA in function '_ZN12_GLOBAL__N_125bwd_dkv_split_sm90_kernelILi256EEEv'""" + "".join(
     f"""
-ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}EEEv14CUtensorMap_stS1_NS_11FlashParamsE
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}ELb{lse}EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__93c26f7f_12_flash_fwd_cu_b294bfd023flash_fwd_3xtf32_kernelILi{d}ELb{lse}EEEv14CUtensorMap_stS1_NS_11FlashParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used {r} registers, used 1 barriers"""
-    for d, r in ((448, 191), (256, 212), (128, 208), (112, 188), (72, 140), (64, 130))) + "".join(
+    for d, lse, r in ((448, 0, 191), (256, 0, 212), (128, 0, 208), (112, 0, 188), (72, 0, 140),
+                      (64, 0, 130), (256, 1, 213), (128, 1, 209), (64, 1, 131))) + "".join(
     f"""
 ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1ef7308d_14_flash_train_cu_1239d044{n}EEv14CUtensorMap_stS1_NS_11TrainParamsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN47_GLOBAL__N__1ef7308d_14_flash_train_cu_1239d044{n}EEv14CUtensorMap_stS1_NS_11TrainParamsE
@@ -573,14 +574,22 @@ ptxas info    : Used {r} registers, used 16 barriers"""
       "ptxas info    : Used 218 registers, used 5 barriers\nptxas info    : (C7508) Potential "
       "Performance Loss: setmaxnreg ignored; unable to determine register count at entry"),
      "flash_fwd_d256_kernel"),
-    # the fp32 forward (3xTF32 on mma.sync) spilling at 448, or not built at 72
+    # the fp32 forward (3xTF32 on mma.sync) spilling at 448, or not built at
+    # 72; its lse instance (#9 in fp32) spilling at 256, or not built at 128
     (("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
       "ptxas info    : Used 191",
       "    176 bytes stack frame, 172 bytes spill stores, 172 bytes spill loads\n"
-      "ptxas info    : Used 255"), "flash_fwd_3xtf32_kernelILi448E"),
-    (("flash_fwd_3xtf32_kernelILi72EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for",
-      "flash_fwd_3xtf32_kernelILi80EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for"),
-     "flash_fwd_3xtf32_kernelILi72E"),
+      "ptxas info    : Used 255"), "flash_fwd_3xtf32_kernelILi448ELb0E"),
+    (("flash_fwd_3xtf32_kernelILi72ELb0EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for",
+      "flash_fwd_3xtf32_kernelILi80ELb0EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for"),
+     "flash_fwd_3xtf32_kernelILi72ELb0E"),
+    (("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 213",
+      "    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads\n"
+      "ptxas info    : Used 255"), "flash_fwd_3xtf32_kernelILi256ELb1E"),
+    (("flash_fwd_3xtf32_kernelILi128ELb1EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for",
+      "flash_fwd_3xtf32_kernelILi128ELb0EEEv14CUtensorMap_stS1_NS_11FlashParamsE' for"),
+     "flash_fwd_3xtf32_kernelILi128ELb1E"),
     # the fp32 backward (3xTF32 on mma.sync): dK/dV spilling at 256, dQ not
     # built at 64
     (("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -595,8 +604,8 @@ def test_chip_smoke_ptxas_gate_names_spills_and_serialised_wgmma(fault, kernel):
     """chip_smoke's build phase raises when ptxas spills, ignores setmaxnreg
     (C7508) or serialises wgmma (any code: C7512, C7514, C7515, C7520) in
     one of the five Hopper flash kernels at head dims 256 and 448 or in an
-    instance of the fp32 forward or backward, or builds no entry of that
-    name; the old
+    instance of the fp32 forward (with or without its lse) or backward, or
+    builds no entry of that name; the old
     448 kernel's C7512 and the dK/dV kernel's C7519 (injected arrives) are
     no fault of theirs."""
     import chip_smoke

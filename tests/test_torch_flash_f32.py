@@ -170,8 +170,8 @@ def test_3xtf32_holds_and_single_tf32_fails_the_card_rule(d, edge):
     the card runs at every head dim; its control, a single TF32 product,
     falls outside it there, so the card's check tells the two apart."""
     q, k, v, vl, causal, g, ref = _emulation_case(d, edge)
-    three = chip_smoke._tf32_attention(q, k, v, vl, causal, g, terms=3)
-    one = chip_smoke._tf32_attention(q, k, v, vl, causal, g, terms=1)
+    three = chip_smoke._tf32_attention(q, k, v, vl, causal, g, terms=3)[0]
+    one = chip_smoke._tf32_attention(q, k, v, vl, causal, g, terms=1)[0]
     assert three.shape == ref.shape and three.dtype == torch.float32
     assert _outside(three, ref) == 0, float((three - ref).abs().max())
     assert _outside(one, ref) > 0
@@ -186,8 +186,8 @@ def test_3xtf32_at_a_memory_like_448_case():
     q, k, v = (torch.from_numpy(x) for x in _inputs(26, 1, 392, 1568, 8, 8, D))
     vl = torch.tensor([784], dtype=torch.int32)
     ref = flash.flash_attention_reference(q, k, v, vl)
-    three = chip_smoke._tf32_attention(q, k, v, vl, False, 1)
-    one = chip_smoke._tf32_attention(q, k, v, vl, False, 1, terms=1)
+    three = chip_smoke._tf32_attention(q, k, v, vl, False, 1)[0]
+    one = chip_smoke._tf32_attention(q, k, v, vl, False, 1, terms=1)[0]
     assert float((three - ref).abs().max()) < 0.25 * F32["atol"]
     assert _outside(one, ref) > ref.numel() // 4
 
@@ -209,7 +209,7 @@ def test_fp32_forward_source_is_3xtf32_mma_and_the_simt_kernel_is_gone():
     assert helpers.count("mma_tf32(d, ") == 3  # lo*hi, hi*lo, hi*hi
     for d in chip_smoke.F32_HEAD_DIMS:
         assert f"case {d}: return launch_f32<{d}>(a, stream);" in src
-        assert f"flash_fwd_3xtf32_kernelILi{d}E" in chip_smoke.PTXAS_CLEAN
+        assert f"flash_fwd_3xtf32_kernelILi{d}ELb0E" in chip_smoke.PTXAS_CLEAN
     assert set(chip_smoke.F32_HEAD_DIMS) == set(flash.KERNEL_HEAD_DIMS) | {flash.D256, D}
     # the JAX package only in the notes of what the kernel replaces: no
     # include, name or path of it in the code
