@@ -214,6 +214,19 @@ each of which raises on failure:
                 --device_preprocess, the lmms-eval adapter's generate_until
                 and loglikelihood through the vendored harness, and
                 Predictor on the clip, each with its launches and ms. Then
+                the serving HTTP stack (`phase_serve_stack`) on that
+                checkpoint, in this process over 127.0.0.1: a controller, a
+                ModelWorker(device_preprocess=True), an SGLangWorker (4
+                slots of 10240 positions) and the web UI; the 64-frame clip
+                as base64 PNG frames through the client to the model worker
+                (raw uint8 to the card), the same with one frame of another
+                size (the host processor), the clip and two text prompts at
+                once to the engine worker, a text turn through /chat and
+                serve.cli on the clip; every chunk at error_code 0, the
+                workers' ids equal to the in-process model.generate (the
+                engine's held to vlm.generate by the margin rule),
+                flash_fwd 55 a clip and 24 a text prefill, each request's
+                HTTP and in-process ms. Then
                 the training entry (`phase_train_cli`) on that checkpoint:
                 `train.cli.main` at full width over four 65-frame videos
                 and two text samples, k = 2, --dropout_frames (a leaf
@@ -282,9 +295,13 @@ there is no card: the run raises first.
 
 from __future__ import annotations
 
+import base64
+import builtins
 import contextlib
 import dataclasses
 import functools
+import gc
+import io
 import json
 import logging
 import math
@@ -295,6 +312,9 @@ import subprocess
 import sys
 import threading
 import time
+import types
+import urllib.request
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -310,9 +330,10 @@ from memory_augmented_vlm_torch.checkpoint.checkpoint_io import export_hf_safete
 from memory_augmented_vlm_torch.data import native_loader
 from memory_augmented_vlm_torch.data.preprocessing import SigLipImageProcessor, \
     process_anyres_image
-from memory_augmented_vlm_torch.data.tokenizer import load_qwen_tokenizer
+from memory_augmented_vlm_torch.data.tokenizer import load_qwen_tokenizer, tokenizer_image_token
 from memory_augmented_vlm_torch.data.video import load_video, write_y4m
 from memory_augmented_vlm_torch.eval import lmms_adapter, model_vqa
+from memory_augmented_vlm_torch.eval import model as eval_model
 from memory_augmented_vlm_torch.eval.builder import config_from_json, load_pretrained_model
 from memory_augmented_vlm_torch.config import LMConfig, VisionConfig, VLMConfig
 from memory_augmented_vlm_torch.models import beam_search, image_path, qwen2, siglip, vlm
@@ -326,7 +347,11 @@ from memory_augmented_vlm_torch.ops import (attn_block, cuda_lib, flash, flash_b
                                             swiglu_int8)
 from memory_augmented_vlm_torch.ops.preprocess import preprocess_anyres_image, \
     preprocess_frames
-from memory_augmented_vlm_torch.serve import batch_engine
+from memory_augmented_vlm_torch.serve import batch_engine, model_worker, sglang_worker, \
+    web_server
+from memory_augmented_vlm_torch.serve import cli as serve_cli
+from memory_augmented_vlm_torch.serve import client as serve_client
+from memory_augmented_vlm_torch.serve import controller as serve_controller
 from memory_augmented_vlm_torch.train import cli as train_cli
 from memory_augmented_vlm_torch.train import dpo, lora, optimizer, sft, trainer
 from memory_augmented_vlm_torch.utils.logging import start_profiler, stop_profiler
@@ -5649,6 +5674,372 @@ def phase_eval(keep: bool = False):
     return launches
 
 
+# ---------------------------------------------------------- the HTTP stack
+
+STACK_NEW = 32
+# the engine worker's positions: a 64-frame clip splices ~9.4k tokens and
+# the engine refuses a prompt of max_len or more (a multiple of its 128)
+STACK_MAX_LEN = 10240
+STACK_ODD_HW = (360, 480)  # request b's last frame: another size than the clip's
+STACK_QUESTION = "What happens in the video?"
+
+
+def _b64_png(frame: np.ndarray) -> str:
+    """A uint8 frame as base64 PNG (lossless: the worker decodes the same
+    bytes), stored without compression: noise does not compress, and
+    deflate would take most of the host's encode and decode time."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG", compress_level=0)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+class _StackRecord:
+    """Each request's token ids and the inputs they came from, recorded by
+    wrapping a model worker's `model.generate_stream` (input ids, images,
+    ids) or an engine worker's `engine.submit` (the float32 sequence, the
+    engine's output queue, ids); `take()` hands the records over and
+    clears them."""
+
+    def __init__(self):
+        self.calls, self.lock = [], threading.Lock()
+
+    def stream(self, fn):
+        def recorded(input_ids, images=None, **kw):
+            call = {"input_ids": np.asarray(input_ids), "images": images, "ids": []}
+            with self.lock:
+                self.calls.append(call)
+            for ids in fn(input_ids, images=images, **kw):
+                call["ids"].extend(int(t) for t in ids)
+                yield ids
+        return recorded
+
+    def submit(self, fn):
+        def recorded(embeds, **kw):
+            out = fn(embeds, **kw)
+            call = {"embeds": embeds, "out": out, "ids": [], "kw": kw}
+            with self.lock:
+                self.calls.append(call)
+
+            def get():
+                item = out.get(timeout=600)
+                if item is not None:
+                    call["ids"].extend(int(t) for t in item)
+                return item
+            return types.SimpleNamespace(get=get)
+        return recorded
+
+    def take(self) -> list:
+        with self.lock:
+            calls, self.calls = self.calls, []
+        return calls
+
+
+def _start_server(server) -> str:
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+@contextlib.contextmanager
+def _heartbeats(workers, every: float = 5.0):
+    """Each worker's heartbeat to its controller every `every` s while the
+    block runs (a worker built with register=False sends none, and the
+    controller drops it CONTROLLER_HEART_BEAT_EXPIRATION s after its last)."""
+    stop = threading.Event()
+
+    def beat():
+        while not stop.wait(every):
+            for w in workers:
+                w._post("/receive_heart_beat", {"worker_name": w.worker_addr,
+                                                "queue_length": w.queue_length})
+    thread = threading.Thread(target=beat, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+
+
+def _streamed(label, chunks, t0) -> dict:
+    """A request's chunks (every one at error_code 0) and its times: to the
+    first chunk and to the last (HTTP end to end), ms."""
+    first, out = None, []
+    for c in chunks:
+        first = first if first is not None else time.perf_counter()
+        out.append(c)
+    end = time.perf_counter()
+    codes = [c.get("error_code") for c in out]
+    if not out or set(codes) != {0}:
+        raise RuntimeError(f"serve stack, {label}: error codes {codes}: "
+                           f"{[c.get('text', '')[:200] for c in out if c.get('error_code')]}")
+    return {"chunks": len(out), "first_chunk_ms": 1e3 * (first - t0),
+            "e2e_ms": 1e3 * (end - t0), "last": out[-1]}
+
+
+def _request_launches(cfg: VLMConfig, num_frames: int) -> dict:
+    """A video request of a loaded model: `video_qa_embeds`' launches and
+    the LM prefill's."""
+    want = _qa_launches(cfg, num_frames)
+    want["flash_fwd"] += cfg.lm.num_hidden_layers
+    return want
+
+
+def _stack_launches(label, want: dict) -> dict:
+    torch.cuda.synchronize()
+    got, want = _launches(), {**dict.fromkeys(WRAPPERS, 0), **want}
+    if got != want:
+        raise RuntimeError(f"serve stack, {label}: launches {got}, want {want}")
+    return got
+
+
+def _equal_ids(label, got: list, want) -> list:
+    want = [int(t) for t in want]
+    if got != want or not 0 < len(got) <= STACK_NEW:
+        raise RuntimeError(f"serve stack, {label}: streamed ids {got}, in-process {want}")
+    return got
+
+
+def _held_to_generate(label, call, ref_tokens, ref_rows, got_rows) -> dict:
+    """The engine's tokens against `vlm.generate`'s by the margin rule
+    (`_greedy_agreement`); both stop at the same eos, so where every step
+    held their lengths agree too."""
+    got = torch.tensor(call["ids"])
+    n = min(len(got), len(ref_tokens))
+    agree = _greedy_agreement(label, ref_tokens[:n], ref_rows[:n], got[:n], got_rows[:n],
+                              BATCHED_LOGIT_TOL)
+    if agree["steps_held"] == n and len(got) != len(ref_tokens):
+        raise RuntimeError(f"serve stack, {label}: {len(got)} tokens, vlm.generate "
+                           f"{len(ref_tokens)}")
+    return agree
+
+
+def phase_serve_stack():
+    """The serving HTTP stack (`serve/controller.py`, `model_worker.py`,
+    `sglang_worker.py`, `web_server.py`, `client.py`, `cli.py`) over
+    `phase_load`'s checkpoint and tokenizer (left by `phase_eval`), all in
+    this process on 127.0.0.1: one controller, a
+    `ModelWorker(device_preprocess=True)` and an `SGLangWorker` (4 slots of
+    STACK_MAX_LEN positions), each loading the bf16 model, and the web UI.
+    Requests, greedy, 32 new tokens: (a) the 64-frame 480x640 clip as 64
+    base64 PNG frames through `client.stream_generate` to the model worker
+    (raw uint8 to the card); (b) the same with its last frame of another
+    size (the host processor); (c) the clip and two text prompts at once,
+    from three threads, to the engine worker; (d) a text turn through the
+    web UI's `/chat`; (e) `cli.main` on clip.y4m (JAX's 1 fps sampling)
+    with one line of input. Every chunk at error_code 0; a and b's ids
+    equal the same model's in-process `model.generate` of the frames the
+    worker received, d's and e's too; c's held to `vlm.generate` of the
+    sequences the engine received by the margin rule; flash_fwd 55 a
+    64-frame request (tower 26, memory 5, prefill 24), 24 a text prefill;
+    no engine record at ERROR. Logs each request's HTTP end-to-end ms, its
+    first chunk and the in-process call's ms, and the host's PNG encode,
+    base64 and PNG decode ms. Returns each request's launches."""
+    from PIL import Image
+
+    log(f"serve stack phase on {require_card()}")
+    t_phase = time.perf_counter()
+    cfg = VLMConfig.onevision_0_5b()
+    lm = cfg.lm.num_hidden_layers
+    video, text = _request_launches(cfg, LOAD_FRAMES), {"flash_fwd": lm}
+    frames = _load_clip()
+    t0 = time.perf_counter()
+    payload = [_b64_png(f) for f in frames]
+    odd = np.ascontiguousarray(frames[-1][:STACK_ODD_HW[0], :STACK_ODD_HW[1]])
+    payload_b = payload[:-1] + [_b64_png(odd)]
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    raw = [base64.b64decode(b) for b in payload]
+    b64_ms = 1e3 * (time.perf_counter() - t0)
+    decoded = np.stack([np.asarray(Image.open(io.BytesIO(r)).convert("RGB")) for r in raw])
+    png_ms = 1e3 * (time.perf_counter() - t0) - b64_ms
+    if not np.array_equal(decoded, frames):
+        raise RuntimeError("serve stack: the PNG payload does not decode to the clip")
+    del raw, decoded
+    host = {"png_encode_ms": encode_ms, "base64_decode_ms": b64_ms, "png_decode_ms": png_ms,
+            "payload_mb": sum(map(len, payload)) / 1e6}
+
+    rec, servers = _StackRecord(), []
+    servers.append(serve_controller.serve("127.0.0.1", 0))
+    ctrl = _start_server(servers[-1])
+    t0 = time.perf_counter()
+    worker = model_worker.ModelWorker(ctrl, "", str(LOAD_DIR), "mavlm-0.5b", register=False,
+                                      device_preprocess=True)
+    engine_worker = sglang_worker.SGLangWorker(ctrl, "", str(LOAD_DIR), "mavlm-0.5b-engine",
+                                               register=False, num_slots=4,
+                                               max_len=STACK_MAX_LEN)
+    torch.cuda.synchronize()
+    host["two_worker_loads_s"] = time.perf_counter() - t0
+    engine = engine_worker.engine
+    worker.model.generate_stream = rec.stream(worker.model.generate_stream)
+    engine.submit = rec.submit(engine.submit)
+    for w in (worker, engine_worker):
+        servers.append(ThreadingHTTPServer(("127.0.0.1", 0), model_worker.make_handler(w)))
+        w.worker_addr = _start_server(servers[-1])
+        w.register_to_controller()
+    servers.append(ThreadingHTTPServer(("127.0.0.1", 0), web_server.make_handler(ctrl)))
+    web = _start_server(servers[-1])
+    model, launches, rows = worker.model, {}, {}
+    try:
+        with _heartbeats((worker, engine_worker)):
+            models = serve_client.post_json(ctrl + "/list_models", {})["models"]
+            if models != ["mavlm-0.5b", "mavlm-0.5b-engine"]:
+                raise RuntimeError(f"serve stack: the controller lists {models}")
+            prompt = web_server._render_prompt("qwen_1_5", [[0, STACK_QUESTION]], 1)
+
+            def request(label, model_name, images, want, reference):
+                _reset_launches()
+                t0 = time.perf_counter()
+                row = _streamed(label, serve_client.stream_generate(
+                    ctrl, model_name, prompt, images=images, max_new_tokens=STACK_NEW), t0)
+                launches[f"serve_stack_{label}"] = _stack_launches(label, want)
+                (call,) = rec.take()
+                ref, row["in_process_ms"] = _host_ms(lambda: reference(call))
+                row["tokens"] = _equal_ids(label, call["ids"], ref[0])
+                rows[label] = {k: v for k, v in row.items() if k != "last"}
+                return call
+
+            # a: raw uint8 frames to the card (device_preprocess)
+            call = request("a_video_device_preprocess", "mavlm-0.5b", payload, video,
+                           lambda c: model.generate(c["input_ids"], images=[frames],
+                                                    modalities=["video"],
+                                                    max_new_tokens=STACK_NEW))
+            pixels = call["images"][0]
+            if not (pixels.dtype == np.uint8 and np.array_equal(pixels, frames)):
+                raise RuntimeError("serve stack, a: the worker did not hand the model the clip's "
+                                   "uint8 frames")
+            # b: one frame of another size: the host processor resizes each frame
+            frames_b = [Image.fromarray(f) for f in frames[:-1]] + [Image.fromarray(odd)]
+            pixels_b = worker.image_processor.preprocess(frames_b)
+            call = request("b_video_host_processor", "mavlm-0.5b", payload_b, video,
+                           lambda c: model.generate(c["input_ids"], images=[pixels_b],
+                                                    modalities=["video"],
+                                                    max_new_tokens=STACK_NEW))
+            if not np.array_equal(call["images"][0], pixels_b):
+                raise RuntimeError("serve stack, b: the worker's host-processed frames differ")
+            del pixels_b, frames_b
+
+            # c: the clip and two text prompts at once to the engine worker
+            texts = [web_server._render_prompt("qwen_1_5", [[0, q]], 0)
+                     for q in ("What does a memory token hold?", "Describe the image.")]
+            jobs = [(prompt, payload), (texts[0], []), (texts[1], [])]
+            results, errors = [None] * 3, []
+            logits = _EngineLogits()
+            logits.engine = engine
+            _reset_launches()
+            with _no_engine_errors("serve stack, c"), logits.installed():
+                def one(i):
+                    try:
+                        t0 = time.perf_counter()
+                        results[i] = _streamed(f"c{i}", serve_client.stream_generate(
+                            ctrl, "mavlm-0.5b-engine", jobs[i][0], images=jobs[i][1],
+                            max_new_tokens=STACK_NEW), t0)
+                    except Exception as e:  # noqa: BLE001 — raised below, on this thread
+                        errors.append(e)
+                threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"serve stack, c: {errors or 'a request hung'}")
+            launches["serve_stack_c_engine"] = _stack_launches(
+                "c_engine", {"flash_fwd": video["flash_fwd"] + 2 * lm})
+            calls = rec.take()
+            eos = engine_worker.tokenizer.convert_tokens_to_ids("<|im_end|>")
+            lens = sorted(c["embeds"].shape[0] for c in calls)
+            video_len = (_spliced_len(cfg, LOAD_FRAMES) - len(TEXT_BEFORE) - len(TEXT_AFTER)
+                         + len(tokenizer_image_token(prompt, worker.tokenizer)) - 1)
+            if len(calls) != 3 or lens[-1] != video_len:
+                raise RuntimeError(f"serve stack, c: the engine received {lens}, want "
+                                   f"{video_len} for the clip")
+            held = []
+            for i, c in enumerate(calls):
+                emb = torch.from_numpy(c["embeds"]).to(engine.device, engine_worker.model.dtype)
+                (res, ref_rows), ms = _host_ms(lambda: vlm.generate(
+                    engine_worker.model.params, cfg, emb, max_new_tokens=STACK_NEW,
+                    eos_token_ids=(eos,), return_logits=True))
+                ref = res.tokens[:int(res.num_tokens)].cpu()
+                agree = _held_to_generate(f"c{i}", c, ref, ref_rows,
+                                          logits.of(c["out"], len(c["ids"])))
+                held.append({"spliced": int(c["embeds"].shape[0]), "tokens": c["ids"],
+                             "vlm_generate_ms": ms, **agree})
+            rows["c_engine"] = {"wall_ms": wall_ms, "requests": [
+                {k: v for k, v in r.items() if k != "last"} for r in results], "held": held}
+            del logits, calls
+
+            # d: a text turn through the web UI
+            _reset_launches()
+            body = {"model": "mavlm-0.5b", "template": "qwen_1_5",
+                    "history": [[0, "What does a memory token hold?"]], "images": [],
+                    "temperature": 0.0, "max_new_tokens": STACK_NEW}
+            t0 = time.perf_counter()
+            req = urllib.request.Request(web + "/chat", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                row = _streamed("d_web_chat", (json.loads(line) for line in resp if line.strip()),
+                                t0)
+            if row["last"]["text"].startswith("<|im_start|>"):
+                raise RuntimeError(f"serve stack, d: the prompt echo stayed: {row['last']}")
+            launches["serve_stack_d_web_chat"] = _stack_launches("d_web_chat", text)
+            (call,) = rec.take()
+            ref, row["in_process_ms"] = _host_ms(lambda: model.generate(
+                call["input_ids"], max_new_tokens=STACK_NEW))
+            row["tokens"] = _equal_ids("d_web_chat", call["ids"], ref[0])
+            rows["d_web_chat"] = {k: v for k, v in row.items() if k != "last"}
+
+            # e: the terminal chat on the y4m clip, one line of input
+            clip = str(LOAD_DIR / "clip.y4m")
+            n_video = len(load_video(clip)[0])
+            cli_calls = _StackRecord()
+            stream = eval_model.MavlmForCausalLM.generate_stream
+            lines = iter([STACK_QUESTION])
+
+            def fake_input(message=""):
+                line = next(lines, None)
+                if line is None:
+                    raise EOFError
+                return line
+            _reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with _patched(eval_model.MavlmForCausalLM, "generate_stream",
+                          lambda self, *a, **kw: cli_calls.stream(
+                              functools.partial(stream, self))(*a, **kw)), \
+                    _patched(builtins, "input", fake_input), contextlib.redirect_stdout(out):
+                serve_cli.main(["--model-path", str(LOAD_DIR), "--video-file", clip,
+                                "--max-new-tokens", str(STACK_NEW)])
+            cli_ms = 1e3 * (time.perf_counter() - t0)
+            launches["serve_stack_e_cli"] = _stack_launches("e_cli",
+                                                            _request_launches(cfg, n_video))
+            (call,) = cli_calls.take()
+            if not out.getvalue().startswith("assistant: "):
+                raise RuntimeError(f"serve stack, e: the CLI printed {out.getvalue()!r}")
+            ref, ms = _host_ms(lambda: model.generate(
+                call["input_ids"], images=call["images"], modalities=["video"],
+                max_new_tokens=STACK_NEW,
+                eos_token_id=worker.tokenizer.convert_tokens_to_ids("<|im_end|>")))
+            rows["e_cli"] = {"frames": n_video, "wall_ms_with_load": cli_ms, "in_process_ms": ms,
+                             "tokens": _equal_ids("e_cli", call["ids"], ref[0])}
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
+    if engine._thread.is_alive():
+        raise RuntimeError("serve stack: the engine thread did not stop")
+    del worker.model.generate_stream, worker, engine_worker, engine, model
+    gc.collect()
+    vlm.clear_decoders()
+    torch.cuda.empty_cache()
+    log(json.dumps({"serve_stack": rows, "host": host,
+                    "phase_s": time.perf_counter() - t_phase}))
+    return launches
+
+
 # ------------------------------------------------------- training entry
 
 TRAIN_CLI_DIR = Path(__file__).resolve().parent / "build" / "train_cli_phase"
@@ -6263,6 +6654,7 @@ def _main():
     launches["serving"] = _phase(phase_serving)
     launches.update(_phase(phase_load, keep=True))
     launches.update(_phase(phase_eval, keep=True))
+    launches.update(_phase(phase_serve_stack))
     launches.update(_phase(phase_train_cli))
     launches.update(_phase(phase_train_cli_families))
     _phase(phase_entry_point)

@@ -3,9 +3,15 @@ so that the port imports nothing of the JAX package.
 
 The natural-language prompts spliced around the two visual streams, with
 their Qwen2 tokenizer ids (reference: llava/model/llava_arch.py:708-716),
-the label of a position that takes no loss, and the prompt sentinels and
-vision special tokens of the tokenizer glue.
+the label of a position that takes no loss, the prompt sentinels and
+vision special tokens of the tokenizer glue, and the serving stack's
+heartbeat timings.
 """
+
+# seconds after its last heartbeat that the controller drops a worker, and
+# between a worker's heartbeats
+CONTROLLER_HEART_BEAT_EXPIRATION = 30
+WORKER_HEART_BEAT_INTERVAL = 15
 
 IGNORE_INDEX = -100
 

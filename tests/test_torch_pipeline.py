@@ -97,8 +97,11 @@ EVAL_MODULES = ("ops.preprocess", "models.image_path", "eval.model_vqa", "eval.l
 TRAIN_MODULES = ("train.cli", "train.sft", "train.lora", "train.dpo", "train.dataset_formatting",
                  "data.sampler", "data.collator", "data.dataset", "data.dpo_dataset",
                  "utils.logging")
-# the continuous-batching engine, the paged cache and the serving benchmarks
-SERVING_MODULES = ("serve.batch_engine", "models.paged", "bench_serving", "bench_throughput")
+# the continuous-batching engine, the paged cache, the serving benchmarks and
+# the HTTP stack
+SERVING_MODULES = ("serve.batch_engine", "models.paged", "bench_serving", "bench_throughput",
+                   "serve.client", "serve.controller", "serve.model_worker",
+                   "serve.sglang_worker", "serve.web_server", "serve.cli")
 
 
 @pytest.mark.parametrize("module", LOADING_MODULES)
