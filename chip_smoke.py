@@ -242,7 +242,21 @@ each of which raises on failure:
                 the LM's training kernels at 256) and untied llava_llama
                 (`--version llava_llama_3`, fp32, its first loss held to the
                 CPU's and its lm_head moved) checkpoints, two micro-steps
-                each, and one SFT and one LoRA step on each. And `python -m
+                each, and one SFT and one LoRA step on each. Then the
+                TRL extras at Qwen2-0.5B's full width (`phase_trl_extras`,
+                bf16 weights from a seed): a PPO round (4 queries of 64
+                tokens, 32 sampled tokens each through generate_batched,
+                the old log-probs and values, the frozen reference's
+                log-probs, the full KL and the reward model's scores, two
+                PPO steps with the KL controller moved between them), a
+                reward step on 4 pairs of 96 tokens, an iterative-SFT step
+                of two minibatches, best-of-N (4 samples, the winner
+                re-scored as the top), the tool-use text environment over
+                4 tasks and DDPO's toy policy, each with exact launches of
+                #1 and #9-#11; then its fp32 cut (2 LM layers): a PPO step
+                for kl_penalty "kl" and "full" and a reward step on the
+                card against the CPU, every statistic, grad_norm and
+                gradient leaf, with a cliprange control that must fail. And `python -m
                 memory_augmented_vlm_torch.bench` runs as a subprocess with
                 no flags and with --model 7b, its JSON line held to
                 bench.py's keys and metric names, then `... .bench_serving`
@@ -353,7 +367,9 @@ from memory_augmented_vlm_torch.serve import cli as serve_cli
 from memory_augmented_vlm_torch.serve import client as serve_client
 from memory_augmented_vlm_torch.serve import controller as serve_controller
 from memory_augmented_vlm_torch.train import cli as train_cli
-from memory_augmented_vlm_torch.train import dpo, lora, optimizer, sft, trainer
+from memory_augmented_vlm_torch.train import (best_of_n, ddpo, dpo, iterative_sft, lora,
+                                             optimizer, ppo, reward, sft,
+                                             text_environment, trainer)
 from memory_augmented_vlm_torch.utils.logging import start_profiler, stop_profiler
 from memory_augmented_vlm_torch.utils.tree import leaves_with_path, path_str, tree_map
 
@@ -3157,7 +3173,9 @@ def _graph_vs_eager(label, cfg, params, gen, kv_int8, temperature=0.0):
     eagerly on the card (`cuda_graph=False`: the same transitions op by op):
     tokens and logits equal bit for bit, after the capture and after a
     replay. Then decode ms/token of each, the decoder alone
-    (`_decode_again`), CUDA events, median."""
+    (`_decode_again`), CUDA events after a warm-up: the graph's the median
+    of 5, the eager loop's one run (~5 s of host-bound work a run at
+    int8)."""
     dev = "cuda"
     tb, ta = torch.tensor(TEXT_BEFORE, device=dev), torch.tensor(TEXT_AFTER, device=dev)
     pixels = torch.randn((64, 384, 384, 3), generator=gen, device=dev).to(torch.bfloat16)
@@ -3169,7 +3187,7 @@ def _graph_vs_eager(label, cfg, params, gen, kv_int8, temperature=0.0):
     equal = [bool(torch.equal(tokens, want_tokens) and torch.equal(logits, want_logits))
              for tokens, _, logits in runs[:2]]
     graph_ms = _time_ms(lambda: _decode_again(*started[1]))
-    eager_ms = _time_ms(lambda: _decode_again(*started[2]), reps=3)
+    eager_ms = _time_ms(lambda: _decode_again(*started[2]), reps=1)
     n = pipeline.MAX_NEW_TOKENS
     row = {"decode_graph_vs_eager": label, "temperature": temperature,
            "tokens_and_logits_bit_equal": equal, "tokens": want_tokens.flatten().tolist()[:8],
@@ -3712,7 +3730,8 @@ def _clip_embeds(counted, cfg, params, gen, frame_counts):
 
 
 def _entry_ms(fn, prefill_ms: float, tokens: int, reps: int = 3) -> dict:
-    """A whole call (CUDA events, median) and its decode ms/token, the
+    """A whole call (CUDA events, the median of `reps` after a warm-up; the
+    eager, host-bound entries take one) and its decode ms/token, the
     prefill's time taken off."""
     ms = _time_ms(fn, reps=reps)
     return {"call_ms": ms, "decode_ms_per_token": (ms - prefill_ms) / tokens}
@@ -3825,7 +3844,7 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
                  r["decode_graph_vs_eager"]: r["decode_ms_per_token_graph"] for r in decode_rows},
              "generate_graph": _entry_ms(lambda: plain(emb), prefill_ms, n),
              "generate_eager": _entry_ms(lambda: plain(emb, cuda_graph=False), prefill_ms, n,
-                                         reps=2)}
+                                         reps=1)}
 
     # generate_batched: the three clips right-padded to one length, B = 3
     smax = -(-max(e.shape[0] for e in clips) // 128) * 128
@@ -3890,9 +3909,9 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
     log(json.dumps(row))
     if again.tokens.tolist() != spec_toks or not info_again["iterations"] < info["iterations"]:
         raise RuntimeError(f"generate_speculative with its own tokens as drafts: {row}")
-    times["speculative"] = _entry_ms(speculative, prefill_ms, n, reps=2)
+    times["speculative"] = _entry_ms(speculative, prefill_ms, n, reps=1)
     times["speculative_own_tokens_in_corpus"] = _entry_ms(lambda: speculative(spec_toks),
-                                                          prefill_ms, n, reps=2)
+                                                          prefill_ms, n, reps=1)
 
     # score_continuation of the greedy continuation
     full = torch.cat([emb, qwen2.embed_tokens(lm, free.tokens.long(), cfg.lm).to(emb.dtype)])
@@ -3936,8 +3955,8 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
     if len(beam) != n or not ((beam >= 0) & (beam < cfg.lm.vocab_size)).all():
         raise RuntimeError(f"beam_search K=4: {beam.tolist()}")
     times["beam_k1"] = _entry_ms(lambda: beam_search.beam_search(
-        params, cfg, emb, num_beams=1, max_new_tokens=n, eos_token_ids=()), prefill_ms, n, 2)
-    times["beam_k4"] = _entry_ms(beam4, prefill_ms, n, reps=2)
+        params, cfg, emb, num_beams=1, max_new_tokens=n, eos_token_ids=()), prefill_ms, n, 1)
+    times["beam_k4"] = _entry_ms(beam4, prefill_ms, n, reps=1)
 
     # the bf16 model, greedy: graph against eager
     (emb16,) = _clip_embeds(counted, bf16_cfg, bf16_params, gen, (64,))
@@ -3955,7 +3974,7 @@ def phase_generate(cfg, params, bf16_cfg, bf16_params, gen, decode_rows):
     times["generate_bf16_graph"] = _entry_ms(
         lambda: plain(emb16, bf16_params, bf16_cfg), prefill16, n)
     times["generate_bf16_eager"] = _entry_ms(
-        lambda: plain(emb16, bf16_params, bf16_cfg, cuda_graph=False), prefill16, n, reps=2)
+        lambda: plain(emb16, bf16_params, bf16_cfg, cuda_graph=False), prefill16, n, reps=1)
     log(json.dumps({"generate": "0.5B int8 weights, bf16 cache; 64-frame clip unless named",
                     "spliced": [e.shape[0] for e in clips], "tokens": toks[:12],
                     "sampled_tokens": drawn[:12], "eos_step": i_eos, "stop_step": j_stop,
@@ -4824,6 +4843,29 @@ def _plain_on_card():
         yield
 
 
+def _held_grads(label, gg, gc, floor_err=None):
+    """Every gradient leaf of a card step (gg, [(path, gradient)]) against the
+    CPU's (gc): TRAIN_PARITY_RTOL of the leaf's largest magnitude plus
+    TRAIN_PARITY_MODEL_RTOL of the model's, or FUSED_FLOOR_FACTOR times the
+    leaf's `floor_err` where given. Returns (the model's largest |grad|,
+    the five leaves nearest their tolerance)."""
+    floor_err = floor_err or {}
+    model_max = max(float(b.abs().max()) for _, b in gc)
+    worst, outside = [], []
+    for (name, a), (_, b) in zip(gg, gc):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        tol = max(TRAIN_PARITY_RTOL * scale + TRAIN_PARITY_MODEL_RTOL * model_max,
+                  FUSED_FLOOR_FACTOR * floor_err.get(name, 0.0))
+        if not err <= tol:
+            outside.append((name, err, scale, tol))
+        worst.append((err / tol if tol else 0.0, name, err, scale, floor_err.get(name)))
+    if outside:
+        raise RuntimeError(f"{label}: gradient leaves outside their tolerance "
+                           f"(name, err, max |grad|, tolerance): {outside}")
+    return model_max, sorted(worst, reverse=True)[:5]
+
+
 def _card_vs_cpu_step(label, cfg: VLMConfig, params, num_fine: int, cpu,
                       floor: bool = False, frames: int = PARITY_FRAMES) -> dict:
     """One fp32 train step (`_parity_step`) from `params` on the card, held
@@ -4851,20 +4893,7 @@ def _card_vs_cpu_step(label, cfg: VLMConfig, params, num_fine: int, cpu,
                                f"{plain_launches}")
         floor_err = {name: float((a - b).abs().max()) for (name, a), (_, b) in zip(gf, gc)}
         torch.cuda.empty_cache()
-    model_max = max(float(b.abs().max()) for _, b in gc)
-    worst, outside = [], []
-    for (name, a), (_, b) in zip(gg, gc):
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        tol = max(TRAIN_PARITY_RTOL * scale + TRAIN_PARITY_MODEL_RTOL * model_max,
-                  FUSED_FLOOR_FACTOR * floor_err.get(name, 0.0))
-        if not err <= tol:
-            outside.append((name, err, scale, tol))
-        worst.append((err / tol if tol else 0.0, name, err, scale, floor_err.get(name)))
-    if outside:
-        raise RuntimeError(f"train parity ({label}): gradient leaves outside their tolerance "
-                           f"(name, err, max |grad|, tolerance): {outside}")
-    worst = sorted(worst, reverse=True)[:5]
+    model_max, worst = _held_grads(f"train parity ({label})", gg, gc, floor_err)
     for key in ("loss", "grad_norm"):
         a, b = mg[key], mc[key]
         if not abs(a - b) <= TRAIN_PARITY_LOSS_RTOL * abs(b):
@@ -6548,6 +6577,466 @@ def phase_train_cli_families():
     return launches
 
 
+# The TRL extras (PPO with a value head, the reward model, iterative SFT,
+# best-of-N, the tool-use text environment, DDPO) on Qwen2-0.5B at full
+# width: bf16 weights from a seed, token ids from a seed, a toy byte-level
+# tokenizer where text is needed.
+TRL_SEED = 28
+TRL_LR = TRAIN_CLI_LR  # a bf16 LM leaf moves on each update
+TRL_QUERIES, TRL_QUERY_LEN, TRL_NEW = 4, 64, 32
+TRL_REWARD_PAIRS, TRL_REWARD_LEN = 4, 96
+TRL_SFT_SAMPLES, TRL_SFT_BATCH = 8, 4
+TRL_BON_SIZE, TRL_BON_LENGTHS = 4, (16, 48)
+TRL_ENV_TASKS, TRL_ENV_TURNS, TRL_ENV_NEW = 4, 2, 16
+DDPO_SIGMA = 0.3
+
+
+def _trl_opt(parts: str = "mm_language_model,value_head") -> optimizer.OptimizerConfig:
+    return optimizer.OptimizerConfig(learning_rate=TRL_LR, warmup_ratio=0.0, total_steps=10,
+                                     mm_tunable_parts=parts)
+
+
+def _byte_text(ids) -> str:
+    """The toy tokenizer's decode: each id to a printable character."""
+    return "".join(chr(32 + int(t) % 95) for t in ids)
+
+
+def _byte_ids(text: str) -> list:
+    return [ord(c) for c in text]
+
+
+def _finite(label, metrics: dict) -> dict:
+    out = {k: float(v) for k, v in metrics.items()}
+    bad = {k: v for k, v in out.items() if not math.isfinite(v)}
+    if bad:
+        raise RuntimeError(f"{label}: not finite: {bad}")
+    return out
+
+
+def _leaf(tree, name: str) -> torch.Tensor:
+    return dict(_leaves(tree))[name]
+
+
+def _watched(cfg: VLMConfig) -> str:
+    """An LM leaf that an update must move: the last layer's down_proj."""
+    return f"language_model.layers.{cfg.lm.num_hidden_layers - 1}.down_proj.kernel"
+
+
+def _moved(label, before, after, names):
+    still = [n for n in names if torch.equal(_leaf(before, n), _leaf(after, n))]
+    if still:
+        raise RuntimeError(f"{label}: did not move: {still}")
+
+
+def _ppo_round(cfg, policy, ref, rm, rng) -> dict:
+    """4 queries of 64 tokens, 32 sampled tokens each (`generate_batched`);
+    the rollout's statistics (`forward_with_value` for the old log-probs and
+    values, the frozen reference's log-probs, `response_full_kl`,
+    `sequence_reward`'s scores); then two `make_ppo_train_step` steps
+    (kl_penalty "full"), the KL controller updated between them."""
+    lm_layers = cfg.lm.num_hidden_layers
+    counted = _Counted("trl ppo round")
+    t_round = time.perf_counter()
+    q = torch.from_numpy(rng.integers(5, 2000, (TRL_QUERIES, TRL_QUERY_LEN))).to("cuda")
+    embeds = qwen2.embed_tokens(policy["language_model"], q, cfg.lm)
+    gen = torch.Generator("cuda").manual_seed(TRL_SEED)
+    out = counted("rollout", lambda: vlm.generate_batched(
+        policy, cfg, embeds, torch.full((TRL_QUERIES,), TRL_QUERY_LEN, dtype=torch.int32),
+        max_new_tokens=TRL_NEW, do_sample=True, temperature=1.0, rng=gen),
+        {"flash_fwd": lm_layers})
+    num = out.num_tokens.long()
+    ids = torch.cat([q, out.tokens.long()], dim=1)
+    mask = (torch.arange(TRL_NEW, device="cuda")[None] < num[:, None]).float()
+    qlen = torch.full((TRL_QUERIES,), TRL_QUERY_LEN, dtype=torch.int32, device="cuda")
+    seq_len = (qlen + num).to(torch.int32)
+    b, s = ids.shape
+    positions = torch.arange(s, device="cuda")[None].expand(b, s)
+    lse = {"flash_fwd_lse": lm_layers}
+    with torch.no_grad():
+        full = qwen2.embed_tokens(policy["language_model"], ids, cfg.lm)
+        logits, values = counted("old log-probs and values", lambda: ppo.forward_with_value(
+            policy, cfg, full, positions, seq_len), lse)
+        old_lp, _, pos = ppo._response_logprobs(logits, ids, qlen, TRL_NEW)
+        old_values = torch.gather(values, 1, (pos - 1).clamp(0, s - 1))
+        ref_logits, _ = counted("reference log-probs", lambda: ppo.forward_with_value(
+            ref, cfg, qwen2.embed_tokens(ref["language_model"], ids, cfg.lm), positions,
+            seq_len), lse)
+        ref_lp = ppo._response_logprobs(ref_logits, ids, qlen, TRL_NEW)[0]
+        full_kls = ppo.response_full_kl(logits, ref_logits, qlen, TRL_NEW)
+        scores = counted("scores", lambda: reward.sequence_reward(rm, cfg, ids, seq_len), lse)
+        del logits, ref_logits
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t_round
+    stats = _finite("ppo rollout", {"old_lp_mean": ppo.masked_mean(old_lp, mask),
+                                    "ref_lp_mean": ppo.masked_mean(ref_lp, mask),
+                                    "old_value_mean": ppo.masked_mean(old_values, mask),
+                                    "full_kl_mean": ppo.masked_mean(full_kls, mask),
+                                    "score_mean": scores.mean()})
+    batch = ppo.PPOBatch(ids, mask, qlen, seq_len, old_lp, old_values, scores, ref_lp,
+                         full_kls)
+    ppo_cfg = ppo.PPOConfig(kl_penalty="full")
+    step = ppo.make_ppo_train_step(cfg, _trl_opt(), ppo_cfg)
+    ctl = ppo.make_kl_controller(ppo_cfg)
+    state = trainer.init_train_state(policy, _trl_opt())
+    steps, coefs, step_s = [], [], []
+    for i in range(2):
+        coefs.append(ctl.value)
+        t0 = time.perf_counter()
+        state, m = counted(f"ppo step {i}", lambda: step(state, batch, ctl.value),
+                           {"flash_fwd_lse": lm_layers, "flash_bwd_dq": lm_layers,
+                            "flash_bwd_dkv": lm_layers})
+        step_s.append(time.perf_counter() - t0)
+        steps.append(_finite(f"ppo step {i}", m))
+        ctl.update(steps[-1]["objective_kl"], n_steps=TRL_QUERIES)
+    if ctl.value == coefs[0]:
+        raise RuntimeError("ppo: the KL controller did not move")
+    _moved("ppo", policy, state.params, ["value_head.summary.kernel", _watched(cfg)])
+    round_s = time.perf_counter() - t_round
+    return {"launches": counted.total, "rollout": stats, "steps": steps, "kl_coefs": coefs,
+            "response_tokens": int(num.sum()), "rollout_s": rollout_s, "step_s": step_s,
+            "round_s": round_s, "rollout_share": rollout_s / round_s}
+
+
+def _reward_step(cfg, rm, rng) -> dict:
+    """One `make_reward_train_step` step on 4 chosen/rejected pairs of 96
+    tokens (two `sequence_reward` passes under remat: each layer's forward
+    twice)."""
+    lm_layers = cfg.lm.num_hidden_layers
+    counted = _Counted("trl reward step")
+
+    def ids():
+        return torch.from_numpy(rng.integers(5, 2000, (TRL_REWARD_PAIRS, TRL_REWARD_LEN))).to(
+            "cuda")
+
+    lens = torch.from_numpy(rng.integers(TRL_REWARD_LEN // 2, TRL_REWARD_LEN + 1,
+                                         (2, TRL_REWARD_PAIRS)).astype(np.int32)).to("cuda")
+    batch = reward.RewardBatch(ids(), lens[0], ids(), lens[1])
+    t0 = time.perf_counter()
+    state, m = counted("step", lambda: reward.make_reward_train_step(cfg, _trl_opt())(
+        trainer.init_train_state(rm, _trl_opt()), batch),
+        {"flash_fwd_lse": 4 * lm_layers, "flash_bwd_dq": 2 * lm_layers,
+         "flash_bwd_dkv": 2 * lm_layers})
+    seconds = time.perf_counter() - t0
+    _moved("reward", rm, state.params, ["value_head.summary.kernel", _watched(cfg)])
+    return {"launches": counted.total, "metrics": _finite("reward step", m), "step_s": seconds}
+
+
+def _iterative_sft(cfg, lm_params, rng) -> dict:
+    """One `IterativeSFT.step` over 8 samples of 40 to 95 tokens, batch 4:
+    two minibatches of the text train step (remat: each layer's forward
+    twice)."""
+    lm_layers = cfg.lm.num_hidden_layers
+    counted = _Counted("trl iterative sft")
+    samples = [rng.integers(5, 2000, int(n)).tolist()
+               for n in rng.integers(40, 96, TRL_SFT_SAMPLES)]
+    tr = iterative_sft.IterativeSFT(cfg, _trl_opt("mm_language_model"),
+                                    {"language_model": lm_params}, batch_size=TRL_SFT_BATCH,
+                                    seed=TRL_SEED)
+    t0 = time.perf_counter()
+    out = counted("step", lambda: tr.step(input_ids=samples),
+                  {"flash_fwd_lse": 4 * lm_layers, "flash_bwd_dq": 2 * lm_layers,
+                   "flash_bwd_dkv": 2 * lm_layers})
+    seconds = time.perf_counter() - t0
+    if out["num_minibatches"] != 2 or out["step"] != 2 or not math.isfinite(out["loss"]):
+        raise RuntimeError(f"iterative sft: {out}")
+    _moved("iterative sft", {"language_model": lm_params}, tr.state.params, [_watched(cfg)])
+    return {"launches": counted.total, "result": out, "step_s": seconds}
+
+
+def _best_of_n(cfg, policy, rng) -> dict:
+    """`BestOfNSampler` with 4 samples of one 64-token query, lengths from
+    `LengthSampler(16, 48)` (a 64-token decode bucket): the texts it scored,
+    and the returned text re-scored as the top of the four."""
+    counted = _Counted("trl best-of-n")
+    seen = {}
+
+    def score(texts):  # distinct characters
+        seen["texts"], seen["scores"] = list(texts), [float(len(set(t))) for t in texts]
+        return seen["scores"]
+
+    sampler = best_of_n.BestOfNSampler(
+        policy, cfg, score, best_of_n.LengthSampler(*TRL_BON_LENGTHS, seed=TRL_SEED),
+        decode=_byte_text, sample_size=TRL_BON_SIZE, seed=TRL_SEED)
+    query = rng.integers(5, 2000, TRL_QUERY_LEN)
+    t0 = time.perf_counter()
+    out = counted("generate", lambda: sampler.generate(query),
+                  {"flash_fwd": cfg.lm.num_hidden_layers})
+    seconds = time.perf_counter() - t0
+    texts, scores = seen["texts"], seen["scores"]
+    best = texts[int(np.argsort(-np.asarray(scores), kind="stable")[0])]
+    lengths = [len(t) - TRL_QUERY_LEN for t in texts]
+    if (out != [[best]] or score(out[0])[0] != max(scores)
+            or not all(TRL_BON_LENGTHS[0] <= n < TRL_BON_LENGTHS[1] for n in lengths)):
+        raise RuntimeError(f"best-of-n: returned {out}, scores {scores}, lengths {lengths}")
+    return {"launches": counted.total, "scores": scores, "completion_lengths": lengths,
+            "generate_s": seconds}
+
+
+def _text_environment(cfg, policy) -> dict:
+    """`TextEnvironment.run` over 4 tasks with the real LM's turns
+    (`generate_batched` with the `<call>`/`<submit>` stop sequences, 16 new
+    tokens, greedy), at most 2 turns, one tool: #1 once a layer for each
+    model turn; the query/response/mask split against the histories'
+    spans."""
+    counted = _Counted("trl text environment")
+    turns = []
+    inner = vlm.generate_batched
+
+    def turn(*args, **kw):
+        turns.append(args[2].shape[0])
+        return inner(*args, **kw)
+
+    env = text_environment.TextEnvironment(
+        policy, cfg, encode=_byte_ids, decode=_byte_text, tools={"Calc": lambda q: str(len(q))},
+        reward_fn=lambda texts: [float(len(t)) for t in texts], eos_text="\x7f",
+        max_turns=TRL_ENV_TURNS, max_new_tokens=TRL_ENV_NEW, prompt="Task: ")
+    tasks = [f"add {i} and {i + 1} with <request><Calc>...<call>" for i in range(TRL_ENV_TASKS)]
+    t0 = time.perf_counter()
+    with _patched(vlm, "generate_batched", turn):
+        _reset_launches()
+        queries, responses, masks, rewards, histories = env.run(tasks)
+        torch.cuda.synchronize()
+        got = _launches()
+    seconds = time.perf_counter() - t0
+    want = {**dict.fromkeys(WRAPPERS, 0), "flash_fwd": cfg.lm.num_hidden_layers * len(turns)}
+    if got != want or not turns:
+        raise RuntimeError(f"text environment: launches {got}, want {want} ({turns} turns)")
+    for i, h in enumerate(histories):
+        q, r, m = h.split_query_response_tokens()
+        model = sum(b - a for (a, b), system in zip(h.token_spans, h.system_spans) if not system)
+        if (q.tolist() != h.tokens[:h.token_spans[0][1]] or q.tolist() + r.tolist() != h.tokens
+                or len(m) != len(r) or int(m.sum()) != model or not h.completed
+                or not np.array_equal(queries[i], q) or not np.array_equal(responses[i], r)
+                or not np.array_equal(masks[i], m) or rewards[i] != h.reward):
+            raise RuntimeError(f"text environment: history {i} does not split by its spans")
+    for name, n in got.items():
+        counted.total[name] += n
+    return {"launches": counted.total, "turn_rows": turns, "rewards": rewards,
+            "response_tokens": [len(r) for r in responses], "run_s": seconds}
+
+
+def _ddpo_toy(params, gen, prompt_embeds, num_steps):
+    """JAX's toy Gaussian denoising policy (tests/test_ddpo.py), on the card:
+    each step moves the latent halfway to mu = embeds @ params["mu"]."""
+    b = prompt_embeds.shape[0]
+    mu = prompt_embeds @ params["mu"]
+    lat = [torch.zeros(b, device=mu.device)]
+    lps = []
+    for _ in range(num_steps):
+        mean = lat[-1] + 0.5 * (mu - lat[-1])
+        nxt = mean + DDPO_SIGMA * torch.randn(b, generator=gen, device=mu.device)
+        lps.append(_ddpo_logprob(nxt, mean))
+        lat.append(nxt)
+    return {"latents": torch.stack(lat, 1), "log_probs": torch.stack(lps, 1),
+            "timesteps": torch.arange(num_steps, device=mu.device)[None].expand(b, num_steps),
+            "images": lat[-1]}
+
+
+def _ddpo_logprob(x, mean):
+    return (-0.5 * ((x - mean) / DDPO_SIGMA) ** 2 - math.log(DDPO_SIGMA)
+            - 0.5 * math.log(2 * math.pi))
+
+
+def _ddpo() -> dict:
+    """One `DDPOTrainer.step` of the toy policy on the card: 2 batches of 8
+    rollouts of 4 steps, 8 updates; no kernel of the port."""
+    counted = _Counted("trl ddpo")
+    trainer_ = ddpo.DDPOTrainer(
+        ddpo.DDPOConfig(sample_num_steps=4, sample_batch_size=8, sample_num_batches_per_epoch=2,
+                        train_batch_size=8, train_learning_rate=0.05, train_clip_range=0.2,
+                        seed=TRL_SEED),
+        {"mu": torch.zeros(2, device="cuda")}, sample_fn=_ddpo_toy,
+        logprob_fn=lambda p, lat, t, nxt, emb: _ddpo_logprob(
+            nxt, lat + 0.5 * (emb @ p["mu"] - lat)),
+        prompt_fn=lambda: ("go", None),
+        reward_fn=lambda images, prompts, meta: (-(images - 2.0).abs(), None),
+        embed_fn=lambda prompts: torch.full((len(prompts), 2), 0.5, device="cuda"))
+    t0 = time.perf_counter()
+    step, metrics = counted("step", lambda: trainer_.step(0, 0), {})
+    seconds = time.perf_counter() - t0
+    metrics = _finite("ddpo", metrics)
+    if step != 8 or not trainer_.params["mu"].abs().max() > 0:
+        raise RuntimeError(f"ddpo: {step} updates, mu {trainer_.params['mu'].tolist()}")
+    return {"launches": counted.total, "metrics": metrics, "mu": trainer_.params["mu"].tolist(),
+            "step_s": seconds}
+
+
+TRL_PARITY_SEED = 29
+TRL_PARITY_B, TRL_PARITY_S, TRL_PARITY_T = 2, 48, 16
+
+
+def _trl_parity_setup():
+    """(the 0.5B config cut to 2 LM layers at full widths, a seeded fp32
+    (LM, value head) tree on the CPU)."""
+    cfg = _parity_cut(VLMConfig.onevision_0_5b())
+    gen = torch.Generator().manual_seed(TRL_PARITY_SEED)
+    return cfg, {"language_model": qwen2.init_params(cfg.lm, gen, "cpu", torch.float32),
+                 "value_head": ppo.init_value_head(cfg.lm.hidden_size, gen, "cpu")}
+
+
+def _trl_parity_batches(cfg, dev: str):
+    """A PPOBatch (B 2, S 48, T 16; rollout log-probs near the model's, so
+    the ratio is near 1 and the clip partly active) and a RewardBatch
+    (B 2, S 48), from numpy."""
+    rng = np.random.default_rng(TRL_PARITY_SEED)
+    b, s, t = TRL_PARITY_B, TRL_PARITY_S, TRL_PARITY_T
+    qlen, seq = np.array([32, 30], np.int32), np.array([48, 44], np.int32)
+    near = -math.log(cfg.lm.vocab_size)
+
+    def f32(x):
+        return np.asarray(x, np.float32)
+
+    arrays = dict(
+        input_ids=rng.integers(5, 2000, (b, s)), query_len=qlen, seq_len=seq,
+        response_mask=f32(np.arange(t)[None] < (seq - qlen)[:, None]),
+        old_logprobs=f32(near + 0.2 * rng.standard_normal((b, t))),
+        old_values=f32(0.1 * rng.standard_normal((b, t))), scores=f32([1.0, -0.5]),
+        ref_logprobs=f32(near + 0.2 * rng.standard_normal((b, t))),
+        full_kls=f32(np.abs(0.1 * rng.standard_normal((b, t)))))
+    rew = dict(chosen_ids=rng.integers(5, 2000, (b, s)), chosen_len=np.array([48, 40], np.int32),
+               rejected_ids=rng.integers(5, 2000, (b, s)),
+               rejected_len=np.array([44, 48], np.int32))
+
+    def put(d):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in d.items()}
+
+    return ppo.PPOBatch(**put(arrays)), reward.RewardBatch(**put(rew))
+
+
+def _trl_parity_steps(dev: str, cliprange: float = 0.2, kinds=("kl", "full"),
+                      with_reward: bool = True) -> dict:
+    """One fp32 PPO step for each kl_penalty of `kinds` (kl_coef 0.2) and
+    one reward step, each from `_trl_parity_setup`'s params on `dev`,
+    keeping their gradients: {name: (metrics as floats, [(path, gradient on
+    the CPU)], seconds, launches)}."""
+    cfg, params = _trl_parity_setup()
+    if dev == "cuda":
+        params = _to_cuda(params)
+    ppo_batch, reward_batch = _trl_parity_batches(cfg, dev)
+    steps = {f"ppo_{kind}": (functools.partial(ppo.make_ppo_train_step(
+        cfg, _trl_opt(), ppo.PPOConfig(kl_penalty=kind, cliprange=cliprange)), kl_coef=0.2),
+        ppo_batch) for kind in kinds}
+    if with_reward:
+        steps["reward"] = (reward.make_reward_train_step(cfg, _trl_opt()), reward_batch)
+    out = {}
+    for name, (step, batch) in steps.items():
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, metrics, grads = _step_state_grads(step, trainer.init_train_state(params, _trl_opt()),
+                                              batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     [(n, g.cpu()) for n, g in grads], time.perf_counter() - t0, _launches())
+    return out
+
+
+def _held_stats(label, got: dict, want: dict):
+    """Every statistic of a card step against the CPU's: TRAIN_PARITY_LOSS_RTOL
+    of its own magnitude plus TRAIN_PARITY_MODEL_RTOL of the largest
+    statistic's (advantages_mean is a mean of whitened values, ~1e-8)."""
+    scale = max(abs(v) for v in want.values())
+    outside = [(k, got[k], v) for k, v in want.items()
+               if not abs(got[k] - v) <= TRAIN_PARITY_LOSS_RTOL * abs(v)
+               + TRAIN_PARITY_MODEL_RTOL * scale]
+    if set(got) != set(want) or outside:
+        raise RuntimeError(f"{label}: statistics outside their tolerance (name, card, cpu): "
+                           f"{outside}")
+
+
+def _trl_parity(cfg) -> dict:
+    """The fp32 cut of the PPO and reward steps (`_trl_parity_steps`): the card
+    (#9-#11 through their fp32 kernels) against the CPU (plain versions),
+    every statistic (`_held_stats`), grad_norm and every gradient leaf
+    (`_held_grads`); the card's launches exact (2 LM layers: a PPO step's
+    forward once a layer, the reward step's two passes twice under remat).
+    A control, the kl step on the card with cliprange 0.3, must fail."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = _cpu_reference("trl_parity", lambda: _trl_parity_steps("cpu"))
+    card = _trl_parity_steps("cuda")
+    lm_layers = _parity_cut(VLMConfig.onevision_0_5b()).lm.num_hidden_layers
+    fwd, dq, dkv = _train_kernel_names(cfg.lm.head_dim)
+    total = dict.fromkeys(WRAPPERS, 0)
+    rows = {}
+    for name, (mg, gg, tg, launches) in card.items():
+        k = 2 if name == "reward" else 1  # passes; the reward's under remat
+        want = {**dict.fromkeys(WRAPPERS, 0), fwd: k * k * lm_layers, dq: k * lm_layers,
+                dkv: k * lm_layers}
+        if launches != want:
+            raise RuntimeError(f"trl parity {name}: launches {launches}, want {want}")
+        mc, gc, tc, _ = cpu[name]
+        _held_stats(f"trl parity {name}", mg, mc)
+        model_max, worst = _held_grads(f"trl parity {name}", gg, gc)
+        rows[name] = {"loss_card": mg.get("loss/total", mg.get("loss")),
+                      "loss_cpu": mc.get("loss/total", mc.get("loss")),
+                      "grad_norm_card": mg["grad_norm"], "grad_norm_cpu": mc["grad_norm"],
+                      "grad_leaves": len(gg), "model_max_grad": model_max,
+                      "worst_leaves_err_over_tol_err_max_floor": worst,
+                      "card_step_s": tg, "cpu_step_s": tc}
+        for n, c in launches.items():
+            total[n] += c
+    control = _trl_parity_steps("cuda", cliprange=0.3, kinds=("kl",), with_reward=False)
+    mg, gg, _, _ = control["ppo_kl"]
+    try:
+        _held_stats("control", mg, cpu["ppo_kl"][0])
+        _held_grads("control", gg, cpu["ppo_kl"][1])
+    except RuntimeError as err:
+        rows["control_fails"] = str(err)[:200]
+    else:
+        raise RuntimeError("trl parity: the cliprange 0.3 control passed the check")
+    del card, cpu, control
+    torch.cuda.empty_cache()
+    log(json.dumps({"trl_parity": rows}))
+    return total
+
+
+def phase_trl_extras():
+    """The TRL extras at Qwen2-0.5B's full width (24 layers, 896 over 14 heads
+    and 2 KV heads of 64, vocabulary 151936), bf16 weights from a seed: a
+    PPO round (a policy with a value head, a frozen reference copy, a reward
+    model from `init_reward_params`; `_ppo_round`), a reward step, an
+    iterative-SFT step, best-of-N, the text environment and DDPO's toy
+    policy, each path's launches of #1 and #9-#11 exact; then the fp32
+    2-layer cut of the PPO and reward steps against the CPU with its
+    control (`_trl_parity`). Logs the round's seconds, the rollout's share
+    and the peak memory; returns the launches by path."""
+    t_phase = time.perf_counter()
+    cfg = VLMConfig.onevision_0_5b()
+    rng = np.random.default_rng(TRL_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(TRL_SEED)
+    lm = qwen2.init_params(cfg.lm, gen, "cuda", torch.bfloat16)
+    policy = {"language_model": lm,
+              "value_head": ppo.init_value_head(cfg.lm.hidden_size, gen, "cuda")}
+    ref = tree_map(torch.clone, policy)
+    rm = reward.init_reward_params(cfg, qwen2.init_params(cfg.lm, gen, "cuda", torch.bfloat16),
+                                   gen, "cuda")
+    results = {"ppo_round": _ppo_round(cfg, policy, ref, rm, rng)}
+    results["peak_memory_gb_ppo_round"] = torch.cuda.max_memory_allocated() / 2**30
+    results["reward_step"] = _reward_step(cfg, rm, rng)
+    del rm
+    results["iterative_sft"] = _iterative_sft(cfg, ref["language_model"], rng)
+    del ref
+    results["best_of_n"] = _best_of_n(cfg, policy, rng)
+    results["text_environment"] = _text_environment(cfg, policy)
+    results["ddpo"] = _ddpo()
+    results["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    vlm.clear_decoders()
+    del policy, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {f"trl_{name}": results[name].pop("launches")
+                for name in ("ppo_round", "reward_step", "iterative_sft", "best_of_n",
+                             "text_environment", "ddpo")}
+    log(json.dumps({"trl_extras": results}))
+    launches["trl_parity_fp32"] = _trl_parity(cfg)
+    log(json.dumps({"trl_extras_launches": {
+        path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()},
+        "phase_s": time.perf_counter() - t_phase}))
+    return launches
+
+
 # The CPU halves of the parity checks (plain versions over full widths, a
 # few minutes of the card machine's CPU in all), computed by a child
 # process while the card runs the kernel phases, so that they take no time
@@ -6556,6 +7045,7 @@ def phase_train_cli_families():
 CPU_REFERENCE_DIR = Path(__file__).resolve().parent / "build" / "cpu_references"
 CPU_REFERENCE_JOBS = {
     "gemma_parity": _gemma_parity_cpu,
+    "trl_parity": lambda: _trl_parity_steps("cpu"),
     "train_parity": lambda: _parity_step(*_train_parity_setup(), 8, "cpu"),
     "accumulated_update": lambda: _accumulated_run(*_train_parity_setup(), "cpu"),
     "train_parity_gemma": lambda: _parity_step(*_gemma_train_parity_setup(), 2, "cpu"),
@@ -6657,6 +7147,7 @@ def _main():
     launches.update(_phase(phase_serve_stack))
     launches.update(_phase(phase_train_cli))
     launches.update(_phase(phase_train_cli_families))
+    launches.update(_phase(phase_trl_extras))
     _phase(phase_entry_point)
     launches["int8_mlp_chain"] = chain_launches
     launches["attn_block"] = attn_block_launches

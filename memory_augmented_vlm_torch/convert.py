@@ -97,31 +97,44 @@ def from_jax_params(tree: Mapping[str, Any], cfg: port_config.VLMConfig,
                     device="cuda", dtype: Optional[torch.dtype] = None):
     """JAX `vlm.init_params` pytree (numpy leaves) -> the port's params on
     `device` (the card unless the caller asks for the CPU). `dtype` casts
-    every floating leaf (None keeps each leaf's own)."""
-    vt = tree["vision_tower"]
-    vision = {
-        "patch_embedding": {
-            # HWIO (kh, kw, in, out) -> OIHW (out, in, kh, kw)
-            "weight": np.transpose(np.asarray(vt["patch_embedding"]["kernel"]), (3, 2, 0, 1)),
-            "bias": vt["patch_embedding"]["bias"],
-        },
-        "position_embedding": vt["position_embedding"],
-        "layers": _unstack(vt["layers"], cfg.vision.num_used_layers),
-        "post_layernorm": vt["post_layernorm"],
-    }
-    lm = dict(tree["language_model"])
-    lm["layers"] = _unstack(lm["layers"], cfg.lm.num_hidden_layers)
-    mem = dict(tree["memory"])
-    rmt = dict(mem["recurrent_memory_transformer"])
-    rmt["layers"] = _unstack(rmt["layers"], cfg.memory.depth)
-    mem["recurrent_memory_transformer"] = rmt
-    out = {
-        "vision_tower": vision,
-        "mm_projector": {"layers": list(tree["mm_projector"]["layers"])},
-        "language_model": lm,
-        "memory": mem,
-        "positional_encoding": tree["positional_encoding"],
-    }
+    every floating leaf (None keeps each leaf's own).
+
+    Only the parts the tree holds come across, so a text-only tree of the
+    RL trainers, `{"language_model", "value_head"}` (`train/ppo.py`,
+    `train/reward.py`), converts as well as a whole VLM's. The value head,
+    `summary.kernel` (H, 1) and `summary.bias` (1,), keeps JAX's layout."""
+    out = {}
+    if "vision_tower" in tree:
+        vt = tree["vision_tower"]
+        out["vision_tower"] = {
+            "patch_embedding": {
+                # HWIO (kh, kw, in, out) -> OIHW (out, in, kh, kw)
+                "weight": np.transpose(np.asarray(vt["patch_embedding"]["kernel"]),
+                                       (3, 2, 0, 1)),
+                "bias": vt["patch_embedding"]["bias"],
+            },
+            "position_embedding": vt["position_embedding"],
+            "layers": _unstack(vt["layers"], cfg.vision.num_used_layers),
+            "post_layernorm": vt["post_layernorm"],
+        }
+    if "mm_projector" in tree:
+        out["mm_projector"] = {"layers": list(tree["mm_projector"]["layers"])}
+    if "language_model" in tree:
+        lm = dict(tree["language_model"])
+        lm["layers"] = _unstack(lm["layers"], cfg.lm.num_hidden_layers)
+        out["language_model"] = lm
+    if "memory" in tree:
+        mem = dict(tree["memory"])
+        rmt = dict(mem["recurrent_memory_transformer"])
+        rmt["layers"] = _unstack(rmt["layers"], cfg.memory.depth)
+        mem["recurrent_memory_transformer"] = rmt
+        out["memory"] = mem
+    for key in ("positional_encoding", "value_head"):
+        if key in tree:
+            out[key] = tree[key]
+    unknown = set(tree) - set(out)
+    if unknown:
+        raise ValueError(f"no conversion for {sorted(unknown)}")
     return _tree(out, device, dtype)
 
 

@@ -243,16 +243,9 @@ def build_optimizer(params: Any, cfg: OptimizerConfig) -> Optimizer:
         def adamw(_, g, p, mu, nu, label, train, wd):
             if not train:
                 return torch.zeros_like(p), None, None
-            r = functools.partial(_rounded, dtype=p.dtype)
-            count = np.float32(state.count[label] + 1)
-            mu = r(1 - b1) * g + r(b1) * mu
-            nu = r(1 - b2) * (g * g) + r(b2) * nu
-            bc1 = r(np.float32(1) - np.float32(b1) ** count)
-            bc2 = r(np.float32(1) - np.float32(b2) ** count)
-            u = (mu / bc1) / ((nu / bc2).sqrt() + r(cfg.eps))
-            if wd and cfg.weight_decay:
-                u = u + r(cfg.weight_decay) * p
-            return r(-schedules[label](state.count[label])) * u, mu, nu
+            return adamw_leaf(g, p, mu, nu, state.count[label] + 1, b1, b2, cfg.eps,
+                              cfg.weight_decay if wd else 0.0,
+                              schedules[label](state.count[label]))
 
         out = map_with_path(adamw, grads, params, state.mu, state.nu, labels, trainable, decay)
         updates, mu, nu = (_pick(out, i) for i in range(3))
@@ -261,6 +254,24 @@ def build_optimizer(params: Any, cfg: OptimizerConfig) -> Optimizer:
     if cfg.grad_accum_steps > 1:
         return _multi_steps(Optimizer(init, update), trainable, cfg.grad_accum_steps)
     return Optimizer(init, update)
+
+
+def adamw_leaf(g, p, mu, nu, count: int, b1: float, b2: float, eps: float,
+               weight_decay: float, lr: float):
+    """One leaf's AdamW step in optax's semantics, its `count`-th update:
+    (update, mu, nu), the update -lr * (mu_hat / (sqrt(nu_hat) + eps) +
+    weight_decay * p). Each constant is rounded to the leaf's dtype first
+    and the bias corrections are formed in fp32, as optax forms them."""
+    r = functools.partial(_rounded, dtype=p.dtype)
+    n = np.float32(count)
+    mu = r(1 - b1) * g + r(b1) * mu
+    nu = r(1 - b2) * (g * g) + r(b2) * nu
+    bc1 = r(np.float32(1) - np.float32(b1) ** n)
+    bc2 = r(np.float32(1) - np.float32(b2) ** n)
+    u = (mu / bc1) / ((nu / bc2).sqrt() + r(eps))
+    if weight_decay:
+        u = u + r(weight_decay) * p
+    return r(-lr) * u, mu, nu
 
 
 def _multi_steps(inner: Optimizer, trainable, k: int) -> Optimizer:

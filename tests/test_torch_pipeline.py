@@ -76,7 +76,8 @@ def test_port_imports_no_jax():
     for m in ("ops.flash_bwd", "train.optimizer", "train.trainer", "utils.tree",
               "ops.pallas_int8", "ops.swiglu_int8", "ops.mlp_int8", "ops.int8_common",
               "bench", "bench_train", "models.sampling", "models.beam_search",
-              *LOADING_MODULES, *EVAL_MODULES, *TRAIN_MODULES, *SERVING_MODULES):
+              *LOADING_MODULES, *EVAL_MODULES, *TRAIN_MODULES, *SERVING_MODULES,
+              *RL_MODULES):
         assert "memory_augmented_vlm_torch." + m in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n" + _NO_JAX)
@@ -102,6 +103,10 @@ TRAIN_MODULES = ("train.cli", "train.sft", "train.lora", "train.dpo", "train.dat
 SERVING_MODULES = ("serve.batch_engine", "models.paged", "bench_serving", "bench_throughput",
                    "serve.client", "serve.controller", "serve.model_worker",
                    "serve.sglang_worker", "serve.web_server", "serve.cli")
+# the TRL extras: PPO with a value head, the reward model, iterative SFT,
+# best-of-N, the tool-use text environment, DDPO
+RL_MODULES = ("train.ppo", "train.reward", "train.iterative_sft", "train.best_of_n",
+              "train.text_environment", "train.ddpo")
 
 
 @pytest.mark.parametrize("module", LOADING_MODULES)
